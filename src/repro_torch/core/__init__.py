@@ -1,0 +1,28 @@
+"""The port's core: the PHub/PBox parameter exchange (torch counterpart of
+``repro.core``, synchronous slice)."""
+from repro_torch.core.chunking import DEFAULT_CHUNK_ELEMS, ParamSpace, TensorSlot
+from repro_torch.core.config import FabricConfig, FabricConfigError
+from repro_torch.core.fabric import (
+    LinkModel,
+    PBoxFabric,
+    PBoxShard,
+    ServerStats,
+    ShardStats,
+    WorkerHarness,
+)
+from repro_torch.core.server import PHubServer
+
+__all__ = [
+    "ParamSpace",
+    "TensorSlot",
+    "DEFAULT_CHUNK_ELEMS",
+    "FabricConfig",
+    "FabricConfigError",
+    "LinkModel",
+    "PBoxFabric",
+    "PBoxShard",
+    "ServerStats",
+    "ShardStats",
+    "PHubServer",
+    "WorkerHarness",
+]

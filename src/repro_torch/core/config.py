@@ -1,0 +1,230 @@
+"""Declarative construction surface of the fabric: FabricConfig.
+
+Counterpart of ``repro/core/config.py`` (its ``FabricConfig`` half).  The
+fabric's knobs fold into one frozen, validated config tree:
+
+  ``FabricConfig``     scalar fabric knobs (shards, mode, workers, ...)
+  ``WireConfig``         the wire tier: topology, codec, link model, the
+                         fused wire path toggle, and the switch tier
+  ``SwitchConfig``         in-network aggregation slot pools
+  ``FaultConfig``        replication factor, fault schedule, anti-affinity
+  ``PlacementConfig``    chunk placement policy and an explicit plan
+
+``PBoxFabric(space, spec, init_flat, config=...)`` is the only fabric
+constructor of the port; the JAX package's legacy keyword adapter has no
+counterpart here yet.  The JAX field ``use_pallas`` has none either: the
+update runs the CUDA kernel on CUDA tensors and its plain version on CPU
+tensors, so there is no second path to switch to.
+
+All cross-field validation lives in ``validate()``: one named
+``FabricConfigError`` per rule (the same rules, names and order as the JAX
+package), then a ``NotImplementedError`` for every knob the port does not
+cover yet — synchronous mode with the raw f32 wire, no topology, no
+replication, no faults, no explicit plan, no switch and no namespace.
+
+Sub-configs hold live objects (topology, codec, fault plan, plan, link
+model) by reference and are validated duck-typed, so this module imports
+nothing else of the port.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+_MODES = ("sync", "async", "stale")
+_PLACEMENTS = ("contiguous", "round_robin")
+
+
+class FabricConfigError(ValueError):
+    """An invalid FabricConfig field combination, named per rule."""
+
+    def __init__(self, rule: str, detail: str):
+        self.rule = rule
+        super().__init__(f"[{rule}] {detail}")
+
+
+@dataclasses.dataclass(frozen=True)
+class SwitchConfig:
+    """In-network aggregation pools (SwitchML-style bounded switch memory):
+    ``tor_slots`` per ToR, ``core_slots`` at the core switch."""
+
+    enabled: bool = False
+    tor_slots: int = 0
+    core_slots: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class WireConfig:
+    """Everything about how gradient bits cross the network: ``topology``
+    (the rack tier), ``compression`` (the wire codec), ``link`` (the
+    event-clock costs, a ``core.fabric.LinkModel``), ``fused_wire_path``
+    and the ``switch`` pools."""
+
+    topology: Any | None = None
+    compression: Any | None = None
+    link: Any | None = None
+    fused_wire_path: bool = True
+    switch: SwitchConfig = SwitchConfig()
+
+
+@dataclasses.dataclass(frozen=True)
+class FaultConfig:
+    """Fault-tolerance tier: chain replication + deterministic faults."""
+
+    replication: int = 1
+    fault_plan: Any | None = None
+    anti_affine: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class PlacementConfig:
+    """Chunk-placement policy ("contiguous" | "round_robin") and an
+    optional explicit placement plan."""
+
+    policy: str = "contiguous"
+    plan: Any | None = None
+
+
+@dataclasses.dataclass(frozen=True)
+class FabricConfig:
+    """The whole construction surface of a PBoxFabric, as one value."""
+
+    num_shards: int = 1
+    mode: str = "sync"  # "sync" | "async" | "stale"
+    staleness: int = 0
+    num_workers: int = 1
+    min_push_fraction: float = 1.0
+    namespace: str | None = None
+    chunk_base: int = 0
+    wire: WireConfig = WireConfig()
+    faults: FaultConfig = FaultConfig()
+    placement: PlacementConfig = PlacementConfig()
+
+    # -- validation ------------------------------------------------------
+    def validate(self) -> "FabricConfig":
+        """Check every cross-field rule before any fabric state exists.
+
+        One named ``FabricConfigError`` per rule, then
+        ``NotImplementedError`` for knobs outside the port's sync slice;
+        returns self so constructors can chain ``config.validate()``."""
+        if self.mode not in _MODES:
+            raise FabricConfigError(
+                "mode", f"unknown mode {self.mode!r}; one of {_MODES}")
+        if self.num_shards < 1:
+            raise FabricConfigError(
+                "num_shards", "num_shards must be >= 1")
+        if self.num_workers < 1:
+            raise FabricConfigError(
+                "num_workers", "num_workers must be >= 1")
+        if self.staleness < 0:
+            raise FabricConfigError(
+                "staleness", "staleness must be >= 0")
+        if not 0.0 < self.min_push_fraction <= 1.0:
+            raise FabricConfigError(
+                "min_push_fraction", "min_push_fraction must be in (0, 1]")
+        if self.chunk_base < 0:
+            raise FabricConfigError(
+                "chunk_base", "chunk_base must be >= 0")
+        if self.placement.policy not in _PLACEMENTS:
+            raise FabricConfigError(
+                "placement_policy",
+                f"unknown placement {self.placement.policy!r}; "
+                f"one of {_PLACEMENTS}")
+        topo = self.wire.topology
+        if topo is not None and topo.num_workers != self.num_workers:
+            raise FabricConfigError(
+                "topology_workers",
+                f"topology is for {topo.num_workers} workers, fabric has "
+                f"{self.num_workers}")
+        repl = self.faults.replication
+        if repl < 1:
+            raise FabricConfigError(
+                "replication", "replication factor must be >= 1")
+        n_racks = topo.num_racks if topo is not None else 1
+        if self.faults.anti_affine and repl > n_racks:
+            raise FabricConfigError(
+                "anti_affine",
+                f"anti-affine chains need replication <= num_racks; got "
+                f"R={repl} over {n_racks} rack(s) — the chain would have "
+                "to wrap racks")
+        sw = self.wire.switch
+        if sw.enabled and sw.tor_slots < 1:
+            raise FabricConfigError(
+                "switch_slots",
+                "an enabled switch tier needs tor_slots >= 1 (a switch "
+                "with no aggregation slots can never aggregate)")
+        if sw.tor_slots < 0 or sw.core_slots < 0:
+            raise FabricConfigError(
+                "switch_slots", "switch slot counts must be >= 0")
+        plan = self.placement.plan
+        if plan is not None:
+            if plan.num_shards != self.num_shards:
+                raise FabricConfigError(
+                    "plan_shards",
+                    f"plan places {plan.num_shards} shards, fabric has "
+                    f"{self.num_shards}")
+            if plan.num_racks != n_racks:
+                raise FabricConfigError(
+                    "plan_racks",
+                    f"plan places {plan.num_racks} racks, topology has "
+                    f"{n_racks}")
+            if plan.replica_racks.shape[1] < repl:
+                raise FabricConfigError(
+                    "plan_replication",
+                    f"plan places {plan.replica_racks.shape[1]} chain "
+                    f"copies, fabric replicates at {repl}")
+        codec = (self.wire.compression.codec
+                 if self.wire.compression is not None else "none")
+        unported = [
+            (self.mode != "sync", f"mode={self.mode!r}"),
+            (self.min_push_fraction < 1.0,
+             f"min_push_fraction={self.min_push_fraction:g} (backup quorum)"),
+            (topo is not None, "a network topology"),
+            (codec != "none", f"codec={codec!r}"),
+            (repl > 1, f"replication={repl}"),
+            (self.faults.fault_plan is not None, "a fault plan"),
+            (plan is not None, "an explicit placement plan"),
+            (sw.enabled, "the switch tier"),
+            (self.namespace is not None or self.chunk_base != 0,
+             "a tenancy namespace"),
+        ]
+        for missing, what in unported:
+            if missing:
+                raise NotImplementedError(
+                    f"the PyTorch fabric covers synchronous training over "
+                    f"the raw f32 wire only; {what} is not ported yet")
+        return self
+
+    # -- introspection ---------------------------------------------------
+    def describe(self) -> str:
+        """Every knob, round-tripped — ``PBoxFabric.describe()`` embeds
+        this so a fabric's printout names its full construction surface."""
+        codec = (self.wire.compression.codec
+                 if self.wire.compression is not None else "none")
+        topo = self.wire.topology
+        sw = self.wire.switch
+        lines = [
+            f"FabricConfig: shards={self.num_shards} mode={self.mode}"
+            + (f"(s={self.staleness})" if self.mode == "stale" else "")
+            + f" workers={self.num_workers}"
+            + f" min_push={self.min_push_fraction:g}",
+            f"  wire: codec={codec} "
+            f"fused_wire_path={'on' if self.wire.fused_wire_path else 'off'}"
+            + (f" racks={topo.num_racks}"
+               f" oversub=1:{topo.oversubscription:g}" if topo else
+               " (no topology)")
+            + (" link=custom" if self.wire.link is not None else ""),
+            f"  switch: {'on' if sw.enabled else 'off'}"
+            + (f" tor_slots={sw.tor_slots} core_slots={sw.core_slots}"
+               if sw.enabled else ""),
+            f"  faults: replication={self.faults.replication}"
+            + (" anti_affine" if self.faults.anti_affine else "")
+            + (f" plan={len(self.faults.fault_plan)} events"
+               if self.faults.fault_plan is not None else ""),
+            f"  placement: policy={self.placement.policy}"
+            + (" plan=explicit" if self.placement.plan is not None
+               else " plan=default"),
+        ]
+        if self.namespace is not None:
+            lines[0] += f" ns={self.namespace}@{self.chunk_base}"
+        return "\n".join(lines)

@@ -1,0 +1,480 @@
+"""Chunk-sharded PBox fabric: the paper's balanced multi-engine PS (torch
+counterpart of ``repro/core/fabric.py``, synchronous slice).
+
+  ``PBoxShard``    one aggregation engine.  Owns a set of 32 KB key chunks
+                   (a contiguous slab or a round-robin stripe), holds their
+                   parameters and optimizer state on the fabric's device,
+                   and runs the fused K-way aggregate+optimize kernel on
+                   only its chunks.
+  ``PBoxFabric``   routes per-chunk pushes and pulls to the owning shards
+                   and runs the synchronous barrier: once every worker has
+                   pushed, each shard applies the round.
+  ``WorkerHarness`` drives K logical workers against a fabric.
+
+Numerics are identical to a single-engine server by construction: the
+fused update is elementwise over the flat space and sums workers in a fixed
+(ascending) order, so applying it shard by shard is bit-equal to applying
+it once over the whole space.  The JAX package pads each shard's slab to
+the TPU kernel's register block; the CUDA kernel masks its own tail, and
+zero rows are a fixed point of every optimizer, so the port does not pad
+and the numbers do not change.
+
+The event clock (``_simulate_round``) is the JAX package's, line for line:
+chunk ``c`` arrives at ``(c+1) * wire_us``, each shard aggregates its
+chunks in arrival order, and ``ServerStats`` records the pipelined makespan
+beside the store-and-forward baseline.
+
+This slice covers synchronous mode over the raw f32 wire (codec "none"),
+contiguous and round-robin placement, with no topology, replication,
+faults, switch, tenancy, rebalancing or snapshots: ``FabricConfig.validate``
+raises ``NotImplementedError`` for those knobs.  ``WorkerHarness`` drives
+workers without the JAX harness's rack and telemetry views, which need
+the topology and tenancy tiers.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.chunking import ParamSpace
+from repro_torch.core.config import FabricConfig
+from repro_torch.device import resolve_device
+from repro_torch.kernels.fused_agg_opt.ops import fused_aggregate_update
+from repro_torch.optim.optimizers import OptimizerSpec, init_opt_state
+
+_F32_BYTES = 4  # raw f32 wire: codec "none" (compression.wire_bytes)
+
+
+# ---------------------------------------------------------------------------
+# stats
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class ServerStats:
+    """Fabric-wide accounting: the JAX package's fields, all of them, so the
+    two fabrics' stats compare field by field.  Counters of tiers this
+    slice does not run stay 0."""
+
+    steps: int = 0
+    pushes: int = 0
+    pulls: int = 0
+    bytes_pushed: int = 0
+    bytes_pulled: int = 0
+    partial_aggregations: int = 0
+    late_pushes_dropped: int = 0
+    # chunk-granular accounting
+    chunk_pushes: int = 0
+    chunk_pulls: int = 0
+    rebalances: int = 0
+    chunks_moved: int = 0
+    # placement / autoscaling tier
+    rescales: int = 0
+    replica_moves: int = 0
+    # topology-tier wire accounting
+    bytes_rack_link: int = 0
+    bytes_core_link: int = 0
+    rack_streams: int = 0
+    # fused wire path
+    fused_wire_rounds: int = 0
+    # in-network switch tier
+    switch_rounds: int = 0
+    switch_fallback_rounds: int = 0
+    core_switch_rounds: int = 0
+    bytes_switch_agg: int = 0
+    bytes_switch_saved: int = 0
+    switch_failures: int = 0
+    switch_restores: int = 0
+    # event-ordered simulator clock (µs of simulated time, cumulative)
+    sim_wire_us: float = 0.0
+    sim_core_wire_us: float = 0.0
+    sim_agg_us: float = 0.0
+    sim_pipelined_us: float = 0.0  # chunk-pipelined, sharded makespan
+    sim_serialized_us: float = 0.0  # monolithic store-and-forward baseline
+    # fault-tolerance tier
+    shards_crashed: int = 0
+    failovers: int = 0
+    resilvers: int = 0
+    workers_crashed: int = 0
+    workers_recovered: int = 0
+    link_degrades: int = 0
+    replication_rounds: int = 0
+    bytes_replication: int = 0
+    bytes_resilver: int = 0
+    sim_replication_us: float = 0.0
+    sim_recovery_us: float = 0.0
+
+    @property
+    def pipeline_speedup(self) -> float:
+        """Simulated speedup of chunk-pipelined sharded aggregation over the
+        monolithic push-everything-then-aggregate baseline."""
+        if self.sim_pipelined_us <= 0.0:
+            return 1.0
+        return self.sim_serialized_us / self.sim_pipelined_us
+
+
+@dataclasses.dataclass
+class ShardStats:
+    chunk_pushes: int = 0
+    chunk_pulls: int = 0
+    bytes_pushed: int = 0
+    bytes_pulled: int = 0
+    agg_events: int = 0
+    sim_busy_us: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class LinkModel:
+    """Event-clock costs for the pipelined push/aggregate/pull simulation:
+    chunk ``c`` (all workers' copies) lands at ``(c+1) *
+    wire_us_per_chunk``; a shard spends ``agg_us_per_chunk`` of engine time
+    per chunk."""
+
+    wire_us_per_chunk: float = 1.0
+    agg_us_per_chunk: float = 0.5
+
+
+# ---------------------------------------------------------------------------
+# shard
+# ---------------------------------------------------------------------------
+def _row_index(ids: np.ndarray, device: torch.device) -> slice | torch.Tensor:
+    """Index of a shard's rows in the (num_chunks, chunk_elems) space: a
+    slice (a view, no copy) for a contiguous run of chunks, else an index
+    tensor on ``device``."""
+    if len(ids) and np.array_equal(ids, np.arange(ids[0], ids[0] + len(ids))):
+        return slice(int(ids[0]), int(ids[0]) + len(ids))
+    return torch.as_tensor(ids, dtype=torch.long, device=device)
+
+
+class PBoxShard:
+    """One aggregation engine: owns chunks, runs the fused kernel on them."""
+
+    def __init__(
+        self,
+        shard_id: int,
+        space: ParamSpace,
+        spec: OptimizerSpec,
+        chunk_ids: np.ndarray,
+        chunk_params: torch.Tensor,  # (n_owned, chunk_elems)
+    ):
+        self.shard_id = shard_id
+        self.space = space
+        self.spec = spec
+        self.chunk_ids = np.asarray(chunk_ids, dtype=np.int64)
+        self.rows = _row_index(self.chunk_ids, chunk_params.device)
+        # a private f32 copy: the kernel updates it in place
+        self.params = chunk_params.to(torch.float32, copy=True)
+        self.state = init_opt_state(spec, self.params)
+        self.stats = ShardStats()
+
+    @property
+    def num_chunks(self) -> int:
+        return len(self.chunk_ids)
+
+    @property
+    def num_elems(self) -> int:
+        return self.num_chunks * self.space.chunk_elems
+
+    def apply(self, grads: torch.Tensor, step: int, *, average: bool) -> None:
+        """grads: (K, n_owned, chunk_elems) worker gradient rows for this
+        shard's chunks, stacked in ascending worker order."""
+        if self.num_chunks == 0:
+            return
+        k = grads.shape[0]
+        n = self.num_elems
+        new_p, new_s = fused_aggregate_update(
+            grads.reshape(k, n),
+            self.params.reshape(n),
+            tuple(s.reshape(n) for s in self.state),
+            self.spec,
+            step,
+            average=average,
+        )
+        shape = (self.num_chunks, self.space.chunk_elems)
+        self.params = new_p.reshape(shape)
+        self.state = tuple(s.reshape(shape) for s in new_s)
+        self.stats.agg_events += 1
+
+
+# ---------------------------------------------------------------------------
+# fabric
+# ---------------------------------------------------------------------------
+class PBoxFabric:
+    """Chunk-sharded PS fabric over N aggregation engines, synchronous mode
+    (a barrier every step: BSP, the paper's setting).
+
+    Workers push the whole flat gradient at once (``push``) or chunk group
+    by chunk group (``push_chunks``); a push completes once every chunk of
+    the flat space is staged.  When every worker's push has completed, each
+    shard stacks the K workers' rows for its chunks (ascending worker
+    order) and runs the fused aggregate+optimize kernel on them.
+
+    State lives on ``device``: the CUDA card unless the caller passes
+    another (the tests pass ``"cpu"``); with no card and no device given,
+    construction raises.
+    """
+
+    def __init__(
+        self,
+        space: ParamSpace,
+        spec: OptimizerSpec,
+        init_flat: torch.Tensor,
+        *,
+        config: FabricConfig | None = None,
+        device: torch.device | str | None = None,
+    ):
+        config = config if config is not None else FabricConfig()
+        # every cross-field rule (and every unported knob) fails HERE,
+        # before any state is built
+        config.validate()
+        self.config = config
+        self.device = resolve_device(device)
+        self.space = space
+        self.spec = spec
+        self.mode = config.mode
+        self.num_workers = config.num_workers
+        self.num_shards = config.num_shards
+        self.link = config.wire.link or LinkModel()
+        self.placement_policy = config.placement.policy
+        self.step = 0
+        self.worker_clock = np.zeros(self.num_workers, dtype=np.int64)
+        self.stats = ServerStats()
+
+        c = space.num_chunks
+        rows = init_flat.to(self.device, torch.float32).reshape(
+            c, space.chunk_elems)
+        self.chunk_owner = np.empty(c, dtype=np.int64)
+        self.shards: list[PBoxShard] = []
+        if self.placement_policy == "round_robin":
+            # the paper's core assignment: chunk c -> engine c % N, so a
+            # streamed push feeds every engine continuously
+            assignment = [np.arange(c)[np.arange(c) % self.num_shards == s]
+                          for s in range(self.num_shards)]
+        else:
+            assignment = np.array_split(np.arange(c), self.num_shards)
+        for sid, ids in enumerate(assignment):
+            self.chunk_owner[ids] = sid
+            shard_rows = _row_index(ids, self.device)
+            self.shards.append(
+                PBoxShard(sid, space, spec, ids, rows[shard_rows])
+            )
+        # sync inbox: worker -> (num_chunks, chunk_elems) gradient rows
+        self._inbox: dict[int, torch.Tensor] = {}
+        # chunk-by-chunk staging: worker -> (rows buffer, staged mask)
+        self._staged: dict[int, tuple[torch.Tensor, np.ndarray]] = {}
+        self._flat_cache: torch.Tensor | None = None
+
+    # -- assembled views -----------------------------------------------
+    def _assemble_rows(self, per_shard: Callable[[PBoxShard], Any]) -> torch.Tensor:
+        rows = torch.zeros((self.space.num_chunks, self.space.chunk_elems),
+                           dtype=torch.float32, device=self.device)
+        for shard in self.shards:
+            if shard.num_chunks:
+                rows[shard.rows] = per_shard(shard)
+        return rows
+
+    @property
+    def params(self) -> torch.Tensor:
+        """The full flat parameter space, assembled from the shards (a
+        fresh tensor per round; callers must not write to it)."""
+        if self._flat_cache is None:
+            self._flat_cache = self._assemble_rows(
+                lambda s: s.params).reshape(-1)
+        return self._flat_cache
+
+    # -- worker API ----------------------------------------------------
+    def pull(self, worker: int) -> torch.Tensor:
+        flat = self.params
+        self.stats.pulls += 1
+        self.stats.bytes_pulled += flat.numel() * _F32_BYTES
+        self.stats.chunk_pulls += self.space.num_chunks
+        for shard in self.shards:
+            shard.stats.chunk_pulls += shard.num_chunks
+            shard.stats.bytes_pulled += shard.num_elems * _F32_BYTES
+        return flat
+
+    def can_proceed(self, worker: int) -> bool:
+        """Sync admission: a worker may start its next step once every
+        worker has finished the current one (staleness 0)."""
+        return self.worker_clock[worker] == self.worker_clock.min()
+
+    def push(self, worker: int, gflat: torch.Tensor) -> None:
+        """Push the whole flat gradient in one call."""
+        if tuple(gflat.shape) != (self.space.flat_elems,):
+            raise ValueError("bad gradient shape")
+        self._complete_push(
+            worker, gflat.reshape(self.space.num_chunks, self.space.chunk_elems)
+        )
+
+    def push_chunks(
+        self, worker: int, chunk_ids: Sequence[int] | np.ndarray,
+        gchunks: torch.Tensor,
+    ) -> None:
+        """Stage a worker's gradient for a subset of chunks.
+
+        ``gchunks``: (len(chunk_ids), chunk_elems).  The push completes (and
+        enters the barrier) once all chunks are staged."""
+        ids = np.asarray(chunk_ids, dtype=np.int64)
+        if tuple(gchunks.shape) != (len(ids), self.space.chunk_elems):
+            raise ValueError("bad chunk gradient shape")
+        if worker not in self._staged:
+            # one staging buffer on the fabric's device, written in place
+            self._staged[worker] = (
+                torch.zeros((self.space.num_chunks, self.space.chunk_elems),
+                            dtype=torch.float32, device=self.device),
+                np.zeros(self.space.num_chunks, dtype=bool),
+            )
+        buf, mask = self._staged[worker]
+        buf[torch.as_tensor(ids, device=self.device)] = gchunks.to(
+            self.device, torch.float32)
+        mask[ids] = True
+        if mask.all():
+            self._staged.pop(worker)
+            self._complete_push(worker, buf)
+
+    # -- push completion / admission ------------------------------------
+    def _complete_push(self, worker: int, gchunks: torch.Tensor) -> None:
+        self.worker_clock[worker] += 1
+        nbytes = gchunks.numel() * _F32_BYTES
+        self.stats.pushes += 1
+        self.stats.bytes_pushed += nbytes
+        self.stats.chunk_pushes += self.space.num_chunks
+        # no ToR combining: the worker's stream crosses the core itself and
+        # reaches the shards directly
+        self.stats.bytes_core_link += nbytes
+        for shard in self.shards:
+            shard.stats.chunk_pushes += shard.num_chunks
+            shard.stats.bytes_pushed += shard.num_elems * _F32_BYTES
+        self._inbox[worker] = gchunks
+        if self._barrier_met():
+            self._aggregate()
+
+    def _barrier_met(self) -> bool:
+        # full barrier: every worker has pushed this round
+        return len(self._inbox) == self.num_workers
+
+    def _aggregate(self) -> None:
+        workers = sorted(self._inbox)
+        self.step += 1
+        for shard in self.shards:
+            if not shard.num_chunks:
+                continue
+            grads = torch.stack([self._inbox[w][shard.rows] for w in workers])
+            shard.apply(grads, self.step, average=True)
+        self._inbox.clear()
+        self.stats.steps += 1
+        self._simulate_round()
+        self._flat_cache = None
+
+    # -- event-ordered pipeline clock ------------------------------------
+    def _simulate_round(self) -> None:
+        """Replay one aggregation round on the event clock: chunk c arrives
+        at (c+1)*wire_us; each shard aggregates its chunks in arrival order,
+        overlapping wire and engine time (chunk i aggregates while chunk i+1
+        is in flight).  The JAX package's arithmetic, with its topology and
+        shared-clock scales at their no-topology values (1.0, core 0.0)."""
+        wire = self.link.wire_us_per_chunk
+        agg = self.link.agg_us_per_chunk
+        c = self.space.num_chunks
+        idx = np.arange(c, dtype=np.float64)
+        arrival = (idx + 1.0) * wire
+        makespan = 0.0
+        for shard in self.shards:
+            if not shard.num_chunks:
+                continue
+            arr = arrival[shard.chunk_ids]
+            n = len(arr)
+            # completion_i = max_{j<=i}(arrival_j - j*agg) + (i+1)*agg
+            shifted = arr - np.arange(n) * agg
+            done = np.maximum.accumulate(shifted) + (np.arange(n) + 1) * agg
+            makespan = max(makespan, float(done[-1]))
+            shard.stats.sim_busy_us += n * agg
+        self.stats.sim_wire_us += c * wire
+        self.stats.sim_agg_us += c * agg
+        self.stats.sim_pipelined_us += makespan
+        self.stats.sim_serialized_us += c * wire + c * agg
+
+    # -- introspection -----------------------------------------------------
+    def describe(self) -> str:
+        lines = [
+            f"PBoxFabric: {self.num_shards} shards x "
+            f"{self.space.num_chunks} chunks ({self.space.chunk_elems} elems), "
+            f"mode={self.mode}, workers={self.num_workers}, codec=none, "
+            f"device={self.device}"
+        ]
+        lines += ["  " + ln for ln in self.config.describe().splitlines()]
+        for shard in self.shards:
+            lines.append(
+                f"  shard {shard.shard_id}: {shard.num_chunks} chunks, "
+                f"pushed={shard.stats.bytes_pushed >> 10} KiB, "
+                f"pulled={shard.stats.bytes_pulled >> 10} KiB"
+            )
+        return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# worker harness
+# ---------------------------------------------------------------------------
+class WorkerHarness:
+    """Drives K logical workers against a PBoxFabric.
+
+    ``grad_fn(params_tree, batch) -> grad_tree`` is the worker compute;
+    ``speed[w]`` scales how many scheduler ticks worker w needs per step
+    (straggler modelling); ``chunk_groups > 1`` streams each push in that
+    many chunk groups through the fabric's staging path (chunk-by-chunk
+    push, as on a real NIC).
+    """
+
+    def __init__(
+        self,
+        server: PBoxFabric,
+        grad_fn: Callable,
+        batches_fn: Callable[[int, int], Any],  # (worker, step) -> batch
+        speed: list[int] | None = None,
+        chunk_groups: int = 1,
+    ):
+        self.server = server
+        self.grad_fn = grad_fn
+        self.batches_fn = batches_fn
+        k = server.num_workers
+        self.speed = list(speed) if speed else [1] * k
+        self.chunk_groups = chunk_groups
+        self._phase = [0] * k
+        self.steps_done = [0] * k
+
+    def _push(self, w: int, gflat: torch.Tensor) -> None:
+        srv = self.server
+        if self.chunk_groups <= 1:
+            srv.push(w, gflat)
+            return
+        rows = gflat.reshape(srv.space.num_chunks, srv.space.chunk_elems)
+        for ids in np.array_split(np.arange(srv.space.num_chunks),
+                                  self.chunk_groups):
+            if len(ids):
+                srv.push_chunks(w, ids, rows[int(ids[0]):int(ids[-1]) + 1])
+
+    def tick(self) -> None:
+        """One scheduler tick: every non-blocked worker advances."""
+        srv = self.server
+        for w in range(srv.num_workers):
+            if not srv.can_proceed(w):
+                continue
+            self._phase[w] += 1
+            if self._phase[w] < self.speed[w]:
+                continue
+            self._phase[w] = 0
+            flat = srv.pull(w)
+            params = srv.space.unflatten(flat)
+            batch = self.batches_fn(w, self.steps_done[w])
+            grads = self.grad_fn(params, batch)
+            self._push(w, srv.space.flatten(grads))
+            self.steps_done[w] += 1
+
+    def run(self, worker_steps: int) -> None:
+        guard = 0
+        while min(self.steps_done) < worker_steps:
+            self.tick()
+            guard += 1
+            if guard > worker_steps * max(self.speed) * 10 + 100:
+                raise RuntimeError("scheduler livelock — staleness deadlock?")

@@ -1,0 +1,8 @@
+"""The port's kernel tier: one package per kernel family, each a ``ref.py``
+(plain-torch oracle) / ``kernel.py`` (the hand-written Hopper kernel's
+wrapper beside its plain PyTorch version) / ``ops.py`` (validated public
+entry point) triple, as in ``repro.kernels``.  CUDA sources live in
+``repro_torch/csrc`` and are built at first use by ``kernels/_build.py``.
+
+Ported so far: ``fused_agg_opt``.  This namespace re-exports nothing.
+"""

@@ -1,0 +1,95 @@
+"""Public entry point of the fused aggregate+optimize kernel (torch
+counterpart of ``repro/kernels/fused_agg_opt/ops.py``).
+
+``fused_aggregate_update`` validates its operands, builds the scalar packet
+on the operands' device, and dispatches:
+
+  * CUDA tensors launch the CUDA kernel (``kernel.fused_agg_opt_cuda``),
+    which updates ``param`` and the state slots in place — a failed build
+    or launch raises, nothing falls back;
+  * CPU tensors take the kernel's plain version
+    (``kernel.fused_agg_opt_torch``), bit-identical to it.
+
+The JAX wrapper's ``use_pallas=False`` has no counterpart: a caller that
+wants the oracle calls ``ref.fused_aggregate_update_ref`` itself.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.kernels.fused_agg_opt import kernel as _kernel
+from repro_torch.optim.optimizers import OptimizerSpec, step_tensor
+
+
+def scalar_packet(spec: OptimizerSpec, step: int, lr_scale: float = 1.0, *,
+                  device: torch.device | str | None = None) -> torch.Tensor:
+    """The (1, 4) f32 scalar operand ``[lr_t, bc1, bc2, tok]``, on ``device``.
+
+    ``lr_t`` is the scheduled learning rate (``spec.lr * lr_scale``);
+    ``bc1``/``bc2`` are Adam's bias corrections ``1/(1-beta^t)`` for
+    1-based ``step`` (1.0 for stateless/momentum optimizers).  ``tok`` is
+    the JAX package's fence token, always ``0.0``; it rides along so the
+    packet has the same layout in both packages.  Every value is computed
+    on ``device`` by fill and elementwise kernels, so building the packet
+    never waits for the card."""
+    device = resolve_device(device)
+    t = step_tensor(step, device)
+    lr_t = torch.full((), spec.lr * lr_scale, dtype=torch.float32,
+                      device=device)
+    if spec.num_state_slots == 2:
+        bc1 = torch.reciprocal(1.0 - spec.beta1**t)
+        bc2 = torch.reciprocal(1.0 - spec.beta2**t)
+    else:
+        bc1 = bc2 = torch.ones((), dtype=torch.float32, device=device)
+    tok = t * 0.0
+    return torch.stack([lr_t, bc1, bc2, tok]).reshape(1, 4)
+
+
+def _validate(grads, param, state, spec: OptimizerSpec) -> None:
+    if spec.name not in ("sgd", "momentum", "adam", "adamw"):
+        raise ValueError(f"unknown optimizer {spec.name}")
+    if grads.dim() != 2 or grads.shape[0] < 1:
+        raise ValueError(
+            f"grads must be (K, N) with K >= 1, got {tuple(grads.shape)}")
+    n = grads.shape[1]
+    if tuple(param.shape) != (n,):
+        raise ValueError(
+            f"param has shape {tuple(param.shape)}, grads rows have {n} elements")
+    if len(state) != spec.num_state_slots:
+        raise ValueError(
+            f"{spec.name} takes {spec.num_state_slots} state slots, got "
+            f"{len(state)}")
+    for s in state:
+        if tuple(s.shape) != (n,) or s.dtype != torch.float32:
+            raise ValueError(
+                f"state slots must be ({n},) f32, got {tuple(s.shape)} {s.dtype}")
+
+
+def fused_aggregate_update(
+    grads: torch.Tensor,  # (K, N) worker slabs
+    param: torch.Tensor,  # (N,)
+    state: tuple,  # opt state slots
+    spec: OptimizerSpec,
+    step: int,  # 1-based
+    lr_scale: float = 1.0,
+    *,
+    average: bool = True,
+) -> tuple[torch.Tensor, tuple]:
+    """Aggregate K worker gradient slabs and apply the server optimizer.
+
+    Sums ``grads`` in f32 in ascending worker order, averages by 1/K when
+    ``average``, then applies ``spec`` at ``step`` with ``lr_scale`` folded
+    into the rate.  Returns (new_param, new_state).  On the card the kernel
+    updates ``param`` and ``state`` in place and returns them; callers use
+    the returned tensors either way."""
+    _validate(grads, param, state, spec)
+    scalars = scalar_packet(spec, step, lr_scale, device=param.device)
+    if param.device.type == "cuda":
+        return _kernel.fused_agg_opt_cuda(grads, param, state, scalars, spec,
+                                          average=average)
+    if param.device.type == "cpu":
+        return _kernel.fused_agg_opt_torch(grads, param, state, scalars, spec,
+                                           average=average)
+    raise ValueError(
+        f"fused_aggregate_update runs on cuda or cpu, not {param.device.type}")

@@ -1,0 +1,1 @@
+"""Models (torch counterpart of ``repro.models``): the dense transformer."""

@@ -1,0 +1,120 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+These tests need a CUDA card, ``nvcc`` and nothing of JAX; without a card
+they skip.  On the card run them with
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda_kernels.py
+
+The first test builds ``csrc/fused_agg_opt.cu`` into ``build/torch_kernels``.
+"""
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs.registry import get_arch  # noqa: E402
+from repro_torch.core.chunking import ParamSpace  # noqa: E402
+from repro_torch.core.config import FabricConfig  # noqa: E402
+from repro_torch.core.fabric import PBoxFabric, WorkerHarness  # noqa: E402
+from repro_torch.data.synthetic import lm_batches  # noqa: E402
+from repro_torch.kernels.fused_agg_opt import kernel as tkernel  # noqa: E402
+from repro_torch.kernels.fused_agg_opt import ops as tops  # noqa: E402
+from repro_torch.models.transformer import init_params, lm_loss_and_grad  # noqa: E402
+from repro_torch.optim import optimizers as topt  # noqa: E402
+
+SLAB = 8192
+DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
+CHIP_SMOKE = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: a CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _inputs(spec, k, n, gdt, pdt, seed, device):
+    rng = np.random.default_rng(seed)
+    g = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32))
+    p = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    st = [torch.from_numpy((rng.standard_normal(n) * 0.1).astype(np.float32))
+          for _ in range(spec.num_state_slots)]
+    if len(st) == 2:
+        st[1] = st[1].abs()
+    return (g.to(device, DTYPES[gdt]), p.to(device, DTYPES[pdt]),
+            tuple(s.to(device) for s in st))
+
+
+@pytest.mark.gpu
+def test_kernel_matches_plain_version_bitwise(cuda):
+    """chip_smoke.py's kernel sweep (5 optimizers x K in {1, 2, 3, 8} x 4
+    dtype pairs x 2 sizes), which raises on the first case that differs."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", CHIP_SMOKE)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    assert chip_smoke.kernel_sweep(cuda) == 0.0
+
+
+@pytest.mark.gpu
+def test_ops_launches_the_kernel_on_cuda_tensors(cuda, monkeypatch):
+    monkeypatch.setattr(tkernel, "launches", 0)
+    spec = topt.adamw(1e-3)
+    g, p, st = _inputs(spec, 2, SLAB, "f32", "f32", 0, cuda)
+    tops.fused_aggregate_update(g, p, st, spec, 1)
+    assert tkernel.launches == 1
+
+
+@pytest.mark.gpu
+def test_smoke_fabric_on_card_matches_cpu(cuda):
+    """The quickstart loop (gemma3 SMOKE, f32) on the card and on the CPU
+    from the same weights: the card's matmuls sum in another order, so the
+    losses agree to rtol 1e-4 and the momentum params to atol 1e-4."""
+    cfg = get_arch("gemma3-1b").smoke_config
+    base = init_params(cfg, torch.Generator().manual_seed(0))
+    runs = {}
+    for dev in ("cpu", cuda):
+        params = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
+                      if isinstance(v, dict) else v.to(dev))
+                  for k, v in base.items()}
+        space = ParamSpace.build(params)
+        fab = PBoxFabric(space, topt.momentum(0.05, 0.9),
+                         space.flatten(params),
+                         config=FabricConfig(num_shards=4, num_workers=2),
+                         device=dev)
+        streams = [lm_batches(cfg.vocab, 4, 32, seed=w) for w in range(2)]
+        losses = []
+
+        def grad_fn(p, wstep, dev=dev, streams=streams, losses=losses):
+            b = next(streams[wstep[0]])
+            loss, g = lm_loss_and_grad(
+                p, torch.from_numpy(b["tokens"]).to(dev),
+                torch.from_numpy(b["labels"]).to(dev), cfg)
+            losses.append(loss.item())
+            return g
+
+        WorkerHarness(fab, grad_fn, lambda w, s: (w, s)).run(3)
+        runs[str(dev)] = (losses, fab.params.cpu())
+    (cl, cp), (gl, gp) = runs["cpu"], runs[str(cuda)]
+    np.testing.assert_allclose(gl, cl, rtol=1e-4)
+    np.testing.assert_allclose(gp.numpy(), cp.numpy(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_fabric_on_card_leaves_init_flat_alone(cuda):
+    """The kernel updates shard state in place; the caller's initial flat
+    (whose contiguous slabs the shards were cut from) must not change."""
+    params = {"w": torch.linspace(-1, 1, 3 * SLAB + 5, device=cuda)}
+    space = ParamSpace.build(params, chunk_elems=1024)
+    init = space.flatten(params)
+    before = init.clone()
+    fab = PBoxFabric(space, topt.adamw(1e-2), init,
+                     config=FabricConfig(num_shards=2, num_workers=1),
+                     device=cuda)
+    WorkerHarness(fab, lambda p, b: {"w": p["w"] * 2}, lambda w, s: 0).run(2)
+    torch.cuda.synchronize()
+    assert torch.equal(init, before)
+    assert not torch.equal(fab.params, before)
