@@ -4,23 +4,26 @@ Counterpart of ``repro/core/config.py`` (its ``FabricConfig`` half).  The
 fabric's knobs fold into one frozen, validated config tree:
 
   ``FabricConfig``     scalar fabric knobs (shards, mode, workers, ...)
-  ``WireConfig``         the wire tier: topology, codec, link model, the
-                         fused wire path toggle, and the switch tier
+  ``WireConfig``         the wire tier: topology, codec, link model and
+                         the switch tier
   ``SwitchConfig``         in-network aggregation slot pools
   ``FaultConfig``        replication factor, fault schedule, anti-affinity
   ``PlacementConfig``    chunk placement policy and an explicit plan
 
 ``PBoxFabric(space, spec, init_flat, config=...)`` is the only fabric
 constructor of the port; the JAX package's legacy keyword adapter has no
-counterpart here yet.  The JAX field ``use_pallas`` has none either: the
-update runs the CUDA kernel on CUDA tensors and its plain version on CPU
-tensors, so there is no second path to switch to.
+counterpart here yet.  The JAX fields ``use_pallas`` and
+``fused_wire_path`` have none either: the update runs the CUDA kernel on
+CUDA tensors and its plain version on CPU tensors, and a codec'd push takes
+the fused wire kernel wherever ``wire_path_supported`` allows it, which
+gives the same bits as the unfused route it would switch to.
 
 All cross-field validation lives in ``validate()``: one named
 ``FabricConfigError`` per rule (the same rules, names and order as the JAX
 package), then a ``NotImplementedError`` for every knob the port does not
-cover yet — synchronous mode with the raw f32 wire, no topology, no
-replication, no faults, no explicit plan, no switch and no namespace.
+cover yet — it covers synchronous mode with any wire codec (none, bf16,
+int8) and no topology, replication, faults, explicit plan, switch or
+namespace.
 
 Sub-configs hold live objects (topology, codec, fault plan, plan, link
 model) by reference and are validated duck-typed, so this module imports
@@ -57,13 +60,12 @@ class SwitchConfig:
 class WireConfig:
     """Everything about how gradient bits cross the network: ``topology``
     (the rack tier), ``compression`` (the wire codec), ``link`` (the
-    event-clock costs, a ``core.fabric.LinkModel``), ``fused_wire_path``
-    and the ``switch`` pools."""
+    event-clock costs, a ``core.fabric.LinkModel``) and the ``switch``
+    pools."""
 
     topology: Any | None = None
     compression: Any | None = None
     link: Any | None = None
-    fused_wire_path: bool = True
     switch: SwitchConfig = SwitchConfig()
 
 
@@ -173,14 +175,11 @@ class FabricConfig:
                     "plan_replication",
                     f"plan places {plan.replica_racks.shape[1]} chain "
                     f"copies, fabric replicates at {repl}")
-        codec = (self.wire.compression.codec
-                 if self.wire.compression is not None else "none")
         unported = [
             (self.mode != "sync", f"mode={self.mode!r}"),
             (self.min_push_fraction < 1.0,
              f"min_push_fraction={self.min_push_fraction:g} (backup quorum)"),
             (topo is not None, "a network topology"),
-            (codec != "none", f"codec={codec!r}"),
             (repl > 1, f"replication={repl}"),
             (self.faults.fault_plan is not None, "a fault plan"),
             (plan is not None, "an explicit placement plan"),
@@ -191,8 +190,8 @@ class FabricConfig:
         for missing, what in unported:
             if missing:
                 raise NotImplementedError(
-                    f"the PyTorch fabric covers synchronous training over "
-                    f"the raw f32 wire only; {what} is not ported yet")
+                    f"the PyTorch fabric covers synchronous training with "
+                    f"no topology only; {what} is not ported yet")
         return self
 
     # -- introspection ---------------------------------------------------
@@ -208,8 +207,7 @@ class FabricConfig:
             + (f"(s={self.staleness})" if self.mode == "stale" else "")
             + f" workers={self.num_workers}"
             + f" min_push={self.min_push_fraction:g}",
-            f"  wire: codec={codec} "
-            f"fused_wire_path={'on' if self.wire.fused_wire_path else 'off'}"
+            f"  wire: codec={codec}"
             + (f" racks={topo.num_racks}"
                f" oversub=1:{topo.oversubscription:g}" if topo else
                " (no topology)")

@@ -20,14 +20,24 @@ zero rows are a fixed point of every optimizer, so the port does not pad
 and the numbers do not change.
 
 The event clock (``_simulate_round``) is the JAX package's, line for line:
-chunk ``c`` arrives at ``(c+1) * wire_us``, each shard aggregates its
-chunks in arrival order, and ``ServerStats`` records the pipelined makespan
-beside the store-and-forward baseline.
+chunk ``c`` arrives at ``(c+1) * wire_us`` (scaled by the codec's bytes per
+element), each shard aggregates its chunks in arrival order, and
+``ServerStats`` records the pipelined makespan beside the
+store-and-forward baseline.
 
-This slice covers synchronous mode over the raw f32 wire (codec "none"),
-contiguous and round-robin placement, with no topology, replication,
-faults, switch, tenancy, rebalancing or snapshots: ``FabricConfig.validate``
-raises ``NotImplementedError`` for those knobs.  ``WorkerHarness`` drives
+The wire codec (``core/compression.py``: none, bf16 or int8 with error
+feedback) runs on each worker's push to the PS.  Where
+``wire_path_supported`` allows the codec x optimizer x chunk geometry (the
+fused wire path) a push stays encoded up to the shards, and each shard
+decodes, aggregates and applies it in one kernel (``kernels/wire_path``);
+otherwise the push is decoded at the hop (``roundtrip``) and the shards
+run ``fused_agg_opt`` on f32 rows.  Both routes give the same bits; the
+JAX package's ``fused_wire_path`` switch between them has no counterpart.
+
+This slice covers synchronous mode with no topology, contiguous and
+round-robin placement, and no replication, faults, switch, tenancy,
+rebalancing or snapshots: ``FabricConfig.validate`` raises
+``NotImplementedError`` for those knobs.  ``WorkerHarness`` drives
 workers without the JAX harness's rack and telemetry views, which need
 the topology and tenancy tiers.
 """
@@ -40,12 +50,24 @@ import numpy as np
 import torch
 
 from repro_torch.core.chunking import ParamSpace
+from repro_torch.core.compression import (
+    CompressionConfig,
+    WirePayload,
+    encode_wire,
+    init_ef_state,
+    roundtrip,
+    wire_bytes,
+)
 from repro_torch.core.config import FabricConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fused_agg_opt.ops import fused_aggregate_update
+from repro_torch.kernels.wire_path.ops import (
+    fused_wire_update,
+    wire_path_supported,
+)
 from repro_torch.optim.optimizers import OptimizerSpec, init_opt_state
 
-_F32_BYTES = 4  # raw f32 wire: codec "none" (compression.wire_bytes)
+_PULL_BYTES = 4  # pulls cross as raw f32 whatever the push codec
 
 
 # ---------------------------------------------------------------------------
@@ -196,6 +218,39 @@ class PBoxShard:
         self.state = tuple(s.reshape(shape) for s in new_s)
         self.stats.agg_events += 1
 
+    def apply_wire(
+        self,
+        payload: torch.Tensor,  # (K, n_owned, chunk_elems) wire dtype
+        scales: torch.Tensor | None,  # (K, n_owned) f32 (int8), else None
+        codec: str,
+        step: int,
+        *,
+        average: bool,
+    ) -> None:
+        """``apply``, wire-form: the K streams arrive still encoded and the
+        single-pass kernel (``kernels/wire_path``) decodes, folds and
+        applies the optimizer without materializing decoded f32 gradients;
+        bit-identical to decode-then-``apply``."""
+        if self.num_chunks == 0:
+            return
+        k = payload.shape[0]
+        n = self.num_elems
+        new_p, new_s = fused_wire_update(
+            payload.reshape(k, n),
+            None if scales is None else scales.reshape(k, self.num_chunks),
+            self.params.reshape(n),
+            tuple(s.reshape(n) for s in self.state),
+            self.spec,
+            step,
+            codec=codec,
+            chunk_elems=self.space.chunk_elems,
+            average=average,
+        )
+        shape = (self.num_chunks, self.space.chunk_elems)
+        self.params = new_p.reshape(shape)
+        self.state = tuple(s.reshape(shape) for s in new_s)
+        self.stats.agg_events += 1
+
 
 # ---------------------------------------------------------------------------
 # fabric
@@ -236,6 +291,25 @@ class PBoxFabric:
         self.num_workers = config.num_workers
         self.num_shards = config.num_shards
         self.link = config.wire.link or LinkModel()
+        # codec chunks align with PS chunks so per-chunk scales ride the
+        # same wire framing
+        self.compression = dataclasses.replace(
+            config.wire.compression or CompressionConfig(codec="none"),
+            chunk_elems=space.chunk_elems,
+        )
+        # fused wire path: pushes stay encoded up to the shards where the
+        # kernel supports the codec x optimizer x chunk geometry; otherwise
+        # a codec'd push is decoded at the hop (codec "none" has nothing
+        # to decode) and the shards apply f32 rows
+        self._fused_wire = wire_path_supported(
+            self.compression.codec, spec, space.chunk_elems)
+        # without a topology the codec runs on the worker -> PS wire, and
+        # each worker's NIC keeps its error-feedback residual
+        self._worker_ef: dict[int, torch.Tensor | None] = {
+            w: init_ef_state(self.compression, space.flat_elems,
+                             device=self.device)
+            for w in range(self.num_workers)
+        } if self.compression.codec != "none" else {}
         self.placement_policy = config.placement.policy
         self.step = 0
         self.worker_clock = np.zeros(self.num_workers, dtype=np.int64)
@@ -259,8 +333,9 @@ class PBoxFabric:
             self.shards.append(
                 PBoxShard(sid, space, spec, ids, rows[shard_rows])
             )
-        # sync inbox: worker -> (num_chunks, chunk_elems) gradient rows
-        self._inbox: dict[int, torch.Tensor] = {}
+        # sync inbox: worker -> (num_chunks, chunk_elems) f32 gradient rows,
+        # or the push still encoded on the fused wire path
+        self._inbox: dict[int, torch.Tensor | WirePayload] = {}
         # chunk-by-chunk staging: worker -> (rows buffer, staged mask)
         self._staged: dict[int, tuple[torch.Tensor, np.ndarray]] = {}
         self._flat_cache: torch.Tensor | None = None
@@ -287,11 +362,11 @@ class PBoxFabric:
     def pull(self, worker: int) -> torch.Tensor:
         flat = self.params
         self.stats.pulls += 1
-        self.stats.bytes_pulled += flat.numel() * _F32_BYTES
+        self.stats.bytes_pulled += flat.numel() * _PULL_BYTES
         self.stats.chunk_pulls += self.space.num_chunks
         for shard in self.shards:
             shard.stats.chunk_pulls += shard.num_chunks
-            shard.stats.bytes_pulled += shard.num_elems * _F32_BYTES
+            shard.stats.bytes_pulled += shard.num_elems * _PULL_BYTES
         return flat
 
     def can_proceed(self, worker: int) -> bool:
@@ -336,7 +411,7 @@ class PBoxFabric:
     # -- push completion / admission ------------------------------------
     def _complete_push(self, worker: int, gchunks: torch.Tensor) -> None:
         self.worker_clock[worker] += 1
-        nbytes = gchunks.numel() * _F32_BYTES
+        nbytes = wire_bytes(self.compression, gchunks.numel())
         self.stats.pushes += 1
         self.stats.bytes_pushed += nbytes
         self.stats.chunk_pushes += self.space.num_chunks
@@ -345,8 +420,22 @@ class PBoxFabric:
         self.stats.bytes_core_link += nbytes
         for shard in self.shards:
             shard.stats.chunk_pushes += shard.num_chunks
-            shard.stats.bytes_pushed += shard.num_elems * _F32_BYTES
-        self._inbox[worker] = gchunks
+            shard.stats.bytes_pushed += wire_bytes(self.compression,
+                                                   shard.num_elems)
+        # the wire crossing to the PS: with the fused wire path the stream
+        # stays encoded up to the shards, else it is decoded at the hop
+        wire: WirePayload | None = None
+        if self.compression.codec != "none":
+            flat = gchunks.reshape(-1)
+            if self._fused_wire:
+                wire, self._worker_ef[worker] = encode_wire(
+                    self.compression, flat, self._worker_ef[worker])
+            else:
+                dec, self._worker_ef[worker] = roundtrip(
+                    self.compression, flat, self._worker_ef[worker])
+                gchunks = dec.reshape(self.space.num_chunks,
+                                      self.space.chunk_elems)
+        self._inbox[worker] = gchunks if wire is None else wire
         if self._barrier_met():
             self._aggregate()
 
@@ -357,11 +446,28 @@ class PBoxFabric:
     def _aggregate(self) -> None:
         workers = sorted(self._inbox)
         self.step += 1
-        for shard in self.shards:
-            if not shard.num_chunks:
-                continue
-            grads = torch.stack([self._inbox[w][shard.rows] for w in workers])
-            shard.apply(grads, self.step, average=True)
+        if self._fused_wire:
+            # the inbox holds WirePayloads: stack the encoded streams per
+            # shard and let the single-pass kernel decode them
+            codec = self.compression.codec
+            shape = (self.space.num_chunks, self.space.chunk_elems)
+            pays = [self._inbox[w] for w in workers]
+            for shard in self.shards:
+                if not shard.num_chunks:
+                    continue
+                pay = torch.stack(
+                    [wp.payload.reshape(shape)[shard.rows] for wp in pays])
+                sc = (torch.stack([wp.scale[shard.rows] for wp in pays])
+                      if codec == "int8" else None)
+                shard.apply_wire(pay, sc, codec, self.step, average=True)
+            self.stats.fused_wire_rounds += 1
+        else:
+            for shard in self.shards:
+                if not shard.num_chunks:
+                    continue
+                grads = torch.stack(
+                    [self._inbox[w][shard.rows] for w in workers])
+                shard.apply(grads, self.step, average=True)
         self._inbox.clear()
         self.stats.steps += 1
         self._simulate_round()
@@ -372,9 +478,13 @@ class PBoxFabric:
         """Replay one aggregation round on the event clock: chunk c arrives
         at (c+1)*wire_us; each shard aggregates its chunks in arrival order,
         overlapping wire and engine time (chunk i aggregates while chunk i+1
-        is in flight).  The JAX package's arithmetic, with its topology and
-        shared-clock scales at their no-topology values (1.0, core 0.0)."""
-        wire = self.link.wire_us_per_chunk
+        is in flight).  The wire time scales with the codec's bytes per
+        element.  The JAX package's arithmetic, with its topology,
+        shared-clock and link-degrade scales at their no-topology values
+        (1.0, core 0.0)."""
+        bpe_scale = wire_bytes(self.compression, self.space.chunk_elems) / (
+            4.0 * self.space.chunk_elems)
+        wire = self.link.wire_us_per_chunk * bpe_scale
         agg = self.link.agg_us_per_chunk
         c = self.space.num_chunks
         idx = np.arange(c, dtype=np.float64)
@@ -400,7 +510,9 @@ class PBoxFabric:
         lines = [
             f"PBoxFabric: {self.num_shards} shards x "
             f"{self.space.num_chunks} chunks ({self.space.chunk_elems} elems), "
-            f"mode={self.mode}, workers={self.num_workers}, codec=none, "
+            f"mode={self.mode}, workers={self.num_workers}, "
+            f"codec={self.compression.codec}, "
+            f"fused_wire={'on' if self._fused_wire else 'off'}, "
             f"device={self.device}"
         ]
         lines += ["  " + ln for ln in self.config.describe().splitlines()]

@@ -33,102 +33,19 @@
 // as JAX's weak-typed constants are; the step's scalars [lr_t, bc1, bc2,
 // tok] are read from a device pointer, so a round needs no host sync.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <cstring>
+#include "pbox_opt.cuh"
 
 namespace {
 
-enum Opt { kSgd = 0, kMomentum = 1, kAdam = 2, kAdamW = 3 };
-
-struct Hyper {
-  float wd, mu, b1, b2, eps, omb1, omb2, inv_k;
-  int has_wd, nesterov;
-};
-
-// ---- loads and stores of VEC consecutive elements, widened to f32 --------
-template <typename T, int VEC>
-struct Access;
-
-template <>
-struct Access<float, 1> {
-  static __device__ __forceinline__ void load(const float* p, float* out) {
-    out[0] = p[0];
-  }
-  static __device__ __forceinline__ void store(float* p, const float* in) {
-    p[0] = in[0];
-  }
-};
-
-template <>
-struct Access<float, 4> {
-  static __device__ __forceinline__ void load(const float* p, float* out) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-  }
-  static __device__ __forceinline__ void store(float* p, const float* in) {
-    *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
-  }
-};
-
-template <>
-struct Access<__nv_bfloat16, 1> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float* out) {
-    out[0] = __bfloat162float(p[0]);
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float* in) {
-    p[0] = __float2bfloat16_rn(in[0]);
-  }
-};
-
-template <>
-struct Access<__nv_bfloat16, 4> {
-  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float* out) {
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    __nv_bfloat162 lo, hi;
-    memcpy(&lo, &raw.x, sizeof(lo));
-    memcpy(&hi, &raw.y, sizeof(hi));
-    const float2 a = __bfloat1622float2(lo);
-    const float2 b = __bfloat1622float2(hi);
-    out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float* in) {
-    const __nv_bfloat162 lo = __floats2bfloat162_rn(in[0], in[1]);
-    const __nv_bfloat162 hi = __floats2bfloat162_rn(in[2], in[3]);
-    uint2 raw;
-    memcpy(&raw.x, &lo, sizeof(lo));
-    memcpy(&raw.y, &hi, sizeof(hi));
-    *reinterpret_cast<uint2*>(p) = raw;
-  }
-};
-
-// ---- the optimizer bodies: the TPU kernel's op order, strictly rounded ----
-template <int OPT>
-__device__ __forceinline__ float update(const Hyper& h, float lr, float bc1,
-                                        float bc2, float g, float p, float& m,
-                                        float& v) {
-  if (OPT == kSgd) {
-    if (h.has_wd) g = __fadd_rn(g, __fmul_rn(h.wd, p));
-    return __fsub_rn(p, __fmul_rn(lr, g));
-  }
-  if (OPT == kMomentum) {
-    if (h.has_wd) g = __fadd_rn(g, __fmul_rn(h.wd, p));
-    m = __fadd_rn(__fmul_rn(h.mu, m), g);
-    const float upd = h.nesterov ? __fadd_rn(g, __fmul_rn(h.mu, m)) : m;
-    return __fsub_rn(p, __fmul_rn(lr, upd));
-  }
-  // Adam / AdamW
-  if (OPT == kAdam && h.has_wd) g = __fadd_rn(g, __fmul_rn(h.wd, p));
-  m = __fadd_rn(__fmul_rn(h.b1, m), __fmul_rn(h.omb1, g));
-  v = __fadd_rn(__fmul_rn(h.b2, v), __fmul_rn(h.omb2, __fmul_rn(g, g)));
-  const float mhat = __fmul_rn(m, bc1);
-  const float vhat = __fmul_rn(v, bc2);
-  float upd = __fdiv_rn(mhat, __fadd_rn(__fsqrt_rn(vhat), h.eps));
-  if (OPT == kAdamW && h.has_wd) upd = __fadd_rn(upd, __fmul_rn(h.wd, p));
-  return __fsub_rn(p, __fmul_rn(lr, upd));
-}
+using pbox::Access;
+using pbox::Hyper;
+using pbox::kAdam;
+using pbox::kAdamW;
+using pbox::kMomentum;
+using pbox::kSgd;
 
 template <int OPT, typename G, typename P, int VEC>
 __global__ void __launch_bounds__(256)
@@ -159,7 +76,7 @@ fused_agg_opt_kernel(const G* __restrict__ grads, P* __restrict__ param,
 #pragma unroll
     for (int e = 0; e < VEC; ++e) {
       const float g = __fmul_rn(acc[e], h.inv_k);
-      p[e] = update<OPT>(h, lr, bc1, bc2, g, p[e], m[e], v[e]);
+      p[e] = pbox::update<OPT>(h, lr, bc1, bc2, g, p[e], m[e], v[e]);
     }
     Access<P, VEC>::store(param + i, p);
     if (kSlots >= 1) Access<float, VEC>::store(m_ptr + i, m);
@@ -167,28 +84,12 @@ fused_agg_opt_kernel(const G* __restrict__ grads, P* __restrict__ param,
   }
 }
 
-int sm_count() {
-  static int count = 0;
-  if (count == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount, dev);
-    if (count <= 0) count = 132;
-  }
-  return count;
-}
-
 template <int OPT, typename G, typename P, int VEC>
 void launch(const void* grads, void* param, float* m, float* v,
             const float* scalars, int64_t k, int64_t n, const Hyper& h,
             cudaStream_t stream) {
   constexpr int kThreads = 256;
-  const int64_t steps = n / VEC;
-  // enough resident blocks to fill every SM (8 x 256 threads = 2048, the
-  // SM's limit); the grid-stride loop covers the rest
-  const int64_t want = (steps + kThreads - 1) / kThreads;
-  const int64_t cap = static_cast<int64_t>(sm_count()) * 8;
-  const int blocks = static_cast<int>(want < cap ? (want > 0 ? want : 1) : cap);
+  const int blocks = pbox::stride_grid(n / VEC, kThreads);
   fused_agg_opt_kernel<OPT, G, P, VEC><<<blocks, kThreads, 0, stream>>>(
       static_cast<const G*>(grads), static_cast<P*>(param), m, v, scalars, k,
       n, h);
@@ -199,9 +100,7 @@ void launch_vec(const void* grads, void* param, float* m, float* v,
                 const float* scalars, int64_t k, int64_t n, const Hyper& h,
                 cudaStream_t stream) {
   // 4-wide accesses need every row start aligned to 4 elements' bytes
-  const auto aligned = [](const void* ptr, size_t bytes) {
-    return ptr == nullptr || reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
-  };
+  using pbox::aligned;
   const bool vec = n % 4 == 0 && aligned(grads, 4 * sizeof(G)) &&
                    aligned(param, 4 * sizeof(P)) && aligned(m, 16) &&
                    aligned(v, 16);

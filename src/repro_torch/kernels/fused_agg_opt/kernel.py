@@ -88,12 +88,21 @@ def fused_agg_opt_torch(
     """Plain PyTorch version of the kernel.  Returns (new_param, new_state)
     as new tensors; the inputs are not modified."""
     k = grads.shape[0]
-    inv_k = 1.0 / k if average else 1.0
-    lr, bc1, bc2 = scalars.reshape(4)[:3]
     acc = grads[0].float()
     for i in range(1, k):
         acc = acc + grads[i].float()
-    g = acc * inv_k
+    return optimizer_step(spec, scalars, acc * (1.0 / k if average else 1.0),
+                          param, state)
+
+
+def optimizer_step(spec: OptimizerSpec, scalars: torch.Tensor,
+                   g: torch.Tensor, param: torch.Tensor,
+                   state: tuple) -> tuple[torch.Tensor, tuple]:
+    """The optimizer body on the averaged f32 gradient ``g``, as the
+    kernels run it after their fold (``wire_path`` shares it, as the TPU
+    wire kernel shares the ``*_body`` helpers).  Returns (new_param in
+    ``param``'s dtype, new_state) as new tensors."""
+    lr, bc1, bc2 = scalars.reshape(4)[:3]
     p = param.float()
     if spec.num_state_slots == 0:
         new_p, new_s = _sgd_body(spec, lr, g, p), ()
@@ -107,18 +116,31 @@ def fused_agg_opt_torch(
 
 
 # -- the CUDA kernel ------------------------------------------------------
+# ctypes types of ``hyper_args``: opt, has_wd, wd, mu, nesterov, b1, b2,
+# eps, 1-b1, 1-b2, inv_k (the C side's ``Hyper`` and optimizer code)
+HYPER_ARGTYPES = (ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+                  ctypes.c_int, *[ctypes.c_float] * 6)
+
+
+def hyper_args(spec: OptimizerSpec, inv_k: float) -> tuple:
+    """The optimizer's arguments to a kernel entry point, in
+    ``HYPER_ARGTYPES`` order.  Each float crosses as f32 rounded from the
+    double here, as JAX's weak-typed constants are rounded."""
+    return (_OPT_CODES[spec.name], int(bool(spec.weight_decay)),
+            spec.weight_decay, spec.momentum, int(spec.nesterov), spec.beta1,
+            spec.beta2, spec.eps, 1.0 - spec.beta1, 1.0 - spec.beta2, inv_k)
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     from repro_torch.kernels import _build
 
     lib = _build.load("fused_agg_opt")
-    ptr, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                          ctypes.c_float)
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.fused_agg_opt_launch.argtypes = [
         ptr, ptr, ptr, ptr, ptr,  # grads, param, m, v, scalars
-        i64, i64, i32, i32, i32,  # k, n, grad_bf16, param_bf16, opt
-        i32, f32, f32, i32,  # has_wd, wd, mu, nesterov
-        f32, f32, f32, f32, f32, f32,  # b1, b2, eps, 1-b1, 1-b2, inv_k
+        i64, i64, i32, i32,  # k, n, grad_bf16, param_bf16
+        *HYPER_ARGTYPES,
         ptr,  # stream
     ]
     lib.fused_agg_opt_launch.restype = ctypes.c_int
@@ -164,11 +186,8 @@ def fused_agg_opt_cuda(
             grads.data_ptr(), param.data_ptr(), ptrs[0], ptrs[1],
             scalars.data_ptr(),
             k, n, int(grads.dtype == torch.bfloat16),
-            int(param.dtype == torch.bfloat16), _OPT_CODES[spec.name],
-            int(bool(spec.weight_decay)), spec.weight_decay, spec.momentum,
-            int(spec.nesterov), spec.beta1, spec.beta2, spec.eps,
-            1.0 - spec.beta1, 1.0 - spec.beta2,
-            1.0 / k if average else 1.0,
+            int(param.dtype == torch.bfloat16),
+            *hyper_args(spec, 1.0 / k if average else 1.0),
             stream,
         )
     if rc != 0:

@@ -13,6 +13,8 @@ import math
 
 import torch
 
+from repro_torch.device import resolve_device
+
 
 # ---------------------------------------------------------------------------
 # initializers (explicit generator threading)
@@ -47,9 +49,12 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6):
 
 
 def rope_freqs(head_dim: int, theta: float = 1e4, device=None):
+    """RoPE inverse frequencies on ``device`` (the card unless the caller
+    passes another)."""
     half = head_dim // 2
     return 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
-                                         device=device) / half))
+                                         device=resolve_device(device))
+                            / half))
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e4):

@@ -5,8 +5,9 @@ they skip.  On the card run them with
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda_kernels.py
 
-The first test builds ``csrc/fused_agg_opt.cu`` into ``build/torch_kernels``.
+The first test builds every ``csrc/*.cu`` into ``build/torch_kernels``.
 """
+import functools
 import importlib.util
 from pathlib import Path
 
@@ -17,11 +18,16 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.configs.registry import get_arch  # noqa: E402
 from repro_torch.core.chunking import ParamSpace  # noqa: E402
-from repro_torch.core.config import FabricConfig  # noqa: E402
+from repro_torch.core.compression import CompressionConfig  # noqa: E402
+from repro_torch.core.config import FabricConfig, WireConfig  # noqa: E402
 from repro_torch.core.fabric import PBoxFabric, WorkerHarness  # noqa: E402
 from repro_torch.data.synthetic import lm_batches  # noqa: E402
 from repro_torch.kernels.fused_agg_opt import kernel as tkernel  # noqa: E402
 from repro_torch.kernels.fused_agg_opt import ops as tops  # noqa: E402
+from repro_torch.kernels.quant import kernel as qkernel  # noqa: E402
+from repro_torch.kernels.quant import ops as qops  # noqa: E402
+from repro_torch.kernels.wire_path import kernel as wkernel  # noqa: E402
+from repro_torch.kernels.wire_path import ops as wops  # noqa: E402
 from repro_torch.models.transformer import init_params, lm_loss_and_grad  # noqa: E402
 from repro_torch.optim import optimizers as topt  # noqa: E402
 
@@ -49,14 +55,59 @@ def _inputs(spec, k, n, gdt, pdt, seed, device):
             tuple(s.to(device) for s in st))
 
 
+@functools.lru_cache(maxsize=None)
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", CHIP_SMOKE)
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    return chip_smoke
+
+
 @pytest.mark.gpu
 def test_kernel_matches_plain_version_bitwise(cuda):
     """chip_smoke.py's kernel sweep (5 optimizers x K in {1, 2, 3, 8} x 4
     dtype pairs x 2 sizes), which raises on the first case that differs."""
-    spec = importlib.util.spec_from_file_location("chip_smoke", CHIP_SMOKE)
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
-    assert chip_smoke.kernel_sweep(cuda) == 0.0
+    assert _chip_smoke().kernel_sweep(cuda) == 0.0
+
+
+@pytest.mark.gpu
+def test_quant_kernels_match_plain_versions_bitwise(cuda):
+    """chip_smoke.py's quant sweep: N in {8192, 37*8192} x chunk in {128,
+    8192}, and chunk 65536 (the two-pass route), with zero, NaN and inf
+    chunks, each slab also off alignment."""
+    worst = _chip_smoke().quant_sweep(cuda)
+    assert worst == {"quantize_chunks": 0.0, "dequantize_chunks": 0.0}
+
+
+@pytest.mark.gpu
+def test_wire_kernel_matches_plain_and_unfused_bitwise(cuda):
+    """chip_smoke.py's wire sweep: none/bf16/int8 x 5 optimizers x K in
+    {1, 2, 3, 8}, against wire_fused_torch and the unfused kernel
+    pipeline."""
+    assert _chip_smoke().wire_sweep(cuda) == 0.0
+
+
+@pytest.mark.gpu
+def test_codec_ops_launch_the_kernels_on_cuda_tensors(cuda, monkeypatch):
+    for mod, attr in ((qkernel, "quantize_launches"),
+                      (qkernel, "dequantize_launches"),
+                      (wkernel, "launches"), (tkernel, "launches")):
+        monkeypatch.setattr(mod, attr, 0)
+    spec = topt.adamw(1e-3)
+    x = torch.randn(2 * SLAB, device=cuda)
+    q, s = qops.quantize_chunks(x, SLAB)
+    dec = qops.dequantize_chunks(q, s, SLAB)
+    assert q.is_cuda and dec.is_cuda
+    _, p, st = _inputs(spec, 1, 2 * SLAB, "f32", "f32", 0, cuda)
+    wops.fused_wire_update(torch.stack([q, q]), torch.stack([s, s]), p, st,
+                           spec, 1, codec="int8", chunk_elems=SLAB)
+    assert (qkernel.quantize_launches, qkernel.dequantize_launches,
+            wkernel.launches, tkernel.launches) == (1, 1, 1, 0)
+    with pytest.raises(ValueError, match="f32"):
+        wkernel.wire_fused_cuda(
+            torch.stack([q, q]), torch.stack([s, s]), p.double(), st,
+            tops.scalar_packet(spec, 1, device=cuda), spec, codec="int8",
+            chunk_elems=SLAB)
 
 
 @pytest.mark.gpu
@@ -101,6 +152,43 @@ def test_smoke_fabric_on_card_matches_cpu(cuda):
     (cl, cp), (gl, gp) = runs["cpu"], runs[str(cuda)]
     np.testing.assert_allclose(gl, cl, rtol=1e-4)
     np.testing.assert_allclose(gp.numpy(), cp.numpy(), rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "unfused"])
+def test_int8_fabric_on_card_matches_cpu(cuda, fused, monkeypatch):
+    """A small int8-wire fabric on the card and on the CPU from the same
+    gradients: the kernels equal their plain versions bitwise, so the
+    params, the residuals and the stats agree exactly.  The unfused case
+    declares the geometry unsupported, which is how the fabric reaches
+    that route."""
+    from repro_torch.core import fabric as tfabric
+
+    if not fused:
+        monkeypatch.setattr(tfabric, "wire_path_supported", lambda *a: False)
+    runs = {}
+    for dev in ("cpu", cuda):
+        params = {"w": torch.linspace(-1, 1, 3 * SLAB + 5, device=dev)}
+        space = ParamSpace.build(params, chunk_elems=SLAB)
+        fab = PBoxFabric(
+            space, topt.adamw(1e-2), space.flatten(params), device=dev,
+            config=FabricConfig(num_shards=2, num_workers=2, wire=WireConfig(
+                compression=CompressionConfig(codec="int8"))))
+        gen = np.random.default_rng(5)
+        grads = [torch.from_numpy(gen.standard_normal(space.flat_elems)
+                                  .astype(np.float32)) for _ in range(6)]
+        for r in range(3):
+            for w in range(2):
+                fab.pull(w)
+            for w in range(2):
+                fab.push(w, grads[2 * r + w].to(dev))
+        runs[str(dev)] = fab
+    cpu, card = runs["cpu"], runs[str(cuda)]
+    assert torch.equal(cpu.params, card.params.cpu())
+    for w in range(2):
+        assert torch.equal(cpu._worker_ef[w], card._worker_ef[w].cpu())
+    assert cpu.stats == card.stats
+    assert card.stats.fused_wire_rounds == (3 if fused else 0)
 
 
 @pytest.mark.gpu

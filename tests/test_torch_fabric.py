@@ -7,7 +7,17 @@ Pallas kernel in interpret mode bit for bit, and torch's and XLA's f32
 ``pow`` agree on these steps, so the parameters and every ``ServerStats``
 field must match exactly — momentum and AdamW alike.  Inside the port,
 1, 2 and 8 shards and chunk-staged pushes are bit-identical, as in the JAX
-package."""
+package.
+
+With a wire codec (bf16, int8 with error feedback) both fabrics run the
+codec on each worker's push; the fused wire path ships the push encoded to
+the shards' single-pass kernel, the unfused path decodes at the hop.  The
+port routes on ``wire_path_supported`` alone (the JAX ``fused_wire_path``
+switch has no counterpart), so its fused fabric is held against the JAX
+fabric with the switch on and off.  Params, state, the error-feedback
+residuals and every ``ServerStats`` field match bitwise either way, and
+the port's unfused route (an unsupported geometry) equals its fused one
+(tests/test_wire_path.py:188-260 for the JAX package)."""
 import dataclasses
 
 import numpy as np
@@ -20,6 +30,7 @@ from test_fabric import K, quad_setup  # noqa: E402
 
 from repro.core.chunking import TILE_ELEMS as JAX_TILE  # noqa: E402
 from repro.core.chunking import ParamSpace as JaxSpace  # noqa: E402
+from repro.core.compression import CompressionConfig as JaxCompression  # noqa: E402
 from repro.core.config import FabricConfig as JaxConfig  # noqa: E402
 from repro.core.config import PlacementConfig as JaxPlacement  # noqa: E402
 from repro.core.config import WireConfig as JaxWire  # noqa: E402
@@ -29,6 +40,7 @@ from repro.core.fabric import WorkerHarness as JaxHarness  # noqa: E402
 from repro.optim import optimizers as jopt  # noqa: E402
 from repro_torch.core import config as tconfig  # noqa: E402
 from repro_torch.core.chunking import TILE_ELEMS, ParamSpace  # noqa: E402
+from repro_torch.core.compression import CompressionConfig  # noqa: E402
 from repro_torch.core.config import FabricConfig  # noqa: E402
 from repro_torch.core.fabric import LinkModel, PBoxFabric, WorkerHarness  # noqa: E402
 from repro_torch.core.server import PHubServer  # noqa: E402
@@ -58,9 +70,10 @@ def torch_quad_setup():
     return params, grad_fn
 
 
-def run_torch(spec_name, *, num_shards, steps=5, chunk_groups=1, **cfg):
+def run_torch(spec_name, *, num_shards, steps=5, chunk_groups=1,
+              chunk_elems=TILE_ELEMS, **cfg):
     params, grad_fn = torch_quad_setup()
-    space = ParamSpace.build(params, chunk_elems=TILE_ELEMS)
+    space = ParamSpace.build(params, chunk_elems=chunk_elems)
     fab = PBoxFabric(space, SPECS[spec_name](topt), space.flatten(params),
                      config=FabricConfig(num_shards=num_shards,
                                          num_workers=K, **cfg),
@@ -70,9 +83,9 @@ def run_torch(spec_name, *, num_shards, steps=5, chunk_groups=1, **cfg):
     return fab
 
 
-def run_jax(spec_name, *, num_shards, steps=5, **cfg):
+def run_jax(spec_name, *, num_shards, steps=5, chunk_elems=JAX_TILE, **cfg):
     params, _, grad_fn = quad_setup()
-    space = JaxSpace.build(params, chunk_elems=JAX_TILE)
+    space = JaxSpace.build(params, chunk_elems=chunk_elems)
     fab = JaxFabric(space, SPECS[spec_name](jopt), space.flatten(params),
                     config=JaxConfig(num_shards=num_shards, num_workers=K,
                                      **cfg))
@@ -178,8 +191,8 @@ def test_fabric_does_not_write_init_flat():
     dict(min_push_fraction=0.75),
     dict(faults=tconfig.FaultConfig(replication=2)),
     dict(faults=tconfig.FaultConfig(fault_plan=object())),
-    dict(wire=tconfig.WireConfig(
-        compression=type("C", (), {"codec": "int8"})())),
+    dict(mode="async", wire=tconfig.WireConfig(
+        compression=CompressionConfig(codec="int8"))),
     dict(wire=tconfig.WireConfig(switch=tconfig.SwitchConfig(
         enabled=True, tor_slots=4))),
     dict(namespace="job0"),
@@ -232,9 +245,123 @@ def test_no_device_and_no_card_raises(monkeypatch):
                    config=FabricConfig())
 
 
+def _assert_fabrics_equal(ref, fab, *, skip=()):
+    np.testing.assert_array_equal(_bits(ref.params), _bits(fab.params.numpy()))
+    for js, ts in zip(ref.shards, fab.shards):
+        for a, b in zip(js.state, ts.state):
+            np.testing.assert_array_equal(_bits(a), _bits(b.numpy()))
+        assert dataclasses.asdict(js.stats) == dataclasses.asdict(ts.stats)
+    assert sorted(ref._worker_ef) == sorted(fab._worker_ef)
+    for w, ef in ref._worker_ef.items():
+        np.testing.assert_array_equal(_bits(ef), _bits(fab._worker_ef[w].numpy()))
+    # every counter and event-clock field, bit for bit
+    want, got = dataclasses.asdict(ref.stats), dataclasses.asdict(fab.stats)
+    for name in skip:
+        want.pop(name), got.pop(name)
+    assert want == got
+
+
+CODEC_CHUNK = 8192  # whole int8 (4096) and bf16 (2048) granules
+
+
+@pytest.mark.parametrize("num_shards", [1, 2])
+@pytest.mark.parametrize("fused", [True, False], ids=["fused", "unfused"])
+@pytest.mark.parametrize("codec", ["bf16", "int8"])
+def test_codec_fabric_matches_jax_bitwise(codec, fused, num_shards):
+    """The port's fused route against the JAX fabric's fused and unfused
+    routes: the same bits and accounting, apart from the JAX unfused run's
+    ``fused_wire_rounds`` of 0."""
+    ref = run_jax("adamw", num_shards=num_shards, chunk_elems=CODEC_CHUNK,
+                  wire=JaxWire(compression=JaxCompression(codec=codec),
+                               fused_wire_path=fused))
+    fab = run_torch("adamw", num_shards=num_shards, chunk_elems=CODEC_CHUNK,
+                    wire=tconfig.WireConfig(
+                        compression=CompressionConfig(codec=codec)))
+    assert fab._fused_wire and ref._fused_wire == fused
+    _assert_fabrics_equal(ref, fab,
+                          skip=() if fused else ("fused_wire_rounds",))
+    assert fab.stats.fused_wire_rounds == 5
+    assert ref.stats.fused_wire_rounds == (5 if fused else 0)
+    # int8 pushes 1 byte an element plus a 4-byte scale a chunk; pulls f32
+    flat = fab.space.flat_elems
+    per_push = flat + 4 * (flat // CODEC_CHUNK) if codec == "int8" else 2 * flat
+    assert fab.stats.bytes_pushed == fab.stats.pushes * per_push
+    assert fab.stats.bytes_pulled == fab.stats.pulls * 4 * flat
+
+
+@pytest.mark.parametrize("codec", ["bf16", "int8"])
+@pytest.mark.parametrize("spec_name", ["momentum", "adamw", "sgd"])
+def test_codec_fused_equals_unfused(spec_name, codec, monkeypatch):
+    """Port-internal: shipping the push encoded changes no bit, and the
+    wire accounting does not depend on the form shipped.  The unfused run
+    is the route the fabric takes for a geometry the fused kernel does not
+    support, reached here by declaring this one unsupported."""
+    from repro_torch.core import fabric as tfabric
+
+    def run():
+        return run_torch(
+            spec_name, num_shards=2, chunk_elems=CODEC_CHUNK,
+            wire=tconfig.WireConfig(compression=CompressionConfig(codec=codec)))
+
+    ff = run()
+    monkeypatch.setattr(tfabric, "wire_path_supported", lambda *a: False)
+    fu = run()
+    assert ff._fused_wire and not fu._fused_wire
+    assert torch.equal(ff.params, fu.params)
+    assert ff.stats.fused_wire_rounds == 5 and fu.stats.fused_wire_rounds == 0
+    assert ff.stats.bytes_pushed == fu.stats.bytes_pushed
+    assert ff.stats.bytes_core_link == fu.stats.bytes_core_link
+    assert ff.stats.sim_pipelined_us == fu.stats.sim_pipelined_us
+
+
+def test_codec_none_falls_back():
+    """Raw f32 has no decode stage to fuse: an explicit codec "none" takes
+    the f32 path with no error feedback, as no codec does."""
+    ff = run_torch("momentum", num_shards=2, chunk_elems=CODEC_CHUNK,
+                   wire=tconfig.WireConfig(
+                       compression=CompressionConfig(codec="none")))
+    fu = run_torch("momentum", num_shards=2, chunk_elems=CODEC_CHUNK)
+    assert not ff._fused_wire and not ff._worker_ef
+    assert torch.equal(ff.params, fu.params)
+    assert ff.stats.fused_wire_rounds == fu.stats.fused_wire_rounds == 0
+
+
+def test_unsupported_chunk_falls_back_like_jax():
+    """A chunk that is not whole int8 granules takes the unfused route, in
+    both packages (the JAX one with its fused_wire_path switch on)."""
+    ref = run_jax("sgd", num_shards=1, steps=2, chunk_elems=2048,
+                  wire=JaxWire(compression=JaxCompression(codec="int8")))
+    fab = run_torch("sgd", num_shards=1, steps=2, chunk_elems=2048,
+                    wire=tconfig.WireConfig(
+                        compression=CompressionConfig(codec="int8")))
+    assert not fab._fused_wire and not ref._fused_wire
+    assert fab.stats.fused_wire_rounds == 0 and fab.step == 2
+    _assert_fabrics_equal(ref, fab)
+
+
+def test_codec_event_clock_scales_with_wire_bytes():
+    link = dict(wire_us_per_chunk=1.0, agg_us_per_chunk=0.25)
+    runs = {codec: run_torch(
+        "momentum", num_shards=2, steps=1, chunk_elems=CODEC_CHUNK,
+        wire=tconfig.WireConfig(link=LinkModel(**link),
+                                compression=CompressionConfig(codec=codec)))
+        for codec in ("none", "bf16", "int8")}
+    chunks = runs["none"].space.num_chunks
+    assert runs["none"].stats.sim_wire_us == chunks * 1.0
+    assert runs["bf16"].stats.sim_wire_us == chunks * 0.5
+    assert runs["int8"].stats.sim_wire_us == chunks * (
+        (CODEC_CHUNK + 4) / (4.0 * CODEC_CHUNK))
+
+
 def test_describe_names_the_config():
     fab = run_torch("momentum", num_shards=2, steps=1)
     text = fab.describe()
     assert "PBoxFabric: 2 shards" in text
     assert f"FabricConfig: shards=2 mode=sync workers={K}" in text
     assert "device=cpu" in text
+    assert "codec=none" in text
+    fab = run_torch("momentum", num_shards=1, steps=1, chunk_elems=CODEC_CHUNK,
+                    wire=tconfig.WireConfig(
+                        compression=CompressionConfig(codec="int8")))
+    assert "workers=4, codec=int8, fused_wire=on" in fab.describe()
+    assert "wire: codec=int8 (no topology)" in fab.describe()

@@ -23,7 +23,7 @@ from repro_torch.configs.registry import get_arch  # noqa: E402
 from repro_torch.data.synthetic import lm_batches  # noqa: E402
 from repro_torch.interop import params_from_numpy  # noqa: E402
 from repro_torch.models import transformer as tt  # noqa: E402
-from repro_torch.models.common import apply_rope, rms_norm  # noqa: E402
+from repro_torch.models.common import apply_rope, rms_norm, rope_freqs  # noqa: E402
 
 
 def _flat(tree, prefix=""):
@@ -70,6 +70,15 @@ def test_rms_norm_and_rope_match_jax():
         apply_rope(torch.from_numpy(x), torch.from_numpy(pos.copy()), 1e6).numpy(),
         np.asarray(jax_rope(jnp.asarray(x), jnp.asarray(pos), 1e6)),
         rtol=1e-5, atol=1e-5)
+
+
+def test_rope_freqs_defaults_to_the_card(monkeypatch):
+    """``device=None`` means the card, as at every entry point; with no
+    card it raises instead of building on the CPU."""
+    assert rope_freqs(8, device="cpu").device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rope_freqs(8)
 
 
 def test_init_params_layout_and_generator():
