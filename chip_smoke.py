@@ -17,7 +17,11 @@ raises on failure (the script then exits non-zero and prints no result):
    zero, NaN and inf chunks, each slab also one element off alignment;
    ``wire_fused`` over none/bf16/int8 x five optimizers x K in {1, 2, 3,
    8}, against its plain version and against the unfused kernel pipeline
-   (dequantize, then ``fused_agg_opt``);
+   (dequantize, then ``fused_agg_opt``); ``embedding_bag`` over B in {1,
+   7, 4096} x L in {1, 3, 33} x D in {16, 128, 130} x {sum, mean} with
+   zero-weight padding, all-padding bags, NaN and inf rows, int32 and int64
+   indices, and ``segment_sum`` with duplicate-heavy, strided and special
+   rows;
 4. the f32 main path at full width: gemma3-1b (26 layers, d=1152, vocab
    262144, bf16) trained for 3 rounds by 2 workers through a 4-shard
    PBoxFabric with AdamW over the raw f32 wire.  Every kernel launch count
@@ -31,15 +35,29 @@ raises on failure (the script then exits non-zero and prints no result):
    unfused kernel pipeline, and worker 0's round-2 quantize (of its
    error-corrected gradients) and dequantize through their plain versions,
    all bitwise;
-6. every kernel and its plain version timed at its main path's shape with
+6. the DLRM sparse main path at full width: dlrm-mlperf (26 Criteo tables
+   capped at 10M rows a table, 52,487,036 rows x 128 f32, each padded to a
+   multiple of 4 rows; the published MLPs) trained for 3 rounds by 2 workers x 32,768 samples, the dense MLPs
+   through a 4-shard PBoxFabric and the tables through a fabric-attached
+   SparseTier (hash placement, codec none, SGD 0.1 on both).  The counts
+   are set to 0 just before and read just after: 156 embedding_bag, 156
+   segment_sum, 12 fused_agg_opt and no codec launches.  Worker 0's
+   round-2 lookup of t0 and its coalescing of t0 and t5 (3 rows) are
+   replayed through the plain versions, bitwise;
+7. sharding independence on the card: the DLRM SMOKE loop at batch 4,096
+   with heavily repeated ids, codecs none and int8 (error feedback on), 1
+   shard against 4: tables, row versions and dense params bitwise equal;
+8. every kernel and its plain version timed at its main path's shape with
    CUDA events, beside its byte bound and, where one PyTorch call computes
-   the same function, that call's time.
+   the same function, that call's time (embedding_bag also at one
+   multi-hot shape, B = 32,768 x L = 20).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import statistics
@@ -57,6 +75,9 @@ MEM_BYTES_PER_S = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12),
                    ("H200", 4.8e12), ("H100", 3.35e12))
 F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 ROUNDS, WORKERS, SHARDS, SEQ = 3, 2, 4, 1024
+# the DLRM sparse path: the MLPerf global batch split over the workers, and
+# the Criteo tables capped at 10M rows so tables and dense view fit the card
+DLRM_BATCH, DLRM_ROW_CAP, DLRM_LR = 32768, 10_000_000, 0.1
 
 
 def adamw_ops(k: int) -> int:
@@ -101,6 +122,52 @@ def cuda_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def _on_device(e) -> bool:
+    from torch.autograd import DeviceType
+
+    return e.device_type == DeviceType.CUDA and not e.is_user_annotation
+
+
+def graph_ms(calls: list, replays: int = 5) -> float:
+    """Device ms of one call: ``calls`` captured back to back in one CUDA
+    graph, the graph replayed ``replays`` times between CUDA events, the
+    median replay divided by the number of calls.  Around a launch of tens
+    of microseconds, events around each call mostly measure the host's
+    launch overhead (the card idles while Python prepares it); a replay
+    launches the same kernels with none."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture, as torch asks
+        for fn in calls:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in calls:
+            fn()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / len(calls))
+    del graph
+    return statistics.median(times)
+
+
+def kernel_device_ms(prof, key: str) -> tuple:
+    """(total device ms, launches) of the kernels whose name holds ``key``
+    in a profiled window."""
+    hits = [e for e in prof.key_averages() if _on_device(e) and key in e.key]
+    return (sum(e.self_device_time_total for e in hits) / 1e3,
+            sum(e.count for e in hits))
 
 
 def max_abs_err(a, b) -> float:
@@ -318,6 +385,92 @@ def wire_sweep(dev) -> float:
     return worst
 
 
+def _bag_case(rng, b: int, length: int, d: int, dev, idx_dtype):
+    """A (1000, d) table with NaN and +-inf rows, and (b, length) bags
+    whose upper slots are zero-weight padding (index 0) and whose bag 0 is
+    all padding."""
+    import numpy as np
+    import torch
+
+    v = 1000
+    table = (rng.standard_normal((v, d)) * rng.uniform(0.01, 100)).astype(np.float32)
+    table[7, 0], table[11, d - 1], table[13, d // 2] = np.nan, np.inf, -np.inf
+    idx = rng.integers(0, v, (b, length))
+    w = rng.standard_normal((b, length)).astype(np.float32)
+    if length > 1:
+        w[:, length // 2 + 1:], idx[:, length // 2 + 1:] = 0.0, 0
+    if b > 1:
+        w[0], idx[0] = 0.0, 0
+    idx[:, 0] = np.where(np.arange(b) % 5 == 1, 7 + 2 * (np.arange(b) % 3),
+                         idx[:, 0])  # some live slots read the special rows
+    return (torch.from_numpy(table).to(dev),
+            torch.from_numpy(idx).to(dev, idx_dtype),
+            torch.from_numpy(w).to(dev))
+
+
+def bag_sweep(dev) -> dict:
+    """embedding_bag and segment_sum against their plain versions on the
+    card, bitwise.  Odd cases read the table one element off 16-byte
+    alignment, which takes the kernel's one-float path."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.embedding_bag import kernel as E
+
+    worst = {"embedding_bag": 0.0, "segment_sum": 0.0}
+    cases = 0
+    for b in (1, 7, 4096):
+        for length in (1, 3, 33):
+            for d in (16, 128, 130):
+                for mode in ("sum", "mean"):
+                    rng = np.random.default_rng(3000 + cases)
+                    idx_dtype = (torch.int32, torch.int64)[cases % 2]
+                    table, idx, w = _bag_case(rng, b, length, d, dev, idx_dtype)
+                    want = E.embedding_bag_torch(table, idx, w, mode)
+                    src = _shifted(table.reshape(-1), cases % 2).view(table.shape)
+                    got = E.embedding_bag_cuda(src, idx, w, mode)
+                    torch.cuda.synchronize()
+                    worst["embedding_bag"] = max(worst["embedding_bag"],
+                                                 max_abs_err(got, want))
+                    if not same_bits(got, want):
+                        raise AssertionError(
+                            f"embedding_bag differs from its plain version: "
+                            f"B={b} L={length} D={d} {mode} {idx_dtype}, max "
+                            f"|err| {worst['embedding_bag']}")
+                    cases += 1
+    seg_cases = 0
+    for n in (1, 37, 4096):
+        for pattern in ("unique", "three", "zipf"):
+            for d in (16, 128, 130):
+                rng = np.random.default_rng(4000 + seg_cases)
+                ids = {"unique": rng.permutation(n), "three": rng.integers(0, 3, n),
+                       "zipf": rng.zipf(1.2, n) % 97}[pattern]
+                uniq, inv = np.unique(ids, return_inverse=True)
+                block = (rng.standard_normal((n, 3, d)) * 10).astype(np.float32)
+                block[0, 1, :2] = -0.0
+                if n > 5:
+                    block[3, 1, 1], block[5, 1, 0] = np.nan, np.inf
+                rows = torch.from_numpy(block).to(dev)[:, 1]  # strided rows
+                order = torch.from_numpy(np.argsort(inv, kind="stable")).to(dev)
+                seg = torch.from_numpy(np.concatenate(
+                    [[0], np.cumsum(np.bincount(inv))]).astype(np.int64)).to(dev)
+                want = E.segment_sum_torch(rows, order, seg)
+                got = E.segment_sum_cuda(rows, order, seg)
+                torch.cuda.synchronize()
+                worst["segment_sum"] = max(worst["segment_sum"],
+                                           max_abs_err(got, want))
+                if not same_bits(got, want) or got.shape[0] != uniq.size:
+                    raise AssertionError(
+                        f"segment_sum differs from its plain version: n={n} "
+                        f"{pattern} D={d}, max |err| {worst['segment_sum']}")
+                seg_cases += 1
+    log(f"kernel sweep: embedding_bag == embedding_bag_torch bitwise in "
+        f"{cases} cases (padding, all-padding bags, NaN and inf rows, int32 "
+        f"and int64 indices); segment_sum == segment_sum_torch bitwise in "
+        f"{seg_cases} cases (duplicates, strided, -0, NaN and inf rows)")
+    return worst
+
+
 # -- phases 4 and 5 ----------------------------------------------------------
 class LaunchTimer:
     """CUDA events around every call of a kernel wrapper on the main path
@@ -325,11 +478,13 @@ class LaunchTimer:
 
     def __init__(self, module, attr: str):
         self.module, self.attr = module, attr
-        self.launch = getattr(module, attr)
         self.events: list = []
 
     def __enter__(self):
         import torch
+
+        # wrap what is there now, so wrappers of one attribute nest
+        self.launch = getattr(self.module, self.attr)
 
         def timed(*args, **kwargs):
             start = torch.cuda.Event(enable_timing=True)
@@ -360,12 +515,13 @@ class CaptureCall:
     def __init__(self, module, attr: str, index: int, memory):
         self.module, self.attr, self.index = module, attr, index
         self.memory = memory
-        self.launch = getattr(module, attr)
         self.calls = 0
         self.args = self.out = None
 
     def __enter__(self):
         import torch
+
+        self.launch = getattr(self.module, self.attr)
 
         def capture(*args, **kwargs):
             out = self.launch(*args, **kwargs)
@@ -514,9 +670,7 @@ def main_path(dev, codec: str) -> dict:
         with timer, contextlib.ExitStack() as stack:
             for call in codec_calls:
                 stack.enter_context(call)
-            # every count of the port's kernels to 0 just before the path
-            K.launches = Q.quantize_launches = Q.dequantize_launches = 0
-            W.launches = 0
+            _zero_counts()  # every count of the port's kernels to 0 just before
             for r in range(1, ROUNDS + 1):
                 if r == ROUNDS:
                     prof.start()
@@ -527,11 +681,7 @@ def main_path(dev, codec: str) -> dict:
                 round_ms.append((time.perf_counter() - t0) * 1e3)
                 mem.append((f"round {r} done", *memory.now()))
             prof.stop()
-            # ...and read just after
-            launches = {"fused_agg_opt": K.launches,
-                        "quantize_chunks": Q.quantize_launches,
-                        "dequantize_chunks": Q.dequantize_launches,
-                        "wire_fused": W.launches}
+            launches = _counts()  # ...and read just after
     finally:
         del fab.pull, fab.push
         delattr(shard0, apply_name)
@@ -566,6 +716,7 @@ def main_path(dev, codec: str) -> dict:
              "wire_fused": SHARDS * ROUNDS} if codec == "int8" else
             {"fused_agg_opt": SHARDS * ROUNDS, "quantize_chunks": 0,
              "dequantize_chunks": 0, "wire_fused": 0})
+    want |= {"embedding_bag": 0, "segment_sum": 0}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     if fab.stats.fused_wire_rounds != (ROUNDS if codec != "none" else 0):
@@ -709,22 +860,318 @@ def replay_codec(run: dict) -> dict:
     return worst
 
 
+# -- phases 6 and 7: the DLRM sparse path ------------------------------------
+def dlrm_capped_config():
+    """dlrm-mlperf at its published widths with every table capped at
+    DLRM_ROW_CAP rows (the only cut: 163,079,093 rows at the 40M cap need
+    77.8 GiB in f32, twice that with the tier's dense view)."""
+    from repro_torch.configs.registry import get_arch
+
+    cfg = get_arch("dlrm-mlperf").config
+    return dataclasses.replace(cfg, vocabs=tuple(
+        min(v, DLRM_ROW_CAP) for v in cfg.vocabs))
+
+
+def dlrm_setup(cfg, dev, num_shards: int, codec: str = "none"):
+    """The dense MLPs in a ``num_shards`` fabric and the tables in a
+    fabric-attached SparseTier, built one table at a time from seeded
+    generators (tables, bottom MLP, top MLP: seeds 0, 1, 2, in
+    ``dlrm_init``'s order); each initial table is dropped once the tier
+    holds its slabs.  Each table is padded to a multiple of the shard
+    count (``padded_vocab``, the JAX package's ``init_tables(tp)``
+    convention): a row placement needs a row for every shard, and
+    Criteo's 3-row table has fewer than 4.  Ids never reach the pad rows."""
+    import torch
+
+    from repro_torch.core.chunking import ParamSpace
+    from repro_torch.core.config import FabricConfig
+    from repro_torch.core.fabric import PBoxFabric
+    from repro_torch.core.sparse import SparseTier
+    from repro_torch.models.common import embed_init
+    from repro_torch.models.recsys.embedding import init_mlp, padded_vocab
+    from repro_torch.optim.optimizers import sgd
+
+    g_tables, g_bot, g_top = (torch.Generator(device=dev).manual_seed(s)
+                              for s in range(3))
+    dense = {"bot": init_mlp(g_bot, (cfg.n_dense,) + cfg.bot_mlp, cfg.dtype),
+             "top": init_mlp(g_top, (cfg.top_in,) + cfg.top_mlp, cfg.dtype)}
+    space = ParamSpace.build(dense)
+    fab = PBoxFabric(space, sgd(DLRM_LR), space.flatten(dense), device=dev,
+                     config=FabricConfig(num_shards=num_shards,
+                                         num_workers=WORKERS))
+    tier = SparseTier(fabric=fab, lr=DLRM_LR, codec=codec, placement="hash")
+    for i, v in enumerate(cfg.vocabs):
+        init = embed_init(g_tables, (padded_vocab(v, num_shards), cfg.embed_dim),
+                          cfg.dtype, std=0.01)
+        tier.add_table(f"t{i}", init)
+        del init
+    return space, fab, tier
+
+
+def dlrm_round(space, fab, tier, cfg, streams, dev, losses: list) -> None:
+    """One synchronous round, every worker in turn: pull the dense params,
+    one SparseTier.lookup per table (one-hot bags), autograd of
+    dlrm_loss_from_emb with respect to the dense params and a leaf ``e``,
+    the dense gradient pushed into the fabric and (ids, cot_e) into the
+    tier.  Each phase is a profiler range."""
+    import numpy as np
+    import torch
+    from torch.profiler import record_function
+
+    from repro_torch.models.recsys.models import dlrm_loss_from_emb
+
+    for w in range(WORKERS):
+        b = next(streams[w])
+        bags = np.arange(b["sparse"].shape[0] + 1)
+        with record_function("fabric.pull"):
+            p = space.unflatten(fab.pull(w))
+        p = {g: {k: v.detach().requires_grad_() for k, v in p[g].items()}
+             for g in p}
+        with record_function("lookup"):
+            e = torch.stack([tier.lookup(w, f"t{i}", b["sparse"][:, i], bags)
+                             for i in range(cfg.n_sparse)], dim=1)
+        e.requires_grad_()
+        with record_function("fwd_bwd"):
+            batch = {"dense": torch.from_numpy(b["dense"]).to(dev),
+                     "labels": torch.from_numpy(b["labels"]).to(dev)}
+            loss, _ = dlrm_loss_from_emb(p, e, batch, cfg)
+            leaves = [p[g][k] for g in sorted(p) for k in sorted(p[g])]
+            *g_dense, cot_e = torch.autograd.grad(loss, leaves + [e])
+        it = iter(g_dense)
+        grads = {g: {k: next(it) for k in sorted(p[g])} for g in sorted(p)}
+        with record_function("fabric.push"):
+            fab.push(w, space.flatten(grads))
+        with record_function("sparse.push"):
+            tier.push(w, {f"t{i}": (b["sparse"][:, i], cot_e[:, i])
+                          for i in range(cfg.n_sparse)})
+        losses.append(loss.detach())
+
+
+def _counts() -> dict:
+    from repro_torch.kernels.embedding_bag import kernel as E
+    from repro_torch.kernels.fused_agg_opt import kernel as K
+    from repro_torch.kernels.quant import kernel as Q
+    from repro_torch.kernels.wire_path import kernel as W
+
+    return {"embedding_bag": E.launches, "segment_sum": E.segment_launches,
+            "fused_agg_opt": K.launches, "quantize_chunks": Q.quantize_launches,
+            "dequantize_chunks": Q.dequantize_launches, "wire_fused": W.launches}
+
+
+def _zero_counts() -> None:
+    from repro_torch.kernels.embedding_bag import kernel as E
+    from repro_torch.kernels.fused_agg_opt import kernel as K
+    from repro_torch.kernels.quant import kernel as Q
+    from repro_torch.kernels.wire_path import kernel as W
+
+    E.launches = E.segment_launches = K.launches = 0
+    Q.quantize_launches = Q.dequantize_launches = W.launches = 0
+
+
+def dlrm_path(dev) -> dict:
+    """Train dlrm-mlperf (tables capped at DLRM_ROW_CAP rows) at full width
+    for ROUNDS rounds: 2 workers x DLRM_BATCH samples, 4 shards.  Returns
+    the launch counts, timings, stats and the captured kernel calls."""
+    import contextlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.synthetic import recsys_batches
+    from repro_torch.kernels.embedding_bag import kernel as E
+
+    cfg = dlrm_capped_config()
+    memory = PathMemory(dev)
+    t0 = time.perf_counter()
+    space, fab, tier = dlrm_setup(cfg, dev, SHARDS)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    mem = [("tier built", *memory.now())]
+    rows = sum(t.num_rows for t in tier.tables.values())
+    log(f"dlrm path: {cfg.name}, {cfg.n_sparse} tables capped at "
+        f"{DLRM_ROW_CAP} rows ({sum(cfg.vocabs)} rows; {rows} padded to a "
+        f"multiple of {SHARDS}) x {cfg.embed_dim} f32 "
+        f"({rows * cfg.embed_dim * 4 / 2**30:.2f} GiB), bot {cfg.bot_mlp}, "
+        f"top {cfg.top_mlp}; dense params {space.payload_elems}; built in "
+        f"{setup_s:.1f} s")
+    streams = [recsys_batches("dlrm-mlperf", cfg, DLRM_BATCH, seed=w)
+               for w in range(WORKERS)]
+    losses: list = []
+    round_ms = []
+    n = cfg.n_sparse
+    # worker 0's round-2 lookup of t0 and its round-2 coalescing of t0 and
+    # t5 (3 rows: every id a duplicate), replayed through the plain versions
+    captures = [CaptureCall(E, "embedding_bag_cuda", WORKERS * n, memory),
+                CaptureCall(E, "segment_sum_cuda", WORKERS * n, memory),
+                CaptureCall(E, "segment_sum_cuda", WORKERS * n + 5, memory)]
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with contextlib.ExitStack() as stack:
+        for call in captures:
+            stack.enter_context(call)
+        _zero_counts()  # every count to 0 just before the path...
+        for r in range(1, ROUNDS + 1):
+            if r == ROUNDS:
+                prof.start()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dlrm_round(space, fab, tier, cfg, streams, dev, losses)
+            torch.cuda.synchronize()
+            round_ms.append((time.perf_counter() - t0) * 1e3)
+            mem.append((f"round {r} done", *memory.now()))
+        prof.stop()
+        launches = _counts()  # ...and read just after
+    peak = memory.now()[1]
+    loss_vals = [x.item() for x in losses]
+    st = tier.stats
+    log(tier.describe())
+    log(f"  losses {loss_vals}")
+    log(f"  round wall ms {[round(x, 1) for x in round_ms]} (round 1 "
+        f"includes cuBLAS warm-up)")
+    log(f"  launches {launches}")
+    log(f"  SparseStats: rows pushed {st.rows_pushed}, coalesced "
+        f"{st.rows_coalesced}, pulled {st.rows_pulled}; bytes pushed "
+        f"{st.bytes_pushed}, pulled {st.bytes_pulled}; rounds {st.rounds}, "
+        f"lookups {st.lookups}, pushes {st.pushes}")
+    log(f"  fabric: bytes pushed {fab.stats.bytes_pushed}, pulled "
+        f"{fab.stats.bytes_pulled}, steps {fab.stats.steps}")
+    log(f"  peak device memory {peak} bytes ({peak / 2**30:.2f} GiB)"
+        + (f", not counting the {memory.held} bytes of device copies the "
+           f"replay check holds" if memory.held else ""))
+    log("  device memory GiB (allocated, peak so far): " + "; ".join(
+        f"{name} {a / 2**30:.2f}/{m / 2**30:.2f}" for name, a, m in mem))
+    breakdown = profile_summary(prof, round_ms[-2], None, "embedding_bag",
+                                "bag_kernel")
+    in_path = {}
+    for name, key in (("embedding_bag", "bag_kernel"),
+                      ("segment_sum", "segment_kernel"),
+                      ("fused_agg_opt", "fused_agg_opt_kernel"),
+                      ("dense view rebuild (index_copy_)", "index_copy_kernel")):
+        total, count = kernel_device_ms(prof, key)
+        in_path[name] = total / count if count else None
+        log(f"  profiled round, device: {name} {total:.4f} ms in {count} "
+            f"launches" + (f" ({total / count:.4f} ms each)" if count else ""))
+    want = {"embedding_bag": n * WORKERS * ROUNDS,
+            "segment_sum": n * WORKERS * ROUNDS,
+            "fused_agg_opt": SHARDS * ROUNDS, "quantize_chunks": 0,
+            "dequantize_chunks": 0, "wire_fused": 0}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches}, expected {want}")
+    if not all(math.isfinite(x) for x in loss_vals):
+        raise AssertionError(f"non-finite loss: {loss_vals}")
+    if (fab.stats.steps, tier.round) != (ROUNDS, ROUNDS):
+        raise AssertionError(f"fabric ran {fab.stats.steps} rounds and the "
+                             f"tier {tier.round}, not {ROUNDS}")
+    pushed = WORKERS * ROUNDS * n * DLRM_BATCH
+    if (st.rows_pushed + st.rows_coalesced != pushed
+            or st.lookups != WORKERS * ROUNDS * n
+            or st.bytes_pushed != st.rows_pushed * (4 * cfg.embed_dim + 4)):
+        raise AssertionError(f"SparseStats do not add up: {st}")
+    for name, table in tier.tables.items():
+        if not all(torch.isfinite(slab).all() for slab in table.slabs):
+            raise AssertionError(f"table {name} holds non-finite values")
+    if not torch.isfinite(fab.params).all():
+        raise AssertionError("dense params are not finite")
+    largest = max(range(n), key=lambda i: cfg.vocabs[i])
+    u_largest = int(torch.unique(torch.from_numpy(
+        next(recsys_batches("dlrm-mlperf", cfg, DLRM_BATCH, seed=0))["sparse"][:, largest])).numel())
+    captured = {"lookup": (captures[0].args, captures[0].out),
+                "coalesce_t0": (captures[1].args, captures[1].out),
+                "coalesce_t5": (captures[2].args, captures[2].out)}
+    del fab, tier, space, losses
+    torch.cuda.empty_cache()
+    return {"launches": launches, "kernel": "embedding_bag",
+            "main_path_ms": in_path["embedding_bag"],
+            "segment_main_path_ms": in_path["segment_sum"], "peak_bytes": peak,
+            "round_ms": round_ms, "losses": loss_vals, "setup_s": setup_s,
+            "stats": dataclasses.asdict(st), "captured": captured,
+            "u_largest": u_largest, "rows": rows, **breakdown}
+
+
+def replay_dlrm(run: dict) -> dict:
+    """The captured lookup and coalescing calls through the plain versions
+    on the card, bitwise."""
+    from repro_torch.kernels.embedding_bag import kernel as E
+
+    (table, idx, w, mode), (got,) = run["captured"]["lookup"]
+    want = E.embedding_bag_torch(table, idx, w, mode)
+    worst = {"embedding_bag": max_abs_err(got, want), "segment_sum": 0.0}
+    if not same_bits(got, want):
+        raise AssertionError(f"main-path embedding_bag differs from its plain "
+                             f"version, max |err| {worst['embedding_bag']}")
+    log(f"  worker 0 round 2 lookup of t0 (U={table.shape[0]}, B={idx.shape[0]}, "
+        f"L={idx.shape[1]}): embedding_bag == plain version bitwise")
+    for key in ("coalesce_t0", "coalesce_t5"):
+        (rows, order, seg), (got,) = run["captured"][key]
+        want = E.segment_sum_torch(rows, order, seg)
+        worst["segment_sum"] = max(worst["segment_sum"], max_abs_err(got, want))
+        if not same_bits(got, want):
+            raise AssertionError(f"main-path segment_sum ({key}) differs from "
+                                 f"its plain version, max |err| "
+                                 f"{worst['segment_sum']}")
+        log(f"  worker 0 round 2 {key.replace('_', ' of ')} (n={rows.shape[0]}, "
+            f"U={seg.numel() - 1}): segment_sum == plain version bitwise")
+    return worst
+
+
+def dlrm_sharding_check(dev) -> None:
+    """The DLRM SMOKE loop on the card with heavily repeated ids (every id
+    taken modulo 17), 1 shard against 4, codecs none and int8 with error
+    feedback: tables, row versions and dense params bitwise equal.  An
+    atomic in the coalescing or the round's fold would break it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.synthetic import recsys_batches
+
+    cfg = get_arch("dlrm-mlperf").smoke_config
+
+    def repeated(seed):
+        for b in recsys_batches("dlrm-mlperf", cfg, 4096, seed=seed):
+            b["sparse"] = (b["sparse"] % 17).astype(np.int32)
+            yield b
+
+    for codec in ("none", "int8"):
+        runs = []
+        for shards in (1, 4):
+            space, fab, tier = dlrm_setup(cfg, dev, shards, codec)
+            streams = [repeated(w) for w in range(WORKERS)]
+            losses: list = []
+            for _ in range(ROUNDS):
+                dlrm_round(space, fab, tier, cfg, streams, dev, losses)
+            runs.append((fab, tier, [x.item() for x in losses]))
+        (fa, ta, la), (fb, tb, lb) = runs
+        same = la == lb and same_bits(fa.params, fb.params) and all(
+            same_bits(ta.table(k), tb.table(k))
+            and np.array_equal(ta.row_versions(k), tb.row_versions(k))
+            for k in ta.tables)
+        if not same:
+            raise AssertionError(f"DLRM SMOKE on the card: 1 and 4 shards "
+                                 f"differ with codec {codec}")
+        log(f"dlrm sharding check ({codec}, batch 4096, ids mod 17, "
+            f"coalesced {ta.stats.rows_coalesced} of "
+            f"{ta.stats.rows_coalesced + ta.stats.rows_pushed} rows): 1 shard "
+            f"== 4 shards bitwise (tables, versions, dense params)")
+        del runs, fa, fb, ta, tb
+    torch.cuda.empty_cache()
+
+
 def profile_summary(prof, steady_round_ms: float, last_launches,
-                    kernel_name: str) -> dict:
+                    kernel_name: str, kernel_key: str = "") -> dict:
     """Print where the profiled round's time went: host time per labelled
     phase, device busy time (the union of kernel, copy and fill intervals)
-    against the unprofiled round's wall time, and the top kernels."""
+    against the unprofiled round's wall time, and the top kernels.  The
+    named kernel's time is its CUDA events (``last_launches``), or, with
+    ``last_launches`` None, the profiler's records of kernels whose name
+    holds ``kernel_key``."""
     from torch.autograd import DeviceType
-
-    def on_device(e):
-        return e.device_type == DeviceType.CUDA and not e.is_user_annotation
 
     for e in prof.key_averages():
         if e.is_user_annotation and e.device_type == DeviceType.CPU:
             log(f"    host   {e.cpu_time_total / 1e3:9.2f} ms  x{e.count:<5d} "
                 f"{e.key} (wall time inside the range, profiler on)")
     spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if on_device(e))
+                   for e in prof.events() if _on_device(e))
     busy_us, reach = 0.0, float("-inf")
     for start, end in spans:
         busy_us += max(0.0, end - max(start, reach))
@@ -732,13 +1179,15 @@ def profile_summary(prof, steady_round_ms: float, last_launches,
     if busy_us <= 0:
         log("  profiler: no device time recorded (not measured)")
         return {"device_busy_ms": None}
-    kernel_us = sum(s.elapsed_time(e) for s, e in last_launches) * 1e3
+    kernel_us = (kernel_device_ms(prof, kernel_key)[0] * 1e3
+                 if last_launches is None else
+                 sum(s.elapsed_time(e) for s, e in last_launches) * 1e3)
     log(f"  profiled round: device busy {busy_us / 1e3:.1f} ms = "
         f"{busy_us / 1e3 / steady_round_ms:.1%} of the unprofiled round "
         f"({steady_round_ms:.1f} ms), idle "
         f"{1 - busy_us / 1e3 / steady_round_ms:.1%}; {kernel_name} "
         f"{kernel_us / 1e3:.1f} ms = {kernel_us / busy_us:.1%} of device time")
-    kernels = [e for e in prof.key_averages() if on_device(e)]
+    kernels = [e for e in prof.key_averages() if _on_device(e)]
     for e in sorted(kernels, key=lambda e: e.self_device_time_total,
                     reverse=True)[:20]:
         log(f"    device {e.self_device_time_total / 1e3:9.2f} ms  "
@@ -914,6 +1363,145 @@ def time_wire(dev, n: int, k: int, chunk: int) -> dict:
             "max_abs_err": err, "library_ms": None, **b}
 
 
+def _graph_or_events(calls: list, label: str) -> tuple:
+    """(ms, how): ``graph_ms`` of the calls, or, where a call cannot be
+    captured in a CUDA graph, the median of CUDA events around each."""
+    import torch
+
+    try:
+        return graph_ms(calls), "graph"
+    except RuntimeError as exc:
+        torch.cuda.synchronize()
+        log(f"  {label}: not capturable in a CUDA graph ({str(exc)[:120]}); "
+            f"timed with CUDA events around each call")
+        return cuda_ms(calls[0], reps=20), "events"
+
+
+def time_embedding_bag(dev, b: int, length: int, d: int, vocab: int,
+                       label: str, sets: int) -> dict:
+    """embedding_bag as the sparse tier calls it: ``b`` bags of ``length``
+    ids drawn from ``vocab`` rows, the (U, d) block of unique rows and the
+    block-local indices.  ``sets`` such inputs are cycled through, so the
+    calls' working set exceeds the 50 MB L2 as a cold lookup's would.
+    Beside its plain version and ``torch.nn.functional.embedding_bag`` with
+    per-sample weights (sum), which the port never calls."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_bag import kernel as E
+
+    inputs = []
+    for i in range(sets):
+        rng = np.random.default_rng(50 + i)
+        uniq, inv = np.unique(rng.integers(0, vocab, b * length),
+                              return_inverse=True)
+        gen = torch.Generator(device=dev).manual_seed(50 + i)
+        block = torch.randn((uniq.size, d), generator=gen, device=dev) * 0.01
+        idx = torch.from_numpy(inv.reshape(b, length).astype(np.int32)).to(dev)
+        w = (torch.ones((b, length), device=dev) if length == 1 else
+             torch.rand((b, length), generator=gen, device=dev))
+        inputs.append((block, idx, w, idx.long()))
+    block, idx, w, idx64 = inputs[0]
+    u = block.shape[0]
+    got = E.embedding_bag_cuda(block, idx, w)
+    want = E.embedding_bag_torch(block, idx, w)
+    lib = F.embedding_bag(idx64, block, per_sample_weights=w, mode="sum")
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if not same_bits(got, want):
+        raise AssertionError(f"embedding_bag differs at the {label} shape, "
+                             f"max |err| {err}")
+    lib_same, lib_err = same_bits(lib, want), max_abs_err(lib, want)
+    del got, want, lib
+    reps = max(1, 20 // sets)
+    kernel_ms, _ = _graph_or_events(
+        [lambda x=x: E.embedding_bag_cuda(x[0], x[1], x[2])
+         for x in inputs] * reps, "embedding_bag")
+    lib_ms, lib_how = _graph_or_events(
+        [lambda x=x: F.embedding_bag(x[3], x[0], per_sample_weights=x[2],
+                                     mode="sum") for x in inputs] * reps,
+        "F.embedding_bag")
+    events_ms = cuda_ms(lambda: E.embedding_bag_cuda(block, idx, w), reps=20)
+    plain_ms = cuda_ms(lambda: E.embedding_bag_torch(block, idx, w), reps=5)
+    # each touched row read once, the (B, L) int32 ids and f32 weights, the
+    # (B, D) output written once; an FMA (2 ops) an element a slot
+    bnd = bound(torch.cuda.get_device_name(dev), u * d * 4 + b * length * 8
+                + b * d * 4, 2 * b * length * d)
+    log(f"timing embedding_bag ({label}: B={b}, L={length}, D={d}, U={u} "
+        f"unique rows of {vocab}; {sets} input sets cycled): kernel "
+        f"{kernel_ms:.4f} ms a call (CUDA graph of {sets * reps} calls, "
+        f"median of 5 replays; CUDA events around one call, host launch "
+        f"included: {events_ms:.4f}), plain version {plain_ms:.4f} ms "
+        f"(events, median of 5); bound {bnd['bound_ms']:.4f} ms = "
+        f"{bnd['bytes']} bytes; kernel reaches "
+        f"{bnd['bound_ms'] / kernel_ms:.1%} of the bound; "
+        f"F.embedding_bag(per_sample_weights, sum) {lib_ms:.4f} ms "
+        f"({lib_how}), same bits: {lib_same} (max |err| {lib_err})")
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "max_abs_err": err,
+            "library_ms": lib_ms, "library_same_bits": lib_same, "u": u,
+            "ms_events": events_ms,
+            "shape": {"b": b, "l": length, "d": d, "u": u, "vocab": vocab},
+            **bnd}
+
+
+def time_segment_sum(dev, n: int, d: int, vocab: int) -> dict:
+    """segment_sum as a push coalesces the largest table: ``n`` ids drawn
+    from ``vocab`` rows, the (n, d) rows a strided column of the (n, 26, d)
+    cotangent; four columns are cycled through (past the 50 MB L2).
+    Beside its plain version and ``index_add_`` into zeros, which the port
+    never calls (its atomics fold duplicates in no fixed order)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.embedding_bag import kernel as E
+
+    rng = np.random.default_rng(6)
+    uniq, inv = np.unique(rng.integers(0, vocab, n), return_inverse=True)
+    u = uniq.size
+    gen = torch.Generator(device=dev).manual_seed(6)
+    cot = torch.randn((n, 26, d), generator=gen, device=dev)
+    cols = [cot[:, i] for i in range(4)]
+    order = torch.from_numpy(np.argsort(inv, kind="stable")).to(dev)
+    seg = torch.from_numpy(np.concatenate(
+        [[0], np.cumsum(np.bincount(inv))]).astype(np.int64)).to(dev)
+    inv_t = torch.from_numpy(inv.astype(np.int64)).to(dev)
+    rows = cols[0]
+    got = E.segment_sum_cuda(rows, order, seg)
+    want = E.segment_sum_torch(rows, order, seg)
+    lib = torch.zeros((u, d), device=dev).index_add_(0, inv_t, rows)
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want)
+    if not same_bits(got, want):
+        raise AssertionError(f"segment_sum differs at the main shape, max |err| {err}")
+    lib_same = same_bits(lib, want)
+    del got, want, lib
+    kernel_ms, _ = _graph_or_events(
+        [lambda r=r: E.segment_sum_cuda(r, order, seg) for r in cols] * 5,
+        "segment_sum")
+    lib_ms, lib_how = _graph_or_events(
+        [lambda r=r: torch.zeros((u, d), device=dev).index_add_(0, inv_t, r)
+         for r in cols] * 5, "index_add_")
+    events_ms = cuda_ms(lambda: E.segment_sum_cuda(rows, order, seg), reps=20)
+    plain_ms = cuda_ms(lambda: E.segment_sum_torch(rows, order, seg), reps=5)
+    # rows read once, order and offsets, the (U, D) sums written once
+    bnd = bound(torch.cuda.get_device_name(dev),
+                n * d * 4 + n * 8 + (u + 1) * 8 + u * d * 4, n * d)
+    log(f"timing segment_sum (n={n}, D={d}, U={u} of {vocab}, strided rows, "
+        f"4 columns cycled): kernel {kernel_ms:.4f} ms a call (CUDA graph of "
+        f"20 calls, median of 5 replays; CUDA events around one call: "
+        f"{events_ms:.4f}), plain version {plain_ms:.4f} ms (events, median "
+        f"of 5); bound {bnd['bound_ms']:.4f} ms = {bnd['bytes']} bytes; "
+        f"kernel reaches {bnd['bound_ms'] / kernel_ms:.1%} of the bound; "
+        f"zeros + index_add_ {lib_ms:.4f} ms ({lib_how}), same bits: "
+        f"{lib_same}")
+    del cot, cols
+    return {"ms": kernel_ms, "plain_ms": plain_ms, "max_abs_err": err,
+            "library_ms": lib_ms, "library_same_bits": lib_same,
+            "ms_events": events_ms,
+            "shape": {"n": n, "d": d, "u": u, "vocab": vocab}, **bnd}
+
+
 def main() -> int:
     import torch
 
@@ -940,7 +1528,7 @@ def main() -> int:
                 log(f"  ptxas {src}: {line.strip()}")
 
     sweep = {"fused_agg_opt": kernel_sweep(dev), **quant_sweep(dev),
-             "wire_fused": wire_sweep(dev)}
+             "wire_fused": wire_sweep(dev), **bag_sweep(dev)}
     f32 = main_path(dev, "none")
     f32_err = replay_f32(dev, f32)
     f32.pop("captured")
@@ -948,10 +1536,21 @@ def main() -> int:
     int8_err = replay_wire(dev, int8)
     codec_err = replay_codec(int8)
     int8.pop("captured")
+    dlrm = dlrm_path(dev)
+    dlrm_err = replay_dlrm(dlrm)
+    dlrm.pop("captured")
+    dlrm_sharding_check(dev)
+    d = dlrm_capped_config().embed_dim
     timing = {"fused_agg_opt": time_fused_agg_opt(dev, f32["n"], WORKERS),
               **time_quant(dev, int8["flat"], int8["chunk"]),
-              "wire_fused": time_wire(dev, int8["n"], WORKERS, int8["chunk"])}
-    replayed = {"fused_agg_opt": f32_err, "wire_fused": int8_err, **codec_err}
+              "wire_fused": time_wire(dev, int8["n"], WORKERS, int8["chunk"]),
+              "embedding_bag": time_embedding_bag(
+                  dev, DLRM_BATCH, 1, d, DLRM_ROW_CAP, "one-hot main path", 4),
+              "segment_sum": time_segment_sum(dev, DLRM_BATCH, d, DLRM_ROW_CAP)}
+    multi_hot = time_embedding_bag(dev, DLRM_BATCH, 20, d, DLRM_ROW_CAP,
+                                   "multi-hot", 2)
+    replayed = {"fused_agg_opt": f32_err, "wire_fused": int8_err, **codec_err,
+                **dlrm_err}
     rows = [
         ("fused_agg_opt", "fused_agg_opt.cu", "fused_agg_opt/kernel.py:162",
          f32, {"k": WORKERS, "n": f32["n"], "optimizer": "adamw",
@@ -963,6 +1562,13 @@ def main() -> int:
         ("wire_fused", "wire_path.cu", "wire_path/kernel.py:149", int8,
          {"k": WORKERS, "n": int8["n"], "chunk": int8["chunk"],
           "optimizer": "adamw", "dtype": "int8"}),
+        ("embedding_bag", "embedding_bag.cu", "embedding_bag/kernel.py:32",
+         dlrm, {**timing["embedding_bag"]["shape"], "dtype": "f32",
+                "multi_hot_l20": {k: multi_hot[k] for k in (
+                    "ms", "plain_ms", "bound_ms", "library_ms", "u")}}),
+        ("segment_sum", "embedding_bag.cu",
+         "src/repro/runtime/sparse_push.py:59", dlrm, {**timing["segment_sum"]["shape"],
+                              "dtype": "f32"}),
     ]
     kernels = []
     for kname, src, tpu, run, shape in rows:
@@ -971,16 +1577,23 @@ def main() -> int:
             "name": kname,
             "route": "cuda",
             "source": f"src/repro_torch/csrc/{src}",
-            "replaces": f"src/repro/kernels/{tpu}",
+            # segment_sum replaces jax.ops.segment_sum, an XLA op (no TPU
+            # kernel): the sparse push's in-order duplicate fold
+            "replaces": tpu if tpu.startswith("src/")
+                        else f"src/repro/kernels/{tpu}",
             "held_against": f"{kname}_torch" if kname != "wire_fused"
                             else "wire_fused_torch and dequantize+fused_agg_opt",
+            **({"library_same_bits": t["library_same_bits"]}
+               if "library_same_bits" in t else {}),
             "match": "bitwise",
             "launches": run["launches"][kname],
             "max_abs_err": max(sweep[kname], replayed.get(kname, 0.0),
                                t["max_abs_err"]),
             "ms": t["ms"],
             "main_path_ms": run["main_path_ms"] if run["kernel"] == kname
-                            else None,
+                            else run.get("segment_main_path_ms")
+                            if kname == "segment_sum" else None,
+            **({"ms_events": t["ms_events"]} if "ms_events" in t else {}),
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
@@ -988,7 +1601,8 @@ def main() -> int:
             "shape": shape,
         })
     log(f"main path peaks: f32 {f32['peak_bytes'] / 2**30:.2f} GiB, int8 "
-        f"{int8['peak_bytes'] / 2**30:.2f} GiB; whole run "
+        f"{int8['peak_bytes'] / 2**30:.2f} GiB, dlrm "
+        f"{dlrm['peak_bytes'] / 2**30:.2f} GiB; whole run "
         f"{time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """Architecture registry (torch counterpart of ``repro/configs/registry.py``).
 
 Each arch module exposes ``ARCH: ArchDef``.  The port registers the archs
-it can train so far: ``gemma3-1b``.
+it can train so far: ``gemma3-1b`` and ``dlrm-mlperf``.
 """
 from __future__ import annotations
 
@@ -35,9 +35,9 @@ class ArchDef:
 
 
 def _build() -> dict:
-    from repro_torch.configs import gemma3_1b
+    from repro_torch.configs import dlrm_mlperf, gemma3_1b
 
-    return {m.ARCH.arch_id: m.ARCH for m in (gemma3_1b,)}
+    return {m.ARCH.arch_id: m.ARCH for m in (gemma3_1b, dlrm_mlperf)}
 
 
 def get_arch(arch_id: str) -> ArchDef:

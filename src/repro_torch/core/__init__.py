@@ -1,5 +1,5 @@
 """The port's core: the PHub/PBox parameter exchange (torch counterpart of
-``repro.core``, synchronous slice)."""
+``repro.core``, synchronous slice) and the sparse embedding tier."""
 from repro_torch.core.chunking import DEFAULT_CHUNK_ELEMS, ParamSpace, TensorSlot
 from repro_torch.core.config import FabricConfig, FabricConfigError
 from repro_torch.core.fabric import (
@@ -11,6 +11,12 @@ from repro_torch.core.fabric import (
     WorkerHarness,
 )
 from repro_torch.core.server import PHubServer
+from repro_torch.core.sparse import (
+    RowPlacement,
+    ShardedEmbeddingTable,
+    SparseStats,
+    SparseTier,
+)
 
 __all__ = [
     "ParamSpace",
@@ -25,4 +31,8 @@ __all__ = [
     "ShardStats",
     "PHubServer",
     "WorkerHarness",
+    "RowPlacement",
+    "ShardedEmbeddingTable",
+    "SparseStats",
+    "SparseTier",
 ]

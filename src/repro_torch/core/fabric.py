@@ -37,7 +37,10 @@ JAX package's ``fused_wire_path`` switch between them has no counterpart.
 This slice covers synchronous mode with no topology, contiguous and
 round-robin placement, and no replication, faults, switch, tenancy,
 rebalancing or snapshots: ``FabricConfig.validate`` raises
-``NotImplementedError`` for those knobs.  ``WorkerHarness`` drives
+``NotImplementedError`` for those knobs.  A sparse tier
+(``core/sparse.SparseTier(fabric=...)``) attaches to the fabric: it
+inherits the shard and worker counts, link model, chunk size and device,
+and registers in ``sparse_tiers``.  ``WorkerHarness`` drives
 workers without the JAX harness's rack and telemetry views, which need
 the topology and tenancy tiers.
 """
@@ -311,6 +314,14 @@ class PBoxFabric:
             for w in range(self.num_workers)
         } if self.compression.codec != "none" else {}
         self.placement_policy = config.placement.policy
+        # what a fabric-attached sparse tier (core/sparse.py) reads, under
+        # the JAX fabric's names: this slice has no topology, replication,
+        # placement plan or worker faults
+        self.topology = None
+        self.replication = 1
+        self.plan = None
+        self.dead_workers: set[int] = set()
+        self.sparse_tiers: list = []  # weakrefs to attached SparseTiers
         self.step = 0
         self.worker_clock = np.zeros(self.num_workers, dtype=np.int64)
         self.stats = ServerStats()

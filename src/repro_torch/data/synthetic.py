@@ -1,6 +1,6 @@
-"""Synthetic data generators (deterministic, seeded): a copy of the LM
-stream of ``repro/data/synthetic.py``.  It is numpy, so both packages see
-the same batches for the same seed."""
+"""Synthetic data generators (deterministic, seeded): copies of the LM and
+recsys streams of ``repro/data/synthetic.py``.  They are numpy, so both
+packages see the same batches for the same seed."""
 from __future__ import annotations
 
 import numpy as np
@@ -26,3 +26,33 @@ def lm_batches(vocab: int, batch: int, seq: int, seed: int = 0):
             "labels": toks[:, 1:].astype(np.int32),
         }
         step += 1
+
+
+def recsys_batches(arch_id: str, cfg, batch: int, seed: int = 0):
+    """Criteo-like stream with a planted logistic structure (numpy arrays:
+    dense (B, n_dense) f32 for dlrm-mlperf, sparse (B, F) int32, labels
+    (B,) int32)."""
+    rng = np.random.default_rng(seed)
+    while True:
+        b: dict = {}
+        if arch_id == "dlrm-mlperf":
+            b["dense"] = rng.normal(size=(batch, cfg.n_dense)).astype(np.float32)
+        if arch_id == "dien":
+            b["hist_items"] = rng.integers(0, cfg.n_items, (batch, cfg.seq_len)).astype(np.int32)
+            b["hist_cats"] = rng.integers(0, cfg.n_cats, (batch, cfg.seq_len)).astype(np.int32)
+            sparse = np.stack(
+                [rng.integers(0, cfg.n_items, batch), rng.integers(0, cfg.n_cats, batch)],
+                axis=1,
+            )
+        else:
+            sparse = np.stack(
+                [rng.integers(0, v, batch) for v in cfg.vocabs], axis=1
+            )
+        b["sparse"] = sparse.astype(np.int32)
+        # planted signal: label depends on parity of a few fields
+        sig = (sparse[:, 0] % 2 + sparse[:, -1] % 3).astype(np.float32)
+        if "dense" in b:
+            sig = sig + b["dense"][:, 0]
+        p = 1.0 / (1.0 + np.exp(-(sig - sig.mean())))
+        b["labels"] = (rng.random(batch) < p).astype(np.int32)
+        yield b

@@ -4,6 +4,6 @@ wrapper beside its plain PyTorch version) / ``ops.py`` (validated public
 entry point) triple, as in ``repro.kernels``.  CUDA sources live in
 ``repro_torch/csrc`` and are built at first use by ``kernels/_build.py``.
 
-Ported so far: ``fused_agg_opt``, ``quant`` and ``wire_path``.  This
-namespace re-exports nothing.
+Ported: ``fused_agg_opt``, ``quant``, ``wire_path`` and
+``embedding_bag``.  This namespace re-exports nothing.
 """

@@ -1,1 +1,1 @@
-"""Models (torch counterpart of ``repro.models``): the dense transformer."""
+"""Models (torch counterpart of ``repro.models``): the dense transformer and DLRM."""

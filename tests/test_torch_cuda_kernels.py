@@ -21,7 +21,10 @@ from repro_torch.core.chunking import ParamSpace  # noqa: E402
 from repro_torch.core.compression import CompressionConfig  # noqa: E402
 from repro_torch.core.config import FabricConfig, WireConfig  # noqa: E402
 from repro_torch.core.fabric import PBoxFabric, WorkerHarness  # noqa: E402
+from repro_torch.core.sparse import SparseTier  # noqa: E402
 from repro_torch.data.synthetic import lm_batches  # noqa: E402
+from repro_torch.kernels.embedding_bag import kernel as ekernel  # noqa: E402
+from repro_torch.kernels.embedding_bag import ops as eops  # noqa: E402
 from repro_torch.kernels.fused_agg_opt import kernel as tkernel  # noqa: E402
 from repro_torch.kernels.fused_agg_opt import ops as tops  # noqa: E402
 from repro_torch.kernels.quant import kernel as qkernel  # noqa: E402
@@ -206,3 +209,55 @@ def test_fabric_on_card_leaves_init_flat_alone(cuda):
     torch.cuda.synchronize()
     assert torch.equal(init, before)
     assert not torch.equal(fab.params, before)
+
+
+@pytest.mark.gpu
+def test_embedding_bag_kernels_match_plain_versions_bitwise(cuda):
+    """chip_smoke.py's embedding-bag sweep: B in {1, 7, 4096} x L in {1, 3,
+    33} x D in {16, 128, 130} x {sum, mean} with padding, NaN/inf rows and
+    both index widths, and segment_sum with duplicate-heavy, strided and
+    special rows."""
+    worst = _chip_smoke().bag_sweep(cuda)
+    assert worst == {"embedding_bag": 0.0, "segment_sum": 0.0}
+
+
+@pytest.mark.gpu
+def test_embedding_bag_ops_launch_the_kernels_on_cuda_tensors(cuda, monkeypatch):
+    monkeypatch.setattr(ekernel, "launches", 0)
+    monkeypatch.setattr(ekernel, "segment_launches", 0)
+    table = torch.randn((50, 16), device=cuda)
+    out = eops.embedding_bag(table, torch.tensor([[1, 2], [3, 0]]),
+                             torch.tensor([[1.0, 0.5], [2.0, 0.0]]), "mean")
+    summed = eops.segment_sum(torch.randn((4, 16), device=cuda),
+                              np.array([1, 0, 1, 1]), 2)
+    assert out.is_cuda and summed.is_cuda
+    assert (ekernel.launches, ekernel.segment_launches) == (1, 1)
+    with pytest.raises(ValueError, match="out of range"):
+        eops.embedding_bag(table, torch.tensor([[50]]), torch.ones((1, 1)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("codec", ["none", "int8"])
+def test_sparse_tier_on_card_matches_cpu(cuda, codec):
+    """The same pushes and lookups through a 4-shard tier on the card and
+    on the CPU: the kernels equal their plain versions bitwise, so the
+    tables, the lookups and the stats agree exactly."""
+    init = np.random.default_rng(0).standard_normal((300, 16)).astype(np.float32)
+    runs = {}
+    for dev in ("cpu", cuda):
+        tier = SparseTier(num_shards=4, num_workers=2, codec=codec, device=dev)
+        tier.add_table("t0", init)
+        rng = np.random.default_rng(1)
+        outs = []
+        for _ in range(3):
+            for w in range(2):
+                ids = rng.integers(0, 40, 200)
+                outs.append(tier.lookup(w, "t0", ids, np.arange(201)).cpu())
+                g = torch.from_numpy(rng.standard_normal((200, 16)).astype(
+                    np.float32)).to(dev)
+                tier.push(w, {"t0": (ids, g)})
+        runs[str(dev)] = (tier, outs)
+    (ct, co), (gt, go) = runs["cpu"], runs[str(cuda)]
+    assert torch.equal(ct.table("t0"), gt.table("t0").cpu())
+    assert all(torch.equal(a, b) for a, b in zip(co, go))
+    assert ct.stats == gt.stats

@@ -33,6 +33,20 @@ def test_no_jax_or_repro_import(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
 
 
+SPARSE_SLICE = ("core/sparse.py", "core/replication.py",
+                "runtime/sparse_push.py", "models/recsys/embedding.py",
+                "models/recsys/models.py", "configs/dlrm_mlperf.py",
+                "configs/recsys_shapes.py", "kernels/embedding_bag/ops.py",
+                "kernels/embedding_bag/kernel.py",
+                "kernels/embedding_bag/ref.py")
+
+
+@pytest.mark.parametrize("module", SPARSE_SLICE)
+def test_sparse_slice_modules_are_checked(module):
+    """The sparse tier's modules are among the files checked above."""
+    assert ROOT / "src" / "repro_torch" / module in PORT_FILES
+
+
 def test_port_imports_with_jax_blocked():
     """Every module of the port imports in a process where ``import jax``
     and ``import repro`` fail."""
