@@ -11,13 +11,15 @@ raises on failure (the script then exits non-zero and prints no result):
    process per source, all at once) into ``build/torch_kernels``;
 3. kernels against their plain PyTorch versions on the card, bitwise:
    ``fused_agg_opt`` over five optimizers x K in {1, 2, 3, 8} x four
-   (grad, param) dtype pairs x N in {8192, 3*8192+77}, step 5, lr_scale
-   0.7; ``quantize_chunks``/``dequantize_chunks`` over N in {8192,
+   (grad, param) dtype pairs x N in {8192, 3*8192+77} x average on and off
+   (off: the async path), step 5, lr_scale 0.7;
+   ``quantize_chunks``/``dequantize_chunks`` over N in {8192,
    37*8192} x chunk in {128, 8192}, and N = 5*65536 at chunk 65536, with
    zero, NaN and inf chunks, each slab also one element off alignment;
    ``wire_fused`` over none/bf16/int8 x five optimizers x K in {1, 2, 3,
-   8}, against its plain version and against the unfused kernel pipeline
-   (dequantize, then ``fused_agg_opt``); ``embedding_bag`` over B in {1,
+   8} x average on and off, against its plain version and against the
+   unfused kernel pipeline (dequantize, then ``fused_agg_opt``);
+   ``embedding_bag`` over B in {1,
    7, 4096} x L in {1, 3, 33} x D in {16, 128, 130} x {sum, mean} with
    zero-weight padding, all-padding bags, NaN and inf rows, int32 and int64
    indices, and ``segment_sum`` with duplicate-heavy, strided and special
@@ -47,17 +49,45 @@ raises on failure (the script then exits non-zero and prints no result):
 7. sharding independence on the card: the DLRM SMOKE loop at batch 4,096
    with heavily repeated ids, codecs none and int8 (error feedback on), 1
    shard against 4: tables, row versions and dense params bitwise equal;
-8. every kernel and its plain version timed at its main path's shape with
+8. the backup quorum at full width (gemma3-1b, AdamW, 4 shards; phases
+   8-10 run with torch's deterministic algorithms, since they compare
+   recomputed gradients): 3 workers, ``min_push_fraction`` 0.5, 3 rounds
+   in which all pull, workers 0 and 1 push (K = 2) and worker 2's
+   superseded push is dropped.  Counts set to 0 just before and read just
+   after: 12 fused_agg_opt launches, 3 steps, 3 partial aggregations, 3
+   late pushes dropped; the params bitwise equal to a 2-worker sync
+   fabric fed workers 0 and 1's batches;
+9. async at full width on the int8 wire (error feedback, fused wire
+   path): 2 workers at speeds [1, 2], 9 pushes, each applied at once.
+   Counts: 9 quantize, 9 dequantize, 36 wire_fused (K = 1, no averaging),
+   no fused_agg_opt; shard 0's first apply_wire replayed through
+   ``wire_fused_torch`` and the unfused kernel pipeline, bitwise;
+10. snapshot, rebalance and restore at full width (f32 wire, 2 workers):
+   run A takes a mid-round snapshot in round 3 (15.6 GB to host), drains
+   shard 3 through a ShardRebalancer and trains to round 5; run B restores
+   the snapshot onto a fresh 2-shard fabric and replays rounds 3-5.  A
+   and B end bitwise equal, the snapshot is unchanged by A (SHA-1), and a
+   second restore gives its bits back;
+11. every mode (quorum, SSP with staleness 1, async) x codec (none, int8)
+   at the SMOKE config, the fabric on the card against the fabric on the
+   CPU, bitwise, each with a mid-round ``Checkpointer.save_fabric`` /
+   ``restore_fabric`` round trip;
+12. every kernel and its plain version timed at its main path's shape with
    CUDA events, beside its byte bound and, where one PyTorch call computes
    the same function, that call's time (embedding_bag also at one
-   multi-hot shape, B = 32,768 x L = 20).
+   multi-hot shape, B = 32,768 x L = 20; fused_agg_opt and wire_fused also
+   at K = 1 without averaging, as the async path runs them).
 
-The line before the last is the kernel table as JSON; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is the kernel table as JSON (each row with its
+launches on every path); the last line is ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import hashlib
+import itertools
 import json
 import math
 import statistics
@@ -221,30 +251,32 @@ def kernel_sweep(dev) -> float:
     dtypes = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
               (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)]
     worst, cases = 0.0, 0
-    for spec in _specs():
-        for k in (1, 2, 3, 8):
-            for gdt, pdt in dtypes:
-                for n in (8192, 3 * 8192 + 77):
-                    rng = np.random.default_rng(cases)
-                    g = torch.from_numpy(rng.standard_normal((k, n), np.float32))
-                    p = torch.from_numpy(rng.standard_normal(n, np.float32))
-                    st = _state(rng, spec, n, dev)
-                    g, p = g.to(dev, gdt), p.to(dev, pdt)
-                    packet = scalar_packet(spec, 5, 0.7, device=dev)
-                    want_p, want_s = K.fused_agg_opt_torch(g, p, st, packet, spec)
-                    got_p, got_s = K.fused_agg_opt_cuda(
-                        g, p.clone(), tuple(s.clone() for s in st), packet, spec)
-                    torch.cuda.synchronize()
-                    pairs = [(got_p, want_p), *zip(got_s, want_s)]
-                    worst = max([worst] + [max_abs_err(a, b) for a, b in pairs])
-                    if not all(torch.equal(a, b) for a, b in pairs):
-                        raise AssertionError(
-                            f"fused_agg_opt differs from its plain version: "
-                            f"{spec.name} nesterov={spec.nesterov} k={k} n={n} "
-                            f"{gdt}/{pdt}, max |err| {worst}")
-                    cases += 1
+    # average off: the async path's K = 1 pushes
+    for average, spec, k, (gdt, pdt), n in itertools.product(
+            (True, False), _specs(), (1, 2, 3, 8), dtypes,
+            (8192, 3 * 8192 + 77)):
+        rng = np.random.default_rng(cases)
+        g = torch.from_numpy(rng.standard_normal((k, n), np.float32))
+        p = torch.from_numpy(rng.standard_normal(n, np.float32))
+        st = _state(rng, spec, n, dev)
+        g, p = g.to(dev, gdt), p.to(dev, pdt)
+        packet = scalar_packet(spec, 5, 0.7, device=dev)
+        want_p, want_s = K.fused_agg_opt_torch(g, p, st, packet, spec,
+                                               average=average)
+        got_p, got_s = K.fused_agg_opt_cuda(
+            g, p.clone(), tuple(s.clone() for s in st), packet, spec,
+            average=average)
+        torch.cuda.synchronize()
+        pairs = [(got_p, want_p), *zip(got_s, want_s)]
+        worst = max([worst] + [max_abs_err(a, b) for a, b in pairs])
+        if not all(torch.equal(a, b) for a, b in pairs):
+            raise AssertionError(
+                f"fused_agg_opt differs from its plain version: {spec.name} "
+                f"nesterov={spec.nesterov} k={k} n={n} {gdt}/{pdt} "
+                f"average={average}, max |err| {worst}")
+        cases += 1
     log(f"kernel sweep: fused_agg_opt == fused_agg_opt_torch bitwise in "
-        f"{cases} cases")
+        f"{cases} cases (average on and off)")
     return worst
 
 
@@ -350,38 +382,38 @@ def wire_sweep(dev) -> float:
 
     chunk, n = 4096, 3 * 4096
     worst, cases = 0.0, 0
-    for codec in ("none", "bf16", "int8"):
-        for spec in _specs():
-            for k in (1, 2, 3, 8):
-                for offset in ((0, 1) if k == 2 else (0,)):
-                    rng = np.random.default_rng(2000 + cases)
-                    pay, sc = _wire_streams(rng, codec, k, n, chunk, dev)
-                    p = torch.from_numpy(rng.standard_normal(n, np.float32)).to(dev)
-                    st = _state(rng, spec, n, dev)
-                    packet = scalar_packet(spec, 4, 0.7, device=dev)
-                    want_p, want_s = W.wire_fused_torch(
-                        pay, sc, p, st, packet, spec, codec=codec,
-                        chunk_elems=chunk)
-                    got_p, got_s = W.wire_fused_cuda(
-                        pay, sc, _shifted(p, offset),
-                        tuple(_shifted(x, offset) for x in st), packet,
-                        spec, codec=codec, chunk_elems=chunk)
-                    un_p, un_s = unfused_wire_update(
-                        pay, sc, p.clone(), tuple(s.clone() for s in st), spec,
-                        4, 0.7, codec=codec, chunk_elems=chunk)
-                    torch.cuda.synchronize()
-                    pairs = [(got_p, want_p), *zip(got_s, want_s),
-                             (got_p, un_p), *zip(got_s, un_s)]
-                    worst = max([worst] + [max_abs_err(a, b) for a, b in pairs])
-                    if not all(torch.equal(a, b) for a, b in pairs):
-                        raise AssertionError(
-                            f"wire_fused differs from its plain version or the "
-                            f"unfused kernel pipeline: {codec} {spec.name} "
-                            f"nesterov={spec.nesterov} k={k} offset={offset}, "
-                            f"max |err| {worst}")
-                    cases += 1
+    # average off: the async path's K = 1 pushes
+    for average, codec, spec, k in itertools.product(
+            (True, False), ("none", "bf16", "int8"), _specs(), (1, 2, 3, 8)):
+        for offset in ((0, 1) if k == 2 else (0,)):
+            rng = np.random.default_rng(2000 + cases)
+            pay, sc = _wire_streams(rng, codec, k, n, chunk, dev)
+            p = torch.from_numpy(rng.standard_normal(n, np.float32)).to(dev)
+            st = _state(rng, spec, n, dev)
+            packet = scalar_packet(spec, 4, 0.7, device=dev)
+            want_p, want_s = W.wire_fused_torch(
+                pay, sc, p, st, packet, spec, codec=codec, chunk_elems=chunk,
+                average=average)
+            got_p, got_s = W.wire_fused_cuda(
+                pay, sc, _shifted(p, offset),
+                tuple(_shifted(x, offset) for x in st), packet, spec,
+                codec=codec, chunk_elems=chunk, average=average)
+            un_p, un_s = unfused_wire_update(
+                pay, sc, p.clone(), tuple(s.clone() for s in st), spec, 4, 0.7,
+                codec=codec, chunk_elems=chunk, average=average)
+            torch.cuda.synchronize()
+            pairs = [(got_p, want_p), *zip(got_s, want_s),
+                     (got_p, un_p), *zip(got_s, un_s)]
+            worst = max([worst] + [max_abs_err(a, b) for a, b in pairs])
+            if not all(torch.equal(a, b) for a, b in pairs):
+                raise AssertionError(
+                    f"wire_fused differs from its plain version or the "
+                    f"unfused kernel pipeline: {codec} {spec.name} "
+                    f"nesterov={spec.nesterov} k={k} offset={offset} "
+                    f"average={average}, max |err| {worst}")
+            cases += 1
     log(f"kernel sweep: wire_fused == wire_fused_torch == dequantize + "
-        f"fused_agg_opt kernels bitwise in {cases} cases")
+        f"fused_agg_opt kernels bitwise in {cases} cases (average on and off)")
     return worst
 
 
@@ -573,12 +605,36 @@ def _host(x):
     return x.to("cpu", copy=True)
 
 
+def capture_first_apply(shard, name: str, captured: dict) -> None:
+    """Wrap ``shard.<name>`` (``apply`` or ``apply_wire``) so that its
+    step-1 call's tensor arguments, ``average`` and the shard's params and
+    state before it (``captured["in"]``) and after it
+    (``captured["out"]``) land in host memory, for a replay through the
+    plain version.  ``delattr(shard, name)`` unwraps it."""
+    import torch
+
+    launch = getattr(shard, name)
+
+    def capture(*args, **kwargs):
+        first = args[-1] == 1  # the step
+        if first:
+            captured["in"] = (tuple(_host(a) if torch.is_tensor(a) else a
+                                    for a in args),
+                              _host(shard.params),
+                              tuple(map(_host, shard.state)))
+            captured["average"] = kwargs.get("average", True)
+        launch(*args, **kwargs)
+        if first:
+            captured["out"] = (_host(shard.params),
+                               tuple(map(_host, shard.state)))
+
+    setattr(shard, name, capture)
+
+
 def main_path(dev, codec: str) -> dict:
     """Train gemma3-1b at full width for ROUNDS rounds through the fabric
     with ``codec`` on the wire.  Returns the path's launch counts, timings
     and shard 0's captured first update."""
-    import contextlib
-
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -628,19 +684,6 @@ def main_path(dev, codec: str) -> dict:
     shard0 = fab.shards[0]
     fused = fab._fused_wire
     apply_name = "apply_wire" if fused else "apply"
-    apply0 = getattr(shard0, apply_name)
-
-    def capturing_apply(*args, **kwargs):
-        step = args[-1]
-        if step == 1:
-            captured["in"] = (tuple(_host(a) if torch.is_tensor(a) else a
-                                    for a in args),
-                              _host(shard0.params),
-                              tuple(map(_host, shard0.state)))
-        apply0(*args, **kwargs)
-        if step == 1:
-            captured["out"] = (_host(shard0.params),
-                               tuple(map(_host, shard0.state)))
 
     def labelled(name, fn):
         def call(*args, **kwargs):
@@ -650,7 +693,7 @@ def main_path(dev, codec: str) -> dict:
 
     fab.pull = labelled("fabric.pull", fab.pull)
     fab.push = labelled("fabric.push+aggregate", fab.push)
-    setattr(shard0, apply_name, capturing_apply)
+    capture_first_apply(shard0, apply_name, captured)
     kernel_name = "wire_fused" if fused else "fused_agg_opt"
     timer = LaunchTimer(W, "wire_fused_cuda") if fused else LaunchTimer(
         K, "fused_agg_opt_cuda")
@@ -753,12 +796,14 @@ def replay_f32(dev, run: dict) -> float:
     p, st = p.reshape(n0), tuple(s.reshape(n0) for s in st)
     got_p, got_s = got_p.reshape(n0), tuple(s.reshape(n0) for s in got_s)
     packet = scalar_packet(run["spec"], step, device=dev)
+    average = run["captured"]["average"]
     worst, piece = 0.0, 1 << 25
     for a in range(0, n0, piece):
         sl = slice(a, min(a + piece, n0))
         want_p, want_s = K.fused_agg_opt_torch(
             grads[:, sl].to(dev), p[sl].to(dev),
-            tuple(s[sl].to(dev) for s in st), packet, run["spec"])
+            tuple(s[sl].to(dev) for s in st), packet, run["spec"],
+            average=average)
         pairs = [(got_p[sl], want_p.cpu()),
                  *[(g[sl], w.cpu()) for g, w in zip(got_s, want_s)]]
         worst = max([worst] + [max_abs_err(x, y) for x, y in pairs])
@@ -782,6 +827,7 @@ def replay_wire(dev, run: dict) -> float:
 
     (pay, scales, codec, step), p, st = run["captured"]["in"]
     got_p, got_s = run["captured"]["out"]
+    average = run["captured"]["average"]
     n0, chunk, spec = run["n"], run["chunk"], run["spec"]
     k = pay.shape[0]
     pay, scales = pay.reshape(k, n0), scales.reshape(k, n0 // chunk)
@@ -795,7 +841,7 @@ def replay_wire(dev, run: dict) -> float:
         want_p, want_s = W.wire_fused_torch(
             pay[:, sl].to(dev), scales[:, csl].to(dev), p[sl].to(dev),
             tuple(s[sl].to(dev) for s in st), packet, spec, codec=codec,
-            chunk_elems=chunk)
+            chunk_elems=chunk, average=average)
         pairs = [(got_p[sl], want_p.cpu()),
                  *[(g[sl], w.cpu()) for g, w in zip(got_s, want_s)]]
         worst = max([worst] + [max_abs_err(x, y) for x, y in pairs])
@@ -805,7 +851,7 @@ def replay_wire(dev, run: dict) -> float:
                 f"|err| {worst}")
     un_p, un_s = unfused_wire_update(
         pay.to(dev), scales.to(dev), p.to(dev), tuple(s.to(dev) for s in st),
-        spec, step, codec=codec, chunk_elems=chunk)
+        spec, step, codec=codec, chunk_elems=chunk, average=average)
     torch.cuda.synchronize()
     pairs = [(got_p, un_p.cpu()), *zip(got_s, (s.cpu() for s in un_s))]
     worst = max([worst] + [max_abs_err(x, y) for x, y in pairs])
@@ -815,8 +861,9 @@ def replay_wire(dev, run: dict) -> float:
             f"max |err| {worst}")
     del un_p, un_s
     torch.cuda.empty_cache()
-    log(f"  shard 0 round 1 (K={k}, N={n0}, {codec}): wire_fused == "
-        f"wire_fused_torch == dequantize + fused_agg_opt kernels bitwise")
+    log(f"  shard 0 step 1 (K={k}, N={n0}, {codec}, average={average}): "
+        f"wire_fused == wire_fused_torch == dequantize + fused_agg_opt "
+        f"kernels bitwise")
     return worst
 
 
@@ -972,8 +1019,6 @@ def dlrm_path(dev) -> dict:
     """Train dlrm-mlperf (tables capped at DLRM_ROW_CAP rows) at full width
     for ROUNDS rounds: 2 workers x DLRM_BATCH samples, 4 shards.  Returns
     the launch counts, timings, stats and the captured kernel calls."""
-    import contextlib
-
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1156,6 +1201,488 @@ def dlrm_sharding_check(dev) -> None:
     torch.cuda.empty_cache()
 
 
+# -- phases 8 to 11: straggler modes, snapshots and rebalancing ---------------
+@contextlib.contextmanager
+def deterministic():
+    """torch's deterministic algorithms while the block runs.  The runs
+    these phases compare recompute the same gradients, and the model's
+    backward accumulates with atomics (``index_add_`` under the GQA head
+    gather, ``index_put_`` under the embedding gather) unless torch takes
+    its deterministic paths.  An op without one only warns; the bitwise
+    comparisons would then fail."""
+    import torch
+
+    prev = (torch.are_deterministic_algorithms_enabled(),
+            torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+
+
+def timed(fn) -> float:
+    """Host ms of ``fn()``, the work it queues on the card included."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _check_counts(label: str, got: dict, want: dict) -> None:
+    want = {k: 0 for k in got} | want
+    if got != want:
+        raise AssertionError(f"{label}: launch counts {got}, expected {want}")
+
+
+class GemmaWorkers:
+    """gemma3-1b at full width for phases 8-10: seeded weights (seed 0),
+    the flat space, fabrics built from them, and a worker gradient that is
+    a function of the pulled params and (worker, step) alone, so a
+    replayed step sees the same tokens."""
+
+    def __init__(self, dev):
+        import torch
+
+        from repro_torch.configs.registry import get_arch
+        from repro_torch.core.chunking import ParamSpace
+        from repro_torch.models.transformer import init_params
+
+        self.dev = dev
+        self.cfg = get_arch("gemma3-1b").config
+        params = init_params(self.cfg,
+                             torch.Generator(device=dev).manual_seed(0))
+        self.space = ParamSpace.build(params)
+        self.init = self.space.flatten(params)
+        del params
+        torch.cuda.empty_cache()
+        self.losses: list = []
+
+    def finite_losses(self) -> list:
+        """The losses since the last call, as floats; raises on a
+        non-finite one (read once a phase: ``item()`` waits for the
+        card)."""
+        vals = [x.item() for x in self.losses]
+        self.losses.clear()
+        if not all(math.isfinite(x) for x in vals):
+            raise AssertionError(f"non-finite loss: {vals}")
+        return vals
+
+    def grad_tree(self, params: dict, w: int, s: int) -> dict:
+        """Worker ``w``'s gradient tree at its step ``s``."""
+        import torch
+
+        from repro_torch.data.synthetic import lm_batches
+        from repro_torch.models.transformer import lm_loss_and_grad
+
+        b = next(lm_batches(self.cfg.vocab, 1, SEQ, seed=1000 * (w + 1) + s))
+        loss, g = lm_loss_and_grad(
+            params, torch.from_numpy(b["tokens"]).to(self.dev),
+            torch.from_numpy(b["labels"]).to(self.dev), self.cfg)
+        self.losses.append(loss)
+        return g
+
+    def grad(self, flat, w: int, s: int):
+        """The flat gradient against the pulled flat params."""
+        return self.space.flatten(
+            self.grad_tree(self.space.unflatten(flat), w, s))
+
+    def fabric(self, num_workers: int, num_shards: int = SHARDS,
+               codec: str = "none", **fields):
+        from repro_torch.core.compression import CompressionConfig
+        from repro_torch.core.config import FabricConfig, WireConfig
+        from repro_torch.core.fabric import PBoxFabric
+        from repro_torch.optim.optimizers import adamw
+
+        return PBoxFabric(
+            self.space, adamw(3e-3), self.init, device=self.dev,
+            config=FabricConfig(num_shards=num_shards,
+                                num_workers=num_workers,
+                                wire=WireConfig(compression=CompressionConfig(
+                                    codec=codec)), **fields))
+
+    def round(self, fab, s: int, workers=(0, 1)) -> None:
+        """Each worker in turn pulls, computes its step-``s`` gradient and
+        pushes."""
+        for w in workers:
+            fab.push(w, self.grad(fab.pull(w), w, s))
+
+
+def quorum_path(dev, gw: GemmaWorkers) -> dict:
+    """Backup quorum at full width: 3 workers, ``min_push_fraction`` 0.5,
+    so the quorum is ceil(1.5) = 2.  Each round all three pull, workers 0
+    and 1 push (the round fires with K = 2), and worker 2 pushes the
+    gradient it computed against the superseded params, which the fabric
+    drops.  The params must equal a 2-worker sync fabric fed workers 0 and
+    1's batches, bitwise."""
+    import torch
+
+    memory = PathMemory(dev)
+    fab = gw.fabric(3, min_push_fraction=0.5)
+    if fab.min_pushes != 2:
+        raise AssertionError(f"min_pushes {fab.min_pushes}, not 2")
+
+    def one_round(s):
+        flats = [fab.pull(w) for w in range(3)]
+        for w in (0, 1):
+            fab.push(w, gw.grad(flats[w], w, s))
+        late = gw.grad(flats[2], 2, s)  # against the superseded params
+        del flats
+        fab.push(2, late)
+
+    _zero_counts()  # the counts to 0 just before the path...
+    round_ms = [timed(lambda s=s: one_round(s)) for s in range(ROUNDS)]
+    launches = _counts()  # ...and read just after
+    peak = memory.now()[1]
+    st = fab.stats
+    log(f"quorum path: {gw.cfg.name}, 3 workers, min_push_fraction 0.5 "
+        f"(min_pushes {fab.min_pushes}), {SHARDS} shards, AdamW, {ROUNDS} "
+        f"rounds")
+    log(f"  losses {gw.finite_losses()}")
+    log(f"  launches {launches}; steps {st.steps}, partial aggregations "
+        f"{st.partial_aggregations}, late pushes dropped "
+        f"{st.late_pushes_dropped}")
+    log(f"  round wall ms {[round(x, 1) for x in round_ms]} (3 gradients a "
+        f"round, the third dropped); peak device memory {peak} bytes "
+        f"({peak / 2**30:.2f} GiB)")
+    _check_counts("quorum path", launches, {"fused_agg_opt": SHARDS * ROUNDS})
+    if (st.steps, st.partial_aggregations, st.late_pushes_dropped) != (
+            ROUNDS, ROUNDS, ROUNDS):
+        raise AssertionError(f"quorum stats {st}")
+    final = fab.params
+    del fab
+    ref = gw.fabric(2)
+    for s in range(ROUNDS):
+        gw.round(ref, s)
+    gw.finite_losses()
+    if not same_bits(final, ref.params):
+        raise AssertionError(
+            f"quorum fabric differs from the 2-worker sync fabric, max |err| "
+            f"{max_abs_err(final, ref.params)}")
+    log(f"  quorum (K = 2 of 3, the late push dropped) == 2-worker sync "
+        f"fabric, bitwise after {ROUNDS} rounds")
+    del ref, final
+    torch.cuda.empty_cache()
+    return {"launches": launches, "round_ms": round_ms, "peak_bytes": peak}
+
+
+def async_path(dev, gw: GemmaWorkers) -> dict:
+    """Async (Hogwild-PS) at full width on the int8 wire, error feedback
+    and the fused wire path on: ``WorkerHarness(speed=[1, 2]).run(3)``
+    makes 9 pushes, each applied at once with K = 1 and no averaging.
+    Shard 0's first apply_wire is captured for a replay."""
+    import torch
+
+    from repro_torch.core.fabric import WorkerHarness
+    from repro_torch.kernels.wire_path import kernel as W
+
+    memory = PathMemory(dev)
+    fab = gw.fabric(2, codec="int8", mode="async")
+    captured: dict = {}
+    shard0 = fab.shards[0]
+    capture_first_apply(shard0, "apply_wire", captured)
+    timer = LaunchTimer(W, "wire_fused_cuda")
+    h = WorkerHarness(fab, lambda p, ws: gw.grad_tree(p, *ws),
+                      lambda w, s: (w, s), speed=[1, 2])
+    marks = []  # the host clock as each push has been applied
+    push = fab.push
+
+    def marked_push(w, g):
+        push(w, g)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    fab.push = marked_push
+    try:
+        with timer:
+            _zero_counts()  # the counts to 0 just before the path...
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            h.run(ROUNDS)
+            launches = _counts()  # ...and read just after
+    finally:
+        delattr(shard0, "apply_wire")
+        del fab.push
+    push_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    ms = sum(push_ms)
+    peak = memory.now()[1]
+    st = fab.stats
+    pushes = 3 * ROUNDS
+    kernel_ms = timer.ms()
+    log(f"async path: {gw.cfg.name}, 2 workers at speeds [1, 2], int8 wire "
+        f"(error feedback, fused wire path), {SHARDS} shards, AdamW")
+    log(f"  losses {gw.finite_losses()}")
+    log(f"  launches {launches}; steps {st.steps}, fused wire rounds "
+        f"{st.fused_wire_rounds}, pushes {st.pushes}; wall ms {ms:.1f} for "
+        f"{pushes} pushes, each (pull, gradient, encode, 4 updates) "
+        f"{[round(x, 1) for x in push_ms]} (the first includes the shard-0 "
+        f"capture to host memory)")
+    log(f"  wire_fused (K=1, average=False) ms per launch (CUDA events, "
+        f"median of {len(kernel_ms)}) {statistics.median(kernel_ms):.4f}; "
+        f"peak device memory {peak} bytes ({peak / 2**30:.2f} GiB)")
+    _check_counts("async path", launches, {
+        "quantize_chunks": pushes, "dequantize_chunks": pushes,
+        "wire_fused": SHARDS * pushes})
+    if (st.steps, st.fused_wire_rounds, st.pushes) != (pushes,) * 3:
+        raise AssertionError(f"async stats {st}")
+    if captured["average"] or captured["in"][0][0].shape[0] != 1:
+        raise AssertionError("the async apply_wire was not K = 1 without "
+                             "averaging")
+    if not torch.isfinite(fab.params).all():
+        raise AssertionError("async params are not finite")
+    n0, spec = shard0.num_elems, fab.spec
+    del fab, h, shard0
+    torch.cuda.empty_cache()
+    return {"launches": launches, "push_ms": push_ms, "peak_bytes": peak,
+            "main_path_ms": statistics.median(kernel_ms), "n": n0,
+            "chunk": gw.space.chunk_elems, "spec": spec, "captured": captured}
+
+
+def host_available_bytes() -> int:
+    """MemAvailable of /proc/meminfo, in bytes."""
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def snapshot_digest(snap: dict) -> str:
+    """SHA-1 of a snapshot's arrays (pieces hashed on 8 threads; hashlib
+    releases the GIL), clocks and step."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    piece = 1 << 28
+    views = []
+    for a in (snap["params"], *snap["state"]):
+        b = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+        views += [b[i:i + piece] for i in range(0, b.size, piece)]
+    with ThreadPoolExecutor(8) as pool:
+        parts = list(pool.map(lambda v: hashlib.sha1(v).digest(), views))
+    h = hashlib.sha1(b"".join(parts))
+    h.update(np.asarray(snap["worker_clock"], np.int64).tobytes())
+    h.update(str(int(snap["step"])).encode())
+    return h.hexdigest()
+
+
+def snapshot_path(dev, gw: GemmaWorkers) -> dict:
+    """Snapshot, rebalance and restore at full width (f32 wire, 2 workers).
+
+    Run A: rounds 1-2; in round 3 worker 0 pushes, the snapshot is taken
+    (worker 0's clock rolls back in it), worker 1 pushes; a
+    ShardRebalancer fed latencies that flag shard 3 drains it; rounds 4-5.
+    Run B: a fresh 2-shard fabric restores the snapshot and replays round
+    3, then rounds 4-5.  A's and B's final params must be bitwise equal
+    (only A's are kept while B runs), the snapshot must be unchanged by
+    A's later rounds, and restoring it a second time must give its bits
+    back."""
+    import torch
+
+    from repro_torch.runtime.straggler import ShardRebalancer
+
+    free = host_available_bytes()
+    log(f"snapshot path: {gw.cfg.name}, 2 workers, f32 wire, AdamW; host "
+        f"memory available before it {free} bytes ({free / 2**30:.1f} GiB)")
+    memory = PathMemory(dev)
+    fab = gw.fabric(2)
+    _zero_counts()  # run A's counts to 0 just before it...
+    round_ms = [timed(lambda s=s: gw.round(fab, s)) for s in (0, 1)]
+    gw.round(fab, 2, workers=(0,))
+    snap: dict = {}
+    d2h_ms = timed(lambda: snap.update(fab.snapshot()))
+    nbytes = sum(a.nbytes for a in (snap["params"], *snap["state"]))
+    if list(snap["worker_clock"]) != [2, 2] or list(fab.worker_clock) != [3, 2]:
+        raise AssertionError(
+            f"mid-round snapshot clocks {snap['worker_clock']} (fabric "
+            f"{fab.worker_clock}), expected [2, 2] ([3, 2])")
+    t0 = time.perf_counter()
+    digest = snapshot_digest(snap)
+    hash_s = time.perf_counter() - t0
+    gw.round(fab, 2, workers=(1,))
+    reb = ShardRebalancer(fab, cooldown=0)
+    for _ in range(10):
+        for shard, lat_ms in enumerate((1.0, 1.0, 1.0, 5.0)):
+            reb.record(shard, lat_ms)
+    drained: list = []
+    rebalance_ms = timed(lambda: drained.extend(reb.maybe_rebalance()))
+    if drained != [3] or fab.shards[3].num_chunks != 0:
+        raise AssertionError(f"the rebalancer drained {drained}; shard 3 "
+                             f"holds {fab.shards[3].num_chunks} chunks")
+    moved = fab.stats.chunks_moved
+    round_ms += [timed(lambda s=s: gw.round(fab, s)) for s in (3, 4)]
+    launches_a = _counts()  # ...read just after
+    peak_a = memory.now()[1]
+    losses_a = gw.finite_losses()
+    final_a = fab.params
+    sim = (fab.stats.sim_pipelined_us, fab.stats.sim_serialized_us)
+    del fab, reb
+    torch.cuda.empty_cache()
+    if snapshot_digest(snap) != digest:
+        raise AssertionError("run A's later rounds changed the snapshot")
+    log(f"  run A (4 shards): launches {launches_a}; round wall ms "
+        f"{[round(x, 1) for x in round_ms]} (rounds 1, 2, 4, 5); mid-round 3 "
+        f"snapshot of {nbytes} bytes to host in {d2h_ms:.1f} ms "
+        f"({nbytes / d2h_ms / 1e6:.2f} GB/s), SHA-1 in {hash_s:.1f} s; the "
+        f"rebalancer drained shard {drained} ({moved} chunks moved) in "
+        f"{rebalance_ms:.1f} ms; event clock pipelined/serialized "
+        f"{sim[0]:.0f}/{sim[1]:.0f} us; peak device memory {peak_a} bytes "
+        f"({peak_a / 2**30:.2f} GiB)")
+    _check_counts("snapshot run A", launches_a,
+                  {"fused_agg_opt": 3 * SHARDS + 2 * (SHARDS - 1)})
+    memory = PathMemory(dev)
+    fab = gw.fabric(2, num_shards=2)
+    _zero_counts()  # run B's counts to 0 just before it...
+    h2d_ms = timed(lambda: fab.restore(snap))
+    if fab.step != 2 or list(fab.worker_clock) != [2, 2]:
+        raise AssertionError(f"restored step {fab.step}, clocks "
+                             f"{fab.worker_clock}")
+    round_b = [timed(lambda s=s: gw.round(fab, s)) for s in (2, 3, 4)]
+    launches_b = _counts()  # ...read just after
+    peak_b = memory.now()[1]
+    losses_b = gw.finite_losses()
+    if not same_bits(final_a, fab.params):
+        raise AssertionError(
+            f"run B (restored onto 2 shards) differs from run A, max |err| "
+            f"{max_abs_err(final_a, fab.params)}")
+    log(f"  run B (2 shards): restore of {nbytes} bytes in {h2d_ms:.1f} ms "
+        f"({nbytes / h2d_ms / 1e6:.2f} GB/s); launches {launches_b}; round "
+        f"wall ms {[round(x, 1) for x in round_b]} (rounds 3-5); peak device "
+        f"memory {peak_b} bytes ({peak_b / 2**30:.2f} GiB)")
+    if losses_b != losses_a[-len(losses_b):]:
+        raise AssertionError(f"run B's losses {losses_b} are not run A's "
+                             f"last {losses_a[-len(losses_b):]}")
+    log(f"  run A (mid-round snapshot, rebalance) == run B (restored onto 2 "
+        f"shards), bitwise; losses A {losses_a}, B {losses_b}")
+    _check_counts("snapshot run B", launches_b, {"fused_agg_opt": 3 * 2})
+    del final_a
+    fab.restore(snap)
+    again: dict = {}
+    again_ms = timed(lambda: again.update(fab.snapshot()))
+    if snapshot_digest(again) != digest:
+        raise AssertionError("restoring the snapshot a second time gave "
+                             "other bits")
+    log(f"  restored a second time: the snapshot's bits (re-snapshot in "
+        f"{again_ms:.1f} ms); the snapshot unchanged by run A's later rounds")
+    del fab, snap, again
+    torch.cuda.empty_cache()
+    return {"launches_a": launches_a, "launches_b": launches_b,
+            "round_ms": round_ms + round_b, "d2h_ms": d2h_ms,
+            "h2d_ms": h2d_ms, "snapshot_bytes": nbytes,
+            "rebalance_ms": rebalance_ms, "chunks_moved": moved,
+            "peak_bytes": max(peak_a, peak_b), "host_available": free}
+
+
+# mode -> (workers, FabricConfig fields, harness speeds; None: by hand)
+SMOKE_MODES = {
+    "quorum": (3, dict(min_push_fraction=0.5), None),
+    "ssp": (2, dict(mode="stale", staleness=1), [1, 2]),
+    "async": (2, dict(mode="async"), [1, 2]),
+}
+
+
+def smoke_modes_check(dev) -> dict:
+    """Every mode x codec (none, int8) at gemma3-1b's SMOKE config: the
+    fabric on ``dev`` against the fabric on the CPU, bitwise in params,
+    state, error-feedback residuals and every ServerStats field.  The
+    workers' gradients come from the CPU model for both fabrics (the
+    card's matmuls sum in another order), so two fabrics that agree pull
+    the same params and get the same gradients.  Each run then takes a
+    mid-round ``Checkpointer.save_fabric`` into a temporary directory,
+    restores it into a fresh fabric with ``restore_fabric`` and trains 2
+    more rounds.  Returns each case's kernel launches on ``dev``."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.chunking import ParamSpace
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.core.config import FabricConfig, WireConfig
+    from repro_torch.core.fabric import PBoxFabric, WorkerHarness
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models.transformer import init_params, lm_loss_and_grad
+    from repro_torch.optim.optimizers import adamw
+
+    cfg = get_arch("gemma3-1b").smoke_config
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    space = ParamSpace.build(params, chunk_elems=4096)
+    init = space.flatten(params)
+    cpu = torch.device("cpu")
+
+    def grad(flat, w, s):
+        b = next(lm_batches(cfg.vocab, 4, 32, seed=1000 * (w + 1) + s))
+        _, g = lm_loss_and_grad(space.unflatten(flat.cpu()),
+                                torch.from_numpy(b["tokens"]),
+                                torch.from_numpy(b["labels"]), cfg)
+        return space.flatten(g).to(flat.device)
+
+    def drive(fab, speeds, rounds):
+        if speeds is not None:
+            WorkerHarness(fab, lambda p, ws: space.unflatten(
+                grad(space.flatten(p), *ws)), lambda w, s: (w, s),
+                speed=speeds).run(rounds)
+            return
+        for s in range(rounds):  # all pull, then all push: the last drops
+            flats = [fab.pull(w) for w in range(fab.num_workers)]
+            for w in range(fab.num_workers):
+                fab.push(w, grad(flats[w], w, s))
+
+    def state_of(fab):
+        return ([fab.params.cpu()]
+                + [fab._assemble_rows(lambda sh, k=k: sh.state[k]).cpu()
+                   for k in range(fab.spec.num_state_slots)]
+                + [fab._worker_ef[w].cpu() for w in sorted(fab._worker_ef)])
+
+    def run(d, config, speeds, mode, tmp):
+        fab = PBoxFabric(space, adamw(3e-3), init.to(d), config=config,
+                         device=d)
+        drive(fab, speeds, ROUNDS)
+        first = (state_of(fab), dataclasses.asdict(fab.stats))
+        fab.push(0, grad(fab.pull(0), 0, 9))  # mid-round
+        ck = Checkpointer(Path(tmp) / d.type)
+        ck.save_fabric(fab.step, fab, meta={"mode": mode})
+        fab2 = PBoxFabric(space, adamw(3e-3), torch.zeros_like(init, device=d),
+                          config=config, device=d)
+        meta = ck.restore_fabric(fab2)
+        if meta["mode"] != mode or fab2.step != fab.step:
+            raise AssertionError(f"checkpoint meta {meta}, step {fab2.step}")
+        drive(fab2, speeds, 2)
+        return first, state_of(fab2), dataclasses.asdict(fab2.stats)
+
+    launches = {}
+    for mode, (workers, fields, speeds) in SMOKE_MODES.items():
+        for codec in ("none", "int8"):
+            config = FabricConfig(
+                num_shards=SHARDS, num_workers=workers, **fields,
+                wire=WireConfig(compression=CompressionConfig(codec=codec)))
+            with tempfile.TemporaryDirectory() as tmp:
+                ref = run(cpu, config, speeds, mode, tmp)
+                _zero_counts()
+                got = run(dev, config, speeds, mode, tmp)
+                launches[f"{mode}/{codec}"] = _counts()
+            same = (all(same_bits(a, b) for a, b in zip(ref[0][0], got[0][0]))
+                    and ref[0][1] == got[0][1] and ref[2] == got[2]
+                    and all(same_bits(a, b) for a, b in zip(ref[1], got[1])))
+            if not same:
+                raise AssertionError(f"SMOKE {mode}/{codec}: the fabric on "
+                                     f"{dev} differs from the CPU's")
+            st = ref[0][1]
+            log(f"smoke modes: {mode}/{codec} ({workers} workers, "
+                + (f"speeds {speeds}" if speeds else "all pull, then all push")
+                + f"): steps {st['steps']}, partial "
+                f"{st['partial_aggregations']}, dropped "
+                f"{st['late_pushes_dropped']}, fused wire rounds "
+                f"{st['fused_wire_rounds']}; then a mid-round save_fabric / "
+                f"restore_fabric and 2 more rounds; {dev} == cpu bitwise; "
+                f"launches on {dev.type} {launches[f'{mode}/{codec}']}")
+    return launches
+
+
 def profile_summary(prof, steady_round_ms: float, last_launches,
                     kernel_name: str, kernel_key: str = "") -> dict:
     """Print where the profiled round's time went: host time per labelled
@@ -1196,7 +1723,7 @@ def profile_summary(prof, steady_round_ms: float, last_launches,
 
 
 # -- phase 6 -----------------------------------------------------------------
-def time_fused_agg_opt(dev, n: int, k: int) -> dict:
+def time_fused_agg_opt(dev, n: int, k: int, average: bool = True) -> dict:
     import torch
 
     from repro_torch.kernels.fused_agg_opt import kernel as K
@@ -1210,8 +1737,10 @@ def time_fused_agg_opt(dev, n: int, k: int) -> dict:
     m = torch.randn(n, generator=gen, device=dev) * 0.1
     v = (torch.randn(n, generator=gen, device=dev) * 0.1).abs()
     packet = scalar_packet(spec, 1, device=dev)
-    want_p, want_s = K.fused_agg_opt_torch(grads, p, (m, v), packet, spec)
-    K.fused_agg_opt_cuda(grads, p, (m, v), packet, spec)  # in place
+    want_p, want_s = K.fused_agg_opt_torch(grads, p, (m, v), packet, spec,
+                                           average=average)
+    K.fused_agg_opt_cuda(grads, p, (m, v), packet, spec,
+                         average=average)  # in place
     torch.cuda.synchronize()
     err = max(max_abs_err(p, want_p), *[max_abs_err(a, b) for a, b in
                                         zip((m, v), want_s)])
@@ -1219,14 +1748,15 @@ def time_fused_agg_opt(dev, n: int, k: int) -> dict:
             and torch.equal(v, want_s[1])):
         raise AssertionError(f"kernel differs at the main shape, max |err| {err}")
     del want_p, want_s
-    kernel_ms = cuda_ms(lambda: K.fused_agg_opt_cuda(grads, p, (m, v), packet,
-                                                     spec), reps=20)
-    plain_ms = cuda_ms(lambda: K.fused_agg_opt_torch(grads, p, (m, v), packet,
-                                                     spec), reps=5)
+    kernel_ms = cuda_ms(lambda: K.fused_agg_opt_cuda(
+        grads, p, (m, v), packet, spec, average=average), reps=20)
+    plain_ms = cuda_ms(lambda: K.fused_agg_opt_torch(
+        grads, p, (m, v), packet, spec, average=average), reps=5)
     b = bound(torch.cuda.get_device_name(dev),
               (k * 4 + 2 * 4 + 2 * 2 * 4) * n,  # grads in; param, m, v in+out
               adamw_ops(k) * n)
-    log(f"timing fused_agg_opt (AdamW, K={k}, N={n}, f32): kernel "
+    log(f"timing fused_agg_opt (AdamW, K={k}, average={average}, N={n}, "
+        f"f32): kernel "
         f"{kernel_ms:.4f} ms (median of 20), plain version {plain_ms:.4f} ms "
         f"(median of 5); bound {b['bound_ms']:.4f} ms = {b['bytes']} bytes "
         f"(operations: {b['op_ms']:.4f} ms); kernel reaches "
@@ -1306,7 +1836,7 @@ def time_quant(dev, flat: int, chunk: int) -> dict:
     }
 
 
-def time_wire(dev, n: int, k: int, chunk: int) -> dict:
+def time_wire(dev, n: int, k: int, chunk: int, average: bool = True) -> dict:
     """wire_fused at the main path's shard shape (AdamW, K int8 streams),
     beside its plain version and the unfused kernel pipeline it replaces."""
     import torch
@@ -1331,9 +1861,10 @@ def time_wire(dev, n: int, k: int, chunk: int) -> dict:
     v = (torch.randn(n, generator=gen, device=dev) * 1e-3).abs()
     packet = scalar_packet(spec, 1, device=dev)
     want_p, want_s = W.wire_fused_torch(pay, sc, p, (m, v), packet, spec,
-                                        codec="int8", chunk_elems=chunk)
+                                        codec="int8", chunk_elems=chunk,
+                                        average=average)
     W.wire_fused_cuda(pay, sc, p, (m, v), packet, spec, codec="int8",
-                      chunk_elems=chunk)  # in place
+                      chunk_elems=chunk, average=average)  # in place
     torch.cuda.synchronize()
     err = max(max_abs_err(p, want_p), *[max_abs_err(a, b) for a, b in
                                         zip((m, v), want_s)])
@@ -1342,17 +1873,19 @@ def time_wire(dev, n: int, k: int, chunk: int) -> dict:
         raise AssertionError(f"wire_fused differs at the main shape, max |err| {err}")
     del want_p, want_s
     kernel_ms = cuda_ms(lambda: W.wire_fused_cuda(
-        pay, sc, p, (m, v), packet, spec, codec="int8", chunk_elems=chunk),
-        reps=20)
+        pay, sc, p, (m, v), packet, spec, codec="int8", chunk_elems=chunk,
+        average=average), reps=20)
     plain_ms = cuda_ms(lambda: W.wire_fused_torch(
-        pay, sc, p, (m, v), packet, spec, codec="int8", chunk_elems=chunk),
-        reps=3)
+        pay, sc, p, (m, v), packet, spec, codec="int8", chunk_elems=chunk,
+        average=average), reps=3)
     unfused_ms = cuda_ms(lambda: unfused_wire_update(
-        pay, sc, p, (m, v), spec, 1, codec="int8", chunk_elems=chunk), reps=10)
+        pay, sc, p, (m, v), spec, 1, codec="int8", chunk_elems=chunk,
+        average=average), reps=10)
     b = bound(torch.cuda.get_device_name(dev),
               (k * 1 + 2 * 4 + 2 * 2 * 4) * n + 4 * k * c,
               (k + adamw_ops(k)) * n)
-    log(f"timing wire_fused (AdamW, K={k} int8 streams, N={n}, chunk "
+    log(f"timing wire_fused (AdamW, K={k} int8 streams, average={average}, "
+        f"N={n}, chunk "
         f"{chunk}): kernel {kernel_ms:.4f} ms (median of 20), plain version "
         f"{plain_ms:.4f} ms (median of 3), unfused kernel pipeline "
         f"(dequantize x{k} + fused_agg_opt) {unfused_ms:.4f} ms (median of "
@@ -1540,17 +2073,44 @@ def main() -> int:
     dlrm_err = replay_dlrm(dlrm)
     dlrm.pop("captured")
     dlrm_sharding_check(dev)
+    with deterministic():
+        gw = GemmaWorkers(dev)
+        quorum = quorum_path(dev, gw)
+        asyn = async_path(dev, gw)
+        snap = snapshot_path(dev, gw)
+        del gw
+    async_err = replay_wire(dev, asyn)
+    asyn.pop("captured")
+    smoke = smoke_modes_check(dev)
     d = dlrm_capped_config().embed_dim
     timing = {"fused_agg_opt": time_fused_agg_opt(dev, f32["n"], WORKERS),
               **time_quant(dev, int8["flat"], int8["chunk"]),
               "wire_fused": time_wire(dev, int8["n"], WORKERS, int8["chunk"]),
+              # the async path's K = 1 pushes, without averaging
+              "fused_agg_opt_k1": time_fused_agg_opt(dev, f32["n"], 1,
+                                                     average=False),
+              "wire_fused_k1": time_wire(dev, asyn["n"], 1, asyn["chunk"],
+                                         average=False),
               "embedding_bag": time_embedding_bag(
                   dev, DLRM_BATCH, 1, d, DLRM_ROW_CAP, "one-hot main path", 4),
               "segment_sum": time_segment_sum(dev, DLRM_BATCH, d, DLRM_ROW_CAP)}
     multi_hot = time_embedding_bag(dev, DLRM_BATCH, 20, d, DLRM_ROW_CAP,
                                    "multi-hot", 2)
-    replayed = {"fused_agg_opt": f32_err, "wire_fused": int8_err, **codec_err,
+    replayed = {"fused_agg_opt": f32_err,
+                "wire_fused": max(int8_err, async_err), **codec_err,
                 **dlrm_err}
+    # every path's launches, by kernel; the SMOKE cases summed
+    paths = {"f32": f32["launches"], "int8": int8["launches"],
+             "dlrm": dlrm["launches"], "quorum": quorum["launches"],
+             "async_int8": asyn["launches"],
+             "snapshot_run_a": snap["launches_a"],
+             "snapshot_run_b": snap["launches_b"],
+             "smoke_modes": {k: sum(c[k] for c in smoke.values())
+                             for k in f32["launches"]}}
+    # K = 1 without averaging: the async pushes (f32 ones only at SMOKE)
+    k1_launches = {"fused_agg_opt": smoke["async/none"]["fused_agg_opt"],
+                   "wire_fused": asyn["launches"]["wire_fused"]
+                   + smoke["async/int8"]["wire_fused"]}
     rows = [
         ("fused_agg_opt", "fused_agg_opt.cu", "fused_agg_opt/kernel.py:162",
          f32, {"k": WORKERS, "n": f32["n"], "optimizer": "adamw",
@@ -1599,10 +2159,19 @@ def main() -> int:
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             "shape": shape,
+            "launches_by_path": {p: c[kname] for p, c in paths.items()},
+            **({"k1_no_average": {
+                "launches": k1_launches[kname],
+                **{key: timing[f"{kname}_k1"][key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "max_abs_err")}}} if kname in k1_launches else {}),
         })
     log(f"main path peaks: f32 {f32['peak_bytes'] / 2**30:.2f} GiB, int8 "
         f"{int8['peak_bytes'] / 2**30:.2f} GiB, dlrm "
-        f"{dlrm['peak_bytes'] / 2**30:.2f} GiB; whole run "
+        f"{dlrm['peak_bytes'] / 2**30:.2f} GiB, quorum "
+        f"{quorum['peak_bytes'] / 2**30:.2f} GiB, async int8 "
+        f"{asyn['peak_bytes'] / 2**30:.2f} GiB, snapshot "
+        f"{snap['peak_bytes'] / 2**30:.2f} GiB; whole run "
         f"{time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

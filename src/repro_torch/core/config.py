@@ -21,8 +21,9 @@ gives the same bits as the unfused route it would switch to.
 All cross-field validation lives in ``validate()``: one named
 ``FabricConfigError`` per rule (the same rules, names and order as the JAX
 package), then a ``NotImplementedError`` for every knob the port does not
-cover yet — it covers synchronous mode with any wire codec (none, bf16,
-int8) and no topology, replication, faults, explicit plan, switch or
+cover yet — it covers the sync, async and stale (SSP) modes, backup
+quorums (``min_push_fraction`` < 1) and any wire codec (none, bf16, int8),
+with no topology, replication, faults, explicit plan, switch or
 namespace.
 
 Sub-configs hold live objects (topology, codec, fault plan, plan, link
@@ -107,7 +108,7 @@ class FabricConfig:
         """Check every cross-field rule before any fabric state exists.
 
         One named ``FabricConfigError`` per rule, then
-        ``NotImplementedError`` for knobs outside the port's sync slice;
+        ``NotImplementedError`` for knobs the port does not cover yet;
         returns self so constructors can chain ``config.validate()``."""
         if self.mode not in _MODES:
             raise FabricConfigError(
@@ -176,9 +177,6 @@ class FabricConfig:
                     f"plan places {plan.replica_racks.shape[1]} chain "
                     f"copies, fabric replicates at {repl}")
         unported = [
-            (self.mode != "sync", f"mode={self.mode!r}"),
-            (self.min_push_fraction < 1.0,
-             f"min_push_fraction={self.min_push_fraction:g} (backup quorum)"),
             (topo is not None, "a network topology"),
             (repl > 1, f"replication={repl}"),
             (self.faults.fault_plan is not None, "a fault plan"),
@@ -190,8 +188,8 @@ class FabricConfig:
         for missing, what in unported:
             if missing:
                 raise NotImplementedError(
-                    f"the PyTorch fabric covers synchronous training with "
-                    f"no topology only; {what} is not ported yet")
+                    f"the PyTorch fabric covers training with no topology "
+                    f"only; {what} is not ported yet")
         return self
 
     # -- introspection ---------------------------------------------------

@@ -1,14 +1,19 @@
 """Chunk-sharded PBox fabric: the paper's balanced multi-engine PS (torch
-counterpart of ``repro/core/fabric.py``, synchronous slice).
+counterpart of ``repro/core/fabric.py``).
 
   ``PBoxShard``    one aggregation engine.  Owns a set of 32 KB key chunks
                    (a contiguous slab or a round-robin stripe), holds their
                    parameters and optimizer state on the fabric's device,
                    and runs the fused K-way aggregate+optimize kernel on
-                   only its chunks.
+                   only its chunks.  Chunks move between shards with their
+                   state (``release`` / ``adopt``).
   ``PBoxFabric``   routes per-chunk pushes and pulls to the owning shards
-                   and runs the synchronous barrier: once every worker has
-                   pushed, each shard applies the round.
+                   and admits pushes by mode: a barrier every step (sync),
+                   a backup quorum that drops late gradients
+                   (``min_push_fraction`` < 1), bounded staleness (SSP) or
+                   every push applied at once (async).  It moves chunks off
+                   slow shards (``rebalance``) and takes and restores
+                   crash-consistent snapshots.
   ``WorkerHarness`` drives K logical workers against a fabric.
 
 Numerics are identical to a single-engine server by construction: the
@@ -34,13 +39,17 @@ otherwise the push is decoded at the hop (``roundtrip``) and the shards
 run ``fused_agg_opt`` on f32 rows.  Both routes give the same bits; the
 JAX package's ``fused_wire_path`` switch between them has no counterpart.
 
-This slice covers synchronous mode with no topology, contiguous and
-round-robin placement, and no replication, faults, switch, tenancy,
-rebalancing or snapshots: ``FabricConfig.validate`` raises
-``NotImplementedError`` for those knobs.  A sparse tier
-(``core/sparse.SparseTier(fabric=...)``) attaches to the fabric: it
-inherits the shard and worker counts, link model, chunk size and device,
-and registers in ``sparse_tiers``.  ``WorkerHarness`` drives
+The kernels update a shard's parameters and state in place on the card,
+so nothing the fabric hands out may alias them: ``snapshot`` copies to
+host memory before it returns, ``restore`` copies into fresh tensors, and
+``release`` returns copies.
+
+The port covers no topology, replication, faults, switch, tenancy or
+reshard: ``FabricConfig.validate`` raises ``NotImplementedError`` for
+those knobs, and ``apply_plan_delta`` for the deltas that need them.  A
+sparse tier (``core/sparse.SparseTier(fabric=...)``) attaches to the
+fabric: it inherits the shard and worker counts, link model, chunk size
+and device, and registers in ``sparse_tiers``.  ``WorkerHarness`` drives
 workers without the JAX harness's rack and telemetry views, which need
 the topology and tenancy tiers.
 """
@@ -62,6 +71,7 @@ from repro_torch.core.compression import (
     wire_bytes,
 )
 from repro_torch.core.config import FabricConfig
+from repro_torch.core.placement import PlanDelta, chunk_rebalance_delta
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fused_agg_opt.ops import fused_aggregate_update
 from repro_torch.kernels.wire_path.ops import (
@@ -79,8 +89,8 @@ _PULL_BYTES = 4  # pulls cross as raw f32 whatever the push codec
 @dataclasses.dataclass
 class ServerStats:
     """Fabric-wide accounting: the JAX package's fields, all of them, so the
-    two fabrics' stats compare field by field.  Counters of tiers this
-    slice does not run stay 0."""
+    two fabrics' stats compare field by field.  Counters of tiers the port
+    does not run yet stay 0."""
 
     steps: int = 0
     pushes: int = 0
@@ -254,19 +264,89 @@ class PBoxShard:
         self.state = tuple(s.reshape(shape) for s in new_s)
         self.stats.agg_events += 1
 
+    # -- chunk migration (rebalancing) ---------------------------------
+    def release(self, chunk_ids: np.ndarray) -> tuple[torch.Tensor, tuple]:
+        """Give up ownership of ``chunk_ids``; returns copies of their
+        (params, state) rows in the order of ``chunk_ids``."""
+        pos = np.searchsorted(self.chunk_ids, chunk_ids)
+        if np.any(pos >= len(self.chunk_ids)) or not np.array_equal(
+                self.chunk_ids[pos], chunk_ids):
+            raise ValueError("releasing chunks this shard does not own")
+        dev = self.params.device
+        # indexing with a tensor copies: the rows handed out never alias
+        # the slab the kernel writes in place
+        pos_t = torch.as_tensor(pos, dtype=torch.long, device=dev)
+        p_rows = self.params[pos_t]
+        s_rows = tuple(s[pos_t] for s in self.state)
+        keep = np.ones(self.num_chunks, dtype=bool)
+        keep[pos] = False
+        self.chunk_ids = self.chunk_ids[keep]
+        keep_t = torch.as_tensor(np.flatnonzero(keep), dtype=torch.long,
+                                 device=dev)
+        self.params = self.params[keep_t]
+        self.state = tuple(s[keep_t] for s in self.state)
+        self.rows = _row_index(self.chunk_ids, dev)
+        return p_rows, s_rows
+
+    def adopt(self, chunk_ids: np.ndarray, p_rows: torch.Tensor,
+              s_rows: tuple) -> None:
+        """Take ownership of ``chunk_ids`` with their (params, state) rows;
+        the merged ids stay sorted, as the event clock reads them."""
+        dev = self.params.device
+        merged = np.concatenate([self.chunk_ids,
+                                 np.asarray(chunk_ids, np.int64)])
+        order = np.argsort(merged, kind="stable")
+        order_t = torch.as_tensor(order, dtype=torch.long, device=dev)
+        self.chunk_ids = merged[order]
+        self.params = torch.cat([self.params, p_rows])[order_t]
+        self.state = tuple(torch.cat([s, r])[order_t]
+                           for s, r in zip(self.state, s_rows))
+        # a shard's chunks need not be one contiguous run after a move
+        self.rows = _row_index(self.chunk_ids, dev)
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t`` as numpy: never a view of device or CPU state
+    the kernels later write."""
+    return t.detach().to("cpu", copy=True).numpy()
+
+
+def _fresh_rows(host: np.ndarray, shard: PBoxShard,
+                device: torch.device) -> torch.Tensor:
+    """Shard ``shard``'s rows of the (num_chunks, chunk_elems) host array,
+    as a fresh tensor on ``device`` (``torch.tensor`` always copies)."""
+    rows = shard.rows
+    part = host[rows] if isinstance(rows, slice) else host[shard.chunk_ids]
+    return torch.tensor(part, dtype=torch.float32, device=device)
+
 
 # ---------------------------------------------------------------------------
 # fabric
 # ---------------------------------------------------------------------------
 class PBoxFabric:
-    """Chunk-sharded PS fabric over N aggregation engines, synchronous mode
-    (a barrier every step: BSP, the paper's setting).
+    """Chunk-sharded PS fabric over N aggregation engines.
+
+    Synchronization modes (the JAX fabric's admission semantics):
+
+      sync      barrier every step (BSP; the paper's setting)
+      async     each completed push is applied at once, chunk-routed to
+                the owning shards (Hogwild-PS): K = 1, no averaging
+      stale(s)  bounded staleness: a worker may run at most ``s`` steps
+                ahead of the slowest worker (SSP); s=0 == sync
 
     Workers push the whole flat gradient at once (``push``) or chunk group
     by chunk group (``push_chunks``); a push completes once every chunk of
-    the flat space is staged.  When every worker's push has completed, each
-    shard stacks the K workers' rows for its chunks (ascending worker
-    order) and runs the fused aggregate+optimize kernel on them.
+    the flat space is staged.  When a round's pushes are in, each shard
+    stacks their rows for its chunks (ascending worker order) and runs the
+    fused aggregate+optimize kernel on them.
+
+    Every push carries the params version (fabric step) the worker last
+    pulled.  In sync mode with a backup quorum (``min_pushes`` below the
+    alive workers) the round fires once the quorum has pushed, and a push
+    computed against a version that round superseded is dropped before
+    the codec sees it (``ServerStats.late_pushes_dropped``).  SSP admits
+    late pushes; a worker that pushes twice before the barrier replaces
+    its own earlier push, as in the JAX package.
 
     State lives on ``device``: the CUDA card unless the caller passes
     another (the tests pass ``"cpu"``); with no card and no device given,
@@ -291,8 +371,13 @@ class PBoxFabric:
         self.space = space
         self.spec = spec
         self.mode = config.mode
+        self.staleness = (
+            config.staleness if config.mode == "stale"
+            else (0 if config.mode == "sync" else 1 << 30)
+        )
         self.num_workers = config.num_workers
         self.num_shards = config.num_shards
+        self.min_push_fraction = config.min_push_fraction
         self.link = config.wire.link or LinkModel()
         # codec chunks align with PS chunks so per-chunk scales ride the
         # same wire framing
@@ -315,8 +400,8 @@ class PBoxFabric:
         } if self.compression.codec != "none" else {}
         self.placement_policy = config.placement.policy
         # what a fabric-attached sparse tier (core/sparse.py) reads, under
-        # the JAX fabric's names: this slice has no topology, replication,
-        # placement plan or worker faults
+        # the JAX fabric's names: the port has no topology, replication or
+        # placement plan; dead workers arrive only with a restored snapshot
         self.topology = None
         self.replication = 1
         self.plan = None
@@ -324,6 +409,10 @@ class PBoxFabric:
         self.sparse_tiers: list = []  # weakrefs to attached SparseTiers
         self.step = 0
         self.worker_clock = np.zeros(self.num_workers, dtype=np.int64)
+        # params version (fabric step) each worker last pulled: what
+        # sync-mode admission judges a push's freshness by
+        self._pull_step = np.zeros(self.num_workers, dtype=np.int64)
+        self._drops_since_step = 0  # guards against a silent all-stale halt
         self.stats = ServerStats()
 
         c = space.num_chunks
@@ -344,8 +433,8 @@ class PBoxFabric:
             self.shards.append(
                 PBoxShard(sid, space, spec, ids, rows[shard_rows])
             )
-        # sync inbox: worker -> (num_chunks, chunk_elems) f32 gradient rows,
-        # or the push still encoded on the fused wire path
+        # sync/stale inbox: worker -> (num_chunks, chunk_elems) f32
+        # gradient rows, or the push still encoded on the fused wire path
         self._inbox: dict[int, torch.Tensor | WirePayload] = {}
         # chunk-by-chunk staging: worker -> (rows buffer, staged mask)
         self._staged: dict[int, tuple[torch.Tensor, np.ndarray]] = {}
@@ -369,9 +458,25 @@ class PBoxFabric:
                 lambda s: s.params).reshape(-1)
         return self._flat_cache
 
+    # -- liveness / quorum ---------------------------------------------
+    @property
+    def num_alive_workers(self) -> int:
+        return self.num_workers - len(self.dead_workers)
+
+    @property
+    def min_pushes(self) -> int:
+        """Quorum size over the alive workers: ``ceil`` of the float
+        product, as the JAX package computes it."""
+        return max(1, int(np.ceil(self.min_push_fraction
+                                  * self.num_alive_workers)))
+
+    def alive(self, worker: int) -> bool:
+        return worker not in self.dead_workers
+
     # -- worker API ----------------------------------------------------
     def pull(self, worker: int) -> torch.Tensor:
         flat = self.params
+        self._pull_step[worker] = self.step
         self.stats.pulls += 1
         self.stats.bytes_pulled += flat.numel() * _PULL_BYTES
         self.stats.chunk_pulls += self.space.num_chunks
@@ -381,9 +486,18 @@ class PBoxFabric:
         return flat
 
     def can_proceed(self, worker: int) -> bool:
-        """Sync admission: a worker may start its next step once every
-        worker has finished the current one (staleness 0)."""
-        return self.worker_clock[worker] == self.worker_clock.min()
+        """SSP admission: a worker may start its next step iff it is within
+        ``staleness`` steps of the slowest alive worker (0 in sync mode,
+        unbounded in async).  A dead worker neither proceeds nor holds the
+        window."""
+        if worker in self.dead_workers:
+            return False
+        clocks = self.worker_clock
+        if self.dead_workers:
+            alive = [c for w, c in enumerate(clocks)
+                     if w not in self.dead_workers]
+            return clocks[worker] - min(alive) <= self.staleness
+        return clocks[worker] - clocks.min() <= self.staleness
 
     def push(self, worker: int, gflat: torch.Tensor) -> None:
         """Push the whole flat gradient in one call."""
@@ -421,11 +535,36 @@ class PBoxFabric:
 
     # -- push completion / admission ------------------------------------
     def _complete_push(self, worker: int, gchunks: torch.Tensor) -> None:
+        if worker in self.dead_workers:
+            raise RuntimeError(
+                f"worker {worker} is marked dead (restored from a snapshot "
+                "that recorded its crash) and cannot push")
         self.worker_clock[worker] += 1
         nbytes = wire_bytes(self.compression, gchunks.numel())
         self.stats.pushes += 1
         self.stats.bytes_pushed += nbytes
         self.stats.chunk_pushes += self.space.num_chunks
+        # Backup quorum: a gradient computed against params a quorum round
+        # has superseded is dropped here, before the codec encodes it (its
+        # error feedback stays untouched).  Only a strict-subset quorum
+        # can supersede a push; SSP admits late pushes, async has no
+        # rounds.
+        if (self.mode == "sync" and self.min_pushes < self.num_alive_workers
+                and int(self._pull_step[worker]) < self.step):
+            self.stats.late_pushes_dropped += 1
+            self._drops_since_step += 1
+            # no aggregating ToR to refuse it early: the stream crossed the
+            # core before the PS could drop it
+            self.stats.bytes_core_link += nbytes
+            if (self._drops_since_step >= self.num_workers
+                    and bool((self._pull_step < self.step).all())):
+                # every worker pushes superseded gradients and nobody has
+                # re-pulled: no round could ever fire again
+                raise RuntimeError(
+                    "all workers' pushes were computed against params "
+                    f"superseded by round {self.step}; pull between rounds "
+                    "so gradients are fresh (see PBoxFabric docstring)")
+            return
         # no ToR combining: the worker's stream crosses the core itself and
         # reaches the shards directly
         self.stats.bytes_core_link += nbytes
@@ -446,16 +585,49 @@ class PBoxFabric:
                     self.compression, flat, self._worker_ef[worker])
                 gchunks = dec.reshape(self.space.num_chunks,
                                       self.space.chunk_elems)
+        if self.mode == "async":
+            self._apply_async(gchunks, wire)
+            return
         self._inbox[worker] = gchunks if wire is None else wire
-        if self._barrier_met():
+        if len(self._inbox) >= self.min_pushes and self._barrier_met():
             self._aggregate()
 
+    def _apply_async(self, gchunks: torch.Tensor,
+                     wire: WirePayload | None) -> None:
+        """Hogwild-PS: one push is one step, applied at once on every
+        shard with K = 1 and no averaging, at the new step's scalars."""
+        self.step += 1
+        if wire is not None:
+            pay = wire.payload.reshape(self.space.num_chunks,
+                                       self.space.chunk_elems)
+            for shard in self.shards:
+                if shard.num_chunks:
+                    shard.apply_wire(
+                        pay[shard.rows][None],
+                        None if wire.scale is None
+                        else wire.scale[shard.rows][None],
+                        wire.codec, self.step, average=False)
+            self.stats.fused_wire_rounds += 1
+        else:
+            for shard in self.shards:
+                if shard.num_chunks:
+                    shard.apply(gchunks[shard.rows][None], self.step,
+                                average=False)
+        self.stats.steps += 1
+        self._simulate_round()
+        self._flat_cache = None
+
     def _barrier_met(self) -> bool:
-        # full barrier: every worker has pushed this round
-        return len(self._inbox) == self.num_workers
+        # a quorum exists only as a strict subset of the alive workers;
+        # ceil(fraction * alive) == alive is a full barrier
+        if self.min_pushes < self.num_alive_workers:
+            return True  # the inbox holds only current-round pushes
+        return len(self._inbox) == self.num_alive_workers
 
     def _aggregate(self) -> None:
         workers = sorted(self._inbox)
+        if len(workers) < self.num_workers:
+            self.stats.partial_aggregations += 1
         self.step += 1
         if self._fused_wire:
             # the inbox holds WirePayloads: stack the encoded streams per
@@ -481,6 +653,7 @@ class PBoxFabric:
                 shard.apply(grads, self.step, average=True)
         self._inbox.clear()
         self.stats.steps += 1
+        self._drops_since_step = 0
         self._simulate_round()
         self._flat_cache = None
 
@@ -515,6 +688,150 @@ class PBoxFabric:
         self.stats.sim_agg_us += c * agg
         self.stats.sim_pipelined_us += makespan
         self.stats.sim_serialized_us += c * wire + c * agg
+
+    # -- placement-plan hooks ---------------------------------------------
+    def rebalance(self, slow_shards: Sequence[int]) -> int:
+        """Move all chunks owned by ``slow_shards`` to healthy shards
+        (balance-preserving), as a ``chunk_moves`` plan delta applied
+        through ``apply_plan_delta``.  Parameters and optimizer state move
+        with their chunks, so training numerics are unchanged.  Returns
+        the number of chunks moved."""
+        delta = chunk_rebalance_delta(self.chunk_owner, list(slow_shards),
+                                      self.num_shards)
+        if delta is None:
+            return 0
+        return self.apply_plan_delta(delta)
+
+    def apply_plan_delta(self, delta: PlanDelta) -> int:
+        """Apply one placement-plan delta; returns the chunks moved.  The
+        port applies ``chunk_moves``; chain re-placement and reshard need
+        the replication tier, which is not ported yet."""
+        if delta.kind == "chunk_moves":
+            return self._apply_chunk_moves(delta.moves)
+        if delta.kind in ("replica_racks", "shard_count"):
+            raise NotImplementedError(
+                f"a {delta.kind!r} delta needs the replication tier (chain "
+                "re-placement, reshard), which the PyTorch fabric does not "
+                "port yet")
+        raise ValueError(
+            f"delta kind {delta.kind!r} is not fabric-applied (frontend "
+            "moves belong to the read plane, tenant shares to the "
+            "MultiJobFabric)")
+
+    def _apply_chunk_moves(self, moves: Sequence[tuple[int, int]]) -> int:
+        new_owner = self.chunk_owner.copy()
+        for chunk, owner in moves:
+            if not 0 <= chunk < self.space.num_chunks:
+                raise ValueError(f"no chunk {chunk}")
+            if not 0 <= owner < self.num_shards:
+                raise ValueError(f"no shard {owner}")
+            new_owner[chunk] = owner
+        moved = np.where(new_owner != self.chunk_owner)[0]
+        if len(moved) == 0:
+            return 0
+        # every source shard releases its moved chunks (copies, in id
+        # order); each destination then gathers its rows in one index
+        released: list[tuple[np.ndarray, torch.Tensor, tuple]] = []
+        for shard in self.shards:
+            ids = moved[self.chunk_owner[moved] == shard.shard_id]
+            if len(ids):
+                released.append((ids, *shard.release(ids)))
+        at = np.empty(self.space.num_chunks, dtype=np.int64)
+        at[np.concatenate([ids for ids, _, _ in released])] = np.arange(
+            len(moved))
+        p_all = torch.cat([p for _, p, _ in released])
+        s_all = tuple(torch.cat([s[k] for _, _, s in released])
+                      for k in range(self.spec.num_state_slots))
+        del released
+        for shard in self.shards:
+            ids = moved[new_owner[moved] == shard.shard_id]
+            if len(ids) == 0:
+                continue
+            sel = torch.as_tensor(at[ids], dtype=torch.long,
+                                  device=self.device)
+            shard.adopt(ids, p_all[sel], tuple(s[sel] for s in s_all))
+        self.chunk_owner = new_owner
+        self.stats.rebalances += 1
+        self.stats.chunks_moved += len(moved)
+        self._flat_cache = None
+        return len(moved)
+
+    # -- snapshot / restore ----------------------------------------------
+    def snapshot(self) -> dict:
+        """Crash-consistent snapshot of the committed training state, as
+        host (numpy) copies under the JAX package's keys, so a snapshot of
+        either package restores into the other.
+
+        Taken mid-round (inbox non-empty) it still restores to a state from
+        which training re-converges bit-identically: params and optimizer
+        state are pre-round (the inbox has not been applied), and the
+        clocks are rolled back for every in-flight push, which the
+        restored run replays.  Chunk-staged pushes never advanced a
+        clock."""
+        wc = self.worker_clock.copy()
+        for w in self._inbox:
+            wc[w] -= 1
+        return {
+            "params": _to_host(self.params),
+            # one slot assembled on the device at a time
+            "state": tuple(_to_host(self._assemble_rows(
+                lambda s, k=k: s.state[k]).reshape(-1))
+                for k in range(self.spec.num_state_slots)),
+            "step": self.step,
+            "worker_clock": wc,
+            "dead_workers": np.asarray(sorted(self.dead_workers),
+                                       dtype=np.int64),
+            "replication": self.replication,
+        }
+
+    def restore(self, snap: dict) -> None:
+        """Restore a snapshot: parameters, optimizer state, the round
+        counter and the per-worker clocks, into fresh tensors (the
+        snapshot's arrays are never aliased).  Snapshots without
+        ``worker_clock``, and restores onto another worker count, reset
+        every clock to the restored step.  Staged pushes, the inbox and
+        the error-feedback residuals are discarded: they belong to
+        in-flight streams that did not survive."""
+        shape = (self.space.num_chunks, self.space.chunk_elems)
+        params = np.asarray(snap["params"], dtype=np.float32).reshape(shape)
+        states = [np.asarray(s, dtype=np.float32).reshape(shape)
+                  for s in snap["state"]]
+        for shard in self.shards:
+            shard.params = _fresh_rows(params, shard, self.device)
+            shard.state = tuple(_fresh_rows(s, shard, self.device)
+                                for s in states)
+        self.step = int(snap["step"])
+        wc = snap.get("worker_clock")
+        if wc is not None and len(np.atleast_1d(wc)) == self.num_workers:
+            self.worker_clock = np.asarray(wc, dtype=np.int64).copy()
+        else:
+            self.worker_clock = np.full(self.num_workers, self.step,
+                                        dtype=np.int64)
+        # every worker resumes against the restored params version
+        self._pull_step = np.full(self.num_workers, self.step,
+                                  dtype=np.int64)
+        self._drops_since_step = 0
+        self._inbox.clear()
+        self._staged.clear()
+        self._worker_ef = {
+            w: init_ef_state(self.compression, self.space.flat_elems,
+                             device=self.device)
+            for w in self._worker_ef
+        }
+        dead = snap.get("dead_workers")
+        self.dead_workers = (
+            {int(w) for w in np.atleast_1d(dead) if 0 <= w < self.num_workers}
+            if dead is not None else set()
+        )
+        # attached sparse tiers drop caches stamped on the abandoned
+        # timeline
+        self.sparse_tiers = [r for r in self.sparse_tiers
+                             if r() is not None]
+        for ref in self.sparse_tiers:
+            tier = ref()
+            if tier is not None:
+                tier.on_restore()
+        self._flat_cache = None
 
     # -- introspection -----------------------------------------------------
     def describe(self) -> str:
@@ -594,9 +911,20 @@ class WorkerHarness:
             self._push(w, srv.space.flatten(grads))
             self.steps_done[w] += 1
 
+    def _alive_progress(self) -> list[int]:
+        """Completed steps of the workers still alive: a dead worker's
+        stalled count must not hold ``run`` hostage."""
+        is_alive = getattr(self.server, "alive", None)
+        if is_alive is None:
+            return list(self.steps_done)
+        alive = [d for w, d in enumerate(self.steps_done) if is_alive(w)]
+        if not alive:
+            raise RuntimeError("every worker has crashed; nothing can run")
+        return alive
+
     def run(self, worker_steps: int) -> None:
         guard = 0
-        while min(self.steps_done) < worker_steps:
+        while min(self._alive_progress()) < worker_steps:
             self.tick()
             guard += 1
             if guard > worker_steps * max(self.speed) * 10 + 100:

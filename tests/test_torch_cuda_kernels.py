@@ -69,7 +69,8 @@ def _chip_smoke():
 @pytest.mark.gpu
 def test_kernel_matches_plain_version_bitwise(cuda):
     """chip_smoke.py's kernel sweep (5 optimizers x K in {1, 2, 3, 8} x 4
-    dtype pairs x 2 sizes), which raises on the first case that differs."""
+    dtype pairs x 2 sizes x average on and off), which raises on the first
+    case that differs."""
     assert _chip_smoke().kernel_sweep(cuda) == 0.0
 
 
@@ -85,8 +86,8 @@ def test_quant_kernels_match_plain_versions_bitwise(cuda):
 @pytest.mark.gpu
 def test_wire_kernel_matches_plain_and_unfused_bitwise(cuda):
     """chip_smoke.py's wire sweep: none/bf16/int8 x 5 optimizers x K in
-    {1, 2, 3, 8}, against wire_fused_torch and the unfused kernel
-    pipeline."""
+    {1, 2, 3, 8} x average on and off, against wire_fused_torch and the
+    unfused kernel pipeline."""
     assert _chip_smoke().wire_sweep(cuda) == 0.0
 
 
@@ -261,3 +262,17 @@ def test_sparse_tier_on_card_matches_cpu(cuda, codec):
     assert torch.equal(ct.table("t0"), gt.table("t0").cpu())
     assert all(torch.equal(a, b) for a, b in zip(co, go))
     assert ct.stats == gt.stats
+
+
+@pytest.mark.gpu
+def test_smoke_modes_on_card_match_cpu(cuda):
+    """chip_smoke.py's SMOKE-mode check: quorum, SSP and async x codec none
+    and int8, each with a mid-round checkpoint round trip, the fabric on
+    the card against the fabric on the CPU, bitwise; the card's updates
+    went through the kernels."""
+    launches = _chip_smoke().smoke_modes_check(cuda)
+    assert launches["async/none"]["fused_agg_opt"] > 0
+    assert launches["async/int8"]["fused_agg_opt"] == 0
+    assert launches["async/int8"]["wire_fused"] > 0
+    assert all(c["quantize_chunks"] == 0 for k, c in launches.items()
+               if k.endswith("/none"))

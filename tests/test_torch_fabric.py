@@ -32,6 +32,7 @@ from repro.core.chunking import TILE_ELEMS as JAX_TILE  # noqa: E402
 from repro.core.chunking import ParamSpace as JaxSpace  # noqa: E402
 from repro.core.compression import CompressionConfig as JaxCompression  # noqa: E402
 from repro.core.config import FabricConfig as JaxConfig  # noqa: E402
+from repro.core.config import FaultConfig as JaxFaults  # noqa: E402
 from repro.core.config import PlacementConfig as JaxPlacement  # noqa: E402
 from repro.core.config import WireConfig as JaxWire  # noqa: E402
 from repro.core.fabric import LinkModel as JaxLink  # noqa: E402
@@ -186,13 +187,8 @@ def test_fabric_does_not_write_init_flat():
 
 
 @pytest.mark.parametrize("cfg", [
-    dict(mode="async"),
-    dict(mode="stale", staleness=2),
-    dict(min_push_fraction=0.75),
     dict(faults=tconfig.FaultConfig(replication=2)),
     dict(faults=tconfig.FaultConfig(fault_plan=object())),
-    dict(mode="async", wire=tconfig.WireConfig(
-        compression=CompressionConfig(codec="int8"))),
     dict(wire=tconfig.WireConfig(switch=tconfig.SwitchConfig(
         enabled=True, tor_slots=4))),
     dict(namespace="job0"),
@@ -365,3 +361,378 @@ def test_describe_names_the_config():
                         compression=CompressionConfig(codec="int8")))
     assert "workers=4, codec=int8, fused_wire=on" in fab.describe()
     assert "wire: codec=int8 (no topology)" in fab.describe()
+
+
+# ---------------------------------------------------------------------------
+# straggler modes, rebalancing and snapshots (the mode x codec x shard
+# matrix against JAX is tests/test_torch_fabric_modes.py)
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("codec", ["none", "bf16", "int8"])
+@pytest.mark.parametrize("cfg", [
+    dict(mode="async"),
+    dict(mode="stale", staleness=2),
+    dict(min_push_fraction=0.75),
+    dict(mode="stale", staleness=1, min_push_fraction=0.5),
+], ids=["async", "stale", "quorum", "stale-quorum"])
+def test_straggler_knobs_validate_and_build(cfg, codec):
+    params, _ = torch_quad_setup()
+    space = ParamSpace.build(params, chunk_elems=CODEC_CHUNK)
+    config = FabricConfig(num_workers=K, num_shards=2, **cfg,
+                          wire=tconfig.WireConfig(
+                              compression=CompressionConfig(codec=codec)))
+    assert config.validate() is config
+    fab = PBoxFabric(space, topt.adamw(3e-3), space.flatten(params),
+                     config=config, device="cpu")
+    assert fab.mode == cfg.get("mode", "sync")
+    assert fab.staleness == {"async": 1 << 30, "stale": cfg.get("staleness"),
+                             "sync": 0}[fab.mode]
+    assert fab.min_pushes == int(np.ceil(cfg.get("min_push_fraction", 1.0)
+                                         * K))
+
+
+@pytest.mark.parametrize("frac,workers", [(0.5, 3), (0.34, 3), (0.75, 4),
+                                          (0.1, 2), (1.0, 5)])
+def test_min_pushes_is_jax_ceil(frac, workers):
+    params, _ = torch_quad_setup()
+    space = ParamSpace.build(params, chunk_elems=TILE_ELEMS)
+    fab = PBoxFabric(space, topt.sgd(0.1), space.flatten(params),
+                     config=FabricConfig(num_workers=workers,
+                                         min_push_fraction=frac),
+                     device="cpu")
+    jparams, _, _ = quad_setup()
+    jspace = JaxSpace.build(jparams, chunk_elems=JAX_TILE)
+    ref = JaxFabric(jspace, jopt.sgd(0.1), jspace.flatten(jparams),
+                    config=JaxConfig(num_workers=workers,
+                                     min_push_fraction=frac))
+    assert fab.min_pushes == ref.min_pushes
+    assert fab.num_alive_workers == ref.num_alive_workers == workers
+
+
+def _torch_grad(grad_fn, space, fab, w):
+    return space.flatten(grad_fn(space.unflatten(fab.pull(w)), w))
+
+
+def test_all_superseded_pushes_raise_like_jax():
+    """A caller that never re-pulls after a quorum round pushes only
+    superseded gradients: both fabrics drop them, then raise."""
+    params, grad_fn = torch_quad_setup()
+    space = ParamSpace.build(params, chunk_elems=TILE_ELEMS)
+    fab = PBoxFabric(space, topt.sgd(0.1), space.flatten(params),
+                     config=FabricConfig(num_workers=K, min_push_fraction=0.5),
+                     device="cpu")
+    jparams, _, jgrad = quad_setup()
+    jspace = JaxSpace.build(jparams, chunk_elems=JAX_TILE)
+    ref = JaxFabric(jspace, jopt.sgd(0.1), jspace.flatten(jparams),
+                    config=JaxConfig(num_workers=K, min_push_fraction=0.5))
+    tg = [_torch_grad(grad_fn, space, fab, w) for w in range(K)]
+    jg = [jspace.flatten(jgrad(jspace.unflatten(ref.pull(w)), w))
+          for w in range(K)]
+    for w in range(K):  # the round fires on push 2; pushes 3 and 4 drop
+        fab.push(w, tg[w])
+        ref.push(w, jg[w])
+    assert fab.stats.late_pushes_dropped == ref.stats.late_pushes_dropped == 2
+    fab.push(0, tg[0])
+    ref.push(0, jg[0])
+    assert dataclasses.asdict(fab.stats) == dataclasses.asdict(ref.stats)
+    with pytest.raises(RuntimeError, match="superseded"):
+        ref.push(1, jg[1])
+    with pytest.raises(RuntimeError, match="superseded"):
+        fab.push(1, tg[1])
+
+
+def _jax_fabric(spec_name, num_shards, **cfg):
+    params, _, grad_fn = quad_setup()
+    space = JaxSpace.build(params, chunk_elems=cfg.pop("chunk_elems", JAX_TILE))
+    fab = JaxFabric(space, SPECS[spec_name](jopt), space.flatten(params),
+                    config=JaxConfig(num_shards=num_shards, num_workers=K,
+                                     **cfg))
+    return fab, lambda p, w: space.flatten(grad_fn(space.unflatten(p), w))
+
+
+def _torch_fabric(spec_name, num_shards, **cfg):
+    params, grad_fn = torch_quad_setup()
+    space = ParamSpace.build(params, chunk_elems=cfg.pop("chunk_elems",
+                                                         TILE_ELEMS))
+    fab = PBoxFabric(space, SPECS[spec_name](topt), space.flatten(params),
+                     config=FabricConfig(num_shards=num_shards, num_workers=K,
+                                         **cfg),
+                     device="cpu")
+    return fab, lambda p, w: space.flatten(grad_fn(space.unflatten(p), w))
+
+
+def _push_round(fab, grad, workers=range(K)):
+    for w in workers:
+        fab.push(w, grad(fab.pull(w), w))
+
+
+@pytest.mark.parametrize("placement", ["contiguous", "round_robin"])
+@pytest.mark.parametrize("spec_name", ["momentum", "adamw"])
+def test_rebalance_matches_jax_bitwise(spec_name, placement):
+    """Rebalancing mid-training moves chunks with their state: numerics
+    stay those of a 1-shard fabric, and ownership, per-shard stats and the
+    event clock after the move match the JAX fabric's."""
+    link = dict(wire_us_per_chunk=0.2, agg_us_per_chunk=1.0)
+    ref, jgrad = _jax_fabric(spec_name, 4, wire=JaxWire(link=JaxLink(**link)),
+                             placement=JaxPlacement(policy=placement))
+    fab, tgrad = _torch_fabric(
+        spec_name, 4, wire=tconfig.WireConfig(link=LinkModel(**link)),
+        placement=tconfig.PlacementConfig(policy=placement))
+    one, _ = _torch_fabric(spec_name, 1)
+    for f, g in ((ref, jgrad), (fab, tgrad), (one, tgrad)):
+        for _ in range(3):
+            _push_round(f, g)
+    assert fab.rebalance([0]) == ref.rebalance([0]) > 0
+    assert fab.shards[0].num_chunks == 0 and fab.rebalance([0]) == 0
+    counts = np.bincount(fab.chunk_owner, minlength=4)[1:]
+    assert counts.max() - counts.min() <= 1
+    for f, g in ((ref, jgrad), (fab, tgrad), (one, tgrad)):
+        for _ in range(2):
+            _push_round(f, g)
+    np.testing.assert_array_equal(ref.chunk_owner, fab.chunk_owner)
+    for js, ts in zip(ref.shards, fab.shards):
+        np.testing.assert_array_equal(js.chunk_ids, ts.chunk_ids)
+        for a, b in zip(js.state, ts.state):
+            np.testing.assert_array_equal(_bits(a), _bits(b.numpy()))
+        assert dataclasses.asdict(js.stats) == dataclasses.asdict(ts.stats)
+    assert dataclasses.asdict(ref.stats) == dataclasses.asdict(fab.stats)
+    assert fab.stats.rebalances == 1
+    np.testing.assert_array_equal(_bits(ref.params), _bits(fab.params.numpy()))
+    assert torch.equal(one.params, fab.params)
+
+
+def test_apply_plan_delta_kinds():
+    from repro.core.placement import PlanDelta as JaxDelta
+    from repro_torch.core.placement import PlanDelta
+
+    ref, jgrad = _jax_fabric("adamw", 4)
+    fab, tgrad = _torch_fabric("adamw", 4)
+    _push_round(ref, jgrad)
+    _push_round(fab, tgrad)
+    before = fab.params.clone()
+    moves = ((0, 3), (1, 3), (8, 0))
+    assert fab.apply_plan_delta(PlanDelta("chunk_moves", moves=moves)) == \
+        ref.apply_plan_delta(JaxDelta("chunk_moves", moves=moves)) == 3
+    assert fab.apply_plan_delta(PlanDelta("chunk_moves", moves=moves)) == 0
+    np.testing.assert_array_equal(fab.chunk_owner, ref.chunk_owner)
+    assert fab.shards[3].chunk_ids.tolist() == [0, 1, 7]
+    assert isinstance(fab.shards[3].rows, torch.Tensor)  # no longer a run
+    assert torch.equal(fab.params, before)
+    for bad in (PlanDelta("replica_racks", shard=0, racks=(0,)),
+                PlanDelta("shard_count", new_shards=2)):
+        with pytest.raises(NotImplementedError):
+            fab.apply_plan_delta(bad)
+    for foreign in (PlanDelta("frontend_move", frontend=0, rack=0),
+                    PlanDelta("tenant_shares", shares=(("a", 1.0),))):
+        with pytest.raises(ValueError, match="not fabric-applied"):
+            fab.apply_plan_delta(foreign)
+    with pytest.raises(ValueError, match="unknown delta kind"):
+        PlanDelta("bogus")
+    with pytest.raises(ValueError, match="no chunk"):
+        fab.apply_plan_delta(PlanDelta("chunk_moves", moves=((99, 0),)))
+    with pytest.raises(ValueError, match="no shard"):
+        fab.apply_plan_delta(PlanDelta("chunk_moves", moves=((0, 4),)))
+    _push_round(ref, jgrad)
+    _push_round(fab, tgrad)
+    assert dataclasses.asdict(ref.stats) == dataclasses.asdict(fab.stats)
+    np.testing.assert_array_equal(_bits(ref.params), _bits(fab.params.numpy()))
+
+
+def test_release_and_adopt_copy_rows():
+    """Released rows are copies: writing them, or the shard afterwards,
+    changes neither the other nor the shard's remaining rows."""
+    fab, tgrad = _torch_fabric("adamw", 2)
+    _push_round(fab, tgrad)
+    shard, other = fab.shards
+    kept = shard.params[1:].clone()
+    p_rows, s_rows = shard.release(np.array([0]))
+    p_copy = p_rows.clone()
+    p_rows.add_(1.0)
+    shard.params.add_(2.0)
+    assert torch.equal(shard.params, kept + 2.0)
+    other.adopt(np.array([0]), p_copy, s_rows)
+    assert other.chunk_ids[0] == 0 and torch.equal(other.params[0], p_copy[0])
+    p_copy.add_(3.0)
+    assert not torch.equal(other.params[0], p_copy[0])
+    with pytest.raises(ValueError, match="does not own"):
+        shard.release(np.array([0]))
+
+
+def _snapshot_copy(snap):
+    return {k: (tuple(np.array(a) for a in v) if k == "state" else
+                np.array(v)) for k, v in snap.items()}
+
+
+def _assert_snap_equal(a, b):
+    assert sorted(a) == sorted(b)
+    np.testing.assert_array_equal(_bits(a["params"]), _bits(b["params"]))
+    for x, y in zip(a["state"], b["state"], strict=True):
+        np.testing.assert_array_equal(_bits(x), _bits(y))
+    for key in ("step", "worker_clock", "dead_workers", "replication"):
+        np.testing.assert_array_equal(a[key], b[key])
+
+
+@pytest.mark.parametrize("mid_round", [False, True], ids=["edge", "mid"])
+@pytest.mark.parametrize("src,dst", [(1, 8), (8, 1), (2, 3)])
+def test_snapshot_restore_across_shard_counts(src, dst, mid_round):
+    """A snapshot of an N-shard fabric restores into an M-shard one and
+    training continues bitwise; taken mid-round (two pushes admitted), the
+    restored run replays the in-flight pushes."""
+    fab, grad = _torch_fabric("adamw", src)
+    for _ in range(3):
+        _push_round(fab, grad)
+    if mid_round:
+        _push_round(fab, grad, workers=(0, 1))
+    snap = fab.snapshot()
+    kept = _snapshot_copy(snap)
+    np.testing.assert_array_equal(snap["worker_clock"], [3] * K)
+    if mid_round:
+        np.testing.assert_array_equal(fab.worker_clock, [4, 4, 3, 3])
+    _push_round(fab, grad, workers=(2, 3) if mid_round else range(K))
+    _push_round(fab, grad)
+    twin, tgrad = _torch_fabric("adamw", dst)
+    twin.restore(snap)
+    assert twin.step == 3 and not twin._inbox
+    for _ in range(2):
+        _push_round(twin, tgrad)
+    assert torch.equal(fab.params, twin.params)
+    for k in range(2):
+        assert torch.equal(fab._assemble_rows(lambda s: s.state[k]),
+                           twin._assemble_rows(lambda s: s.state[k]))
+    # neither the later rounds nor the restore wrote into the snapshot,
+    # and restoring it again gives its bits back
+    _assert_snap_equal(snap, kept)
+    twin.restore(snap)
+    _assert_snap_equal(twin.snapshot(), kept)
+
+
+@pytest.mark.parametrize("mid_round", [False, True], ids=["edge", "mid"])
+@pytest.mark.parametrize("codec", ["none", "int8"])
+@pytest.mark.parametrize("direction", ["jax-to-port", "port-to-jax"])
+def test_snapshot_crosses_packages(direction, codec, mid_round):
+    """A JAX snapshot restores into the port and a port snapshot into JAX;
+    the restored fabric then runs bitwise equal to its source (the
+    error-feedback residuals restart at zero on both sides)."""
+    chunk = CODEC_CHUNK if codec != "none" else None
+    cfg = {} if chunk is None else {"chunk_elems": chunk}
+    ref, jgrad = _jax_fabric("adamw", 2, **cfg, wire=JaxWire(
+        compression=JaxCompression(codec=codec)))
+    fab, tgrad = _torch_fabric("adamw", 3, **cfg, wire=tconfig.WireConfig(
+        compression=CompressionConfig(codec=codec)))
+    src, sgrad, dst, dgrad = ((ref, jgrad, fab, tgrad)
+                              if direction == "jax-to-port"
+                              else (fab, tgrad, ref, jgrad))
+    for _ in range(2):
+        _push_round(src, sgrad)
+    if mid_round:
+        _push_round(src, sgrad, workers=(0, 2))
+    snap = src.snapshot()
+    src.restore(snap)  # both sides resume from the same restored state
+    dst.restore(snap)
+    for f, g in ((src, sgrad), (dst, dgrad)):
+        for _ in range(2):
+            _push_round(f, g)
+    np.testing.assert_array_equal(_bits(ref.params), _bits(fab.params.numpy()))
+    for k in range(2):
+        np.testing.assert_array_equal(
+            _bits(ref._assemble_rows(lambda s: s.state[k])),
+            _bits(fab._assemble_rows(lambda s: s.state[k]).numpy()))
+    for w, ef in ref._worker_ef.items():
+        np.testing.assert_array_equal(_bits(ef),
+                                      _bits(fab._worker_ef[w].numpy()))
+    assert ref.step == fab.step == 4
+    np.testing.assert_array_equal(ref.worker_clock, fab.worker_clock)
+
+
+def test_restore_reads_dead_workers_and_legacy_snapshots():
+    """A JAX snapshot with a crashed worker restores it as dead (it neither
+    proceeds nor counts toward the quorum); a legacy snapshot without
+    clocks or fault metadata restores an all-alive fabric at its step."""
+    ref, jgrad = _jax_fabric("momentum", 2,
+                             faults=JaxFaults(replication=2))
+    _push_round(ref, jgrad)
+    ref.crash_worker(3)
+    snap = ref.snapshot()
+    fab, tgrad = _torch_fabric("momentum", 2, min_push_fraction=0.5)
+    fab.restore(snap)
+    assert fab.dead_workers == {3} and not fab.alive(3)
+    assert not fab.can_proceed(3) and fab.can_proceed(0)
+    assert fab.num_alive_workers == 3 and fab.min_pushes == 2
+    with pytest.raises(RuntimeError, match="dead"):
+        fab.push(3, torch.zeros(fab.space.flat_elems))
+    legacy = {k: snap[k] for k in ("params", "state", "step")}
+    fab.restore(legacy)
+    assert not fab.dead_workers
+    np.testing.assert_array_equal(fab.worker_clock, [1] * K)
+    np.testing.assert_array_equal(_bits(ref.params), _bits(fab.params.numpy()))
+
+
+def test_restore_onto_another_worker_count_resets_clocks():
+    """A snapshot restored onto a fabric with another worker count resets
+    every clock to the restored step, as in JAX."""
+    fab, grad = _torch_fabric("adamw", 2)
+    for _ in range(2):
+        _push_round(fab, grad)
+    snap = fab.snapshot()
+    params, _ = torch_quad_setup()
+    space = ParamSpace.build(params, chunk_elems=TILE_ELEMS)
+    small = PBoxFabric(space, topt.adamw(3e-3), space.flatten(params),
+                       config=FabricConfig(num_shards=3, num_workers=2),
+                       device="cpu")
+    small.restore(snap)
+    np.testing.assert_array_equal(small.worker_clock, [2, 2])
+    np.testing.assert_array_equal(small._pull_step, [2, 2])
+    assert torch.equal(small.params, fab.params)
+
+
+def test_restore_tells_attached_sparse_tiers():
+    """A fabric-attached SparseTier hears of a restore (``on_restore``),
+    and a collected tier's weakref is pruned."""
+    from repro_torch.core.sparse import SparseTier
+
+    fab, grad = _torch_fabric("sgd", 2)
+    _push_round(fab, grad)
+    tier = SparseTier(fabric=fab, lr=0.1)
+    gone = SparseTier(fabric=fab, lr=0.1)
+    calls = []
+    tier.on_restore = lambda: calls.append("restored")
+    del gone
+    assert len(fab.sparse_tiers) == 2
+    fab.restore(fab.snapshot())
+    assert calls == ["restored"] and len(fab.sparse_tiers) == 1
+
+
+def test_harness_runs_past_a_dead_worker():
+    """``WorkerHarness.run`` counts only alive workers: a worker restored
+    as dead neither blocks the others nor the run."""
+    ref, jgrad = _jax_fabric("momentum", 2, faults=JaxFaults(replication=2))
+    _push_round(ref, jgrad)
+    ref.crash_worker(1)
+    params, grad_fn = torch_quad_setup()
+    space = ParamSpace.build(params, chunk_elems=TILE_ELEMS)
+    fab = PBoxFabric(space, topt.momentum(0.05, 0.9), space.flatten(params),
+                     config=FabricConfig(num_shards=2, num_workers=K),
+                     device="cpu")
+    fab.restore(ref.snapshot())
+    h = WorkerHarness(fab, grad_fn, lambda w, s: w)
+    h.run(2)
+    assert h.steps_done[1] == 0 and min(h.steps_done[w] for w in (0, 2, 3)) == 2
+    assert fab.step == 3  # each round waited for the 3 alive workers only
+    jh = JaxHarness(ref, quad_setup()[2], lambda w, s: w)
+    jh.run(2)
+    np.testing.assert_array_equal(_bits(ref.params), _bits(fab.params.numpy()))
+
+
+def test_ssp_double_push_replaces_inbox_entry_like_jax():
+    """In stale mode a worker that pushes twice before the barrier replaces
+    its own earlier push (the JAX fabric's ``_inbox[worker] = ...``): the
+    round averages its second gradient with the others'."""
+    ref, jgrad = _jax_fabric("sgd", 1, mode="stale", staleness=1)
+    fab, tgrad = _torch_fabric("sgd", 1, mode="stale", staleness=1)
+    for f, g in ((ref, jgrad), (fab, tgrad)):
+        f.push(0, g(f.pull(0), 0))
+        f.push(0, g(f.pull(0), 1))  # the clock runs one ahead: admitted
+        assert len(f._inbox) == 1 and f.stats.steps == 0
+        _push_round(f, g, workers=(1, 2, 3))
+        assert f.stats.steps == 1 and f.stats.pushes == 5
+    np.testing.assert_array_equal(_bits(ref.params), _bits(fab.params.numpy()))
+    np.testing.assert_array_equal(fab.worker_clock, [2, 1, 1, 1])

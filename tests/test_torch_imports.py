@@ -47,6 +47,18 @@ def test_sparse_slice_modules_are_checked(module):
     assert ROOT / "src" / "repro_torch" / module in PORT_FILES
 
 
+STRAGGLER_SLICE = ("core/placement.py", "runtime/straggler.py",
+                   "checkpoint/__init__.py", "checkpoint/checkpointer.py",
+                   "core/fabric.py", "core/config.py", "core/server.py")
+
+
+@pytest.mark.parametrize("module", STRAGGLER_SLICE)
+def test_straggler_slice_modules_are_checked(module):
+    """The straggler modes' and checkpointer's modules are among the files
+    checked above."""
+    assert ROOT / "src" / "repro_torch" / module in PORT_FILES
+
+
 def test_port_imports_with_jax_blocked():
     """Every module of the port imports in a process where ``import jax``
     and ``import repro`` fail."""
