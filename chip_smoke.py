@@ -72,11 +72,31 @@ raises on failure (the script then exits non-zero and prints no result):
    at the SMOKE config, the fabric on the card against the fabric on the
    CPU, bitwise, each with a mid-round ``Checkpointer.save_fabric`` /
    ``restore_fabric`` round trip;
-12. every kernel and its plain version timed at its main path's shape with
+12. the f32 rack chain at full width (gemma3-1b, AdamW, 4 shards; phases
+   12 and 13 under deterministic algorithms too): 4 workers over a
+   ``NetworkTopology`` of 2 racks with a 1:4 core, codec none, 3 rounds.
+   Counts: 12 fused_agg_opt, no codec launches; 6 rack streams; the core
+   link carries 2 f32 streams a round.  The params bitwise equal to a
+   4-worker flat fabric fed the same batches, whose core carries 4;
+13. the switch pools at full width on the int8 wire (error feedback, fused
+   wire path): 2 workers, one a rack, with ToR and core pools of one slot
+   per chunk (158,912): every round offloaded to both pools; counts 12
+   wire_fused, no quantize / dequantize.  Then pools one slot short
+   (starved, never engaged): counts 12 quantize, 12 dequantize, 12
+   wire_fused, and params bitwise equal to the same topology fabric with
+   no switch tier;
+14. every codec (none, bf16, int8) x mode (sync, quorum, SSP, async) x
+   switch (off, on, starved, a ToR pool or the core pool failed at round
+   2 and restored at round 3 by a ``FaultPlan``) at the SMOKE config over
+   2 racks, the fabric on the card against the fabric on the CPU, bitwise
+   in params, state, residuals, every stats field and ``fault_trace``;
+15. every kernel and its plain version timed at its main path's shape with
    CUDA events, beside its byte bound and, where one PyTorch call computes
    the same function, that call's time (embedding_bag also at one
    multi-hot shape, B = 32,768 x L = 20; fused_agg_opt and wire_fused also
-   at K = 1 without averaging, as the async path runs them).
+   at K = 1 without averaging, as the async path runs them); and the
+   switch pool's plain-torch integer math (shared scale, int8 encode,
+   residual, int32 slot sum, dequantize) at full width.
 
 The line before the last is the kernel table as JSON (each row with its
 launches on every path); the last line is ``{"ok": true, "device":
@@ -577,12 +597,14 @@ class CaptureCall:
 
 class PathMemory:
     """The main path's device memory, allocated and peak, without the
-    bytes its captures hold (kept apart with a peak reset at each one)."""
+    bytes its captures hold (kept apart with a peak reset at each one)
+    and without ``held`` bytes that an earlier run left allocated for a
+    comparison."""
 
-    def __init__(self, dev):
+    def __init__(self, dev, held: int = 0):
         import torch
 
-        self.dev, self.held, self.peak = dev, 0, 0
+        self.dev, self.held, self.peak = dev, held, 0
         torch.cuda.reset_peak_memory_stats(dev)
 
     def hold(self, nbytes: int) -> None:
@@ -1239,7 +1261,7 @@ def _check_counts(label: str, got: dict, want: dict) -> None:
 
 
 class GemmaWorkers:
-    """gemma3-1b at full width for phases 8-10: seeded weights (seed 0),
+    """gemma3-1b at full width for phases 8-13: seeded weights (seed 0),
     the flat space, fabrics built from them, and a worker gradient that is
     a function of the pulled params and (worker, step) alone, so a
     replayed step sees the same tokens."""
@@ -1291,9 +1313,13 @@ class GemmaWorkers:
             self.grad_tree(self.space.unflatten(flat), w, s))
 
     def fabric(self, num_workers: int, num_shards: int = SHARDS,
-               codec: str = "none", **fields):
+               codec: str = "none", topology=None, switch=None, **fields):
         from repro_torch.core.compression import CompressionConfig
-        from repro_torch.core.config import FabricConfig, WireConfig
+        from repro_torch.core.config import (
+            FabricConfig,
+            SwitchConfig,
+            WireConfig,
+        )
         from repro_torch.core.fabric import PBoxFabric
         from repro_torch.optim.optimizers import adamw
 
@@ -1301,8 +1327,12 @@ class GemmaWorkers:
             self.space, adamw(3e-3), self.init, device=self.dev,
             config=FabricConfig(num_shards=num_shards,
                                 num_workers=num_workers,
-                                wire=WireConfig(compression=CompressionConfig(
-                                    codec=codec)), **fields))
+                                wire=WireConfig(
+                                    topology=topology,
+                                    compression=CompressionConfig(
+                                        codec=codec),
+                                    switch=switch or SwitchConfig()),
+                                **fields))
 
     def round(self, fab, s: int, workers=(0, 1)) -> None:
         """Each worker in turn pulls, computes its step-``s`` gradient and
@@ -1680,6 +1710,381 @@ def smoke_modes_check(dev) -> dict:
                 f"{st['fused_wire_rounds']}; then a mid-round save_fabric / "
                 f"restore_fabric and 2 more rounds; {dev} == cpu bitwise; "
                 f"launches on {dev.type} {launches[f'{mode}/{codec}']}")
+    return launches
+
+
+# -- phases 12 to 14: the rack topology tier ---------------------------------
+RACKS, OVERSUB = 2, 4.0  # NetworkTopology(workers, 2 racks, 1:4 core)
+
+
+def topology(workers: int):
+    from repro_torch.core.topology import NetworkTopology
+
+    return NetworkTopology(workers, RACKS, oversubscription=OVERSUB)
+
+
+def rack_chain_path(dev, gw: GemmaWorkers) -> dict:
+    """Phase 12: the f32 rack chain at full width.  4 workers over 2 racks
+    (1:4 core), codec none, 3 rounds: each ToR folds its members onto the
+    prefix from the rack before and relays it, so the shards see one
+    stream and three zero rows a round.  The params must equal a 4-worker
+    flat fabric fed the same batches, bitwise; the core link carries 2
+    streams a round where the flat fabric's carries 4."""
+    import torch
+
+    from repro_torch.core.compression import CompressionConfig, wire_bytes
+
+    workers = range(4)
+    n = gw.space.flat_elems
+    memory = PathMemory(dev)
+    fab = gw.fabric(4, topology=topology(4))
+    _zero_counts()  # the counts to 0 just before the path...
+    round_ms = [timed(lambda s=s: gw.round(fab, s, workers))
+                for s in range(ROUNDS)]
+    launches = _counts()  # ...and read just after
+    peak = memory.now()[1]
+    st = fab.stats
+    stream = wire_bytes(CompressionConfig(), n)
+    log(f"rack chain path: {gw.cfg.name}, 4 workers over {RACKS} racks "
+        f"(core 1:{OVERSUB:g}), codec none, {SHARDS} shards, AdamW, {ROUNDS} "
+        f"rounds")
+    log(f"  losses {gw.finite_losses()}")
+    log(f"  launches {launches}; rack streams {st.rack_streams}, bytes core "
+        f"link {st.bytes_core_link}, rack links {st.bytes_rack_link}; event "
+        f"clock core {st.sim_core_wire_us:.0f} us, pipelined "
+        f"{st.sim_pipelined_us:.0f} us")
+    log(f"  round wall ms {[round(x, 1) for x in round_ms]} (4 gradients a "
+        f"round); peak device memory {peak} bytes ({peak / 2**30:.2f} GiB)")
+    _check_counts("rack chain path", launches,
+                  {"fused_agg_opt": SHARDS * ROUNDS})
+    want = (ROUNDS * RACKS, ROUNDS * RACKS * stream, ROUNDS * 4 * stream)
+    if (st.rack_streams, st.bytes_core_link, st.bytes_rack_link) != want:
+        raise AssertionError(f"rack chain stats {st}, expected (rack "
+                             f"streams, core, rack bytes) {want}")
+    final = fab.params
+    del fab
+    torch.cuda.empty_cache()
+    # the rack chain's params, kept for the comparison, are not the flat
+    # run's memory
+    flat_memory = PathMemory(dev, held=final.numel() * final.element_size())
+    ref = gw.fabric(4)
+    _zero_counts()
+    flat_ms = [timed(lambda s=s: gw.round(ref, s, workers))
+               for s in range(ROUNDS)]
+    flat_launches = _counts()
+    flat_peak = flat_memory.now()[1]
+    gw.finite_losses()
+    _check_counts("flat 4-worker fabric", flat_launches,
+                  {"fused_agg_opt": SHARDS * ROUNDS})
+    if ref.stats.bytes_core_link != ROUNDS * 4 * stream:
+        raise AssertionError(f"flat core bytes {ref.stats.bytes_core_link}")
+    if not same_bits(final, ref.params):
+        raise AssertionError(
+            f"rack chain differs from the flat fabric, max |err| "
+            f"{max_abs_err(final, ref.params)}")
+    log(f"  rack chain == 4-worker flat fabric, bitwise after {ROUNDS} rounds; "
+        f"core link {st.bytes_core_link} bytes against the flat fabric's "
+        f"{ref.stats.bytes_core_link} ({st.bytes_core_link / ref.stats.bytes_core_link:.2f}x); "
+        f"flat round wall ms {[round(x, 1) for x in flat_ms]}, peak "
+        f"{flat_peak} bytes ({flat_peak / 2**30:.2f} GiB)")
+    out = {"launches": launches, "flat_launches": flat_launches,
+           "round_ms": round_ms, "flat_round_ms": flat_ms,
+           "peak_bytes": peak, "flat_peak_bytes": flat_peak,
+           "bytes_core_link": st.bytes_core_link,
+           "flat_bytes_core_link": ref.stats.bytes_core_link}
+    del ref, final
+    torch.cuda.empty_cache()
+    return out
+
+
+def switch_path(dev, gw: GemmaWorkers) -> dict:
+    """Phase 13: the switch pools at full width on the int8 wire (error
+    feedback, fused wire path).  2 workers, one in each of 2 racks, AdamW,
+    3 rounds, three runs:
+      offloaded  ToR and core pools of one slot per chunk: every round
+                 the ToR pools sum their rack's int8 payload under a shared
+                 scale and the core pool sums the two rack streams, one
+                 re-encoded stream reaching the shards;
+      starved    pools one slot short: no push is ever parked, so the run
+                 is the software path;
+      no switch  the same topology fabric without the tier; the starved
+                 run must equal it, bitwise."""
+    import torch
+
+    from repro_torch.core.compression import CompressionConfig, wire_bytes
+    from repro_torch.core.config import SwitchConfig
+
+    c = gw.space.num_chunks
+    runs: dict = {}
+    finals: dict = {}
+    for label, slots in (("offloaded", c), ("starved", c - 1),
+                         ("no switch", None)):
+        switch = (SwitchConfig() if slots is None else
+                  SwitchConfig(enabled=True, tor_slots=slots,
+                               core_slots=slots))
+        # the starved run's params, kept for the comparison, are not this
+        # run's memory
+        memory = PathMemory(dev, held=sum(t.numel() * t.element_size()
+                                          for t in finals.values()))
+        fab = gw.fabric(WORKERS, codec="int8", topology=topology(WORKERS),
+                        switch=switch)
+        _zero_counts()  # the counts to 0 just before the run...
+        round_ms = [timed(lambda s=s: gw.round(fab, s))
+                    for s in range(ROUNDS)]
+        launches = _counts()  # ...and read just after
+        peak = memory.now()[1]
+        st = fab.stats
+        runs[label] = {"launches": launches, "round_ms": round_ms,
+                       "peak_bytes": peak,
+                       "stats": dataclasses.asdict(st),
+                       "switches": [dataclasses.asdict(r.switch.stats)
+                                    for r in fab.rack_aggs if r.switch]
+                       + ([dataclasses.asdict(fab.core_switch.stats)]
+                          if fab.core_switch else [])}
+        log(f"switch path ({label}): {gw.cfg.name}, 2 workers over {RACKS} "
+            f"racks, int8 wire, "
+            + (f"tor_slots = core_slots = {slots} ({c} chunks)" if slots
+               else "no switch tier") + f", AdamW, {ROUNDS} rounds")
+        log(f"  losses {gw.finite_losses()}")
+        log(f"  launches {launches}; switch rounds {st.switch_rounds}, core "
+            f"switch rounds {st.core_switch_rounds}, fallback rounds "
+            f"{st.switch_fallback_rounds}, bytes absorbed "
+            f"{st.bytes_switch_agg}, PS ingress saved {st.bytes_switch_saved}; "
+            f"bytes core link {st.bytes_core_link}")
+        log(f"  round wall ms {[round(x, 1) for x in round_ms]}; peak device "
+            f"memory {peak} bytes ({peak / 2**30:.2f} GiB)")
+        if not torch.isfinite(fab.params).all():
+            raise AssertionError(f"switch path ({label}): params not finite")
+        if label == "offloaded":
+            _check_counts("offloaded switch run", launches,
+                          {"wire_fused": SHARDS * ROUNDS})
+            if (st.switch_rounds, st.core_switch_rounds,
+                    st.switch_fallback_rounds) != (ROUNDS, ROUNDS, 0):
+                raise AssertionError(f"offloaded switch stats {st}")
+        else:
+            _check_counts(f"{label} run", launches, {
+                "quantize_chunks": 2 * WORKERS * ROUNDS,
+                "dequantize_chunks": 2 * WORKERS * ROUNDS,
+                "wire_fused": SHARDS * ROUNDS})
+            if st.switch_rounds or st.core_switch_rounds:
+                raise AssertionError(f"{label} run offloaded: {st}")
+            finals[label] = fab.params
+        del fab
+        torch.cuda.empty_cache()
+    if not same_bits(finals["starved"], finals["no switch"]):
+        raise AssertionError(
+            f"starved pools differ from no switch tier, max |err| "
+            f"{max_abs_err(finals['starved'], finals['no switch'])}")
+    del finals
+    torch.cuda.empty_cache()
+    flat = ROUNDS * WORKERS * wire_bytes(CompressionConfig(codec="int8"),
+                                         gw.space.flat_elems)
+    log(f"  starved pools == no switch tier, bitwise after {ROUNDS} rounds; "
+        f"core link {runs['offloaded']['stats']['bytes_core_link']} bytes, "
+        f"a flat int8 fabric's {flat} (2 pushes a round); the core pool "
+        f"saved {runs['offloaded']['stats']['bytes_switch_saved']} bytes of "
+        f"PS ingress")
+    return runs
+
+
+def switch_math_ms(dev, n: int, chunk: int) -> dict:
+    """Device time (CUDA events, median of 5) of the switch pool's plain
+    torch integer math at full width, on two seeded f32 slabs of ``n``
+    elements (2 racks): the shared scale, one sender's int8 encode and its
+    residual, the int32 slot sum of two payloads and its dequantize.  Each
+    beside its byte bound (inputs read once, outputs written once)."""
+    import torch
+
+    from repro_torch.core.topology import (
+        SwitchCompute,
+        group_scale,
+        integer_quantize,
+        quant_residual,
+        scale_chunks,
+    )
+
+    name = torch.cuda.get_device_name(dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    a = torch.randn(n, generator=gen, device=dev) * 1e-3
+    b = torch.randn(n, generator=gen, device=dev) * 1e-3
+    c = n // chunk
+    sw = SwitchCompute("t", c)
+    s = group_scale([a, b], chunk)
+    qa = integer_quantize(a, s, chunk)
+    qb = integer_quantize(b, s, chunk)
+    acc = sw.accumulate([qa, qb], chunk)
+    # (label, call, bytes read and written once)
+    ops = {
+        "group_scale (2 slabs)": (lambda: group_scale([a, b], chunk),
+                                  8 * n + 4 * c),
+        "integer_quantize": (lambda: integer_quantize(a, s, chunk),
+                             4 * n + 4 * c + n),
+        "residual": (lambda: quant_residual(a, qa, s),
+                     4 * n + n + 4 * c + 4 * n),
+        "accumulate (2 payloads)": (lambda: sw.accumulate([qa, qb], chunk),
+                                    2 * n + 4 * n),
+        "dequantize the sum": (lambda: scale_chunks(acc, s),
+                               4 * n + 4 * c + 4 * n),
+    }
+    out = {}
+    for label, (fn, nbytes) in ops.items():
+        ms = cuda_ms(fn, reps=5)
+        out[label] = {"ms": ms, **bound(name, nbytes, 0)}
+    del a, b, qa, qb, acc, s
+    torch.cuda.empty_cache()
+    total = sum(v["ms"] for v in out.values())
+    log(f"switch integer math (plain torch ops, n = {n}, chunk {chunk}; CUDA "
+        f"events, median of 5): " + "; ".join(
+            f"{k} {v['ms']:.3f} ms (bound {v['bound_ms']:.3f})"
+            for k, v in out.items()) + f"; sum {total:.3f} ms")
+    return out
+
+
+# the SMOKE topology sweep: mode -> (FabricConfig fields, harness speeds;
+# None: every worker pulls, then every worker pushes)
+TOPO_MODES = {
+    "sync": (dict(), [1, 1, 1, 1]),
+    "quorum": (dict(min_push_fraction=0.75), None),
+    "ssp": (dict(mode="stale", staleness=1), [1, 1, 1, 2]),
+    "async": (dict(mode="async"), [1, 1, 1, 2]),
+}
+SWITCH_VARIANTS = ("off", "on", "starved", "tor_fail", "core_fail")
+
+
+def smoke_topology_check(dev) -> dict:
+    """Phase 14: the topology tier at gemma3-1b's SMOKE config, every codec
+    (none, bf16, int8 with error feedback) x mode (sync, a 3-of-4 quorum,
+    SSP, async) x switch (off; pools of one slot per chunk; starved one
+    slot short; a ToR pool, or the core pool, failed at round 2 by a
+    FaultPlan and restored at round 3): 4 workers over 2 racks, 4 shards,
+    3 rounds.  The fabric on ``dev`` against the fabric on the CPU,
+    bitwise in params, state, every ServerStats / ShardStats / RackStats /
+    SwitchStats field, the ToRs' and core pool's residuals and
+    fault_trace.  The card run goes first and computes each gradient on
+    the card, keyed by (worker, step, digest of the pulled params); the
+    CPU run then takes the gradient of the same key, so both fabrics get
+    the same bits, and a CPU pull the card never made fails the case.
+    Returns each case's kernel launches on ``dev``."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.chunking import ParamSpace
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.core.config import (
+        FabricConfig,
+        FaultConfig,
+        SwitchConfig,
+        WireConfig,
+    )
+    from repro_torch.core.fabric import PBoxFabric, WorkerHarness
+    from repro_torch.core.replication import FaultEvent, FaultPlan
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models.transformer import init_params, lm_loss_and_grad
+    from repro_torch.optim.optimizers import adamw
+
+    cfg = get_arch("gemma3-1b").smoke_config
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    space = ParamSpace.build(params, chunk_elems=4096)
+    init = space.flatten(params)
+    cpu = torch.device("cpu")
+    book: dict = {}
+    filling = [True]  # the card run fills the book, the CPU run reads it
+
+    def grad(flat, w, s):
+        key = (w, s, hashlib.sha1(flat.cpu().numpy().tobytes()).hexdigest())
+        if key not in book:
+            if not filling[0]:
+                raise AssertionError(
+                    f"the CPU fabric pulled params for worker {w} step {s} "
+                    "that the card fabric never pulled")
+            b = next(lm_batches(cfg.vocab, 4, 32, seed=1000 * (w + 1) + s))
+            _, g = lm_loss_and_grad(
+                space.unflatten(flat), torch.from_numpy(b["tokens"]).to(dev),
+                torch.from_numpy(b["labels"]).to(dev), cfg)
+            book[key] = space.flatten(g).cpu()
+        return book[key].to(flat.device)
+
+    def run(d, config, speeds):
+        fab = PBoxFabric(space, adamw(3e-3), init.to(d), config=config,
+                         device=d)
+        if speeds is not None:
+            WorkerHarness(fab, lambda p, ws: space.unflatten(
+                grad(space.flatten(p), *ws)), lambda w, s: (w, s),
+                speed=speeds).run(ROUNDS)
+        else:
+            for s in range(ROUNDS):
+                flats = [fab.pull(w) for w in range(4)]
+                for w in range(4):
+                    fab.push(w, grad(flats[w], w, s))
+        return fab
+
+    def bits_of(fab):
+        efs = [r._uplink_ef for r in fab.rack_aggs] + [fab._core_ef] + [
+            r._worker_ef[w] for r in fab.rack_aggs for w in r.members]
+        return ([fab.params.cpu()]
+                + [fab._assemble_rows(lambda sh, k=k: sh.state[k]).cpu()
+                   for k in range(fab.spec.num_state_slots)]
+                + [None if e is None else e.cpu() for e in efs])
+
+    def stats_of(fab):
+        return (dataclasses.asdict(fab.stats),
+                [dataclasses.asdict(sh.stats) for sh in fab.shards],
+                [dataclasses.asdict(r.stats) for r in fab.rack_aggs],
+                [dataclasses.asdict(r.switch.stats) if r.switch else None
+                 for r in fab.rack_aggs],
+                dataclasses.asdict(fab.core_switch.stats)
+                if fab.core_switch else None,
+                fab.fault_trace)
+
+    launches = {}
+    offloads = {}
+    c = space.num_chunks
+    for codec in ("none", "bf16", "int8"):
+        for mode, (fields, speeds) in TOPO_MODES.items():
+            for variant in SWITCH_VARIANTS:
+                slots = c - (variant == "starved")
+                switch = (SwitchConfig() if variant == "off" else
+                          SwitchConfig(enabled=True, tor_slots=slots,
+                                       core_slots=slots))
+                target = {"tor_fail": 0, "core_fail": RACKS}.get(variant)
+                plan = (None if target is None else FaultPlan([
+                    FaultEvent(2, "switch_fail", target),
+                    FaultEvent(3, "switch_restore", target)]))
+                config = FabricConfig(
+                    num_shards=SHARDS, num_workers=4, **fields,
+                    wire=WireConfig(topology=topology(4), switch=switch,
+                                    compression=CompressionConfig(
+                                        codec=codec)),
+                    faults=FaultConfig(fault_plan=plan))
+                book.clear()
+                case = f"{codec}/{mode}/{variant}"
+                filling[0] = True
+                _zero_counts()
+                got = run(dev, config, speeds)
+                launches[case] = _counts()
+                filling[0] = False
+                ref = run(cpu, config, speeds)
+                same = (stats_of(ref) == stats_of(got) and all(
+                    (a is None and b is None) or same_bits(a, b)
+                    for a, b in zip(bits_of(ref), bits_of(got))))
+                if not same:
+                    raise AssertionError(f"SMOKE topology {case}: the fabric "
+                                         f"on {dev} differs from the CPU's")
+                st = ref.stats
+                offloads[case] = (st.switch_rounds, st.core_switch_rounds,
+                                  st.switch_fallback_rounds)
+                del got, ref
+    book.clear()
+    engaged = {k: v for k, v in offloads.items() if any(v)}
+    if not engaged or not all(k.startswith("int8/") for k in engaged):
+        raise AssertionError(f"switch offloads by case {offloads}")
+    total = {k: sum(c[k] for c in launches.values())
+             for k in next(iter(launches.values()))}
+    log(f"smoke topology: {len(launches)} cases (codec x mode x switch, 4 "
+        f"workers over {RACKS} racks, {SHARDS} shards, {ROUNDS} rounds), "
+        f"{dev} == cpu bitwise in params, state, residuals, every stats "
+        f"field and fault_trace; launches on {dev.type} {total}; (ToR, core, "
+        f"fallback) switch rounds where a pool engaged {engaged}")
     return launches
 
 
@@ -2078,10 +2483,14 @@ def main() -> int:
         quorum = quorum_path(dev, gw)
         asyn = async_path(dev, gw)
         snap = snapshot_path(dev, gw)
+        rack = rack_chain_path(dev, gw)
+        switch = switch_path(dev, gw)
         del gw
     async_err = replay_wire(dev, asyn)
     asyn.pop("captured")
     smoke = smoke_modes_check(dev)
+    smoke_topo = smoke_topology_check(dev)
+    switch_math = switch_math_ms(dev, int8["flat"], int8["chunk"])
     d = dlrm_capped_config().embed_dim
     timing = {"fused_agg_opt": time_fused_agg_opt(dev, f32["n"], WORKERS),
               **time_quant(dev, int8["flat"], int8["chunk"]),
@@ -2106,7 +2515,13 @@ def main() -> int:
              "snapshot_run_a": snap["launches_a"],
              "snapshot_run_b": snap["launches_b"],
              "smoke_modes": {k: sum(c[k] for c in smoke.values())
-                             for k in f32["launches"]}}
+                             for k in f32["launches"]},
+             "rack_chain": rack["launches"],
+             "rack_flat_reference": rack["flat_launches"],
+             **{f"switch_{label.replace(' ', '_')}": run["launches"]
+                for label, run in switch.items()},
+             "smoke_topology": {k: sum(c[k] for c in smoke_topo.values())
+                                for k in f32["launches"]}}
     # K = 1 without averaging: the async pushes (f32 ones only at SMOKE)
     k1_launches = {"fused_agg_opt": smoke["async/none"]["fused_agg_opt"],
                    "wire_fused": asyn["launches"]["wire_fused"]
@@ -2171,7 +2586,17 @@ def main() -> int:
         f"{dlrm['peak_bytes'] / 2**30:.2f} GiB, quorum "
         f"{quorum['peak_bytes'] / 2**30:.2f} GiB, async int8 "
         f"{asyn['peak_bytes'] / 2**30:.2f} GiB, snapshot "
-        f"{snap['peak_bytes'] / 2**30:.2f} GiB; whole run "
+        f"{snap['peak_bytes'] / 2**30:.2f} GiB, rack chain "
+        f"{rack['peak_bytes'] / 2**30:.2f} GiB (its flat reference "
+        f"{rack['flat_peak_bytes'] / 2**30:.2f}), switch "
+        + ", ".join(f"{label} {run['peak_bytes'] / 2**30:.2f} GiB"
+                    for label, run in switch.items())
+        + "; steady rounds (round 2): rack chain "
+        f"{rack['round_ms'][1]:.1f} ms (flat {rack['flat_round_ms'][1]:.1f}), "
+        + ", ".join(f"switch {label} {run['round_ms'][1]:.1f} ms"
+                    for label, run in switch.items())
+        + f"; switch integer math "
+        f"{sum(v['ms'] for v in switch_math.values()):.3f} ms; whole run "
         f"{time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

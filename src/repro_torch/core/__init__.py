@@ -1,5 +1,6 @@
 """The port's core: the PHub/PBox parameter exchange (torch counterpart of
-``repro.core``, synchronous slice) and the sparse embedding tier."""
+``repro.core``: the fabric with its straggler modes, rack topology and
+switch tier) and the sparse embedding tier."""
 from repro_torch.core.chunking import DEFAULT_CHUNK_ELEMS, ParamSpace, TensorSlot
 from repro_torch.core.config import FabricConfig, FabricConfigError
 from repro_torch.core.fabric import (
@@ -10,6 +11,7 @@ from repro_torch.core.fabric import (
     ShardStats,
     WorkerHarness,
 )
+from repro_torch.core.replication import FaultEvent, FaultPlan, ShardLost
 from repro_torch.core.server import PHubServer
 from repro_torch.core.sparse import (
     RowPlacement,
@@ -17,8 +19,14 @@ from repro_torch.core.sparse import (
     SparseStats,
     SparseTier,
 )
+from repro_torch.core.topology import NetworkTopology, RackAggregator
 
 __all__ = [
+    "FaultEvent",
+    "FaultPlan",
+    "ShardLost",
+    "NetworkTopology",
+    "RackAggregator",
     "ParamSpace",
     "TensorSlot",
     "DEFAULT_CHUNK_ELEMS",

@@ -44,14 +44,27 @@ so nothing the fabric hands out may alias them: ``snapshot`` copies to
 host memory before it returns, ``restore`` copies into fresh tensors, and
 ``release`` returns copies.
 
-The port covers no topology, replication, faults, switch, tenancy or
-reshard: ``FabricConfig.validate`` raises ``NotImplementedError`` for
-those knobs, and ``apply_plan_delta`` for the deltas that need them.  A
-sparse tier (``core/sparse.SparseTier(fabric=...)``) attaches to the
-fabric: it inherits the shard and worker counts, link model, chunk size
-and device, and registers in ``sparse_tiers``.  ``WorkerHarness`` drives
-workers without the JAX harness's rack and telemetry views, which need
-the topology and tenancy tiers.
+Attach a ``NetworkTopology`` (``core/topology.py``) and each rack's
+pushes cross the codec'd rack link to their ToR, are combined there, and
+one stream per rack crosses the oversubscribed core link.  With codec
+"none" the ToRs chain the running f32 prefix through the racks in
+ascending worker order, and the shards fold it with zero rows standing in
+for the absorbed streams, so rack-aggregated training is bit-identical to
+the flat fabric.  Integer codecs combine per rack and re-encode at the
+ToR.  With the switch tier (``SwitchConfig``) and the int8 codec, a ToR
+pool may sum the rack's int8 payloads under one shared scale, and a core
+pool the racks' streams; a pool that is failed (a ``FaultPlan``'s
+``switch_fail``) or too small takes the software path, bit-identical to a
+fabric with no switch.  The event clock adds the core link as a second
+pipeline stage.
+
+The port covers no replication, other fault kinds, tenancy or reshard:
+``FabricConfig.validate`` raises ``NotImplementedError`` for those knobs,
+and ``apply_plan_delta`` for the deltas that need them; the event clock's
+shared-clock and link-degrade factors stay at 1.0.  A sparse tier
+(``core/sparse.SparseTier(fabric=...)``) attaches to a fabric without a
+topology: it inherits the shard and worker counts, link model, chunk size
+and device, and registers in ``sparse_tiers``.
 """
 from __future__ import annotations
 
@@ -72,6 +85,15 @@ from repro_torch.core.compression import (
 )
 from repro_torch.core.config import FabricConfig
 from repro_torch.core.placement import PlanDelta, chunk_rebalance_delta
+from repro_torch.core.topology import (
+    NetworkTopology,
+    RackAggregator,
+    SwitchCompute,
+    group_scale,
+    integer_quantize,
+    quant_residual,
+    scale_chunks,
+)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fused_agg_opt.ops import fused_aggregate_update
 from repro_torch.kernels.wire_path.ops import (
@@ -348,6 +370,11 @@ class PBoxFabric:
     late pushes; a worker that pushes twice before the barrier replaces
     its own earlier push, as in the JAX package.
 
+    With a ``NetworkTopology`` the pushes cross the rack tier (see the
+    module docstring).  ToR combining exists only where rounds exist: in
+    async mode every push crosses both tiers on its own (``rack_streams``
+    stays 0).
+
     State lives on ``device``: the CUDA card unless the caller passes
     another (the tests pass ``"cpu"``); with no card and no device given,
     construction raises.
@@ -391,18 +418,54 @@ class PBoxFabric:
         # to decode) and the shards apply f32 rows
         self._fused_wire = wire_path_supported(
             self.compression.codec, spec, space.chunk_elems)
+        topology: NetworkTopology | None = config.wire.topology
+        self.topology = topology
+        # in-network switch tier: each ToR may own a bounded pool of
+        # aggregation slots, and a core pool may combine the rack uplinks.
+        # A pool takes a round iff it is alive and holds every chunk, so a
+        # refusal is the bit-exact software combine; codec "none" and bf16
+        # never engage (integer slot arithmetic over the int8 wire only)
+        sw = config.wire.switch
+        self.switch_cfg = sw
+        self.rack_aggs: list[RackAggregator] = []
+        if topology is not None:
+            self.rack_aggs = [
+                RackAggregator(
+                    r, topology.members(r), self.compression,
+                    space.flat_elems,
+                    switch=(SwitchCompute(f"tor{r}", sw.tor_slots)
+                            if sw.enabled else None),
+                    device=self.device,
+                )
+                for r in range(topology.num_racks)
+            ]
+        self.core_switch = (
+            SwitchCompute("core", sw.core_slots)
+            if sw.enabled and sw.core_slots > 0 and topology is not None
+            else None
+        )
+        self._core_ef = (init_ef_state(self.compression, space.flat_elems,
+                                       device=self.device)
+                         if self.core_switch is not None else None)
+        self._switch_cursor = 0  # fault-plan rounds consumed mid-round
+        self._deferred: set[int] = set()  # raw pushes parked for a pool
+        self._round_switch_chunks = 0  # pool occupancy of the last round
+        # a fault plan of switch events (config.validate refuses the other
+        # kinds), fired at the top of each round's rack aggregation
+        self.fault_plan = config.faults.fault_plan
+        self.fault_trace: list[dict] = []
         # without a topology the codec runs on the worker -> PS wire, and
-        # each worker's NIC keeps its error-feedback residual
+        # each worker's NIC keeps its error-feedback residual (with one,
+        # the ToRs keep them)
         self._worker_ef: dict[int, torch.Tensor | None] = {
             w: init_ef_state(self.compression, space.flat_elems,
                              device=self.device)
             for w in range(self.num_workers)
-        } if self.compression.codec != "none" else {}
+        } if self.compression.codec != "none" and topology is None else {}
         self.placement_policy = config.placement.policy
         # what a fabric-attached sparse tier (core/sparse.py) reads, under
-        # the JAX fabric's names: the port has no topology, replication or
-        # placement plan; dead workers arrive only with a restored snapshot
-        self.topology = None
+        # the JAX fabric's names: the port has no replication or placement
+        # plan; dead workers arrive only with a restored snapshot
         self.replication = 1
         self.plan = None
         self.dead_workers: set[int] = set()
@@ -534,6 +597,18 @@ class PBoxFabric:
             self._complete_push(worker, buf)
 
     # -- push completion / admission ------------------------------------
+    def _rack_agg_on(self) -> bool:
+        # async has no rounds, so the ToR has nothing to batch: rack
+        # aggregation is a sync/SSP round concept
+        return (self.topology is not None and self.topology.rack_aggregation
+                and self.mode != "async")
+
+    def _switch_on(self) -> bool:
+        # the switch tier rides the rack tier and speaks only the int8 wire
+        # format (integer slot arithmetic)
+        return (self._rack_agg_on() and self.switch_cfg.enabled
+                and self.compression.codec == "int8")
+
     def _complete_push(self, worker: int, gchunks: torch.Tensor) -> None:
         if worker in self.dead_workers:
             raise RuntimeError(
@@ -544,6 +619,8 @@ class PBoxFabric:
         self.stats.pushes += 1
         self.stats.bytes_pushed += nbytes
         self.stats.chunk_pushes += self.space.num_chunks
+        if self.topology is not None:
+            self.stats.bytes_rack_link += nbytes
         # Backup quorum: a gradient computed against params a quorum round
         # has superseded is dropped here, before the codec encodes it (its
         # error feedback stays untouched).  Only a strict-subset quorum
@@ -553,9 +630,13 @@ class PBoxFabric:
                 and int(self._pull_step[worker]) < self.step):
             self.stats.late_pushes_dropped += 1
             self._drops_since_step += 1
-            # no aggregating ToR to refuse it early: the stream crossed the
-            # core before the PS could drop it
-            self.stats.bytes_core_link += nbytes
+            if self.topology is not None:
+                # the stale stream spent the rack link either way
+                self.rack_aggs[self.topology.rack_of[worker]].drop_stale()
+            if not self._rack_agg_on():
+                # no aggregating ToR to refuse it early: the stream crossed
+                # the core before the PS could drop it
+                self.stats.bytes_core_link += nbytes
             if (self._drops_since_step >= self.num_workers
                     and bool((self._pull_step < self.step).all())):
                 # every worker pushes superseded gradients and nobody has
@@ -565,26 +646,44 @@ class PBoxFabric:
                     f"superseded by round {self.step}; pull between rounds "
                     "so gradients are fresh (see PBoxFabric docstring)")
             return
-        # no ToR combining: the worker's stream crosses the core itself and
-        # reaches the shards directly
-        self.stats.bytes_core_link += nbytes
-        for shard in self.shards:
-            shard.stats.chunk_pushes += shard.num_chunks
-            shard.stats.bytes_pushed += wire_bytes(self.compression,
-                                                   shard.num_elems)
-        # the wire crossing to the PS: with the fused wire path the stream
-        # stays encoded up to the shards, else it is decoded at the hop
+        if not self._rack_agg_on():
+            # no ToR combining: the worker's stream crosses the core itself
+            # and reaches the shards directly (with ToR aggregation both
+            # are charged per combined stream in _rack_aggregate)
+            self.stats.bytes_core_link += nbytes
+            for shard in self.shards:
+                shard.stats.chunk_pushes += shard.num_chunks
+                shard.stats.bytes_pushed += wire_bytes(self.compression,
+                                                       shard.num_elems)
+        # the wire crossing to the PS: with the fused wire path and no
+        # aggregating ToR the stream stays encoded up to the shards, else
+        # it is decoded at the hop (a ToR decodes to combine, so there the
+        # encoded hop moves to the rack uplink)
         wire: WirePayload | None = None
-        if self.compression.codec != "none":
-            flat = gchunks.reshape(-1)
+        flat = gchunks.reshape(-1)
+        if self.topology is not None:
+            rack = self.rack_aggs[self.topology.rack_of[worker]]
+            if (self._switch_on() and rack.switch is not None
+                    and rack.switch.alive
+                    and rack.switch.slots >= self.space.num_chunks):
+                # a switch-pool candidate: park the slab raw (the pool's
+                # shared scale needs every member's magnitude) and book the
+                # rack link now; the offload decision waits for the round
+                # edge, where a pool failed meanwhile falls back
+                rack.ingest_deferred(worker)
+                self._deferred.add(worker)
+            elif self._fused_wire and not self._rack_agg_on():
+                wire = rack.ingest_wire(worker, flat)
+            else:
+                gchunks = rack.ingest(worker, flat).reshape(gchunks.shape)
+        elif self.compression.codec != "none":
             if self._fused_wire:
                 wire, self._worker_ef[worker] = encode_wire(
                     self.compression, flat, self._worker_ef[worker])
             else:
                 dec, self._worker_ef[worker] = roundtrip(
                     self.compression, flat, self._worker_ef[worker])
-                gchunks = dec.reshape(self.space.num_chunks,
-                                      self.space.chunk_elems)
+                gchunks = dec.reshape(gchunks.shape)
         if self.mode == "async":
             self._apply_async(gchunks, wire)
             return
@@ -614,8 +713,9 @@ class PBoxFabric:
                     shard.apply(gchunks[shard.rows][None], self.step,
                                 average=False)
         self.stats.steps += 1
-        self._simulate_round()
+        self._simulate_round(streams=1 if self.topology else None)
         self._flat_cache = None
+        self._consume_switch_faults()
 
     def _barrier_met(self) -> bool:
         # a quorum exists only as a strict subset of the alive workers;
@@ -629,50 +729,251 @@ class PBoxFabric:
         if len(workers) < self.num_workers:
             self.stats.partial_aggregations += 1
         self.step += 1
-        if self._fused_wire:
-            # the inbox holds WirePayloads: stack the encoded streams per
-            # shard and let the single-pass kernel decode them
-            codec = self.compression.codec
-            shape = (self.space.num_chunks, self.space.chunk_elems)
-            pays = [self._inbox[w] for w in workers]
-            for shard in self.shards:
-                if not shard.num_chunks:
-                    continue
-                pay = torch.stack(
-                    [wp.payload.reshape(shape)[shard.rows] for wp in pays])
-                sc = (torch.stack([wp.scale[shard.rows] for wp in pays])
-                      if codec == "int8" else None)
-                shard.apply_wire(pay, sc, codec, self.step, average=True)
-            self.stats.fused_wire_rounds += 1
+        # the pulled flat view is stale from here on: free it before the
+        # round's temporaries
+        self._flat_cache = None
+        streams = None
+        if self._rack_agg_on():
+            streams = self._rack_aggregate(workers)
         else:
-            for shard in self.shards:
-                if not shard.num_chunks:
-                    continue
-                grads = torch.stack(
-                    [self._inbox[w][shard.rows] for w in workers])
-                shard.apply(grads, self.step, average=True)
+            if self.topology is not None:
+                streams = len(workers)  # every worker stream crosses the core
+            if self._fused_wire:
+                # the inbox holds WirePayloads: stack the encoded streams
+                # per shard and let the single-pass kernel decode them
+                codec = self.compression.codec
+                shape = (self.space.num_chunks, self.space.chunk_elems)
+                pays = [self._inbox[w] for w in workers]
+                for shard in self.shards:
+                    if not shard.num_chunks:
+                        continue
+                    pay = torch.stack(
+                        [wp.payload.reshape(shape)[shard.rows]
+                         for wp in pays])
+                    sc = (torch.stack([wp.scale[shard.rows] for wp in pays])
+                          if codec == "int8" else None)
+                    shard.apply_wire(pay, sc, codec, self.step, average=True)
+                self.stats.fused_wire_rounds += 1
+            else:
+                for shard in self.shards:
+                    if not shard.num_chunks:
+                        continue
+                    grads = torch.stack(
+                        [self._inbox[w][shard.rows] for w in workers])
+                    shard.apply(grads, self.step, average=True)
         self._inbox.clear()
+        self._deferred.clear()
         self.stats.steps += 1
         self._drops_since_step = 0
-        self._simulate_round()
+        self._simulate_round(streams=streams)
         self._flat_cache = None
+        self._consume_switch_faults()
+
+    def _rack_aggregate(self, workers: list[int]) -> int:
+        """Combine this round's pushes rack by rack, then apply the
+        upstream stream(s) to every shard.  Returns the number of streams
+        that crossed the core link.
+
+        f32 (codec "none") chains the running partial through the racks in
+        ascending worker order: the add sequence of the fused kernel's
+        left fold, so bit-identical to the flat fabric for any contiguous
+        layout and any quorum subset.  Integer codecs combine each rack
+        independently, re-encode at the ToR, and the shards fold the rack
+        streams in rack order.  The streams are applied through the same
+        (K, n) kernel call the flat fabric makes, with zero rows for the
+        per-worker streams the ToRs absorbed (x + 0 is exact), so the
+        averaging divisor stays the worker count.  Each push leaves the
+        inbox once its rack has combined it."""
+        # switch faults land mid-round: a pool scheduled to fail at this
+        # round refuses this round's offload
+        self._consume_switch_faults()
+        self._round_switch_chunks = 0
+        e = self.space.chunk_elems
+        c = self.space.num_chunks
+        shape = (c, e)
+        codec = self.compression.codec
+        streams: list[torch.Tensor] = []
+        wire_streams: list[WirePayload] = []
+        shipped = 0
+        present = set(workers)
+        active = [(rack, [w for w in rack.members if w in present])
+                  for rack in self.rack_aggs]
+        active = [(rack, members) for rack, members in active if members]
+        # the core pool engages only when >= 2 rack streams would cross the
+        # core and the fused wire path can carry its re-encoded egress
+        use_core = (
+            self._switch_on() and self.core_switch is not None
+            and self._fused_wire and len(active) >= 2
+            and self.core_switch.can_offload(c)
+        )
+        core_racks: list[RackAggregator] = []
+        core_slabs: list[torch.Tensor] = []
+        offloaded = fallback = False
+        carry = None  # codec "none": the running prefix chained through racks
+        for rack, members in active:
+            if codec == "none":
+                for w in members:
+                    g = self._inbox.pop(w)
+                    carry = g if carry is None else carry + g
+                relay = rack.uplink(carry.reshape(-1)).reshape(shape)
+                streams = [relay]  # the chain's latest prefix supersedes
+            else:
+                if any(w in self._deferred for w in members):
+                    # the rack's pushes were parked raw for the pool; the
+                    # round-edge decision: a pool failed since push time
+                    # takes the whole rack to the bit-exact software combine
+                    pushes = [(w, self._inbox.pop(w).reshape(-1))
+                              for w in members]
+                    if rack.switch.can_offload(c):
+                        local = rack.switch_combine(pushes)
+                        self._round_switch_chunks += c
+                        self.stats.bytes_switch_agg += (
+                            (self.space.flat_elems + 4 * c) * len(pushes))
+                        offloaded = True
+                    else:
+                        local = rack.software_combine(pushes)
+                        fallback = True
+                    del pushes
+                else:
+                    local = None
+                    for w in members:
+                        g = self._inbox.pop(w).reshape(-1)
+                        local = g if local is None else local + g
+                if use_core:
+                    # staged for the core pool: quantization is coordinated
+                    # across racks below (one shared scale)
+                    core_racks.append(rack)
+                    core_slabs.append(rack.uplink_pool(local))
+                elif self._fused_wire:
+                    # the re-encoded rack stream crosses the core still
+                    # encoded; the shards' kernel decodes it
+                    wire_streams.append(rack.uplink_wire(local))
+                else:
+                    streams.append(rack.uplink(local).reshape(shape))
+                del local
+            shipped += 1
+            self.stats.bytes_core_link += wire_bytes(self.compression,
+                                                     self.space.flat_elems)
+            self.stats.rack_streams += 1
+            if use_core:
+                continue  # one PS-ingress stream, charged at pool egress
+            # shard ingress: one combined stream per rack reaches the PS
+            for shard in self.shards:
+                shard.stats.chunk_pushes += shard.num_chunks
+                shard.stats.bytes_pushed += wire_bytes(self.compression,
+                                                       shard.num_elems)
+        if offloaded:
+            self.stats.switch_rounds += 1
+        if fallback:
+            self.stats.switch_fallback_rounds += 1
+        if use_core:
+            wire_streams.append(self._core_combine(core_racks, core_slabs))
+            n_racks = len(core_racks)
+            self._round_switch_chunks += c
+            self.stats.core_switch_rounds += 1
+            self.stats.bytes_switch_agg += (
+                (self.space.flat_elems + 4 * c) * n_racks)
+            self.stats.bytes_switch_saved += (
+                (n_racks - 1)
+                * wire_bytes(self.compression, self.space.flat_elems))
+            for shard in self.shards:
+                shard.stats.chunk_pushes += shard.num_chunks
+                shard.stats.bytes_pushed += wire_bytes(self.compression,
+                                                       shard.num_elems)
+        k = len(workers)
+        if wire_streams:
+            # zero rows stand in for the streams the ToRs absorbed: a zero
+            # payload decodes to exact 0.0 (int8: q = 0 under scale 1.0;
+            # bf16: zero bits widen to +0.0f)
+            for shard in self.shards:
+                if not shard.num_chunks:
+                    continue
+                rows = shard.rows
+                pay = torch.zeros((k, shard.num_chunks, e),
+                                  dtype=wire_streams[0].payload.dtype,
+                                  device=self.device)
+                sc = (torch.ones((k, shard.num_chunks), dtype=torch.float32,
+                                 device=self.device)
+                      if codec == "int8" else None)
+                for i, wp in enumerate(wire_streams):
+                    pay[i] = wp.payload.reshape(shape)[rows]
+                    if sc is not None:
+                        sc[i] = wp.scale[rows]
+                shard.apply_wire(pay, sc, codec, self.step, average=True)
+                del pay, sc
+            self.stats.fused_wire_rounds += 1
+            return shipped
+        for shard in self.shards:
+            if not shard.num_chunks:
+                continue
+            grads = torch.zeros((k, shard.num_chunks, e), dtype=torch.float32,
+                                device=self.device)
+            for i, r in enumerate(streams):
+                grads[i] = r[shard.rows]
+            shard.apply(grads, self.step, average=True)
+            del grads
+        return shipped
+
+    def _core_combine(self, racks: list[RackAggregator],
+                      slabs: list[torch.Tensor]) -> WirePayload:
+        """The core pool's crossing: the racks share one per-chunk scale
+        (``group_scale`` over their slabs), each ships int8 under it and
+        keeps its switch-side residual against it, and the slot registers
+        sum with exact int32 adds.  The pool's egress re-encodes the sum
+        once with the core switch's own error feedback, so one stream lands
+        at the PS however many racks fed the pool."""
+        e = self.space.chunk_elems
+        s_sh = group_scale(slabs, e)
+        qs = []
+        for i, rack in enumerate(racks):
+            q = integer_quantize(slabs[i], s_sh, e)
+            rack.commit_uplink(slabs[i], q, s_sh)
+            slabs[i] = None  # each staged slab is spent once committed
+            qs.append(q)
+        acc = self.core_switch.accumulate(qs, e)
+        del qs
+        dec = scale_chunks(acc, s_sh)
+        del acc
+        slab_c = dec + self._core_ef if self._core_ef is not None else dec
+        del dec
+        s_c = group_scale([slab_c], e)
+        q_c = integer_quantize(slab_c, s_c, e)
+        if self._core_ef is not None:
+            self._core_ef = quant_residual(slab_c, q_c, s_c)
+        return WirePayload("int8", q_c, s_c)
 
     # -- event-ordered pipeline clock ------------------------------------
-    def _simulate_round(self) -> None:
+    def _simulate_round(self, streams: int | None = None) -> None:
         """Replay one aggregation round on the event clock: chunk c arrives
         at (c+1)*wire_us; each shard aggregates its chunks in arrival order,
         overlapping wire and engine time (chunk i aggregates while chunk i+1
         is in flight).  The wire time scales with the codec's bytes per
-        element.  The JAX package's arithmetic, with its topology,
-        shared-clock and link-degrade scales at their no-topology values
-        (1.0, core 0.0)."""
+        element.
+
+        With a topology the wire is a two-stage pipeline: the rack link
+        feeds the ToR, then the oversubscribed core link relays each chunk
+        onward (``streams`` streams share the racks' uplinks: one a rack
+        with ToR aggregation, every worker's without).  The JAX package's
+        arithmetic, with its shared-clock and link-degrade factors at 1.0
+        (tenancy and the fault tier's link faults are not ported)."""
         bpe_scale = wire_bytes(self.compression, self.space.chunk_elems) / (
             4.0 * self.space.chunk_elems)
         wire = self.link.wire_us_per_chunk * bpe_scale
         agg = self.link.agg_us_per_chunk
         c = self.space.num_chunks
         idx = np.arange(c, dtype=np.float64)
-        arrival = (idx + 1.0) * wire
+        core = 0.0
+        if self.topology is not None:
+            share = (1.0 if streams is None
+                     else max(1.0, streams / self.topology.num_racks))
+            core = wire * self.topology.oversubscription * share
+            edge_done = (idx + 1.0) * wire
+            # the core relays chunk i while chunk i+1 crosses the rack link
+            arrival = (np.maximum.accumulate(edge_done - idx * core)
+                       + (idx + 1.0) * core)
+            self.stats.sim_core_wire_us += c * core
+        else:
+            arrival = (idx + 1.0) * wire
         makespan = 0.0
         for shard in self.shards:
             if not shard.num_chunks:
@@ -687,7 +988,45 @@ class PBoxFabric:
         self.stats.sim_wire_us += c * wire
         self.stats.sim_agg_us += c * agg
         self.stats.sim_pipelined_us += makespan
-        self.stats.sim_serialized_us += c * wire + c * agg
+        self.stats.sim_serialized_us += c * wire + c * core + c * agg
+
+    # -- switch faults ------------------------------------------------------
+    def _consume_switch_faults(self) -> None:
+        """Fire the fault plan's due ``switch_fail`` / ``switch_restore``
+        events.  Runs at the top of ``_rack_aggregate``, before the round's
+        offload decision, and after every round (catching up on rounds
+        that never reached a rack aggregation).  Target rack id flips that
+        ToR's pool; target == num_racks flips the core pool.  Without a
+        switch tier an event is recorded as ignored, so a plan replays on
+        any fabric."""
+        if self.fault_plan is None:
+            return
+        due = self.fault_plan.between(self._switch_cursor, self.step)
+        self._switch_cursor = self.step
+        n_racks = len(self.rack_aggs)
+        for ev in due:
+            if ev.kind not in ("switch_fail", "switch_restore"):
+                continue
+            rec: dict[str, Any] = {"round": int(self.step),
+                                   "event": ev.to_json()}
+            if not 0 <= ev.target <= n_racks:
+                raise ValueError(
+                    f"{ev.kind} targets switch {ev.target}; the fabric has "
+                    f"{n_racks} ToR pools + 1 core pool")
+            sw = (self.core_switch if ev.target == n_racks
+                  else self.rack_aggs[ev.target].switch
+                  if self.rack_aggs else None)
+            if sw is None:
+                rec["action"] = "ignored_no_switch_tier"
+            elif ev.kind == "switch_fail":
+                sw.fail()
+                self.stats.switch_failures += 1
+                rec["action"] = f"switch_failed:{sw.name}"
+            else:
+                sw.restore()
+                self.stats.switch_restores += 1
+                rec["action"] = f"switch_restored:{sw.name}"
+            self.fault_trace.append(rec)
 
     # -- placement-plan hooks ---------------------------------------------
     def rebalance(self, slow_shards: Sequence[int]) -> int:
@@ -790,8 +1129,9 @@ class PBoxFabric:
         snapshot's arrays are never aliased).  Snapshots without
         ``worker_clock``, and restores onto another worker count, reset
         every clock to the restored step.  Staged pushes, the inbox and
-        the error-feedback residuals are discarded: they belong to
-        in-flight streams that did not survive."""
+        the error-feedback residuals (the ToRs' and the core pool's
+        included) are discarded: they belong to in-flight streams that did
+        not survive.  Failed switch pools come back alive."""
         shape = (self.space.num_chunks, self.space.chunk_elems)
         params = np.asarray(snap["params"], dtype=np.float32).reshape(shape)
         states = [np.asarray(s, dtype=np.float32).reshape(shape)
@@ -813,11 +1153,24 @@ class PBoxFabric:
         self._drops_since_step = 0
         self._inbox.clear()
         self._staged.clear()
+        self._deferred.clear()
+        for rack in self.rack_aggs:
+            rack.reset()  # also revives an attached ToR switch pool
+        if self.core_switch is not None:
+            self.core_switch.reset()
+            self._core_ef = init_ef_state(self.compression,
+                                          self.space.flat_elems,
+                                          device=self.device)
         self._worker_ef = {
             w: init_ef_state(self.compression, self.space.flat_elems,
                              device=self.device)
             for w in self._worker_ef
         }
+        # a replayed fault plan re-fires from the restored round, and the
+        # trace drops the rolled-back tail so replayed events appear once
+        self.fault_trace = [r for r in self.fault_trace
+                            if r["round"] <= self.step]
+        self._switch_cursor = self.step
         dead = snap.get("dead_workers")
         self.dead_workers = (
             {int(w) for w in np.atleast_1d(dead) if 0 <= w < self.num_workers}
@@ -834,6 +1187,10 @@ class PBoxFabric:
         self._flat_cache = None
 
     # -- introspection -----------------------------------------------------
+    def rack_of(self, worker: int) -> int:
+        """Rack hosting ``worker`` (0 when no topology is attached)."""
+        return self.topology.rack_of[worker] if self.topology else 0
+
     def describe(self) -> str:
         lines = [
             f"PBoxFabric: {self.num_shards} shards x "
@@ -844,6 +1201,28 @@ class PBoxFabric:
             f"device={self.device}"
         ]
         lines += ["  " + ln for ln in self.config.describe().splitlines()]
+        if self.switch_cfg.enabled:
+            s = self.stats
+            lines.append(
+                f"  switch tier: {s.switch_rounds} rounds offloaded "
+                f"({s.switch_fallback_rounds} fell back, "
+                f"{s.core_switch_rounds} core-pooled), "
+                f"{s.bytes_switch_agg >> 10} KiB absorbed in-pool, "
+                f"{s.bytes_switch_saved >> 10} KiB ingress saved"
+            )
+            for rack in self.rack_aggs:
+                if rack.switch is not None:
+                    lines.append("    " + rack.switch.describe())
+            if self.core_switch is not None:
+                lines.append("    " + self.core_switch.describe())
+        if self.topology is not None:
+            lines.append("  " + self.topology.describe())
+            lines.append(
+                f"  core link: {self.stats.bytes_core_link >> 10} KiB in "
+                f"{self.stats.rack_streams} aggregated streams, rack links "
+                f"{self.stats.bytes_rack_link >> 10} KiB, late pushes "
+                f"dropped {self.stats.late_pushes_dropped}"
+            )
         for shard in self.shards:
             lines.append(
                 f"  shard {shard.shard_id}: {shard.num_chunks} chunks, "
@@ -864,6 +1243,10 @@ class WorkerHarness:
     (straggler modelling); ``chunk_groups > 1`` streams each push in that
     many chunk groups through the fabric's staging path (chunk-by-chunk
     push, as on a real NIC).
+
+    Workers carry the fabric's rack assignment: ``rack_of(w)`` exposes it,
+    ``steps_done_by_rack()`` sums progress per rack, and
+    ``speed_by_rack`` slows a whole rack.
     """
 
     def __init__(
@@ -873,15 +1256,63 @@ class WorkerHarness:
         batches_fn: Callable[[int, int], Any],  # (worker, step) -> batch
         speed: list[int] | None = None,
         chunk_groups: int = 1,
+        speed_by_rack: dict[int, int] | None = None,
     ):
         self.server = server
         self.grad_fn = grad_fn
         self.batches_fn = batches_fn
         k = server.num_workers
+        self.topology = server.topology
         self.speed = list(speed) if speed else [1] * k
+        if speed_by_rack:
+            if self.topology is None:
+                raise ValueError("speed_by_rack needs a fabric topology")
+            bad = [r for r in speed_by_rack if not
+                   0 <= r < self.topology.num_racks]
+            if bad:
+                raise ValueError(
+                    f"speed_by_rack names racks {bad} but the topology has "
+                    f"racks 0..{self.topology.num_racks - 1}"
+                )
+            for w in range(k):
+                r = self.topology.rack_of[w]
+                if r in speed_by_rack:
+                    self.speed[w] = speed_by_rack[r]
         self.chunk_groups = chunk_groups
         self._phase = [0] * k
         self.steps_done = [0] * k
+
+    def rack_of(self, worker: int) -> int:
+        return self.server.rack_of(worker)
+
+    @property
+    def job(self) -> str | None:
+        """Tenant namespace this harness drives: None until the port has
+        the tenancy tier."""
+        return getattr(self.server, "namespace", None)
+
+    def telemetry(self) -> dict:
+        """Job-level progress snapshot: worker steps, simulated per-round
+        time and wire totals."""
+        s = self.server.stats
+        return {
+            "job": self.job,
+            "worker_steps": list(self.steps_done),
+            "server_steps": s.steps,
+            "sim_step_us": s.sim_pipelined_us / max(1, s.steps),
+            "sim_core_wire_us": s.sim_core_wire_us,
+            "bytes_pushed": s.bytes_pushed,
+            "bytes_pulled": s.bytes_pulled,
+            "steps_done_by_rack": self.steps_done_by_rack(),
+        }
+
+    def steps_done_by_rack(self) -> dict[int, int]:
+        """Total completed worker-steps per rack (rack 0 holds everyone
+        when the fabric has no topology)."""
+        out: dict[int, int] = {}
+        for w, n in enumerate(self.steps_done):
+            out[self.rack_of(w)] = out.get(self.rack_of(w), 0) + n
+        return out
 
     def _push(self, w: int, gflat: torch.Tensor) -> None:
         srv = self.server

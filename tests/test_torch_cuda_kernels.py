@@ -276,3 +276,24 @@ def test_smoke_modes_on_card_match_cpu(cuda):
     assert launches["async/int8"]["wire_fused"] > 0
     assert all(c["quantize_chunks"] == 0 for k, c in launches.items()
                if k.endswith("/none"))
+
+
+@pytest.mark.gpu
+def test_smoke_topology_on_card_matches_cpu(cuda):
+    """chip_smoke.py's SMOKE topology sweep: the f32 rack chain, the int8
+    and bf16 rack paths and the switch pools (on, starved, a ToR or the
+    core pool failed and restored) x sync, quorum, SSP and async over 2
+    racks, the fabric on the card against the fabric on the CPU, bitwise;
+    the card's updates went through the kernels."""
+    launches = _chip_smoke().smoke_topology_check(cuda)
+    assert len(launches) == 60
+    # the f32 chain: fused_agg_opt only
+    assert launches["none/sync/off"]["fused_agg_opt"] > 0
+    assert launches["none/sync/off"]["wire_fused"] == 0
+    # pools of one slot per chunk take every int8 round: no codec kernel
+    # runs, the pool's egress reaches the shards through wire_fused
+    assert launches["int8/sync/on"]["quantize_chunks"] == 0
+    assert launches["int8/sync/on"]["wire_fused"] > 0
+    # starved pools take the software path, as with no switch tier
+    assert launches["int8/sync/starved"] == launches["int8/sync/off"]
+    assert launches["int8/sync/off"]["quantize_chunks"] > 0

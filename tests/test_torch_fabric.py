@@ -44,6 +44,7 @@ from repro_torch.core.chunking import TILE_ELEMS, ParamSpace  # noqa: E402
 from repro_torch.core.compression import CompressionConfig  # noqa: E402
 from repro_torch.core.config import FabricConfig  # noqa: E402
 from repro_torch.core.fabric import LinkModel, PBoxFabric, WorkerHarness  # noqa: E402
+from repro_torch.core.replication import FaultEvent, FaultPlan  # noqa: E402
 from repro_torch.core.server import PHubServer  # noqa: E402
 from repro_torch.optim import optimizers as topt  # noqa: E402
 
@@ -189,8 +190,8 @@ def test_fabric_does_not_write_init_flat():
 @pytest.mark.parametrize("cfg", [
     dict(faults=tconfig.FaultConfig(replication=2)),
     dict(faults=tconfig.FaultConfig(fault_plan=object())),
-    dict(wire=tconfig.WireConfig(switch=tconfig.SwitchConfig(
-        enabled=True, tor_slots=4))),
+    dict(faults=tconfig.FaultConfig(fault_plan=FaultPlan(
+        [FaultEvent(1, "switch_fail", 0), FaultEvent(2, "shard_crash", 0)]))),
     dict(namespace="job0"),
 ])
 def test_unported_knobs_raise(cfg):
@@ -199,10 +200,12 @@ def test_unported_knobs_raise(cfg):
 
 
 def test_unported_topology_and_plan_raise():
+    """A topology (duck-typed) and the switch tier validate since the rack
+    tier was ported; an explicit placement plan still raises."""
     topo = type("T", (), {"num_workers": K, "num_racks": 1})()
-    with pytest.raises(NotImplementedError):
-        FabricConfig(num_workers=K,
-                     wire=tconfig.WireConfig(topology=topo)).validate()
+    FabricConfig(num_workers=K, wire=tconfig.WireConfig(
+        topology=topo, switch=tconfig.SwitchConfig(
+            enabled=True, tor_slots=4))).validate()
     plan = type("P", (), {"num_shards": 1, "num_racks": 1,
                           "replica_racks": np.zeros((1, 1))})()
     with pytest.raises(NotImplementedError):

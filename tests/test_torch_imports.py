@@ -59,6 +59,17 @@ def test_straggler_slice_modules_are_checked(module):
     assert ROOT / "src" / "repro_torch" / module in PORT_FILES
 
 
+TOPOLOGY_SLICE = ("core/topology.py", "core/replication.py",
+                  "core/__init__.py")
+
+
+@pytest.mark.parametrize("module", TOPOLOGY_SLICE)
+def test_topology_slice_modules_are_checked(module):
+    """The rack topology tier's modules (topology, switch pools, the fault
+    plan) are among the files checked above."""
+    assert ROOT / "src" / "repro_torch" / module in PORT_FILES
+
+
 def test_port_imports_with_jax_blocked():
     """Every module of the port imports in a process where ``import jax``
     and ``import repro`` fail."""
