@@ -90,7 +90,27 @@ raises on failure (the script then exits non-zero and prints no result):
    2 and restored at round 3 by a ``FaultPlan``) at the SMOKE config over
    2 racks, the fabric on the card against the fabric on the CPU, bitwise
    in params, state, residuals, every stats field and ``fault_trace``;
-15. every kernel and its plain version timed at its main path's shape with
+15. failover and reshard at full width (gemma3-1b, AdamW, 4 shards, under
+   deterministic algorithms): 2 workers, one in each of 2 racks (1:4
+   core), codec none, 4 rounds.  Run A, replication 1, fault-free: 16
+   fused_agg_opt launches and no chain.  Run B, replication 2 (the chain
+   a device copy of p, m and v, 15,621,685,248 bytes, every hop across
+   the core): rack 1's link degraded 3x after round 1, shard 1 crashed
+   after round 2 (promote, re-silver), the link restored after round 3,
+   then ``reshard(2)``; 12 + 2 fused_agg_opt launches.  B's params and
+   both AdamW slots equal A's bitwise, its losses A's, its exported fault
+   trace the CPU rehearsal's (the same schedule at the SMOKE config), and
+   its replication, re-silver and core-link bytes the arithmetic; each
+   chain pass, the failover and the reshard are timed with the peaks;
+16. the fault tier at the SMOKE config, card == CPU bitwise (params,
+   state, residuals, every stats field, the fault traces): codec (none,
+   bf16, int8) x replication (1, raising ShardLost; 2; 3, the same shard
+   crashing twice in consecutive rounds) x racks (1, 2) x a crash after
+   round 1 or 2; a worker crash and re-entry through
+   ``elastic.worker_reentry``; a SparseTier on a replicated fabric with a
+   shard crash, its lookups included.  Each failover also equals the
+   card's fault-free run;
+17. every kernel and its plain version timed at its main path's shape with
    CUDA events, beside its byte bound and, where one PyTorch call computes
    the same function, that call's time (embedding_bag also at one
    multi-hot shape, B = 32,768 x L = 20; fused_agg_opt and wire_fused also
@@ -2088,6 +2108,458 @@ def smoke_topology_check(dev) -> dict:
     return launches
 
 
+# -- phases 15 and 16: the fault tier ----------------------------------------
+FAULT_ROUNDS = 4
+# the full-width run B's plan, (round, kind, target, factor): rack 1's link
+# slows 3x after round 1, shard 1 crashes after round 2, the link is
+# restored after round 3; the fabric reshards 4 -> 2 after round 3
+FAULT_EVENTS = ((1, "link_degrade", 1, 3.0), (2, "shard_crash", 1, 1.0),
+                (3, "link_restore", 1, 1.0))
+RESHARD_AFTER, RESHARD_TO = 3, 2
+
+
+def fault_plan(events):
+    from repro_torch.core.replication import FaultEvent, FaultPlan
+
+    return FaultPlan(FaultEvent(*e) for e in events)
+
+
+def host_state(fab) -> list:
+    """``fab``'s params and optimizer slots, assembled one at a time on its
+    device, as host numpy copies."""
+    out = [fab.params.to("cpu", copy=True).numpy()]
+    fab._flat_cache = None
+    for k in range(fab.spec.num_state_slots):
+        out.append(fab._assemble_rows(lambda sh, k=k: sh.state[k]).to(
+            "cpu", copy=True).numpy())
+    return out
+
+
+def same_host_bits(a: list, b: list) -> bool:
+    import numpy as np
+
+    return len(a) == len(b) and all(
+        x.shape == y.shape and np.array_equal(x.view(np.uint32),
+                                              y.view(np.uint32))
+        for x, y in zip(a, b))
+
+
+def fault_rehearsal() -> dict:
+    """Phase 15's schedule on the CPU at gemma3-1b's SMOKE config (the
+    same workers, racks, shards, replication, plan and reshard): the fault
+    trace the full-width run on the card must export."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.chunking import ParamSpace
+    from repro_torch.core.config import FabricConfig, FaultConfig, WireConfig
+    from repro_torch.core.fabric import PBoxFabric
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models.transformer import init_params, lm_loss_and_grad
+    from repro_torch.optim.optimizers import adamw
+
+    cfg = get_arch("gemma3-1b").smoke_config
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    space = ParamSpace.build(params, chunk_elems=4096)
+    fab = PBoxFabric(space, adamw(3e-3), space.flatten(params), device="cpu",
+                     config=FabricConfig(
+                         num_shards=SHARDS, num_workers=2,
+                         wire=WireConfig(topology=topology(2)),
+                         faults=FaultConfig(replication=2, fault_plan=fault_plan(
+                             FAULT_EVENTS))))
+
+    for s in range(FAULT_ROUNDS):
+        for w in range(2):
+            b = next(lm_batches(cfg.vocab, 4, 32, seed=1000 * (w + 1) + s))
+            _, g = lm_loss_and_grad(
+                space.unflatten(fab.pull(w)), torch.from_numpy(b["tokens"]),
+                torch.from_numpy(b["labels"]), cfg)
+            fab.push(w, space.flatten(g))
+        if s + 1 == RESHARD_AFTER:
+            fab.reshard(RESHARD_TO)
+    return fab.export_fault_trace()
+
+
+def failover_path(dev, gw: GemmaWorkers, rehearsal: dict) -> dict:
+    """Phase 15: failover and reshard at full width.  2 workers, one in
+    each of 2 racks (1:4 core), codec none, AdamW, 4 shards, 4 rounds.
+
+    Run A: replication 1, fault-free; it must build no chain.  Run B:
+    replication 2 (every chain hop crosses the core) under FAULT_EVENTS,
+    and ``reshard(2)`` at the edge after round 3.  After round 4 B's
+    params and both AdamW slots must equal A's bitwise (both kept on the
+    host), B's losses A's, and B's exported fault trace the CPU
+    rehearsal's.  The byte counters must equal the arithmetic: one chain
+    hop of the whole state (params + 2 slots, raw f32) a round, one
+    re-silver of shard 1's slab, and both on the core link on top of A's
+    training streams.  Times each round, each chain pass (CUDA events
+    around ``_replicate_round``), the failover (host clock and events
+    around ``crash_shard``) and the reshard (host clock), and the peaks."""
+    import time as _time
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.config import FaultConfig
+
+    space = gw.space
+    state_bytes = 4 * space.flat_elems * 3  # params + AdamW's 2 slots
+    shard1 = len(np.array_split(np.arange(space.num_chunks), SHARDS)[1])
+    resilver_bytes = 4 * 3 * shard1 * space.chunk_elems
+    name = torch.cuda.get_device_name(dev)
+    topo = topology(2)
+
+    def retries():
+        """The caching allocator's retries so far (each frees its cached
+        blocks and waits for the card)."""
+        return torch.cuda.memory_stats(dev).get("num_alloc_retries", 0)
+
+    memory = PathMemory(dev)
+    fab = gw.fabric(2, topology=topo)
+    retries_a = retries()
+    _zero_counts()  # run A's counts to 0 just before it...
+    round_a = [timed(lambda s=s: gw.round(fab, s))
+               for s in range(FAULT_ROUNDS)]
+    launches_a = _counts()  # ...and read just after
+    peak_a = memory.now()[1]
+    retries_a = retries() - retries_a
+    losses_a = gw.finite_losses()
+    if fab.replicas or fab.stats.bytes_replication:
+        raise AssertionError("a replication-1 fabric built a chain")
+    core_a = fab.stats.bytes_core_link
+    want = host_state(fab)
+    del fab
+    torch.cuda.empty_cache()
+    _check_counts("failover run A", launches_a,
+                  {"fused_agg_opt": SHARDS * FAULT_ROUNDS})
+
+    memory = PathMemory(dev)
+    fab = gw.fabric(2, topology=topo, faults=FaultConfig(
+        replication=2, fault_plan=fault_plan(FAULT_EVENTS)))
+    provisioned = memory.now()[0]
+    chain_events: list = []
+    replicate = fab._replicate_round
+
+    def timed_replicate():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        replicate()
+        end.record()
+        chain_events.append((start, end))
+
+    failover: dict = {}
+    crash = fab.crash_shard
+
+    def timed_crash(shard_id):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        before = torch.cuda.memory_allocated(dev)
+        torch.cuda.synchronize()
+        t0 = _time.perf_counter()
+        start.record()
+        action = crash(shard_id)
+        end.record()
+        torch.cuda.synchronize()
+        failover.update(host_ms=(_time.perf_counter() - t0) * 1e3,
+                        device_ms=start.elapsed_time(end),
+                        allocated=torch.cuda.memory_allocated(dev) - before)
+        return action
+
+    fab._replicate_round = timed_replicate
+    fab.crash_shard = timed_crash
+    retries_b = [retries()]
+    _zero_counts()  # run B's counts to 0 just before it...
+    round_b = []
+    for s in range(FAULT_ROUNDS):
+        round_b.append(timed(lambda s=s: gw.round(fab, s)))
+        retries_b.append(retries())
+        if s + 1 == RESHARD_AFTER:
+            launches_edge = _counts()
+            memory.hold(0)  # the reshard's own peak from here
+            reshard_ms = timed(lambda: fab.reshard(RESHARD_TO))
+            reshard_peak = torch.cuda.max_memory_allocated(dev)
+    launches_b = _counts()  # ...and read just after
+    peak_b = memory.now()[1]
+    losses_b = gw.finite_losses()
+    chain_ms = [a.elapsed_time(b) for a, b in chain_events]
+    st = fab.stats
+    trace = fab.export_fault_trace()
+    got = host_state(fab)
+    del fab
+    torch.cuda.empty_cache()
+    if not same_host_bits(want, got):
+        raise AssertionError(
+            "failover run B differs from the fault-free run A, max |err| "
+            + str([float(np.max(np.abs(a - b))) for a, b in zip(want, got)]))
+    del want, got
+    if losses_b != losses_a:
+        raise AssertionError(f"run B's losses {losses_b}, run A's {losses_a}")
+    if trace != rehearsal:
+        raise AssertionError(f"run B's fault trace {trace}, the CPU "
+                             f"rehearsal's {rehearsal}")
+    want_stats = dict(failovers=1, resilvers=1, rescales=1,
+                      shards_crashed=1, link_degrades=1,
+                      replication_rounds=FAULT_ROUNDS,
+                      bytes_replication=FAULT_ROUNDS * state_bytes,
+                      bytes_resilver=resilver_bytes,
+                      bytes_core_link=core_a + FAULT_ROUNDS * state_bytes
+                      + resilver_bytes)
+    got_stats = {k: getattr(st, k) for k in want_stats}
+    if got_stats != want_stats:
+        raise AssertionError(f"failover run B stats {got_stats}, expected "
+                             f"{want_stats}")
+    _check_counts("failover run B to the reshard", launches_edge,
+                  {"fused_agg_opt": SHARDS * RESHARD_AFTER})
+    _check_counts("failover run B", launches_b, {
+        "fused_agg_opt": SHARDS * RESHARD_AFTER
+        + RESHARD_TO * (FAULT_ROUNDS - RESHARD_AFTER)})
+    chain_bound = bound(name, 2 * state_bytes, 0)["bound_ms"]
+    resilver_bound = bound(name, 2 * resilver_bytes, 0)["bound_ms"]
+    log(f"failover path: {gw.cfg.name}, 2 workers over {RACKS} racks (core "
+        f"1:{OVERSUB:g}), codec none, AdamW, {SHARDS} shards, "
+        f"{FAULT_ROUNDS} rounds; run B replication 2 under "
+        f"{list(FAULT_EVENTS)}, reshard {SHARDS} -> {RESHARD_TO} after round "
+        f"{RESHARD_AFTER}")
+    log(f"  run A (R = 1): round wall ms {[round(x, 1) for x in round_a]}; "
+        f"launches {launches_a}; no chain; peak device memory {peak_a} "
+        f"bytes ({peak_a / 2**30:.2f} GiB); allocator retries {retries_a}")
+    log(f"  run B (R = 2): round wall ms {[round(x, 1) for x in round_b]}; "
+        f"launches {launches_b}; chain provisioned at construction, "
+        f"{provisioned} bytes allocated ({provisioned / 2**30:.2f} GiB); "
+        f"peak device memory {peak_b} bytes ({peak_b / 2**30:.2f} GiB); "
+        f"allocator retries by round "
+        f"{[b - a for a, b in zip(retries_b, retries_b[1:])]}")
+    log(f"  chain pass (_replicate_round, CUDA events) ms "
+        f"{[round(x, 3) for x in chain_ms]} for {state_bytes} bytes a round "
+        f"(bound {chain_bound:.3f} ms, {name})")
+    log(f"  failover of shard 1 (promote, re-silver {resilver_bytes} bytes): "
+        f"host {failover['host_ms']:.3f} ms, device {failover['device_ms']:.3f}"
+        f" ms (re-silver bound {resilver_bound:.3f} ms), {failover['allocated']}"
+        f" bytes allocated")
+    log(f"  reshard {SHARDS} -> {RESHARD_TO}: {reshard_ms:.1f} ms host, peak "
+        f"device memory during it {reshard_peak} bytes "
+        f"({reshard_peak / 2**30:.2f} GiB)")
+    log(f"  run B == run A bitwise (params, both AdamW slots); losses "
+        f"{losses_b}; fault trace == the CPU rehearsal's "
+        f"{[t['action'] for t in trace['trace']]}; bytes replication "
+        f"{st.bytes_replication}, resilver {st.bytes_resilver}, core link "
+        f"{st.bytes_core_link} (run A {core_a})")
+    if failover["allocated"] > 0:
+        raise AssertionError(f"the failover allocated {failover['allocated']} "
+                             "bytes")
+    return {"launches_a": launches_a, "launches_b": launches_b,
+            "round_ms_a": round_a, "round_ms_b": round_b,
+            "chain_ms": chain_ms, "chain_bound_ms": chain_bound,
+            "failover": failover, "resilver_bound_ms": resilver_bound,
+            "reshard_ms": reshard_ms, "reshard_peak_bytes": reshard_peak,
+            "peak_a": peak_a, "peak_b": peak_b}
+
+
+def smoke_fault_check(dev) -> dict:
+    """Phase 16: the fault tier at gemma3-1b's SMOKE config, 4 workers, 4
+    shards, 3 rounds, the fabric on ``dev`` against the fabric on the CPU,
+    bitwise in params, state, residuals, every stats field, ``fault_trace``
+    and ``export_fault_trace()``: codec (none, bf16, int8) x replication
+    (1: ``ShardLost`` on both; 2; 3, with the same shard crashing again the
+    next round) x racks (1; 2 with a 1:4 core) x a shard crash after round
+    1 or round 2; a worker crash after round 1 with its re-entry through
+    ``runtime/elastic.worker_reentry`` before round 3 (2 racks, R = 2);
+    and a SparseTier attached to an R = 2 fabric without topology (int8
+    rows, a table of 4096 x 32), shard 1 crashing after round 2, its
+    lookups through ``embedding_bag`` compared too.  Each shard-crash case
+    on the card also equals the card's fault-free run.  Gradients are
+    booked on the card by (worker, step, digest of the pulled params) and
+    replayed on the CPU, as in phase 14.  Returns each case's launches on
+    ``dev``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.chunking import ParamSpace
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.core.config import FabricConfig, FaultConfig, WireConfig
+    from repro_torch.core.fabric import PBoxFabric
+    from repro_torch.core.replication import ShardLost
+    from repro_torch.core.sparse import SparseTier
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models.transformer import init_params, lm_loss_and_grad
+    from repro_torch.optim.optimizers import adamw
+    from repro_torch.runtime.elastic import worker_reentry
+
+    cfg = get_arch("gemma3-1b").smoke_config
+    params = init_params(cfg, torch.Generator().manual_seed(0))
+    space = ParamSpace.build(params, chunk_elems=4096)
+    init = space.flatten(params)
+    cpu = torch.device("cpu")
+    book: dict = {}
+    filling = [True]  # the card runs fill the book, the CPU runs read it
+
+    def grad(flat, w, s):
+        key = (w, s, hashlib.sha1(flat.cpu().numpy().tobytes()).hexdigest())
+        if key not in book:
+            if not filling[0]:
+                raise AssertionError(
+                    f"the CPU fabric pulled params for worker {w} step {s} "
+                    "that the card fabric never pulled")
+            b = next(lm_batches(cfg.vocab, 4, 32, seed=1000 * (w + 1) + s))
+            _, g = lm_loss_and_grad(
+                space.unflatten(flat), torch.from_numpy(b["tokens"]).to(dev),
+                torch.from_numpy(b["labels"]).to(dev), cfg)
+            book[key] = space.flatten(g).cpu()
+        return book[key].to(flat.device)
+
+    def build(d, codec, racks, replication=1, events=()):
+        return PBoxFabric(space, adamw(3e-3), init.to(d), device=d,
+                          config=FabricConfig(
+                              num_shards=SHARDS, num_workers=4,
+                              wire=WireConfig(
+                                  topology=topology(4) if racks > 1 else None,
+                                  compression=CompressionConfig(codec=codec)),
+                              faults=FaultConfig(
+                                  replication=replication,
+                                  fault_plan=fault_plan(events)
+                                  if events else None)))
+
+    def drive(fab, reentry=None, tier=None, lookups=None):
+        """ROUNDS rounds: the alive workers pull, then push; ``reentry``
+        (round, worker) re-admits a crashed worker at that round's start;
+        with a ``tier`` each worker first pushes sparse rows and looks a
+        jagged batch up.  Returns the ShardLost a crash raised, as text."""
+        try:
+            for s in range(ROUNDS):
+                if reentry is not None and s == reentry[0]:
+                    worker_reentry(fab, reentry[1])
+                alive = [w for w in range(4) if fab.alive(w)]
+                if tier is not None:
+                    for w in alive:
+                        rng = np.random.default_rng((s, w))
+                        ids = rng.integers(0, 4096, size=64)
+                        rows = rng.standard_normal((64, 32)).astype(
+                            np.float32)
+                        tier.push(w, {"t0": (ids, torch.from_numpy(rows).to(
+                            fab.device))})
+                        offsets = np.arange(0, 65, 4)
+                        lookups.append(tier.lookup(w, "t0", ids, offsets).cpu())
+                flats = {w: fab.pull(w) for w in alive}
+                for w in alive:
+                    fab.push(w, grad(flats[w], w, s))
+        except ShardLost as e:
+            return f"{type(e).__name__}: {e}"
+        return None
+
+    def bits_of(fab):
+        efs = ([r._uplink_ef for r in fab.rack_aggs]
+               + [r._worker_ef[w] for r in fab.rack_aggs for w in r.members]
+               + [fab._worker_ef[w] for w in sorted(fab._worker_ef)])
+        return ([fab.params.cpu()]
+                + [fab._assemble_rows(lambda sh, k=k: sh.state[k]).cpu()
+                   for k in range(fab.spec.num_state_slots)]
+                + [None if e is None else e.cpu() for e in efs])
+
+    def stats_of(fab):
+        return (dataclasses.asdict(fab.stats),
+                [dataclasses.asdict(sh.stats) for sh in fab.shards],
+                [dataclasses.asdict(r.stats) for r in fab.rack_aggs],
+                fab.fault_trace, fab.export_fault_trace(),
+                sorted(fab.dead_workers), fab.worker_clock.tolist())
+
+    def same(a, b):
+        return all((x is None and y is None) or same_bits(x, y)
+                   for x, y in zip(a, b))
+
+    cases = []
+    for codec in ("none", "bf16", "int8"):
+        for racks in (1, 2):
+            for r in (1, 2, 3):
+                for at in (1, 2):
+                    events = [(at, "shard_crash", at)]
+                    if r == 3:  # the same shard again, the next round
+                        events.append((at + 1, "shard_crash", at))
+                    cases.append((f"{codec}/racks{racks}/R{r}/crash{at}",
+                                  codec, racks, r, events, None))
+        cases.append((f"{codec}/racks2/R2/worker_reentry", codec, 2, 2,
+                      [(1, "worker_crash", 3)], (2, 3)))
+    launches: dict = {}
+    bases: dict = {}
+    lost = 0
+    for case, codec, racks, r, events, reentry in cases:
+        if (codec, racks) not in bases:
+            filling[0] = True
+            base = build(dev, codec, racks)
+            drive(base)
+            bases[(codec, racks)] = bits_of(base)[:3]
+            del base
+        filling[0] = True
+        _zero_counts()
+        got = build(dev, codec, racks, r, events)
+        err = drive(got, reentry)
+        launches[case] = _counts()
+        filling[0] = False
+        ref = build(cpu, codec, racks, r, events)
+        ref_err = drive(ref, reentry)
+        if (err, stats_of(got)) != (ref_err, stats_of(ref)) or not same(
+                bits_of(ref), bits_of(got)):
+            raise AssertionError(f"SMOKE fault {case}: the fabric on {dev} "
+                                 f"differs from the CPU's ({err} / {ref_err})")
+        if (r == 1) != (err is not None):
+            raise AssertionError(f"SMOKE fault {case}: raised {err}")
+        lost += err is not None
+        if reentry is None and err is None:
+            if not same(bases[(codec, racks)], bits_of(got)[:3]):
+                raise AssertionError(f"SMOKE fault {case}: the failover "
+                                     "differs from the fault-free run")
+            if got.stats.failovers != len(events):
+                raise AssertionError(f"SMOKE fault {case}: "
+                                     f"{got.stats.failovers} failovers")
+        del got, ref
+    # the sparse tier attached to a replicated fabric, fault-free and not
+    table = np.random.default_rng(7).standard_normal((4096, 32)).astype(
+        np.float32)
+    runs = {}
+    for label, d, events in (("base", dev, ()),
+                             ("card", dev, [(2, "shard_crash", 1)]),
+                             ("cpu", cpu, [(2, "shard_crash", 1)])):
+        filling[0] = d != cpu
+        _zero_counts()
+        fab = build(d, "none", 1, 2, events)
+        tier = SparseTier(fabric=fab, codec="int8", lr=0.05)
+        tier.add_table("t0", table)
+        outs: list = []
+        if drive(fab, tier=tier, lookups=outs) is not None:
+            raise AssertionError("SMOKE sparse failover raised")
+        if label == "card":
+            launches["none/racks1/R2/sparse_tier"] = _counts()
+        runs[label] = (bits_of(fab)[:3], tier.table("t0").cpu(),
+                       tier.row_versions("t0"),
+                       dataclasses.asdict(tier.stats), outs,
+                       tier.replication, stats_of(fab))
+        del fab, tier
+    (bb, bt, bv, _, bo, _, _), card, ref = (runs["base"], runs["card"],
+                                            runs["cpu"])
+    if not (same(card[0], ref[0]) and same_bits(card[1], ref[1])
+            and np.array_equal(card[2], ref[2]) and card[3] == ref[3]
+            and same(card[4], ref[4]) and card[6] == ref[6]):
+        raise AssertionError(f"SMOKE sparse failover: {dev} differs from "
+                             "the CPU")
+    if not (same(card[0], bb) and same_bits(card[1], bt)
+            and np.array_equal(card[2], bv) and same(card[4], bo)):
+        raise AssertionError("SMOKE sparse failover differs from its "
+                             "fault-free run")
+    if card[5] != 2 or card[3]["failovers"] != 1:
+        raise AssertionError(f"SMOKE sparse tier stats {card[3]}")
+    book.clear()
+    total = {k: sum(c[k] for c in launches.values())
+             for k in next(iter(launches.values()))}
+    log(f"smoke faults: {len(launches)} cases (codec x R x racks x crash "
+        f"round, worker re-entry, a SparseTier failover; 4 workers, "
+        f"{SHARDS} shards, {ROUNDS} rounds), {dev} == cpu bitwise in params, "
+        f"state, residuals, every stats field and the fault traces; each "
+        f"failover == its fault-free run; {lost} ShardLost at R = 1 on both; "
+        f"launches on {dev.type} {total}")
+    return launches
+
+
 def profile_summary(prof, steady_round_ms: float, last_launches,
                     kernel_name: str, kernel_key: str = "") -> dict:
     """Print where the profiled round's time went: host time per labelled
@@ -2478,6 +2950,7 @@ def main() -> int:
     dlrm_err = replay_dlrm(dlrm)
     dlrm.pop("captured")
     dlrm_sharding_check(dev)
+    rehearsal = fault_rehearsal()
     with deterministic():
         gw = GemmaWorkers(dev)
         quorum = quorum_path(dev, gw)
@@ -2485,11 +2958,13 @@ def main() -> int:
         snap = snapshot_path(dev, gw)
         rack = rack_chain_path(dev, gw)
         switch = switch_path(dev, gw)
+        fault = failover_path(dev, gw, rehearsal)
         del gw
     async_err = replay_wire(dev, asyn)
     asyn.pop("captured")
     smoke = smoke_modes_check(dev)
     smoke_topo = smoke_topology_check(dev)
+    smoke_fault = smoke_fault_check(dev)
     switch_math = switch_math_ms(dev, int8["flat"], int8["chunk"])
     d = dlrm_capped_config().embed_dim
     timing = {"fused_agg_opt": time_fused_agg_opt(dev, f32["n"], WORKERS),
@@ -2521,7 +2996,11 @@ def main() -> int:
              **{f"switch_{label.replace(' ', '_')}": run["launches"]
                 for label, run in switch.items()},
              "smoke_topology": {k: sum(c[k] for c in smoke_topo.values())
-                                for k in f32["launches"]}}
+                                for k in f32["launches"]},
+             "failover_run_a": fault["launches_a"],
+             "failover_run_b": fault["launches_b"],
+             "smoke_faults": {k: sum(c[k] for c in smoke_fault.values())
+                              for k in f32["launches"]}}
     # K = 1 without averaging: the async pushes (f32 ones only at SMOKE)
     k1_launches = {"fused_agg_opt": smoke["async/none"]["fused_agg_opt"],
                    "wire_fused": asyn["launches"]["wire_fused"]
@@ -2595,6 +3074,11 @@ def main() -> int:
         f"{rack['round_ms'][1]:.1f} ms (flat {rack['flat_round_ms'][1]:.1f}), "
         + ", ".join(f"switch {label} {run['round_ms'][1]:.1f} ms"
                     for label, run in switch.items())
+        + f"; failover run A {fault['peak_a'] / 2**30:.2f} GiB, run B "
+        f"{fault['peak_b'] / 2**30:.2f} GiB (its reshard "
+        f"{fault['reshard_peak_bytes'] / 2**30:.2f}), steady rounds (round "
+        f"2) A {fault['round_ms_a'][1]:.1f} ms, B {fault['round_ms_b'][1]:.1f}"
+        f" ms, chain pass {statistics.median(fault['chain_ms']):.3f} ms"
         + f"; switch integer math "
         f"{sum(v['ms'] for v in switch_math.values()):.3f} ms; whole run "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -1,6 +1,6 @@
 """The port's core: the PHub/PBox parameter exchange (torch counterpart of
 ``repro.core``: the fabric with its straggler modes, rack topology and
-switch tier) and the sparse embedding tier."""
+switch tier, the fault tier) and the sparse embedding tier."""
 from repro_torch.core.chunking import DEFAULT_CHUNK_ELEMS, ParamSpace, TensorSlot
 from repro_torch.core.config import FabricConfig, FabricConfigError
 from repro_torch.core.fabric import (
@@ -11,7 +11,12 @@ from repro_torch.core.fabric import (
     ShardStats,
     WorkerHarness,
 )
-from repro_torch.core.replication import FaultEvent, FaultPlan, ShardLost
+from repro_torch.core.replication import (
+    FaultEvent,
+    FaultPlan,
+    ReplicaGroup,
+    ShardLost,
+)
 from repro_torch.core.server import PHubServer
 from repro_torch.core.sparse import (
     RowPlacement,
@@ -24,6 +29,7 @@ from repro_torch.core.topology import NetworkTopology, RackAggregator
 __all__ = [
     "FaultEvent",
     "FaultPlan",
+    "ReplicaGroup",
     "ShardLost",
     "NetworkTopology",
     "RackAggregator",

@@ -20,13 +20,8 @@ gives the same bits as the unfused route it would switch to.
 
 All cross-field validation lives in ``validate()``: one named
 ``FabricConfigError`` per rule (the same rules, names and order as the JAX
-package), then a ``NotImplementedError`` for every knob the port does not
-cover yet.  It covers the sync, async and stale (SSP) modes, backup
-quorums (``min_push_fraction`` < 1), any wire codec (none, bf16, int8), a
-network topology (``core/topology.NetworkTopology``), the switch tier and
-a fault plan whose events are all ``switch_fail`` / ``switch_restore``.
-Replication, any other fault kind, an explicit plan and a namespace still
-raise.
+package), then a ``NotImplementedError`` for the one knob the port does
+not cover yet, a tenancy namespace (``namespace`` / ``chunk_base``).
 
 Sub-configs hold live objects (topology, codec, fault plan, plan, link
 model) by reference and are validated duck-typed, so this module imports
@@ -39,8 +34,6 @@ from typing import Any
 
 _MODES = ("sync", "async", "stale")
 _PLACEMENTS = ("contiguous", "round_robin")
-# the fault kinds the port's fabric fires (core/fabric._consume_switch_faults)
-_SWITCH_FAULTS = ("switch_fail", "switch_restore")
 
 
 class FabricConfigError(ValueError):
@@ -112,8 +105,9 @@ class FabricConfig:
         """Check every cross-field rule before any fabric state exists.
 
         One named ``FabricConfigError`` per rule, then
-        ``NotImplementedError`` for knobs the port does not cover yet;
-        returns self so constructors can chain ``config.validate()``."""
+        ``NotImplementedError`` for a tenancy namespace, which the port
+        does not cover yet; returns self so constructors can chain
+        ``config.validate()``."""
         if self.mode not in _MODES:
             raise FabricConfigError(
                 "mode", f"unknown mode {self.mode!r}; one of {_MODES}")
@@ -180,25 +174,10 @@ class FabricConfig:
                     "plan_replication",
                     f"plan places {plan.replica_racks.shape[1]} chain "
                     f"copies, fabric replicates at {repl}")
-        unported = [
-            (repl > 1, f"replication={repl}"),
-            (plan is not None, "an explicit placement plan"),
-            (self.namespace is not None or self.chunk_base != 0,
-             "a tenancy namespace"),
-        ]
-        fault_plan = self.faults.fault_plan
-        if fault_plan is not None:
-            events = getattr(fault_plan, "events", None)
-            if events is None:
-                unported.append((True, "a fault plan without events"))
-            for ev in events or ():
-                unported.append((ev.kind not in _SWITCH_FAULTS,
-                                 f"a {ev.kind!r} fault event"))
-        for missing, what in unported:
-            if missing:
-                raise NotImplementedError(
-                    f"the PyTorch fabric has no fault tier, tenancy or "
-                    f"explicit plan yet; {what} is not ported")
+        if self.namespace is not None or self.chunk_base != 0:
+            raise NotImplementedError(
+                "the PyTorch fabric has no tenancy tier yet; a tenancy "
+                "namespace is not ported")
         return self
 
     # -- introspection ---------------------------------------------------

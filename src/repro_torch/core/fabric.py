@@ -58,13 +58,31 @@ pool the racks' streams; a pool that is failed (a ``FaultPlan``'s
 fabric with no switch.  The event clock adds the core link as a second
 pipeline stage.
 
-The port covers no replication, other fault kinds, tenancy or reshard:
-``FabricConfig.validate`` raises ``NotImplementedError`` for those knobs,
-and ``apply_plan_delta`` for the deltas that need them; the event clock's
-shared-clock and link-degrade factors stay at 1.0.  A sparse tier
-(``core/sparse.SparseTier(fabric=...)``) attaches to a fabric without a
-topology: it inherits the shard and worker counts, link model, chunk size
-and device, and registers in ``sparse_tiers``.
+Every fabric runs under a ``PlacementPlan`` (``core/placement.py``): the
+default plan unless the config names one.  It places each shard's
+replication chain on racks and may pin chunk ownership.
+
+Fault tolerance (``core/replication.py``): ``replication=R`` chain-
+replicates every shard's slab (params and optimizer state, raw f32) to
+R - 1 backups after each round, anti-affine to racks, and a ``FaultPlan``
+injects shard, worker, link and switch faults at round edges.  A shard
+crash with R >= 2 promotes the chain head bit-exactly and re-silvers the
+chain; with R = 1 it raises ``ShardLost``.  Worker crashes shrink the
+admission barrier to the survivors, who re-enter through
+``runtime/elastic.worker_reentry``; a degraded rack link slows the event
+clock.  The chain is a real device copy (the kernels write the primary in
+place), ``copy_``d into buffers each group keeps between rounds, and
+replication and recovery bytes land on the same rack and core accounting
+as training traffic.  ``reshard`` changes the shard count in place at a
+round edge, one state slot at a time; ``replace_chain_racks`` re-homes a
+chain.  The port has no tenancy tier yet: ``FabricConfig.validate``
+refuses a namespace, and the event clock's shared-clock factors stay at
+1.0.
+
+A sparse tier (``core/sparse.SparseTier(fabric=...)``) attaches to a fabric
+without a topology: it inherits the shard and worker counts, replication,
+plan, link model, chunk size and device, registers in ``sparse_tiers``,
+and fails over and reshards with the fabric's engines.
 """
 from __future__ import annotations
 
@@ -84,7 +102,12 @@ from repro_torch.core.compression import (
     wire_bytes,
 )
 from repro_torch.core.config import FabricConfig
-from repro_torch.core.placement import PlanDelta, chunk_rebalance_delta
+from repro_torch.core.placement import (
+    PlacementPlan,
+    PlanDelta,
+    chunk_rebalance_delta,
+)
+from repro_torch.core.replication import FaultPlan, ReplicaGroup, ShardLost
 from repro_torch.core.topology import (
     NetworkTopology,
     RackAggregator,
@@ -224,6 +247,25 @@ class PBoxShard:
         self.params = chunk_params.to(torch.float32, copy=True)
         self.state = init_opt_state(spec, self.params)
         self.stats = ShardStats()
+
+    @classmethod
+    def from_state(cls, shard_id: int, space: ParamSpace,
+                   spec: OptimizerSpec, chunk_ids: np.ndarray,
+                   params: torch.Tensor, state: tuple) -> "PBoxShard":
+        """A shard over rows it already owns: ``params`` and ``state`` are
+        taken as they are, not copied (a failover's promoted chain copy, a
+        reshard's regathered rows).  At full width a copy would cost a
+        second slab set at the moment of the swap."""
+        shard = cls.__new__(cls)
+        shard.shard_id = shard_id
+        shard.space = space
+        shard.spec = spec
+        shard.chunk_ids = np.asarray(chunk_ids, dtype=np.int64)
+        shard.rows = _row_index(shard.chunk_ids, params.device)
+        shard.params = params
+        shard.state = tuple(state)
+        shard.stats = ShardStats()
+        return shard
 
     @property
     def num_chunks(self) -> int:
@@ -450,10 +492,7 @@ class PBoxFabric:
         self._switch_cursor = 0  # fault-plan rounds consumed mid-round
         self._deferred: set[int] = set()  # raw pushes parked for a pool
         self._round_switch_chunks = 0  # pool occupancy of the last round
-        # a fault plan of switch events (config.validate refuses the other
-        # kinds), fired at the top of each round's rack aggregation
-        self.fault_plan = config.faults.fault_plan
-        self.fault_trace: list[dict] = []
+        self.fault_plan: FaultPlan | None = config.faults.fault_plan
         # without a topology the codec runs on the worker -> PS wire, and
         # each worker's NIC keeps its error-feedback residual (with one,
         # the ToRs keep them)
@@ -462,13 +501,30 @@ class PBoxFabric:
                              device=self.device)
             for w in range(self.num_workers)
         } if self.compression.codec != "none" and topology is None else {}
+        # placement layer: every fabric runs under a plan; None means the
+        # default plan (the anti-affine chain formula, chunk ownership by
+        # ``placement_policy``), which keeps the caller's topology object
+        # as it is.  An explicit plan is attached to the topology so its
+        # placement queries read the plan.
         self.placement_policy = config.placement.policy
-        # what a fabric-attached sparse tier (core/sparse.py) reads, under
-        # the JAX fabric's names: the port has no replication or placement
-        # plan; dead workers arrive only with a restored snapshot
-        self.replication = 1
-        self.plan = None
+        replication = config.faults.replication
+        plan = config.placement.plan
+        explicit_plan = plan is not None
+        n_racks = topology.num_racks if topology is not None else 1
+        if plan is None:
+            plan = PlacementPlan.default(self.num_shards, num_racks=n_racks,
+                                         replication=replication)
+        self._check_plan(plan, self.num_shards, n_racks, replication)
+        self.plan = plan
+        if topology is not None and explicit_plan:
+            self.topology = topology.with_plan(plan)
+        # fault tier: chain replication at factor R, the fault schedule
+        # fired at round edges, and the crash bookkeeping routing reads
+        self.replication = replication
+        self.fault_trace: list[dict] = []
         self.dead_workers: set[int] = set()
+        self._link_degrade: dict[int, float] = {}  # rack -> slowdown >= 1
+        self._fault_cursor = 0  # last round whose faults already fired
         self.sparse_tiers: list = []  # weakrefs to attached SparseTiers
         self.step = 0
         self.worker_clock = np.zeros(self.num_workers, dtype=np.int64)
@@ -483,14 +539,7 @@ class PBoxFabric:
             c, space.chunk_elems)
         self.chunk_owner = np.empty(c, dtype=np.int64)
         self.shards: list[PBoxShard] = []
-        if self.placement_policy == "round_robin":
-            # the paper's core assignment: chunk c -> engine c % N, so a
-            # streamed push feeds every engine continuously
-            assignment = [np.arange(c)[np.arange(c) % self.num_shards == s]
-                          for s in range(self.num_shards)]
-        else:
-            assignment = np.array_split(np.arange(c), self.num_shards)
-        for sid, ids in enumerate(assignment):
+        for sid, ids in enumerate(self._partition(plan, self.num_shards)):
             self.chunk_owner[ids] = sid
             shard_rows = _row_index(ids, self.device)
             self.shards.append(
@@ -502,6 +551,59 @@ class PBoxFabric:
         # chunk-by-chunk staging: worker -> (rows buffer, staged mask)
         self._staged: dict[int, tuple[torch.Tensor, np.ndarray]] = {}
         self._flat_cache: torch.Tensor | None = None
+        # a device copy of init_flat, where one was made, is freed before
+        # the chains allocate
+        del rows
+        # the chains: the initial provisioning copies ship with the model
+        # broadcast, not on the training wire.  R = 1 builds none.
+        self.replicas: list[ReplicaGroup] = self._build_chains(plan)
+
+    @staticmethod
+    def _check_plan(plan: PlacementPlan, num_shards: int, num_racks: int,
+                    replication: int) -> None:
+        if plan.num_shards != num_shards:
+            raise ValueError(
+                f"plan places {plan.num_shards} shards, fabric has "
+                f"{num_shards}")
+        if plan.num_racks != num_racks:
+            raise ValueError(
+                f"plan places {plan.num_racks} racks, topology has "
+                f"{num_racks}")
+        if plan.replica_racks.shape[1] < replication:
+            raise ValueError(
+                f"plan places {plan.replica_racks.shape[1]} chain copies, "
+                f"fabric replicates at {replication}")
+
+    def _partition(self, plan: PlacementPlan,
+                   num_shards: int) -> list[np.ndarray]:
+        """Each shard's chunk ids: the plan's explicit ``chunk_owner`` when
+        it has one (the policy is then ignored), else round-robin (chunk c
+        -> engine c % N, the paper's assignment: a streamed push feeds
+        every engine) or contiguous slabs."""
+        c = self.space.num_chunks
+        if plan.chunk_owner is not None:
+            if len(plan.chunk_owner) != c:
+                raise ValueError(
+                    f"plan places {len(plan.chunk_owner)} chunks, the "
+                    f"space has {c}")
+            return [np.flatnonzero(plan.chunk_owner == s)
+                    for s in range(num_shards)]
+        if self.placement_policy == "round_robin":
+            return [np.arange(c)[np.arange(c) % num_shards == s]
+                    for s in range(num_shards)]
+        return np.array_split(np.arange(c), num_shards)
+
+    def _build_chains(self, plan: PlacementPlan) -> list[ReplicaGroup]:
+        """One chain per shard at the plan's racks, provisioned by a sync
+        (no bytes booked); none at R = 1."""
+        if self.replication < 2:
+            return []
+        racks = plan.replica_racks[:, :self.replication]
+        chains = [ReplicaGroup(s.shard_id, self.replication,
+                               racks[s.shard_id]) for s in self.shards]
+        for group, shard in zip(chains, self.shards):
+            group.sync(shard, round_=self.step)
+        return chains
 
     # -- assembled views -----------------------------------------------
     def _assemble_rows(self, per_shard: Callable[[PBoxShard], Any]) -> torch.Tensor:
@@ -612,8 +714,9 @@ class PBoxFabric:
     def _complete_push(self, worker: int, gchunks: torch.Tensor) -> None:
         if worker in self.dead_workers:
             raise RuntimeError(
-                f"worker {worker} is marked dead (restored from a snapshot "
-                "that recorded its crash) and cannot push")
+                f"worker {worker} crashed at round {self.step} and has not "
+                "re-entered; revive it (runtime/elastic.worker_reentry) "
+                "before pushing")
         self.worker_clock[worker] += 1
         nbytes = wire_bytes(self.compression, gchunks.numel())
         self.stats.pushes += 1
@@ -715,7 +818,8 @@ class PBoxFabric:
         self.stats.steps += 1
         self._simulate_round(streams=1 if self.topology else None)
         self._flat_cache = None
-        self._consume_switch_faults()
+        self._replicate_round()
+        self._fire_faults()
 
     def _barrier_met(self) -> bool:
         # a quorum exists only as a strict subset of the alive workers;
@@ -767,7 +871,10 @@ class PBoxFabric:
         self._drops_since_step = 0
         self._simulate_round(streams=streams)
         self._flat_cache = None
-        self._consume_switch_faults()
+        # chain replication completes before the round edge: a crash
+        # scheduled at this round promotes the post-round bits
+        self._replicate_round()
+        self._fire_faults()
 
     def _rack_aggregate(self, workers: list[int]) -> int:
         """Combine this round's pushes rack by rack, then apply the
@@ -953,12 +1060,15 @@ class PBoxFabric:
         With a topology the wire is a two-stage pipeline: the rack link
         feeds the ToR, then the oversubscribed core link relays each chunk
         onward (``streams`` streams share the racks' uplinks: one a rack
-        with ToR aggregation, every worker's without).  The JAX package's
-        arithmetic, with its shared-clock and link-degrade factors at 1.0
-        (tenancy and the fault tier's link faults are not ported)."""
+        with ToR aggregation, every worker's without).  The worst active
+        link degradation slows the rack stage: the clock is
+        round-granular, and the slowest rack is a sync round's barrier.
+        The JAX package's arithmetic, with its shared-clock factors at 1.0
+        (tenancy is not ported)."""
         bpe_scale = wire_bytes(self.compression, self.space.chunk_elems) / (
             4.0 * self.space.chunk_elems)
-        wire = self.link.wire_us_per_chunk * bpe_scale
+        degrade = max(self._link_degrade.values(), default=1.0)
+        wire = self.link.wire_us_per_chunk * bpe_scale * degrade
         agg = self.link.agg_us_per_chunk
         c = self.space.num_chunks
         idx = np.arange(c, dtype=np.float64)
@@ -989,6 +1099,207 @@ class PBoxFabric:
         self.stats.sim_agg_us += c * agg
         self.stats.sim_pipelined_us += makespan
         self.stats.sim_serialized_us += c * wire + c * core + c * agg
+
+    # -- fault tier: chain replication, failover, injection ----------------
+    def _hop_cost(self, src_rack: int, dst_rack: int) -> float:
+        """Event-clock cost multiplier of one replication hop: rack-local
+        hops ride the full-bisection tier, cross-rack hops pay the
+        oversubscribed core."""
+        if self.topology is None:
+            return 1.0
+        return self.topology.hop_cost(src_rack, dst_rack)
+
+    def _account_state_stream(self, group: ReplicaGroup, shard: PBoxShard,
+                              *, resilver: bool) -> None:
+        """Book one chain pass (or one re-silver stream) for ``shard``:
+        raw-f32 state bytes land on the rack/core link accounting training
+        traffic uses, and the event clock records the pass in
+        ``sim_replication_us`` (chain replication overlaps the next round)
+        or ``sim_recovery_us`` (re-silvering is the failover's cost)."""
+        nbytes = group.state_bytes(self.spec.num_state_slots,
+                                   shard.num_elems)
+        hops = group.hop_racks()
+        if resilver:
+            # one stream from the surviving chain onto the replacement
+            hops = hops[:1]
+        us_per_chunk = self.link.wire_us_per_chunk * (
+            1 + self.spec.num_state_slots)
+        for src, dst in hops:
+            if resilver:
+                self.stats.bytes_resilver += nbytes
+            else:
+                self.stats.bytes_replication += nbytes
+            if self.topology is not None:
+                if src == dst:
+                    self.stats.bytes_rack_link += nbytes
+                else:
+                    self.stats.bytes_core_link += nbytes
+            us = shard.num_chunks * us_per_chunk * self._hop_cost(src, dst)
+            if resilver:
+                self.stats.sim_recovery_us += us
+            else:
+                self.stats.sim_replication_us += us
+
+    def _replicate_round(self) -> None:
+        """One chain pass after a completed round: every backup now holds
+        the primary's exact post-round slab (raw f32), so a crash at this
+        round edge fails over bit-exactly.  One ``copy_`` of each shard's
+        state a round; nothing at R = 1."""
+        if not self.replicas:
+            return
+        for group, shard in zip(self.replicas, self.shards):
+            if shard.num_chunks:
+                self._account_state_stream(group, shard, resilver=False)
+            group.sync(shard, round_=self.step)
+        self.stats.replication_rounds += 1
+
+    def _fire_faults(self) -> None:
+        """Inject every scheduled fault whose round the event clock just
+        passed: round edges are the only crash points, always after the
+        round's chain replication.  Switch faults are consumed mid-round
+        (``_consume_switch_faults``, own cursor); here they only catch up
+        on rounds that never reached a rack aggregation."""
+        if self.fault_plan is None:
+            return
+        self._consume_switch_faults()
+        due = self.fault_plan.between(self._fault_cursor, self.step)
+        self._fault_cursor = self.step
+        for ev in due:
+            self._apply_fault(ev)
+
+    def _apply_fault(self, ev) -> None:
+        if ev.kind in ("switch_fail", "switch_restore"):
+            return  # consumed mid-round by _consume_switch_faults
+        rec: dict[str, Any] = {"round": int(self.step), "event": ev.to_json()}
+        if ev.kind == "shard_crash":
+            self.fault_trace.append(rec)  # recorded before a possible raise
+            rec["action"] = self.crash_shard(ev.target)
+        elif ev.kind == "worker_crash":
+            self.crash_worker(ev.target)
+            rec["action"] = "worker_crashed"
+            self.fault_trace.append(rec)
+        elif ev.kind == "worker_recover":
+            # in-process recovery: the fabric's state is current, so revive
+            # directly (elastic.worker_reentry's clock alignment, without
+            # materializing a snapshot to discard it)
+            self.revive_worker(ev.target)
+            rec["action"] = "worker_reentered"
+            self.fault_trace.append(rec)
+        elif ev.kind == "link_degrade":
+            if self.topology is not None and not (
+                    0 <= ev.target < self.topology.num_racks):
+                raise ValueError(f"link_degrade targets rack {ev.target}, "
+                                 "not in the topology")
+            self._link_degrade[ev.target] = ev.factor
+            self.stats.link_degrades += 1
+            rec["action"] = f"link_degraded_x{ev.factor:g}"
+            self.fault_trace.append(rec)
+        elif ev.kind == "link_restore":
+            self._link_degrade.pop(ev.target, None)
+            rec["action"] = "link_restored"
+            self.fault_trace.append(rec)
+
+    def crash_shard(self, shard_id: int) -> str:
+        """One aggregation engine dies at a round edge.
+
+        With a surviving chain (replication >= 2) the chain head's copy of
+        the post-round slab becomes the replacement engine's slab as it is
+        (no copy), routing re-targets the replacement (``chunk_owner`` is
+        unchanged; the shard slot is), and the crashed engine's buffers
+        take the re-silvered copy, so the chain is back at full strength
+        without allocating.  Attached sparse tiers fail their co-resident
+        row slices over too.  With replication == 1 the slab is gone:
+        raises ``ShardLost``."""
+        if not 0 <= shard_id < self.num_shards:
+            raise ValueError(f"no shard {shard_id}")
+        dead = self.shards[shard_id]
+        self.stats.shards_crashed += 1
+        if self.replication < 2 or not self.replicas:
+            raise ShardLost(shard_id, dead.num_chunks, self.step,
+                            self.replication)
+        group = self.replicas[shard_id]
+        chunk_ids, params, state = group.promote()
+        replacement = PBoxShard.from_state(shard_id, self.space, self.spec,
+                                           chunk_ids, params, state)
+        self.shards[shard_id] = replacement
+        self.stats.failovers += 1
+        # recovery: one state stream re-silvers the chain's empty slot
+        if replacement.num_chunks:
+            self._account_state_stream(group, replacement, resilver=True)
+        group.sync(replacement, round_=self.step,
+                   spare=(dead.params, dead.state))
+        del dead
+        self.stats.resilvers += 1
+        self.sparse_tiers = [r for r in self.sparse_tiers
+                             if r() is not None]
+        for ref in self.sparse_tiers:
+            tier = ref()
+            if tier is not None:
+                tier.failover(shard_id)
+        self._flat_cache = None
+        return "failed_over"
+
+    def crash_worker(self, worker: int) -> None:
+        """A worker process dies: its in-flight stream (staged chunks, an
+        unaggregated inbox entry) dies with it, and the admission barrier
+        shrinks to the survivors.  If its missing push was all the round's
+        barrier waited on, the round fires now."""
+        if not 0 <= worker < self.num_workers:
+            raise ValueError(f"no worker {worker}")
+        if worker in self.dead_workers:
+            return
+        self.dead_workers.add(worker)
+        self.stats.workers_crashed += 1
+        self._staged.pop(worker, None)
+        self._deferred.discard(worker)  # a parked raw push dies in flight
+        dropped = self._inbox.pop(worker, None)
+        if dropped is not None:
+            self.worker_clock[worker] -= 1  # that push never happened
+        if (self.mode != "async" and self._inbox
+                and len(self._inbox) >= self.min_pushes
+                and self._barrier_met()):
+            self._aggregate()
+
+    def revive_worker(self, worker: int, *, clock: int | None = None) -> None:
+        """Re-admit a crashed worker (``runtime/elastic.worker_reentry``):
+        it resumes on the current params version, its clock at the
+        current step, so its first push is fresh."""
+        if worker not in self.dead_workers:
+            return
+        self.dead_workers.discard(worker)
+        self.stats.workers_recovered += 1
+        self.worker_clock[worker] = self.step if clock is None else clock
+        self._pull_step[worker] = self.step
+
+    def export_fault_trace(self) -> dict:
+        """The replayable failure record: the deterministic plan plus every
+        injected event and the action taken.  Counts come from the trace,
+        not ``ServerStats``: stats are cumulative across a restore and a
+        replay, while the trace (truncated on restore) is the current
+        timeline."""
+        kinds: dict[str, int] = {}
+        actions: dict[str, int] = {}
+        for rec in self.fault_trace:
+            k = rec["event"]["kind"]
+            kinds[k] = kinds.get(k, 0) + 1
+            a = rec.get("action")
+            if a is not None:
+                actions[a] = actions.get(a, 0) + 1
+        return {
+            "schema": 1,
+            "replication": self.replication,
+            "plan": self.fault_plan.to_json() if self.fault_plan else None,
+            "trace": list(self.fault_trace),
+            "round": int(self.step),
+            "stats": {
+                "shards_crashed": kinds.get("shard_crash", 0),
+                "failovers": actions.get("failed_over", 0),
+                "resilvers": actions.get("failed_over", 0),
+                "workers_crashed": kinds.get("worker_crash", 0),
+                "workers_recovered": kinds.get("worker_recover", 0),
+                "link_degrades": kinds.get("link_degrade", 0),
+            },
+        }
 
     # -- switch faults ------------------------------------------------------
     def _consume_switch_faults(self) -> None:
@@ -1042,16 +1353,16 @@ class PBoxFabric:
         return self.apply_plan_delta(delta)
 
     def apply_plan_delta(self, delta: PlanDelta) -> int:
-        """Apply one placement-plan delta; returns the chunks moved.  The
-        port applies ``chunk_moves``; chain re-placement and reshard need
-        the replication tier, which is not ported yet."""
+        """Apply one placement-plan delta; returns a progress count (chunks
+        moved, chain copies re-homed, or chunks re-assigned by a reshard).
+        Every kind moves ownership and byte/time accounting, never
+        parameter or optimizer bits."""
         if delta.kind == "chunk_moves":
             return self._apply_chunk_moves(delta.moves)
-        if delta.kind in ("replica_racks", "shard_count"):
-            raise NotImplementedError(
-                f"a {delta.kind!r} delta needs the replication tier (chain "
-                "re-placement, reshard), which the PyTorch fabric does not "
-                "port yet")
+        if delta.kind == "replica_racks":
+            return self.replace_chain_racks(delta.shard, delta.racks)
+        if delta.kind == "shard_count":
+            return self.reshard(delta.new_shards)
         raise ValueError(
             f"delta kind {delta.kind!r} is not fabric-applied (frontend "
             "moves belong to the read plane, tenant shares to the "
@@ -1092,8 +1403,161 @@ class PBoxFabric:
         self.chunk_owner = new_owner
         self.stats.rebalances += 1
         self.stats.chunks_moved += len(moved)
+        # the chains follow their shard's new chunk set (the move rides the
+        # rebalance transfer, not the replication wire)
+        for group, shard in zip(self.replicas, self.shards):
+            group.sync(shard, round_=self.step)
         self._flat_cache = None
         return len(moved)
+
+    def replace_chain_racks(self, shard_id: int,
+                            new_racks: Sequence[int]) -> int:
+        """Re-home one shard's replication chain onto ``new_racks``
+        (primary's home first, then the backups).  Returns the number of
+        copies that moved.  Numerics-neutral: a move is metadata plus one
+        state stream on the wire for each copy that changes rack, booked
+        as recovery traffic (``bytes_resilver``, ``sim_recovery_us``).  The
+        plan and the plan-backed topology are refreshed."""
+        if not self.replicas:
+            raise ValueError(
+                "no replication chains to re-home (replication < 2)")
+        if not 0 <= shard_id < self.num_shards:
+            raise ValueError(f"no shard {shard_id}")
+        group = self.replicas[shard_id]
+        new = tuple(int(r) for r in new_racks)
+        if len(new) != group.factor:
+            raise ValueError(
+                f"chain has {group.factor} copies, got {len(new)} racks")
+        n_racks = self.topology.num_racks if self.topology is not None else 1
+        for r in new:
+            if not 0 <= r < n_racks:
+                raise ValueError(f"rack {r} not in the topology")
+        old = group.racks
+        if new == old:
+            return 0
+        shard = self.shards[shard_id]
+        group.racks = new
+        rr = np.asarray(self.plan.replica_racks).copy()
+        rr[shard_id, :len(new)] = new
+        self.plan = self.plan.replace(replica_racks=rr)
+        if self.topology is not None:
+            self.topology = self.topology.with_plan(self.plan)
+        moved = 0
+        if shard.num_chunks:
+            nbytes = group.state_bytes(self.spec.num_state_slots,
+                                       shard.num_elems)
+            us_per_chunk = self.link.wire_us_per_chunk * (
+                1 + self.spec.num_state_slots)
+            for src, dst in zip(old, new):
+                if src == dst:
+                    continue
+                moved += 1
+                self.stats.bytes_resilver += nbytes
+                if self.topology is not None:
+                    self.stats.bytes_core_link += nbytes
+                self.stats.sim_recovery_us += (
+                    shard.num_chunks * us_per_chunk
+                    * self._hop_cost(src, dst))
+        else:
+            moved = sum(1 for a, b in zip(old, new) if a != b)
+        self.stats.replica_moves += moved
+        return moved
+
+    def reshard(self, new_num_shards: int, *,
+                plan: PlacementPlan | None = None) -> int:
+        """Change the live fabric's shard count in place: the autoscaler's
+        grow/shrink lever.  Returns the number of chunks whose owner
+        changed.
+
+        A round-edge operation: in-flight pushes must have drained.  The
+        same chunk space is re-partitioned over another number of engines,
+        so push/pull shapes, residuals, clocks and pull versions stay as
+        they were, and every shard applies the same per-chunk kernel
+        program: bit-identical across the change.  The order keeps the
+        card's memory at the state plus one slot: the chains are dropped
+        first, the slots (params, then each optimizer slot) are regathered
+        one at a time with each old slab released once gathered
+        (``_regather``), then the chains are provisioned again from
+        ``plan`` (default: the anti-affine default plan).  Attached sparse
+        tiers re-shard with the dense engines."""
+        if new_num_shards < 1:
+            raise ValueError("num_shards must be >= 1")
+        if self._inbox or self._staged:
+            raise RuntimeError(
+                "reshard is a round-edge operation: in-flight pushes must "
+                "drain (or be dropped) before the engine set changes")
+        if new_num_shards == self.num_shards and plan is None:
+            return 0
+        n_racks = self.topology.num_racks if self.topology is not None else 1
+        if plan is None:
+            plan = PlacementPlan.default(new_num_shards, num_racks=n_racks,
+                                         replication=self.replication)
+        self._check_plan(plan, new_num_shards, n_racks, self.replication)
+        assignment = self._partition(plan, new_num_shards)
+        owner = np.empty(self.space.num_chunks, dtype=np.int64)
+        for sid, ids in enumerate(assignment):
+            owner[ids] = sid
+        moved = int(np.sum(owner != self.chunk_owner))
+        self.replicas = []
+        self._flat_cache = None
+        slots = self._regather(assignment)
+        self.shards = [
+            PBoxShard.from_state(sid, self.space, self.spec, ids,
+                                 slots[sid][0], tuple(slots[sid][1:]))
+            for sid, ids in enumerate(assignment)
+        ]
+        del slots
+        self.chunk_owner = owner
+        self.num_shards = new_num_shards
+        self.plan = plan
+        if self.topology is not None:
+            self.topology = self.topology.with_plan(plan)
+        self.replicas = self._build_chains(plan)
+        self.stats.rescales += 1
+        self.stats.chunks_moved += moved
+        self.sparse_tiers = [r for r in self.sparse_tiers
+                             if r() is not None]
+        for ref in self.sparse_tiers:
+            tier = ref()
+            if tier is not None:
+                tier.reshard(new_num_shards)
+        return moved
+
+    def _regather(self, assignment: list[np.ndarray]) -> list[list]:
+        """The rows of every state slot (params first) for the new
+        partition ``assignment``, as ``[shard][slot]`` tensors.  One slot
+        at a time: each new slab is filled from the old shards' slabs
+        (slices where both sides are contiguous runs), then that slot of
+        every old shard is released."""
+        e = self.space.chunk_elems
+        dev = self.device
+        pos = np.empty(self.space.num_chunks, dtype=np.int64)
+        for sh in self.shards:
+            pos[sh.chunk_ids] = np.arange(sh.num_chunks)
+        # (old shard, new shard) -> (rows in the new slab, rows in the old)
+        routes = []
+        for new_sid, ids in enumerate(assignment):
+            for sh in self.shards:
+                mine = np.flatnonzero(self.chunk_owner[ids] == sh.shard_id)
+                if len(mine):
+                    routes.append((sh, new_sid, _row_index(mine, dev),
+                                   _row_index(pos[ids[mine]], dev)))
+        out: list[list] = [[] for _ in assignment]
+        for k in range(1 + self.spec.num_state_slots):
+            dst = [torch.empty((len(ids), e), dtype=torch.float32,
+                               device=dev) for ids in assignment]
+            for sh, new_sid, to, frm in routes:
+                src = sh.params if k == 0 else sh.state[k - 1]
+                dst[new_sid][to] = src[frm]
+            for sh in self.shards:
+                if k == 0:
+                    sh.params = None
+                else:
+                    sh.state = sh.state[:k - 1] + (None,) + sh.state[k:]
+            for slabs, d in zip(out, dst):
+                slabs.append(d)
+            del dst
+        return out
 
     # -- snapshot / restore ----------------------------------------------
     def snapshot(self) -> dict:
@@ -1170,12 +1634,16 @@ class PBoxFabric:
         # trace drops the rolled-back tail so replayed events appear once
         self.fault_trace = [r for r in self.fault_trace
                             if r["round"] <= self.step]
-        self._switch_cursor = self.step
         dead = snap.get("dead_workers")
         self.dead_workers = (
             {int(w) for w in np.atleast_1d(dead) if 0 <= w < self.num_workers}
             if dead is not None else set()
         )
+        self._link_degrade.clear()
+        self._fault_cursor = self.step
+        self._switch_cursor = self.step
+        for group, shard in zip(self.replicas, self.shards):
+            group.sync(shard, round_=self.step)  # provisioning, not wire
         # attached sparse tiers drop caches stamped on the abandoned
         # timeline
         self.sparse_tiers = [r for r in self.sparse_tiers
@@ -1222,6 +1690,14 @@ class PBoxFabric:
                 f"{self.stats.rack_streams} aggregated streams, rack links "
                 f"{self.stats.bytes_rack_link >> 10} KiB, late pushes "
                 f"dropped {self.stats.late_pushes_dropped}"
+            )
+        if self.replication > 1:
+            s = self.stats
+            lines.append(
+                f"  replication: R={self.replication}, "
+                f"{s.bytes_replication >> 10} KiB chained, "
+                f"{s.failovers} failovers ({s.resilvers} re-silvered), "
+                f"{len(self.dead_workers)} workers down"
             )
         for shard in self.shards:
             lines.append(

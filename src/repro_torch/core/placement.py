@@ -1,24 +1,32 @@
-"""Placement plan deltas and the straggler chunk moves (torch counterpart
-of part of ``repro/core/placement.py``).
+"""Placement plans, plan deltas and the straggler chunk moves (torch
+counterpart of part of ``repro/core/placement.py``).
 
-The port so far carries only what the fabric's rebalancing needs:
+The port so far carries what the fabric needs:
 
+  ``PlacementPlan``          the immutable decision set: each shard's
+                             replication chain racks, frontend racks and
+                             optional explicit chunk and row ownership.
+                             ``PlacementPlan.default`` is the anti-affine
+                             ``(s + r) % racks`` heuristic every fabric
+                             runs under unless it is given a plan.
   ``PlanDelta``              one applicable change to a placement; the
-                             fabric applies ``chunk_moves``
+                             fabric applies ``chunk_moves``,
+                             ``replica_racks`` and ``shard_count``
                              (``PBoxFabric.apply_plan_delta``).
   ``rebalance_chunks``       the straggler heuristic: a slow shard's chunks
                              go round-robin to the least loaded healthy
                              shards.
   ``chunk_rebalance_delta``  the same moves as a ``chunk_moves`` delta.
 
-``PlacementPlan``, ``diff_plans`` and the plan solver are not ported yet.
-Placement moves byte and time accounting only, never bits: chunks move
-with their parameters and optimizer state.  This module is numpy only.
+The plan solver (``PlacementProblem``, its objectives and constraints),
+``current_plan`` and ``diff_plans`` are not ported yet.  Placement moves
+byte and time accounting only, never bits: chunks move with their
+parameters and optimizer state.  This module is numpy only.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Mapping, Sequence
 
 import numpy as np
 
@@ -26,12 +34,127 @@ _DELTA_KINDS = ("chunk_moves", "replica_racks", "frontend_move",
                 "shard_count", "tenant_shares")
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class PlacementPlan:
+    """One complete placement decision set (immutable; its arrays are
+    frozen read-only on construction).
+
+    ``replica_racks`` is (num_shards, >= replication): column 0 is each
+    shard's primary home rack, columns 1+ its chain backups.
+    ``frontend_racks`` places serving frontends (empty without a read
+    plane).  ``chunk_owner`` / ``row_owner`` are optional explicit
+    ownership maps; absent means the consumer's own policy (contiguous or
+    round-robin chunks, hash or range rows).  ``tenant_shares`` overrides
+    fair-share weights per job name."""
+
+    num_shards: int
+    num_racks: int = 1
+    replication: int = 1
+    replica_racks: np.ndarray | None = None
+    frontend_racks: tuple[int, ...] = ()
+    chunk_owner: np.ndarray | None = None
+    row_owner: Mapping[str, np.ndarray] = dataclasses.field(
+        default_factory=dict)
+    tenant_shares: Mapping[str, float] = dataclasses.field(
+        default_factory=dict)
+    origin: str = "default"
+
+    def __post_init__(self):
+        if self.num_shards < 1:
+            raise ValueError("num_shards must be >= 1")
+        if self.num_racks < 1:
+            raise ValueError("num_racks must be >= 1")
+        if self.replication < 1:
+            raise ValueError("replication must be >= 1")
+        rr = self.replica_racks
+        if rr is None:
+            # the heuristic: replica r of shard s in (s + r) % racks
+            # (NetworkTopology.replica_racks)
+            home = np.arange(self.num_shards, dtype=np.int64) % self.num_racks
+            rr = (home[:, None] + np.arange(self.replication,
+                                            dtype=np.int64)[None, :]) \
+                % self.num_racks
+        rr = np.asarray(rr, dtype=np.int64)
+        if rr.shape[0] != self.num_shards or rr.ndim != 2:
+            raise ValueError(
+                f"replica_racks must be (num_shards, >=1); got {rr.shape}")
+        if rr.shape[1] < self.replication:
+            raise ValueError(
+                f"replica_racks places {rr.shape[1]} copies, plan declares "
+                f"replication {self.replication}")
+        if rr.size and (rr.min() < 0 or rr.max() >= self.num_racks):
+            raise ValueError("replica_racks entries out of rack range")
+        rr = rr.copy()
+        rr.setflags(write=False)
+        object.__setattr__(self, "replica_racks", rr)
+        fr = tuple(int(r) for r in self.frontend_racks)
+        if any(not 0 <= r < self.num_racks for r in fr):
+            raise ValueError("frontend_racks entries out of rack range")
+        object.__setattr__(self, "frontend_racks", fr)
+        if self.chunk_owner is not None:
+            co = np.asarray(self.chunk_owner, dtype=np.int64).copy()
+            if co.ndim != 1:
+                raise ValueError("chunk_owner must be 1-D")
+            if co.size and (co.min() < 0 or co.max() >= self.num_shards):
+                raise ValueError("chunk_owner entries out of shard range")
+            co.setflags(write=False)
+            object.__setattr__(self, "chunk_owner", co)
+        ro = {}
+        for name, owner in dict(self.row_owner).items():
+            owner = np.asarray(owner, dtype=np.int64).copy()
+            if owner.size and (owner.min() < 0
+                               or owner.max() >= self.num_shards):
+                raise ValueError(
+                    f"row_owner[{name!r}] entries out of shard range")
+            owner.setflags(write=False)
+            ro[str(name)] = owner
+        object.__setattr__(self, "row_owner", ro)
+        shares = {str(k): float(v)
+                  for k, v in dict(self.tenant_shares).items()}
+        if any(v <= 0.0 for v in shares.values()):
+            raise ValueError("tenant_shares weights must be > 0")
+        object.__setattr__(self, "tenant_shares", shares)
+
+    @classmethod
+    def default(cls, num_shards: int, *, num_racks: int = 1,
+                replication: int = 1,
+                num_frontends: int = 0) -> "PlacementPlan":
+        """The heuristics as a plan: anti-affine ``(s + r) % racks``
+        chains, ``f % racks`` frontends, policy-default chunk and row
+        ownership, no tenant shares."""
+        return cls(
+            num_shards=num_shards,
+            num_racks=num_racks,
+            replication=replication,
+            frontend_racks=tuple(f % num_racks for f in range(num_frontends)),
+        )
+
+    @property
+    def home_racks(self) -> np.ndarray:
+        """Primary home rack per shard (``replica_racks``' first column)."""
+        return self.replica_racks[:, 0]
+
+    def replace(self, **kw) -> "PlacementPlan":
+        """A modified copy (re-validated; the original stays frozen)."""
+        return dataclasses.replace(self, **kw)
+
+    def describe(self) -> str:
+        homes = ",".join(str(int(r)) for r in self.home_racks)
+        return (
+            f"PlacementPlan[{self.origin}]: {self.num_shards} shards x "
+            f"R{self.replication} over {self.num_racks} racks "
+            f"(homes {homes}), {len(self.frontend_racks)} frontends, "
+            f"chunks {'explicit' if self.chunk_owner is not None else 'policy'}, "
+            f"{len(self.row_owner)} row maps, "
+            f"{len(self.tenant_shares)} tenant shares"
+        )
+
+
 @dataclasses.dataclass(frozen=True)
 class PlanDelta:
     """One applicable difference between two plans.
 
-    Kinds and their consumers (the JAX package's; the port's fabric
-    applies ``chunk_moves`` and refuses the others it would own):
+    Kinds and their consumers:
       ``chunk_moves``    ((chunk, new_owner), ...)  -> PBoxFabric.apply_plan_delta
       ``replica_racks``  shard + full new chain     -> PBoxFabric.apply_plan_delta
       ``shard_count``    new_shards                 -> PBoxFabric.apply_plan_delta

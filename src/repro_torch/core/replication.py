@@ -1,27 +1,40 @@
 """Chain replication and deterministic faults for the PS tiers (torch
 counterpart of ``repro/core/replication.py``).
 
-Ported so far:
-
-  ``ShardLost``     the sparse tier raises it when a shard fails with no
-                    surviving replica.
+  ``ReplicaGroup``  chain (primary-backup) replication of one shard's chunk
+                    state at factor R.  After every aggregation round the
+                    primary's slab (params and optimizer state, raw f32)
+                    goes down the chain; a crash at a round edge promotes
+                    the chain head, which holds the primary's exact
+                    post-round bits.
   ``FaultPlan``     a deterministic, seedable schedule of ``FaultEvent``s
-                    keyed on the fabric's aggregation round, drawn once at
-                    build time (``generate``) and replayable from its JSON
-                    (``to_json``/``from_json``).  The fabric fires the
-                    switch kinds (``switch_fail``/``switch_restore``);
-                    ``FabricConfig.validate`` refuses a plan holding any
-                    other kind until the fault tier is ported.
+                    (shard crash, worker crash and recovery, link degrade
+                    and restore, switch fail and restore) keyed on the
+                    fabric's aggregation round, drawn once at build time
+                    (``generate``) and replayable from its JSON
+                    (``to_json``/``from_json``).
+  ``ShardLost``     raised when a shard crashes with no surviving replica
+                    (R = 1): its slab is gone, and the fabric says so
+                    instead of serving a corrupt flat space.
 
-``ReplicaGroup`` waits for the port's fault tier.
+In the JAX package a backup is a reference to an immutable array.  Here the
+kernels update a shard's slab in place on the card, so a reference would be
+overwritten by the next round: a ``ReplicaGroup`` keeps one device copy of
+the slab and ``copy_``s the primary into it each round.  All ``factor - 1``
+backups share that copy, as the JAX backups share one reference, so device
+memory holds one state set whatever R is, while the byte accounting still
+books ``factor - 1`` hops.  With R >= 2 a sync run that crashes and fails
+over at any round is bit-identical to the failure-free run (the JAX
+package's headline invariant); wiring lives in ``core/fabric.py``.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Iterable
+from typing import Any, Iterable, Sequence
 
 import numpy as np
+import torch
 
 FAULT_KINDS = (
     "shard_crash",  # target: shard id — primary engine dies at a round edge
@@ -65,8 +78,9 @@ class ShardLost(RuntimeError):
 @dataclasses.dataclass(frozen=True)
 class FaultEvent:
     """One scheduled fault, keyed on the fabric's aggregation-round clock:
-    it fires when the fabric completes round ``round`` (the switch kinds
-    fire before that round's rack aggregation)."""
+    it fires when the fabric completes round ``round``, after the round's
+    update and chain replication (the switch kinds fire before that
+    round's rack aggregation)."""
 
     round: int
     kind: str
@@ -194,3 +208,108 @@ class FaultPlan:
         parts = ", ".join(f"{k}={v}" for k, v in sorted(kinds.items()))
         return (f"FaultPlan: {len(self.events)} events over rounds "
                 f"1..{self.max_round} ({parts or 'empty'})")
+
+
+# ---------------------------------------------------------------------------
+# replica chain
+# ---------------------------------------------------------------------------
+def _fits(buf: tuple, shard: Any) -> bool:
+    """Whether the (params, state) buffers ``buf`` can take ``shard``'s
+    slab: the same shapes, dtypes and devices, slot for slot."""
+    p, st = buf
+    if len(st) != len(shard.state):
+        return False
+    return all(
+        a.shape == b.shape and a.dtype == b.dtype and a.device == b.device
+        for a, b in zip((p, *st), (shard.params, *shard.state)))
+
+
+class ReplicaGroup:
+    """Chain replication state for one shard: ``factor - 1`` backups, each
+    holding a byte-exact copy of the primary's (chunk ids, params,
+    optimizer state) as of the last ``sync``.
+
+    ``racks[0]`` is the primary's rack, ``racks[1:]`` the backups'; the
+    group records them so the byte accounting knows which hops cross the
+    core.  The backups share one set of buffers, which the group keeps
+    between rounds and ``sync`` overwrites with ``copy_``: no round
+    allocates, and no backup aliases the slab the kernels write."""
+
+    def __init__(self, shard_id: int, factor: int, racks: Sequence[int]):
+        if factor < 2:
+            raise ValueError("a ReplicaGroup needs factor >= 2")
+        if len(racks) != factor:
+            raise ValueError("racks must place every replica (primary first)")
+        self.shard_id = shard_id
+        self.factor = factor
+        self.racks = tuple(int(r) for r in racks)
+        self.synced_round = -1
+        # chain order: copies[0] is the chain head (first to be promoted)
+        self.copies: list[tuple[np.ndarray, torch.Tensor, tuple]] = []
+        self._buf: tuple[torch.Tensor, tuple] | None = None
+
+    @property
+    def num_backups(self) -> int:
+        return len(self.copies)
+
+    def state_bytes(self, num_state_slots: int, num_elems: int) -> int:
+        """Raw f32 bytes one chain hop ships: the slab's params plus every
+        optimizer-state slot.  Never codec-compressed: a lossy replica
+        could not be promoted bit-exactly."""
+        return 4 * num_elems * (1 + num_state_slots)
+
+    def hop_racks(self) -> tuple[tuple[int, int], ...]:
+        """(src, dst) rack per chain hop: primary -> backup 1 -> ... ."""
+        return tuple(
+            (self.racks[i], self.racks[i + 1])
+            for i in range(self.factor - 1)
+        )
+
+    def sync(self, shard: Any, round_: int, *,
+             spare: tuple[torch.Tensor, tuple] | None = None) -> None:
+        """One chain pass: every backup now holds the primary's exact
+        post-round state (the fabric accounts bytes and time per hop).
+
+        The slab is copied into the group's buffers.  When the group holds
+        none of the slab's shape (the first sync, a failover, a chunk
+        move), it takes ``spare`` if that fits (a failover passes the
+        crashed primary's buffers), else allocates."""
+        if self._buf is not None and not _fits(self._buf, shard):
+            self._buf = None  # a chunk move changed the slab: release first
+            self.copies = []
+        if self._buf is None:
+            if spare is not None and _fits(spare, shard):
+                self._buf = spare
+            else:
+                self._buf = (torch.empty_like(shard.params),
+                             tuple(torch.empty_like(s) for s in shard.state))
+        p, st = self._buf
+        p.copy_(shard.params)
+        for dst, src in zip(st, shard.state):
+            dst.copy_(src)
+        copy = (shard.chunk_ids.copy(), p, st)
+        self.copies = [copy] * (self.factor - 1)
+        self.synced_round = round_
+
+    def tail(self) -> tuple[np.ndarray, torch.Tensor, tuple]:
+        """The chain tail's copy (chunk ids, params, optimizer state): the
+        replica furthest from the primary.  Byte-exact for the last
+        ``sync``ed round; the next ``sync`` overwrites it in place."""
+        if not self.copies:
+            raise ShardLost(self.shard_id, 0, self.synced_round, self.factor)
+        return self.copies[-1]
+
+    def promote(self) -> tuple[np.ndarray, torch.Tensor, tuple]:
+        """Fail over: pop the chain head's copy (the new primary's state).
+        Its buffers now belong to the new primary, so the group holds none
+        until the caller ``sync``s to re-silver the chain; until then any
+        remaining backup shares the promoted buffers."""
+        if not self.copies:
+            raise ShardLost(self.shard_id, 0, -1, self.factor)
+        self._buf = None
+        return self.copies.pop(0)
+
+    def describe(self) -> str:
+        return (f"ReplicaGroup(shard {self.shard_id}): factor {self.factor}, "
+                f"{self.num_backups} backups on racks {self.racks[1:]}, "
+                f"synced at round {self.synced_round}")

@@ -41,9 +41,11 @@ replaces the slabs it updates; with replication 1 nothing else holds a
 slab, so the round updates it in place (same bits, no copy).
 
 This slice runs with no topology (every shard and worker on rack 0, hop
-cost 1.0): a ``topology`` and a ``plan`` object raise
-``NotImplementedError``, as does serving (``SparseReadPlane``,
-core/serving.py), which is not ported yet.
+cost 1.0): a ``topology`` raises ``NotImplementedError``, as do a
+placement plan that carries solved row maps (``row_owner``) and serving
+(``SparseReadPlane``, core/serving.py), which are not ported yet.  A plan
+without row maps (a fabric-attached tier reads the fabric's) gives the
+chain racks.
 """
 from __future__ import annotations
 
@@ -66,8 +68,15 @@ SCALE_BYTES = 4  # one f32 scale per int8-encoded row
 
 def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"the PyTorch sparse tier runs with no topology and no placement "
-        f"plan only; {what} is not ported yet")
+        f"the PyTorch sparse tier runs with no topology and no solved row "
+        f"placement only; {what} is not ported yet")
+
+
+def _check_plan(plan: Any) -> None:
+    """Refuse a placement plan the tier cannot follow yet: one with solved
+    row maps (the placement solver is not ported)."""
+    if plan is not None and getattr(plan, "row_owner", None):
+        raise _unported("a placement plan with row_owner maps")
 
 
 # ---------------------------------------------------------------------------
@@ -394,8 +403,7 @@ class SparseTier:
                 device = fabric.device
         if topology is not None:
             raise _unported("a network topology")
-        if plan is not None:
-            raise _unported("a placement plan")
+        _check_plan(plan)
         self.num_shards = int(num_shards or 1)
         self.num_workers = int(num_workers or 1)
         if self.num_shards < 1 or self.num_workers < 1:
@@ -409,7 +417,7 @@ class SparseTier:
         self.device = resolve_device(device)
         self.topology = None
         self.fabric = fabric
-        self.plan = None
+        self.plan = plan
         self.default_placement = placement
         self.codec = codec
         self.error_feedback = bool(error_feedback)
@@ -439,6 +447,15 @@ class SparseTier:
             fabric.sparse_tiers.append(weakref.ref(self))
 
     def _resolve_chain_racks(self) -> np.ndarray:
+        """Shard -> chain-rack rows for the tier's shard count: the
+        attached plan's when its shard space and depth match, else rack 0
+        (no topology)."""
+        plan = self.plan
+        if (plan is not None
+                and getattr(plan, "num_shards", None) == self.num_shards
+                and plan.replica_racks.shape[1] >= self.replication):
+            return np.asarray(plan.replica_racks[:, :self.replication],
+                              dtype=np.int64).copy()
         return np.zeros((self.num_shards, self.replication), dtype=np.int64)
 
     # -- tables ----------------------------------------------------------
@@ -713,11 +730,9 @@ class SparseTier:
         assembled dense view (byte-exact), the per-row versions carry over,
         and the error-feedback residuals are dense and shard-independent,
         so resharding moves only the accounting, never numerics.  Chains
-        are rebuilt at the new count with a provisioning sync.  A ``plan``
-        object raises ``NotImplementedError`` (placement plans are not
-        ported)."""
-        if plan is not None:
-            raise _unported("a placement plan")
+        are rebuilt at the new count with a provisioning sync, at the racks
+        of ``plan`` (default: the attached fabric's plan); a plan with row
+        maps raises ``NotImplementedError``."""
         new_num_shards = int(new_num_shards)
         if new_num_shards < 1:
             raise ValueError("num_shards must be >= 1")
@@ -730,6 +745,10 @@ class SparseTier:
                 raise ValueError(
                     f"table {name!r} has {t.num_rows} rows, cannot split "
                     f"over {new_num_shards} shards")
+        if plan is None and self.fabric is not None:
+            plan = getattr(self.fabric, "plan", None)
+        _check_plan(plan)
+        self.plan = plan
         old_tables = self.tables
         self.num_shards = new_num_shards
         self.chain_racks = self._resolve_chain_racks()

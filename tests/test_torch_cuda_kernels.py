@@ -297,3 +297,60 @@ def test_smoke_topology_on_card_matches_cpu(cuda):
     # starved pools take the software path, as with no switch tier
     assert launches["int8/sync/starved"] == launches["int8/sync/off"]
     assert launches["int8/sync/off"]["quantize_chunks"] > 0
+
+
+@pytest.mark.gpu
+def test_failover_on_card_equals_fault_free(cuda):
+    """A replicated fabric on the card (R = 3, AdamW through the in-place
+    fused_agg_opt kernel, shard 0 crashing after rounds 1 and 2) equals
+    the card's fault-free run bitwise: the promoted copy is the post-round
+    slab, and no backup aliases the slab the kernel writes."""
+    from repro_torch.core.config import FaultConfig
+    from repro_torch.core.replication import FaultEvent, FaultPlan
+
+    rng = np.random.default_rng(3)
+    n = 6 * SLAB
+    grads = [torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+             for _ in range(2)]
+    space = ParamSpace.build({"w": torch.zeros(n, device=cuda)},
+                             chunk_elems=SLAB)
+    runs = []
+    for faults in (FaultConfig(), FaultConfig(replication=3, fault_plan=(
+            FaultPlan([FaultEvent(1, "shard_crash", 0),
+                       FaultEvent(2, "shard_crash", 0)])))):
+        fab = PBoxFabric(space, topt.adamw(3e-3),
+                         torch.zeros(n, device=cuda),
+                         config=FabricConfig(num_shards=2, num_workers=2,
+                                             faults=faults),
+                         device=cuda)
+        tkernel.launches = 0
+        for _ in range(4):
+            for w in range(2):
+                fab.pull(w)
+                fab.push(w, grads[w].to(cuda))
+        assert tkernel.launches == 8
+        runs.append(fab)
+    base, fab = runs
+    assert fab.stats.failovers == 2
+    assert torch.equal(base.params.view(torch.int32),
+                       fab.params.view(torch.int32))
+    for a, b in zip(base.shards, fab.shards):
+        for x, y in zip(a.state, b.state):
+            assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+    for group, shard in zip(fab.replicas, fab.shards):
+        for _, p, st in group.copies:
+            assert p.data_ptr() != shard.params.data_ptr()
+            assert torch.equal(p, shard.params)
+
+
+@pytest.mark.gpu
+def test_smoke_faults_on_card_match_cpu(cuda):
+    """chip_smoke.py's SMOKE fault sweep: codec x replication x racks x
+    crash round, worker re-entry and a sparse-tier failover, the fabric on
+    the card against the fabric on the CPU and its own fault-free run,
+    bitwise; the card's updates went through the kernels."""
+    launches = _chip_smoke().smoke_fault_check(cuda)
+    assert len(launches) == 40
+    assert launches["none/racks2/R3/crash1"]["fused_agg_opt"] > 0
+    assert launches["int8/racks1/R2/crash2"]["wire_fused"] > 0
+    assert launches["none/racks1/R2/sparse_tier"]["embedding_bag"] > 0

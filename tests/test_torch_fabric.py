@@ -188,28 +188,87 @@ def test_fabric_does_not_write_init_flat():
 
 
 @pytest.mark.parametrize("cfg", [
-    dict(faults=tconfig.FaultConfig(replication=2)),
-    dict(faults=tconfig.FaultConfig(fault_plan=object())),
-    dict(faults=tconfig.FaultConfig(fault_plan=FaultPlan(
-        [FaultEvent(1, "switch_fail", 0), FaultEvent(2, "shard_crash", 0)]))),
     dict(namespace="job0"),
+    dict(chunk_base=8),
 ])
 def test_unported_knobs_raise(cfg):
-    with pytest.raises(NotImplementedError):
+    """The tenancy namespace is the one knob the port refuses."""
+    with pytest.raises(NotImplementedError, match="namespace"):
         FabricConfig(num_workers=K, **cfg).validate()
+
+
+@pytest.mark.parametrize("knob", ["replication", "seeded_plan",
+                                  "switch_then_shard_crash"])
+def test_fault_knobs_match_jax(knob):
+    """The fault tier's knobs, once refused, run against the JAX fabric:
+    replication 2; a seeded plan of every non-switch kind; a switch event
+    then a shard crash at R = 2.  Params, state, every stats field and the
+    exported fault trace match."""
+    from repro.core.replication import FaultEvent as JaxEvent
+    from repro.core.replication import FaultPlan as JaxPlan
+
+    if knob == "seeded_plan":
+        events = [(e.round, e.kind, e.target, e.factor)
+                  for e in FaultPlan.generate(
+                      0, rounds=5, num_shards=2, num_workers=K,
+                      shard_crash_rate=0.4, worker_crash_rate=0.4,
+                      link_degrade_rate=0.4, recover_after=1).events]
+    elif knob == "switch_then_shard_crash":
+        events = [(1, "switch_fail", 0, 1.0), (2, "shard_crash", 0, 1.0)]
+    else:
+        events = []
+    kinds = {e[1] for e in events}
+    jplan = JaxPlan(JaxEvent(*e) for e in events) if events else None
+    tplan = FaultPlan(FaultEvent(*e) for e in events) if events else None
+    ref, jgrad = _jax_fabric("adamw", 2, min_push_fraction=0.5,
+                             faults=JaxFaults(replication=2,
+                                              fault_plan=jplan))
+    fab, tgrad = _torch_fabric("adamw", 2, min_push_fraction=0.5,
+                               faults=tconfig.FaultConfig(
+                                   replication=2, fault_plan=tplan))
+    for f, g in ((ref, jgrad), (fab, tgrad)):
+        for _ in range(5):
+            for w in range(K):
+                if f.alive(w):  # a crash fires mid-loop at a round edge
+                    f.push(w, g(f.pull(w), w))
+    np.testing.assert_array_equal(_bits(ref.params), _bits(fab.params.numpy()))
+    for js, ts in zip(ref.shards, fab.shards):
+        for a, b in zip(js.state, ts.state):
+            np.testing.assert_array_equal(_bits(a), _bits(b.numpy()))
+    assert dataclasses.asdict(ref.stats) == dataclasses.asdict(fab.stats)
+    assert ref.export_fault_trace() == fab.export_fault_trace()
+    assert fab.stats.replication_rounds == fab.step >= 5
+    assert {t["event"]["kind"] for t in fab.fault_trace} == kinds
+    if knob == "seeded_plan":
+        assert {"shard_crash", "worker_crash", "link_degrade"} <= kinds
 
 
 def test_unported_topology_and_plan_raise():
     """A topology (duck-typed) and the switch tier validate since the rack
-    tier was ported; an explicit placement plan still raises."""
+    tier was ported, and an explicit placement plan since the fault tier
+    was: a fabric under one runs as the JAX fabric does."""
+    from repro.core.placement import PlacementPlan as JaxPlacementPlan
+    from repro_torch.core.placement import PlacementPlan
+
     topo = type("T", (), {"num_workers": K, "num_racks": 1})()
     FabricConfig(num_workers=K, wire=tconfig.WireConfig(
         topology=topo, switch=tconfig.SwitchConfig(
             enabled=True, tor_slots=4))).validate()
-    plan = type("P", (), {"num_shards": 1, "num_racks": 1,
-                          "replica_racks": np.zeros((1, 1))})()
-    with pytest.raises(NotImplementedError):
-        FabricConfig(placement=tconfig.PlacementConfig(plan=plan)).validate()
+    owner = (np.arange(_torch_fabric("momentum", 1)[0].space.num_chunks)
+             + 1) % 2
+    plan = PlacementPlan(num_shards=2, chunk_owner=owner, origin="solved")
+    jplan = JaxPlacementPlan(num_shards=2, chunk_owner=owner, origin="solved")
+    ref, jgrad = _jax_fabric("momentum", 2,
+                             placement=JaxPlacement(plan=jplan))
+    fab, tgrad = _torch_fabric("momentum", 2,
+                               placement=tconfig.PlacementConfig(plan=plan))
+    assert fab.plan is plan
+    np.testing.assert_array_equal(fab.chunk_owner, owner)
+    for f, g in ((ref, jgrad), (fab, tgrad)):
+        for _ in range(3):
+            _push_round(f, g)
+    np.testing.assert_array_equal(_bits(ref.params), _bits(fab.params.numpy()))
+    assert dataclasses.asdict(ref.stats) == dataclasses.asdict(fab.stats)
 
 
 @pytest.mark.parametrize("cfg,rule", [
@@ -520,10 +579,13 @@ def test_apply_plan_delta_kinds():
     assert fab.shards[3].chunk_ids.tolist() == [0, 1, 7]
     assert isinstance(fab.shards[3].rows, torch.Tensor)  # no longer a run
     assert torch.equal(fab.params, before)
-    for bad in (PlanDelta("replica_racks", shard=0, racks=(0,)),
-                PlanDelta("shard_count", new_shards=2)):
-        with pytest.raises(NotImplementedError):
-            fab.apply_plan_delta(bad)
+    # chain re-homing needs chains (R = 1 here); a reshard runs as in JAX
+    with pytest.raises(ValueError, match="replication < 2"):
+        fab.apply_plan_delta(PlanDelta("replica_racks", shard=0, racks=(0,)))
+    assert fab.apply_plan_delta(PlanDelta("shard_count", new_shards=2)) == \
+        ref.apply_plan_delta(JaxDelta("shard_count", new_shards=2))
+    assert fab.num_shards == 2
+    np.testing.assert_array_equal(fab.chunk_owner, ref.chunk_owner)
     for foreign in (PlanDelta("frontend_move", frontend=0, rack=0),
                     PlanDelta("tenant_shares", shares=(("a", 1.0),))):
         with pytest.raises(ValueError, match="not fabric-applied"):
@@ -660,7 +722,7 @@ def test_restore_reads_dead_workers_and_legacy_snapshots():
     assert fab.dead_workers == {3} and not fab.alive(3)
     assert not fab.can_proceed(3) and fab.can_proceed(0)
     assert fab.num_alive_workers == 3 and fab.min_pushes == 2
-    with pytest.raises(RuntimeError, match="dead"):
+    with pytest.raises(RuntimeError, match="worker 3 crashed"):
         fab.push(3, torch.zeros(fab.space.flat_elems))
     legacy = {k: snap[k] for k in ("params", "state", "step")}
     fab.restore(legacy)

@@ -90,3 +90,35 @@ def test_port_imports_with_jax_blocked():
         timeout=180, cwd=ROOT,
         env={"PYTHONPATH": env_path, "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+FAULT_SLICE = ("runtime/elastic.py", "core/placement.py",
+               "core/replication.py", "core/fabric.py", "core/sparse.py")
+
+
+@pytest.mark.parametrize("module", FAULT_SLICE)
+def test_fault_slice_modules_are_checked(module):
+    """The fault tier's modules (elastic restore and re-entry, the
+    placement plan, the replica chain) are among the files checked
+    above."""
+    assert ROOT / "src" / "repro_torch" / module in PORT_FILES
+
+
+@pytest.mark.parametrize("module", ["repro_torch.runtime.elastic",
+                                    "repro_torch.core.placement"])
+def test_fault_slice_imports_with_jax_blocked(module):
+    """``runtime/elastic`` and ``core/placement`` import on their own in a
+    process where ``import jax`` and ``import repro`` fail."""
+    code = (
+        "import importlib, sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        f"importlib.import_module({module!r})\n"
+        "assert 'jax' not in sys.modules or sys.modules['jax'] is None\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=180, cwd=ROOT,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

@@ -30,6 +30,7 @@ from repro_torch.core import sparse as tsparse  # noqa: E402
 from repro_torch.core.chunking import TILE_ELEMS, ParamSpace  # noqa: E402
 from repro_torch.core.config import FabricConfig, WireConfig  # noqa: E402
 from repro_torch.core.fabric import LinkModel, PBoxFabric  # noqa: E402
+from repro_torch.core.placement import PlacementPlan  # noqa: E402
 from repro_torch.core.replication import ShardLost  # noqa: E402
 from repro_torch.models.recsys.embedding import jagged_to_padded  # noqa: E402
 from repro_torch.optim.optimizers import sgd  # noqa: E402
@@ -379,8 +380,8 @@ def test_reshard_errors():
         tier.reshard(0)
     with pytest.raises(ValueError):
         tier.reshard(V + 1)
-    with pytest.raises(NotImplementedError):
-        tier.reshard(4, plan=object())
+    with pytest.raises(NotImplementedError, match="row_owner"):
+        tier.reshard(4, plan=PlacementPlan(4, row_owner={"t0": np.zeros(V)}))
     tier.push(0, {"t0": (np.array([1]), torch.ones((1, D)))})
     with pytest.raises(RuntimeError):
         tier.reshard(4)
@@ -425,9 +426,24 @@ def test_unported_knobs_raise():
     with pytest.raises(NotImplementedError, match="topology"):
         tsparse.SparseTier(num_shards=2, num_workers=2, topology=object(),
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="plan"):
-        tsparse.SparseTier(num_shards=2, num_workers=2, plan=object(),
-                           device="cpu")
+    # a plan without row maps gives the chain racks, as in the JAX tier;
+    # one with solved row maps still raises
+    from repro.core.placement import PlacementPlan as JaxPlacementPlan
+
+    racks = np.array([[0, 1], [1, 0]])
+    tier = tsparse.SparseTier(
+        num_shards=2, num_workers=2, replication=2, device="cpu",
+        plan=PlacementPlan(2, num_racks=2, replication=2,
+                           replica_racks=racks))
+    ref = jsparse.SparseTier(
+        num_shards=2, num_workers=2, replication=2,
+        plan=JaxPlacementPlan(2, num_racks=2, replication=2,
+                              replica_racks=racks))
+    np.testing.assert_array_equal(tier.chain_racks, ref.chain_racks)
+    np.testing.assert_array_equal(tier.home_racks, ref.home_racks)
+    with pytest.raises(NotImplementedError, match="row_owner"):
+        tsparse.SparseTier(num_shards=2, num_workers=2, device="cpu",
+                           plan=PlacementPlan(2, row_owner={"t0": [0, 1]}))
     with pytest.raises(ValueError):
         tsparse.SparseTier(codec="fp8", device="cpu")
     with pytest.raises(ValueError):

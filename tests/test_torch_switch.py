@@ -26,6 +26,7 @@ from test_torch_topology import (  # noqa: E402
     MODES,
     assert_same,
     drive,
+    jax_fabric,
     run_pair,
     torch_fabric,
 )
@@ -267,11 +268,31 @@ def test_validate_accepts_topology_switch_and_switch_plans():
 
 @pytest.mark.parametrize("kind", [k for k in FAULT_KINDS
                                   if not k.startswith("switch")])
-def test_validate_refuses_other_fault_kinds(kind):
-    plan = _plan((1, "switch_fail", 0), (2, kind, 0))
-    with pytest.raises(NotImplementedError, match=repr(kind)):
-        FabricConfig(num_workers=4,
-                     faults=FaultConfig(fault_plan=plan)).validate()
+def test_validate_accepts_fault_kind(kind):
+    """A switch event and one of every other kind on one plan (the fault
+    tier is ported): the port's int8 switch fabric (2 racks, R = 2) runs
+    it as the JAX fabric does, traces and all."""
+    from repro.core.config import FaultConfig as JaxFaults
+    from test_torch_replication import assert_fault_same
+
+    events = [(1, "switch_fail", 0), (2, kind, 0, 2.0)]
+    FabricConfig(num_workers=4, faults=FaultConfig(
+        fault_plan=_plan(*events))).validate()
+    ref, jgrad, jh = jax_fabric("sync", "int8", 2, switch="on")
+    fab, tgrad, th = torch_fabric("sync", "int8", 2, switch="on")
+    ref = type(ref)(ref.space, ref.spec, jnp.zeros(ref.space.flat_elems),
+                    config=dataclasses.replace(ref.config, faults=JaxFaults(
+                        replication=2, fault_plan=JaxPlan(
+                            JaxEvent(*e) for e in events))))
+    fab = type(fab)(fab.space, fab.spec, torch.zeros(fab.space.flat_elems),
+                    config=dataclasses.replace(fab.config, faults=FaultConfig(
+                        replication=2, fault_plan=_plan(*events))),
+                    device="cpu")
+    drive("sync", ref, jgrad, jh, 3)
+    drive("sync", fab, tgrad, th, 3)
+    assert_fault_same(ref, fab)
+    assert [t["event"]["kind"] for t in fab.fault_trace] == \
+        ["switch_fail", kind]
 
 
 @pytest.mark.parametrize("cfg,rule", [

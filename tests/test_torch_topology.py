@@ -12,9 +12,9 @@ int8, 1, 2, 3 (ragged) and 4 racks, sync, a backup quorum, SSP and
 async, on the fused wire route and the unfused one.  Inside the port,
 codec-"none" rack aggregation is bit-identical to the flat fabric.
 
-Not mirrored here: the ``elastic_restore`` / ``reshard_flat`` cases (the
-port's fault tier, ``runtime/elastic.py``, is not ported yet) and the SPMD
-trainer's telemetry (``attach_telemetry``, with the SPMD path).
+Not mirrored here: the ``elastic_restore`` / ``reshard_flat`` cases, which
+tests/test_torch_elastic.py holds, and the SPMD trainer's telemetry
+(``attach_telemetry``, with the SPMD path).
 """
 import dataclasses
 
