@@ -110,7 +110,36 @@ raises on failure (the script then exits non-zero and prints no result):
    ``elastic.worker_reentry``; a SparseTier on a replicated fabric with a
    shard crash, its lookups included.  Each failover also equals the
    card's fault-free run;
-17. every kernel and its plain version timed at its main path's shape with
+17. the tenancy tier at full width (under deterministic algorithms): two
+   gemma3-1b tenants on one ``MultiJobFabric`` (4 shards, 2 racks, 1:4
+   core), each 2 workers (one a rack), AdamW, codec none, R = 1: ``a``
+   (init seed 0, priority 2) and ``b`` (init seed 1, priority 1, its own
+   batch seeds), their workers interleaved tick by tick.  Rounds 1-2 with
+   both attached, ``detach("b")`` (a 15.6 GB host snapshot), ``a``'s round
+   3 alone, ``b`` re-attached from its snapshot (namespace [2c, 3c), c =
+   158,912 chunks) for its round 3.  Counts: 24 box fused_agg_opt, no codec
+   launch.  Each tenant's params, m and v equal its ``dedicated_fabric``
+   twin's (12 launches, the same batches) bitwise, compared on the card
+   while only that tenant's final slabs are kept; losses and pushed /
+   pulled bytes equal; a round adds 1.5x ``a``'s dedicated
+   ``sim_wire_us`` and 3.0x ``b``'s, 1.0x for ``a`` alone (to 1e-12
+   relative), and ``a``'s simulated step time stays under ``b``'s;
+   ``utilization()`` holds both tenants on every link with contention > 1,
+   ``shard_occupancy()`` both on every shard (39,728 chunks each), and
+   ``route()`` sends global ids of each namespace to the owning shard.
+   Each round (shared and dedicated), the detach and the re-attach are
+   timed, with the peaks;
+18. the tenancy tier at the SMOKE config, card == CPU bitwise in every
+   tenant's params, state and residuals, every stats field, the fault
+   traces and the box's utilization, shard occupancy, routes and
+   describe: 1, 2 and 3 tenants x shards (1, 4) x racks (1, 2) x codec
+   (none, bf16, int8); a sync / quorum / SSP mix; switch-slot grants (one
+   granted, one refused, the grant returned at detach and handed on); a
+   box-wide ``crash_shard`` (R = 1 raising ``ShardLost`` after the R = 2
+   tenant's failover); an elastic re-attach onto 3 shards; tenant shares
+   in mid-run.  Each tenant also equals its dedicated twin on the card,
+   and each case's launches equal the CPU run's plain-version calls;
+19. every kernel and its plain version timed at its main path's shape with
    CUDA events, beside its byte bound and, where one PyTorch call computes
    the same function, that call's time (embedding_bag also at one
    multi-hot shape, B = 32,768 x L = 20; fused_agg_opt and wire_fused also
@@ -1280,6 +1309,17 @@ def _check_counts(label: str, got: dict, want: dict) -> None:
         raise AssertionError(f"{label}: launch counts {got}, expected {want}")
 
 
+def finite_losses(losses: list) -> list:
+    """The losses recorded since the last call, as floats (emptying the
+    list); raises on a non-finite one.  Read once a phase: ``item()``
+    waits for the card."""
+    vals = [x.item() for x in losses]
+    losses.clear()
+    if not all(math.isfinite(x) for x in vals):
+        raise AssertionError(f"non-finite loss: {vals}")
+    return vals
+
+
 class GemmaWorkers:
     """gemma3-1b at full width for phases 8-13: seeded weights (seed 0),
     the flat space, fabrics built from them, and a worker gradient that is
@@ -1304,14 +1344,7 @@ class GemmaWorkers:
         self.losses: list = []
 
     def finite_losses(self) -> list:
-        """The losses since the last call, as floats; raises on a
-        non-finite one (read once a phase: ``item()`` waits for the
-        card)."""
-        vals = [x.item() for x in self.losses]
-        self.losses.clear()
-        if not all(math.isfinite(x) for x in vals):
-            raise AssertionError(f"non-finite loss: {vals}")
-        return vals
+        return finite_losses(self.losses)
 
     def grad_tree(self, params: dict, w: int, s: int) -> dict:
         """Worker ``w``'s gradient tree at its step ``s``."""
@@ -2286,7 +2319,9 @@ def failover_path(dev, gw: GemmaWorkers, rehearsal: dict) -> dict:
     st = fab.stats
     trace = fab.export_fault_trace()
     got = host_state(fab)
-    del fab
+    # the timing wrappers close over fab's bound methods: a reference
+    # cycle that would keep run B's state and chain on the card
+    del fab._replicate_round, fab.crash_shard, fab
     torch.cuda.empty_cache()
     if not same_host_bits(want, got):
         raise AssertionError(
@@ -2560,6 +2595,651 @@ def smoke_fault_check(dev) -> dict:
     return launches
 
 
+# -- phases 17 and 18: the tenancy tier ---------------------------------------
+TENANT_ROUNDS = 3
+# the full-width tenants: name -> (init seed, fair-share priority, the base
+# of its batch seeds)
+FULL_TENANTS = {"a": (0, 2.0, 0), "b": (1, 1.0, 500_000)}
+
+
+class Tenant:
+    """One gemma3-1b tenant of phase 17: its JobSpec (seeded weights on the
+    card, AdamW 3e-3, 2 workers, codec none, R = 1) and a worker gradient
+    that is a function of the pulled params and (worker, step) alone, with
+    the tenant's own batch seeds."""
+
+    def __init__(self, dev, cfg, name: str):
+        import torch
+
+        from repro_torch.core.tenancy import JobSpec
+        from repro_torch.models.transformer import init_params
+        from repro_torch.optim.optimizers import adamw
+
+        seed, priority, self.batch_base = FULL_TENANTS[name]
+        self.dev, self.cfg = dev, cfg
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed))
+        self.spec = JobSpec(name=name, params=params, optimizer=adamw(3e-3),
+                            num_workers=WORKERS, priority=priority)
+        self.losses: list = []
+
+    def grad(self, params: dict, ws: tuple) -> dict:
+        import torch
+
+        from repro_torch.data.synthetic import lm_batches
+        from repro_torch.models.transformer import lm_loss_and_grad
+
+        w, s = ws
+        b = next(lm_batches(self.cfg.vocab, 1, SEQ,
+                            seed=self.batch_base + 1000 * (w + 1) + s))
+        loss, g = lm_loss_and_grad(
+            params, torch.from_numpy(b["tokens"]).to(self.dev),
+            torch.from_numpy(b["labels"]).to(self.dev), self.cfg)
+        self.losses.append(loss)
+        return g
+
+    def harness(self, server, steps_done: int = 0):
+        """A WorkerHarness over ``server`` whose workers have done
+        ``steps_done`` steps (a re-attached job resumes its batches)."""
+        from repro_torch.core.fabric import WorkerHarness
+
+        h = WorkerHarness(server, self.grad, lambda w, s: (w, s))
+        h.steps_done = [steps_done] * WORKERS
+        return h
+
+    def finite_losses(self) -> list:
+        return finite_losses(self.losses)
+
+
+def tick(harness) -> tuple:
+    """One tenant round (each worker pulls, computes and pushes; the last
+    push fires the round): (host ms, the round's ``sim_wire_us``)."""
+    st = harness.server.stats
+    before = st.sim_wire_us
+    ms = timed(harness.tick)
+    return ms, st.sim_wire_us - before
+
+
+def slabs(fab) -> list:
+    """Each shard's (chunk ids, params, optimizer slots): references to the
+    tensors the kernels write, for a comparison on the card."""
+    return [(sh.chunk_ids, sh.params, *sh.state) for sh in fab.shards]
+
+
+def same_slabs(a: list, b: list) -> bool:
+    import numpy as np
+
+    return len(a) == len(b) and all(
+        np.array_equal(x[0], y[0]) and len(x) == len(y)
+        and all(same_bits(p, q) for p, q in zip(x[1:], y[1:]))
+        for x, y in zip(a, b))
+
+
+def tenancy_path(dev) -> dict:
+    """Phase 17: two gemma3-1b tenants at full width on one shared box
+    (``MultiJobFabric``: 4 shards, 2 racks, 1:4 core), each 2 workers (one
+    a rack), AdamW, codec none, R = 1: ``a`` (init seed 0, priority 2) and
+    ``b`` (init seed 1, priority 1, its own batch seeds).  Their workers
+    interleave tick by tick.  Rounds 1-2 with both attached; ``detach("b")``
+    (a host snapshot); ``a``'s round 3 alone; ``a``'s dedicated twin
+    (``dedicated_fabric``, 3 rounds, the same batches) is compared with
+    ``a``'s slabs on the card; ``b`` re-attaches from its snapshot (its
+    namespace [2c, 3c)) and runs its round 3; then the box is released and
+    ``b``'s twin compared with ``b``'s slabs.  Checks: 24 box
+    ``fused_agg_opt`` launches and no codec launch, 12 each twin; params,
+    m, v, losses and pushed / pulled bytes of each tenant equal its twin's;
+    a round adds 1.5x ``a``'s dedicated ``sim_wire_us`` and 3.0x ``b``'s
+    while both are attached, 1.0x for ``a`` alone (to 1e-12 relative);
+    ``a``'s simulated step time under ``b``'s; both tenants on every link
+    and every shard; ``route`` of global ids in each namespace.  Times each
+    round (host clock around synchronized work), the detach and the
+    re-attach, with the peaks."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import fabric as fabric_mod
+    from repro_torch.core.tenancy import MultiJobFabric, dedicated_fabric
+
+    cfg = get_arch("gemma3-1b").config
+    name = torch.cuda.get_device_name(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated(dev)  # what earlier phases left
+    ta, tb = Tenant(dev, cfg, "a"), Tenant(dev, cfg, "b")
+    torch.cuda.empty_cache()
+    layout = dict(num_shards=SHARDS, num_racks=RACKS,
+                  oversubscription=OVERSUB, device=dev)
+    box = MultiJobFabric(**layout)
+    memory = PathMemory(dev)
+    ha, hb = box.attach(ta.spec), box.attach(tb.spec)
+    c = ha.space.num_chunks
+    harnesses = {"a": ta.harness(ha), "b": tb.harness(hb)}
+    shared_ms = {"a": [], "b": []}
+    wire = {"a": [], "b": []}
+    _zero_counts()  # the box's counts to 0 just before its rounds...
+    for _ in range(2):
+        for label in ("a", "b"):
+            ms, us = tick(harnesses[label])
+            shared_ms[label].append(ms)
+            wire[label].append(us)
+    space_b, steps_b = hb.space, harnesses["b"].steps_done[0]
+    stats_b = dataclasses.replace(hb.stats)
+    snap_b: dict = {}
+    detach_ms = timed(lambda: snap_b.update(box.detach("b")))
+    snap_bytes = snap_b["params"].nbytes + sum(s.nbytes
+                                               for s in snap_b["state"])
+    # nothing may keep b's detached fabric: its slabs leave the card here
+    del hb, harnesses["b"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    wa = harnesses.pop("a")
+    ms, us = tick(wa)
+    shared_ms["a"].append(ms)
+    wire["a"].append(us)
+    launches = _counts()  # ...read before a's twin...
+    peak_shared = memory.now()[1]
+    scales_alone = box.wire_scales(ha.fabric)
+
+    def twin(t, steps):
+        """``t``'s dedicated fabric (the box's layout, no co-tenant), run
+        ``steps`` rounds: the fabric, its launches, round times, wire
+        increments and peak."""
+        mem = PathMemory(dev)
+        ded = dedicated_fabric(t.spec, MultiJobFabric(**layout))
+        h = t.harness(ded)
+        _zero_counts()
+        rounds = [tick(h) for _ in range(steps)]
+        return (ded, _counts(), [r[0] for r in rounds],
+                [r[1] for r in rounds], mem.now()[1])
+
+    ded_a, twin_a_launches, ded_ms_a, ded_wire_a, peak_twin_a = twin(
+        ta, TENANT_ROUNDS)
+    losses_a = ta.finite_losses()
+    same_a = same_slabs(slabs(ha.fabric), slabs(ded_a))
+    bytes_a = [(f.stats.bytes_pushed, f.stats.bytes_pulled)
+               for f in (ha.fabric, ded_a)]
+    del ded_a
+    torch.cuda.empty_cache()
+
+    restore_ms: list = []
+    restore = fabric_mod.PBoxFabric.restore
+
+    def timed_restore(fab, snap):
+        restore_ms.append(timed(lambda: restore(fab, snap)))
+
+    memory = PathMemory(dev)
+    fabric_mod.PBoxFabric.restore = timed_restore
+    try:
+        attach_ms = timed(lambda: box.attach(tb.spec, snapshot=snap_b,
+                                             snapshot_space=space_b))
+    finally:
+        fabric_mod.PBoxFabric.restore = restore
+    hb = box.jobs["b"]
+    wb = tb.harness(hb, steps_b)
+    _zero_counts()  # ...and to 0 again for b's round 3, read just after
+    ms, us = tick(wb)
+    launches = {k: v + _counts()[k] for k, v in launches.items()}
+    shared_ms["b"].append(ms)
+    wire["b"].append(us)
+    peak_shared = max(peak_shared, memory.now()[1])
+    util, occupancy = box.utilization(), box.shard_occupancy()
+    per_shard = c // SHARDS
+    routes = {g: box.route(g) for g in (0, c // 2, c - 1, 2 * c,
+                                        2 * c + c // 2 + 1, 3 * c - 1)}
+    want_routes = {g: (("a" if g < c else "b"),
+                       (g - (0 if g < c else 2 * c)) // per_shard)
+                   for g in routes}
+    stale_route = None
+    try:
+        box.route(c)  # b's first range: never reused, now unrouted
+    except KeyError as e:
+        stale_route = str(e)
+    step_us = (ha.sim_step_time_us(), hb.sim_step_time_us())
+    chunk_base_b = hb.chunk_base
+    describe = box.describe()
+    final_b = slabs(hb.fabric)
+    bytes_b = (stats_b.bytes_pushed + hb.stats.bytes_pushed,
+               stats_b.bytes_pulled + hb.stats.bytes_pulled)
+    # release the box (and a's slabs and weights with it): only b's final
+    # slabs stay
+    del ha, hb, wa, wb, box, ta
+    gc.collect()
+    torch.cuda.empty_cache()
+    ded_b, twin_b_launches, ded_ms_b, ded_wire_b, peak_twin_b = twin(
+        tb, TENANT_ROUNDS)
+    losses_b = tb.finite_losses()
+    same_b = same_slabs(final_b, slabs(ded_b))
+    bytes_b = [bytes_b, (ded_b.stats.bytes_pushed, ded_b.stats.bytes_pulled)]
+    del ded_b, final_b, tb, snap_b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    log(f"tenancy path: {cfg.name} x 2 tenants on one MultiJobFabric "
+        f"({SHARDS} shards, {RACKS} racks, core 1:{OVERSUB:g}), each "
+        f"{WORKERS} workers (one a rack), AdamW, codec none, R = 1; a "
+        f"(seed 0, priority 2), b (seed 1, priority 1); c = {c} chunks a "
+        f"tenant; {resident} bytes allocated before the phase")
+    log(f"  round wall ms, shared box: a {[round(x, 1) for x in shared_ms['a']]}"
+        f" (round 3 alone), b {[round(x, 1) for x in shared_ms['b']]} (round "
+        f"3 re-attached); dedicated: a {[round(x, 1) for x in ded_ms_a]}, b "
+        f"{[round(x, 1) for x in ded_ms_b]} ({name})")
+    log(f"  detach b (D2H snapshot of {snap_bytes} bytes) {detach_ms:.1f} ms;"
+        f" re-attach b {attach_ms:.1f} ms, of which the restore (H2D) "
+        f"{restore_ms[0]:.1f} ms; b's namespace [{chunk_base_b}, "
+        f"{chunk_base_b + c})")
+    log(f"  peak device memory: shared run {peak_shared} bytes "
+        f"({peak_shared / 2**30:.2f} GiB), a's twin {peak_twin_a} "
+        f"({peak_twin_a / 2**30:.2f} GiB, a's shared slabs resident), b's "
+        f"twin {peak_twin_b} ({peak_twin_b / 2**30:.2f} GiB, b's final slabs "
+        f"resident)")
+    log(f"  launches: box {launches}, twins {twin_a_launches} / "
+        f"{twin_b_launches}; losses a {losses_a[-WORKERS:]}, b "
+        f"{losses_b[-WORKERS:]} (last round)")
+    log(f"  sim_wire_us a round, shared / dedicated: a "
+        f"{[x / y for x, y in zip(wire['a'], ded_wire_a)]}, b "
+        f"{[x / y for x, y in zip(wire['b'], ded_wire_b)]}; sim step us a "
+        f"{step_us[0]:.1f} < b {step_us[1]:.1f}; contention "
+        + ", ".join(f"{k} x{v['contention_factor']:.3f}"
+                    for k, v in util.items()))
+
+    _check_counts("tenancy box", launches,
+                  {"fused_agg_opt": 2 * SHARDS * TENANT_ROUNDS})
+    _check_counts("tenancy twin a", twin_a_launches,
+                  {"fused_agg_opt": SHARDS * TENANT_ROUNDS})
+    _check_counts("tenancy twin b", twin_b_launches,
+                  {"fused_agg_opt": SHARDS * TENANT_ROUNDS})
+    if not (same_a and same_b):
+        raise AssertionError(f"tenancy: a shared tenant differs from its "
+                             f"dedicated twin (a {same_a}, b {same_b})")
+    for label, losses in (("a", losses_a), ("b", losses_b)):
+        half = WORKERS * TENANT_ROUNDS
+        if len(losses) != 2 * half or losses[:half] != losses[half:]:
+            raise AssertionError(f"tenant {label}: shared losses "
+                                 f"{losses[:half]}, twin's {losses[half:]}")
+    if bytes_a[0] != bytes_a[1] or bytes_b[0] != bytes_b[1]:
+        raise AssertionError(f"tenancy bytes (pushed, pulled) a {bytes_a}, "
+                             f"b {bytes_b}")
+    want = {"a": [1.5, 1.5, 1.0], "b": [3.0, 3.0, 3.0]}
+    for label, ded in (("a", ded_wire_a), ("b", ded_wire_b)):
+        for got, base, k in zip(wire[label], ded, want[label]):
+            if abs(got - k * base) > 1e-12 * k * base:
+                raise AssertionError(
+                    f"tenant {label}: sim_wire_us {wire[label]} against the "
+                    f"twin's {ded}, expected x{want[label]}")
+    if scales_alone != (1.0, 1.0) or not step_us[0] < step_us[1]:
+        raise AssertionError(f"fair share: a alone {scales_alone}, sim step "
+                             f"us {step_us}")
+    for link in [f"rack{r}" for r in range(RACKS)] + ["core"]:
+        u = util[link]
+        if set(u["by_job"]) != {"a", "b"} or not u["contention_factor"] > 1:
+            raise AssertionError(f"tenancy link {link}: {u}")
+    if occupancy != [{"a": per_shard, "b": per_shard}] * SHARDS:
+        raise AssertionError(f"tenancy shard occupancy {occupancy}")
+    if routes != want_routes or stale_route is None or chunk_base_b != 2 * c:
+        raise AssertionError(f"tenancy routes {routes} (want {want_routes}), "
+                             f"stale {stale_route}, b at {chunk_base_b}")
+    log(f"  a == its dedicated twin and b == its twin bitwise (params, m, v)"
+        f" across b's detach and re-attach; losses and bytes equal; "
+        f"fair-share x1.5 / x3.0 / x1.0 exact; both tenants on "
+        f"{sorted(util)} and on every shard ({per_shard} chunks each); "
+        f"routes {routes}")
+    log("  " + describe.replace("\n", "\n  "))
+    return {"launches": launches, "shared_ms": shared_ms, "dedicated_ms": {"a": ded_ms_a,
+                                                     "b": ded_ms_b},
+            "detach_ms": detach_ms, "attach_ms": attach_ms,
+            "snapshot_bytes": snap_bytes,
+            "restore_ms": restore_ms[0], "peak_shared": peak_shared,
+            "peak_twin_a": peak_twin_a, "peak_twin_b": peak_twin_b,
+            "twin_launches": {k: twin_a_launches[k] + twin_b_launches[k]
+                              for k in twin_a_launches}}
+
+
+class PlainCalls:
+    """Counts the calls of each kernel's plain version while the block
+    runs (module attributes, swapped in and restored): what a CPU run
+    does in place of the card's launches."""
+
+    NAMES = {"fused_agg_opt": ("fused_agg_opt", "fused_agg_opt_torch"),
+             "quantize_chunks": ("quant", "quantize_chunks_torch"),
+             "dequantize_chunks": ("quant", "dequantize_chunks_torch"),
+             "wire_fused": ("wire_path", "wire_fused_torch")}
+
+    def __enter__(self):
+        import importlib
+
+        self.counts = {k: 0 for k in _counts()}
+        self.saved = []
+        for key, (pkg, attr) in self.NAMES.items():
+            mod = importlib.import_module(f"repro_torch.kernels.{pkg}.kernel")
+            fn = getattr(mod, attr)
+
+            def counted(*a, fn=fn, key=key, **kw):
+                self.counts[key] += 1
+                return fn(*a, **kw)
+
+            self.saved.append((mod, attr, fn))
+            setattr(mod, attr, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, fn)
+
+
+def smoke_tenancy_check(dev) -> dict:
+    """Phase 18: the tenancy tier at gemma3-1b's SMOKE config, each box on
+    ``dev`` against the same box on the CPU, bitwise in every tenant's
+    params, state and residuals, every ServerStats / ShardStats /
+    RackStats / SwitchStats field, the fault traces, and the box's
+    ``utilization()``, ``shard_occupancy()``, routes, telemetry and
+    ``describe()``.  Cases: 1, 2 and 3 tenants (2 workers each; seeds,
+    optimizers and priorities differ) x shards (1, 4) x racks (1, 2) x
+    codec (none, bf16, int8); a sync, a 3-of-4 quorum and an SSP tenant
+    (4 workers each, 4 shards, 2 racks); int8 tenants under switch pools
+    of one tenant's chunk count (the first granted, the second refused,
+    the grant returned at detach and handed to the next attach); a
+    box-wide ``crash_shard`` with an R = 1 tenant attached before an R = 2
+    one (``ShardLost`` raised after the R = 2 tenant's failover); a detach
+    from a 4-shard box re-attached onto a 3-shard one through
+    ``elastic_restore``; ``apply_tenant_shares`` and a ``tenant_shares``
+    plan delta in mid-run.  Each tenant also equals its
+    ``dedicated_fabric`` twin on the card.  Gradients are booked on the
+    card by (tenant, worker, step, digest of the pulled params) and
+    replayed on the CPU, as in phases 14 and 16; the card's launches of
+    each case must equal the CPU run's calls of the plain versions.
+    Returns each case's launches on ``dev``."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.chunking import ParamSpace
+    from repro_torch.core.fabric import WorkerHarness
+    from repro_torch.core.placement import PlanDelta
+    from repro_torch.core.replication import ShardLost
+    from repro_torch.core.tenancy import (
+        JobSpec,
+        MultiJobFabric,
+        dedicated_fabric,
+    )
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.models.transformer import init_params, lm_loss_and_grad
+    from repro_torch.optim.optimizers import adamw, momentum, sgd
+
+    cfg = get_arch("gemma3-1b").smoke_config
+    trees = [init_params(cfg, torch.Generator().manual_seed(seed))
+             for seed in range(3)]
+    flat_space = ParamSpace.build(trees[0], chunk_elems=4096)
+    optimizers = (adamw(3e-3), momentum(0.05, 0.9), sgd(0.01))
+    cpu = torch.device("cpu")
+    book: dict = {}
+    filling = [True]  # the card runs fill the book, the CPU runs read it
+
+    def grad(tenant, seed, params, ws):
+        w, s = ws
+        flat = flat_space.flatten(params)
+        key = (tenant, w, s,
+               hashlib.sha1(flat.cpu().numpy().tobytes()).hexdigest())
+        if key not in book:
+            if not filling[0]:
+                raise AssertionError(
+                    f"the CPU box pulled params for tenant {tenant} worker "
+                    f"{w} step {s} that the card box never pulled")
+            b = next(lm_batches(cfg.vocab, 4, 32,
+                                seed=100_000 * seed + 1000 * (w + 1) + s))
+            _, g = lm_loss_and_grad(
+                params, torch.from_numpy(b["tokens"]).to(flat.device),
+                torch.from_numpy(b["labels"]).to(flat.device), cfg)
+            book[key] = flat_space.flatten(g).cpu()
+        return flat_space.unflatten(book[key].to(flat.device))
+
+    def spec(name, seed, *, workers=2, opt=0, **kw):
+        return JobSpec(name=name, params=trees[seed],
+                       optimizer=optimizers[opt], num_workers=workers,
+                       chunk_elems=4096, **kw)
+
+    def harness(h, seed, steps_done=0, name=None):
+        """A harness over tenant handle ``h`` (or a twin fabric of tenant
+        ``name``) whose workers have done ``steps_done`` steps."""
+        name = name or h.namespace
+        wh = WorkerHarness(h, lambda p, ws: grad(name, seed, p, ws),
+                           lambda w, s: (w, s))
+        wh.steps_done = [steps_done] * h.num_workers
+        return wh
+
+    def drive(pairs, steps):
+        """Interleave the tenants' harnesses tick by tick (as
+        tests/test_tenancy.py's ``drive``); returns the harnesses."""
+        hs = [harness(h, seed) for h, seed in pairs]
+        for _ in range(steps * 100):
+            if all(min(w.steps_done) >= steps for w in hs):
+                return hs
+            for w in hs:
+                if min(w.steps_done) < steps:
+                    w.tick()
+        raise AssertionError("tenant scheduler livelock")
+
+    def fab_bits(fab):
+        efs = ([r._uplink_ef for r in fab.rack_aggs] + [fab._core_ef]
+               + [r._worker_ef[w] for r in fab.rack_aggs for w in r.members]
+               + [fab._worker_ef[w] for w in sorted(fab._worker_ef)])
+        return ([fab.params.cpu()]
+                + [fab._assemble_rows(lambda sh, k=k: sh.state[k]).reshape(
+                    -1).cpu() for k in range(fab.spec.num_state_slots)]
+                + [None if e is None else e.cpu() for e in efs])
+
+    def fab_stats(fab):
+        return (dataclasses.asdict(fab.stats),
+                [dataclasses.asdict(sh.stats) for sh in fab.shards],
+                [dataclasses.asdict(r.stats) for r in fab.rack_aggs],
+                [dataclasses.asdict(r.switch.stats) if r.switch else None
+                 for r in fab.rack_aggs],
+                dataclasses.asdict(fab.core_switch.stats)
+                if fab.core_switch else None,
+                fab.fault_trace, fab.export_fault_trace(),
+                sorted(fab.dead_workers), fab.worker_clock.tolist(),
+                fab.chunk_owner.tolist(), fab.step)
+
+    def twin_same(fab, ded):
+        """A tenant against its twin: every bit, or, across an elastic
+        re-target (the flat spaces pad differently), params and state over
+        the payload."""
+        a, b = fab_bits(fab), fab_bits(ded)
+        if fab.space.flat_elems != ded.space.flat_elems:
+            n, k = fab.space.payload_elems, 1 + fab.spec.num_state_slots
+            a, b = [x[:n] for x in a[:k]], [y[:n] for y in b[:k]]
+        return len(a) == len(b) and all(
+            (x is None and y is None) or (
+                x is not None and y is not None and same_bits(x, y))
+            for x, y in zip(a, b))
+
+    def box_state(b):
+        """(every comparable view and counter, every tenant's bits)."""
+        views, bits = [], []
+        for h in b.jobs.values():
+            g = h.global_chunks()
+            views.append((h.name, h.chunk_base, h.telemetry(),
+                          fab_stats(h.fabric),
+                          [b.route(int(x)) for x in g[::7]]))
+            bits += fab_bits(h.fabric)
+        views.append((b.utilization(), b.shard_occupancy(), b.describe(),
+                      dataclasses.asdict(b.aggregate_stats()),
+                      {n: dataclasses.astuple(s)
+                       for n, s in b.switch_grants.items()},
+                      b._tor_slots_left, b._core_slots_left, b.rounds,
+                      b._next_chunk_base))
+        return views, bits
+
+    def sweep_case(n, shards, racks, codec):
+        def run(d):
+            box = MultiJobFabric(num_shards=shards, num_racks=racks,
+                                 device=d)
+            handles = [box.attach(spec(f"t{i}", i, opt=i, codec=codec,
+                                       priority=float(i + 1)))
+                       for i in range(n)]
+            twins = [(h, dedicated_fabric(h.spec, box), i, ROUNDS)
+                     for i, h in enumerate(handles)]
+            drive([(h, i) for i, h in enumerate(handles)], ROUNDS)
+            return [box], twins, []
+        return run
+
+    def mix_case(d):
+        box = MultiJobFabric(num_shards=SHARDS, num_racks=RACKS, device=d)
+        specs = [spec("sync", 0, workers=4),
+                 spec("quorum", 1, workers=4, opt=2, min_push_fraction=0.75),
+                 spec("ssp", 2, workers=4, opt=1, mode="stale",
+                      staleness=2)]
+        handles = [box.attach(s) for s in specs]
+        twins = [(h, dedicated_fabric(h.spec, box), i, ROUNDS + 1)
+                 for i, h in enumerate(handles)]
+        drive([(h, i) for i, h in enumerate(handles)], ROUNDS + 1)
+        return [box], twins, []
+
+    def grant_case(d):
+        chunks = ParamSpace.build(trees[0], chunk_elems=4096,
+                                  num_owners=SHARDS).num_chunks
+        from repro_torch.core.config import SwitchConfig
+
+        box = MultiJobFabric(num_shards=SHARDS, num_racks=RACKS, device=d,
+                             switch=SwitchConfig(enabled=True,
+                                                 tor_slots=chunks,
+                                                 core_slots=chunks))
+        h1 = box.attach(spec("g1", 0, codec="int8"))
+        h2 = box.attach(spec("g2", 1, codec="int8", opt=1))
+        events = [sorted(box.switch_grants)]
+        twins = [(h1, dedicated_fabric(h1.spec, box), 0, ROUNDS),
+                 (h2, dedicated_fabric(h2.spec, box), 1, ROUNDS)]
+        drive([(h1, 0), (h2, 1)], ROUNDS)
+        box.detach("g1")
+        events.append((box._tor_slots_left, box._core_slots_left))
+        h3 = box.attach(spec("g3", 2, codec="int8", opt=2))
+        events.append(sorted(box.switch_grants))
+        twins.append((h3, dedicated_fabric(h3.spec, box), 2, ROUNDS))
+        drive([(h3, 2)], ROUNDS)
+        events.append([h.stats.switch_rounds for h in (h1, h2, h3)])
+        return [box], twins, events
+
+    def crash_case(d):
+        box = MultiJobFabric(num_shards=SHARDS, num_racks=RACKS, device=d)
+        h1 = box.attach(spec("r1", 0, codec="int8"))
+        h2 = box.attach(spec("r2", 1, replication=2, opt=1))
+        twins = [(h, dedicated_fabric(h.spec, box), i, ROUNDS)
+                 for i, h in enumerate((h1, h2))]
+        hs = drive([(h1, 0), (h2, 1)], ROUNDS - 1)
+        err = None
+        try:
+            box.crash_shard(1)
+        except ShardLost as e:
+            err = f"{type(e).__name__}: {e}"
+        events = [err, h1.stats.shards_crashed, h2.stats.failovers]
+        for w in hs:  # every tenant trains on after the crash
+            w.run(ROUNDS)
+        return [box], twins, events
+
+    def elastic_case(d):
+        box4 = MultiJobFabric(num_shards=SHARDS, num_racks=RACKS, device=d)
+        # codec none: a snapshot carries no error-feedback residual, so
+        # only the raw wire resumes exactly as the uninterrupted twin
+        h4 = box4.attach(spec("mig", 0))
+        ded = dedicated_fabric(h4.spec, box4)
+        drive([(h4, 0)], ROUNDS - 1)
+        space4 = h4.space
+        snap = box4.detach("mig")
+        box3 = MultiJobFabric(num_shards=3, num_racks=RACKS, device=d)
+        h3 = box3.attach(h4.spec, snapshot=snap, snapshot_space=space4)
+        events = [space4.flat_elems, h3.space.flat_elems, h3.step]
+        harness(h3, 0, ROUNDS - 1).run(ROUNDS)
+        return [box4, box3], [(h3, ded, 0, ROUNDS)], events
+
+    def shares_case(d):
+        box = MultiJobFabric(num_shards=SHARDS, num_racks=RACKS, device=d)
+        handles = [box.attach(spec("s0", 0, priority=2.0)),
+                   box.attach(spec("s1", 1, opt=1, bandwidth_cap=0.5))]
+        twins = [(h, dedicated_fabric(h.spec, box), i, ROUNDS + 1)
+                 for i, h in enumerate(handles)]
+        hs = drive([(h, i) for i, h in enumerate(handles)], 1)
+        events = [box.apply_tenant_shares({"s0": 1.0, "s1": 4.0, "gone": 2})]
+        for w in hs:
+            w.run(2)
+        events.append(box.apply_plan_delta(
+            PlanDelta(kind="tenant_shares", shares=(("s0", 8.0),))))
+        for w in hs:
+            w.run(ROUNDS + 1)
+        events.append([box.wire_scales(h.fabric) for h in handles])
+        return [box], twins, events
+
+    cases = [(f"{n}t/shards{s}/racks{r}/{codec}", sweep_case(n, s, r, codec))
+             for n in (1, 2, 3) for s in (1, SHARDS) for r in (1, RACKS)
+             for codec in ("none", "bf16", "int8")]
+    cases += [("mix/sync+quorum+ssp", mix_case),
+              ("switch/grant+refuse+return", grant_case),
+              ("box_crash/R1+R2", crash_case),
+              ("elastic/4->3_shards", elastic_case),
+              ("tenant_shares/mid_run", shares_case)]
+    launches: dict = {}
+    special: dict = {}
+    for case, run in cases:
+        book.clear()
+        filling[0] = True
+        _zero_counts()
+        boxes, twins, events = run(dev)
+        launches[case] = _counts()
+        got = [box_state(b) for b in boxes]
+        for h, ded, seed, steps in twins:
+            harness(ded, seed, name=h.name).run(steps)
+            if not twin_same(h.fabric, ded):
+                raise AssertionError(f"SMOKE tenancy {case}: tenant "
+                                     f"{h.name} differs from its dedicated "
+                                     "twin on the card")
+        del boxes, twins
+        filling[0] = False
+        with PlainCalls() as plain:
+            ref_boxes, _, ref_events = run(cpu)
+        ref = [box_state(b) for b in ref_boxes]
+        del ref_boxes
+        if plain.counts != launches[case]:
+            raise AssertionError(f"SMOKE tenancy {case}: launches "
+                                 f"{launches[case]}, the CPU run's plain "
+                                 f"calls {plain.counts}")
+        if events != ref_events or [v for v, _ in got] != [v for v, _ in ref]:
+            raise AssertionError(f"SMOKE tenancy {case}: the box on {dev} "
+                                 f"differs from the CPU's ({events} / "
+                                 f"{ref_events})")
+        for (_, a), (_, b) in zip(got, ref):
+            if len(a) != len(b) or not all(
+                    (x is None and y is None) or (
+                        x is not None and y is not None and same_bits(x, y))
+                    for x, y in zip(a, b)):
+                raise AssertionError(f"SMOKE tenancy {case}: tenant bits on "
+                                     f"{dev} differ from the CPU's")
+        if events:
+            special[case] = events
+    book.clear()
+    grants, crash, elastic, shares = (special[k] for k in (
+        "switch/grant+refuse+return", "box_crash/R1+R2",
+        "elastic/4->3_shards", "tenant_shares/mid_run"))
+    chunks = ParamSpace.build(trees[0], chunk_elems=4096,
+                              num_owners=SHARDS).num_chunks
+    if grants != [["g1"], (chunks, chunks), ["g3"], [ROUNDS, 0, ROUNDS]]:
+        raise AssertionError(f"SMOKE tenancy switch grants {grants}")
+    if not (crash[0] and crash[0].startswith("ShardLost")
+            and crash[1:] == [1, 1]):
+        raise AssertionError(f"SMOKE tenancy box crash {crash}")
+    if elastic[0] == elastic[1] or elastic[2] != ROUNDS - 1:
+        raise AssertionError(f"SMOKE tenancy elastic re-target {elastic}")
+    if shares != [2, 1, [(1.5, 1.5), (3.0, 3.0)]]:
+        raise AssertionError(f"SMOKE tenancy shares {shares}")
+    total = {k: sum(c[k] for c in launches.values())
+             for k in next(iter(launches.values()))}
+    log(f"smoke tenancy: {len(launches)} cases (1-3 tenants x shards x "
+        f"racks x codec; sync + quorum + SSP; switch grants; a box-wide "
+        f"crash; an elastic re-attach; tenant shares), {dev} == cpu bitwise "
+        f"in every tenant's bits, every stats field, the fault traces and "
+        f"the box's views; each tenant == its dedicated twin on {dev.type}; "
+        f"launches == the CPU run's plain calls, on {dev.type} {total}; "
+        f"grants {grants}; crash {crash}; elastic {elastic}; shares {shares}")
+    return launches
+
+
 def profile_summary(prof, steady_round_ms: float, last_launches,
                     kernel_name: str, kernel_key: str = "") -> dict:
     """Print where the profiled round's time went: host time per labelled
@@ -2599,7 +3279,7 @@ def profile_summary(prof, steady_round_ms: float, last_launches,
     return {"device_busy_ms": busy_us / 1e3}
 
 
-# -- phase 6 -----------------------------------------------------------------
+# -- phase 19: kernel timings ------------------------------------------------
 def time_fused_agg_opt(dev, n: int, k: int, average: bool = True) -> dict:
     import torch
 
@@ -2960,11 +3640,14 @@ def main() -> int:
         switch = switch_path(dev, gw)
         fault = failover_path(dev, gw, rehearsal)
         del gw
+        torch.cuda.empty_cache()
+        tenancy = tenancy_path(dev)
     async_err = replay_wire(dev, asyn)
     asyn.pop("captured")
     smoke = smoke_modes_check(dev)
     smoke_topo = smoke_topology_check(dev)
     smoke_fault = smoke_fault_check(dev)
+    smoke_tenancy = smoke_tenancy_check(dev)
     switch_math = switch_math_ms(dev, int8["flat"], int8["chunk"])
     d = dlrm_capped_config().embed_dim
     timing = {"fused_agg_opt": time_fused_agg_opt(dev, f32["n"], WORKERS),
@@ -3000,7 +3683,11 @@ def main() -> int:
              "failover_run_a": fault["launches_a"],
              "failover_run_b": fault["launches_b"],
              "smoke_faults": {k: sum(c[k] for c in smoke_fault.values())
-                              for k in f32["launches"]}}
+                              for k in f32["launches"]},
+             "tenancy_box": tenancy["launches"],
+             "tenancy_twins": tenancy["twin_launches"],
+             "smoke_tenancy": {k: sum(c[k] for c in smoke_tenancy.values())
+                               for k in f32["launches"]}}
     # K = 1 without averaging: the async pushes (f32 ones only at SMOKE)
     k1_launches = {"fused_agg_opt": smoke["async/none"]["fused_agg_opt"],
                    "wire_fused": asyn["launches"]["wire_fused"]
@@ -3079,6 +3766,15 @@ def main() -> int:
         f"{fault['reshard_peak_bytes'] / 2**30:.2f}), steady rounds (round "
         f"2) A {fault['round_ms_a'][1]:.1f} ms, B {fault['round_ms_b'][1]:.1f}"
         f" ms, chain pass {statistics.median(fault['chain_ms']):.3f} ms"
+        f"; tenancy shared run {tenancy['peak_shared'] / 2**30:.2f} GiB, "
+        f"twins {tenancy['peak_twin_a'] / 2**30:.2f} / "
+        f"{tenancy['peak_twin_b'] / 2**30:.2f} GiB, steady rounds (round 2)"
+        f" shared a {tenancy['shared_ms']['a'][1]:.1f} / b "
+        f"{tenancy['shared_ms']['b'][1]:.1f} ms, dedicated a "
+        f"{tenancy['dedicated_ms']['a'][1]:.1f} / b "
+        f"{tenancy['dedicated_ms']['b'][1]:.1f} ms, detach "
+        f"{tenancy['detach_ms']:.1f} ms, re-attach {tenancy['attach_ms']:.1f}"
+        f" ms"
         + f"; switch integer math "
         f"{sum(v['ms'] for v in switch_math.values()):.3f} ms; whole run "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -1,6 +1,7 @@
 """The port's core: the PHub/PBox parameter exchange (torch counterpart of
 ``repro.core``: the fabric with its straggler modes, rack topology and
-switch tier, the fault tier) and the sparse embedding tier."""
+switch tier, the fault tier, the tenancy tier) and the sparse embedding
+tier."""
 from repro_torch.core.chunking import DEFAULT_CHUNK_ELEMS, ParamSpace, TensorSlot
 from repro_torch.core.config import FabricConfig, FabricConfigError
 from repro_torch.core.fabric import (
@@ -24,9 +25,19 @@ from repro_torch.core.sparse import (
     SparseStats,
     SparseTier,
 )
+from repro_torch.core.tenancy import (
+    JobHandle,
+    JobSpec,
+    MultiJobFabric,
+    dedicated_fabric,
+)
 from repro_torch.core.topology import NetworkTopology, RackAggregator
 
 __all__ = [
+    "JobHandle",
+    "JobSpec",
+    "MultiJobFabric",
+    "dedicated_fabric",
     "FaultEvent",
     "FaultPlan",
     "ReplicaGroup",

@@ -3,25 +3,29 @@
 Counterpart of ``repro/core/config.py`` (its ``FabricConfig`` half).  The
 fabric's knobs fold into one frozen, validated config tree:
 
-  ``FabricConfig``     scalar fabric knobs (shards, mode, workers, ...)
+  ``FabricConfig``     scalar fabric knobs (shards, mode, workers, the
+                       tenancy namespace, ...)
   ``WireConfig``         the wire tier: topology, codec, link model and
                          the switch tier
   ``SwitchConfig``         in-network aggregation slot pools
   ``FaultConfig``        replication factor, fault schedule, anti-affinity
   ``PlacementConfig``    chunk placement policy and an explicit plan
 
-``PBoxFabric(space, spec, init_flat, config=...)`` is the only fabric
-constructor of the port; the JAX package's legacy keyword adapter has no
-counterpart here yet.  The JAX fields ``use_pallas`` and
-``fused_wire_path`` have none either: the update runs the CUDA kernel on
-CUDA tensors and its plain version on CPU tensors, and a codec'd push takes
-the fused wire kernel wherever ``wire_path_supported`` allows it, which
-gives the same bits as the unfused route it would switch to.
+``PBoxFabric(space, spec, init_flat, config=...)`` is the primary fabric
+constructor; the legacy keyword spread is accepted through one adapter
+(``FabricConfig.from_legacy_kwargs``) that emits a ``DeprecationWarning``
+once per call site (``warn_legacy_call``), as in the JAX package.  The JAX
+fields ``use_pallas`` and ``fused_wire_path`` have no field here: the
+update runs the CUDA kernel on CUDA tensors and its plain version on CPU
+tensors, and a codec'd push takes the fused wire kernel wherever
+``wire_path_supported`` allows it, which gives the same bits as the
+unfused route it would switch to.  The adapter accepts both keywords at
+their JAX default (``True``) and refuses any other value.
 
 All cross-field validation lives in ``validate()``: one named
-``FabricConfigError`` per rule (the same rules, names and order as the JAX
-package), then a ``NotImplementedError`` for the one knob the port does
-not cover yet, a tenancy namespace (``namespace`` / ``chunk_base``).
+``FabricConfigError`` per rule, the same rules, names and order as the JAX
+package.  ``namespace`` / ``chunk_base`` place a tenant's chunk space on a
+shared box (``core/tenancy.py``).
 
 Sub-configs hold live objects (topology, codec, fault plan, plan, link
 model) by reference and are validated duck-typed, so this module imports
@@ -30,6 +34,8 @@ nothing else of the port.
 from __future__ import annotations
 
 import dataclasses
+import sys
+import warnings
 from typing import Any
 
 _MODES = ("sync", "async", "stale")
@@ -85,6 +91,58 @@ class PlacementConfig:
     plan: Any | None = None
 
 
+# legacy keyword name -> where it landed in the config tree, the JAX
+# package's table.  ``None``: the JAX field has no counterpart in the port
+# (the device picks the kernel route), so the adapter accepts only the JAX
+# default for it
+LEGACY_KWARGS = {
+    "num_shards": "num_shards",
+    "mode": "mode",
+    "staleness": "staleness",
+    "num_workers": "num_workers",
+    "min_push_fraction": "min_push_fraction",
+    "use_pallas": None,
+    "namespace": "namespace",
+    "chunk_base": "chunk_base",
+    "topology": "wire.topology",
+    "compression": "wire.compression",
+    "link": "wire.link",
+    "fused_wire_path": None,
+    "replication": "faults.replication",
+    "fault_plan": "faults.fault_plan",
+    "placement": "placement.policy",
+    "plan": "placement.plan",
+}
+
+# call sites (file, lineno) already warned this process: the adapter warns
+# exactly once per site regardless of the warning filters
+_WARNED_SITES: set[tuple[str, int]] = set()
+
+
+def warn_legacy_call(depth: int = 2, *, constructor: str = "PBoxFabric",
+                     config: str = "FabricConfig") -> bool:
+    """Emit the deprecation warning for the caller ``depth`` frames up,
+    once per (file, line) call site.  Returns True if a warning was
+    emitted (False on a repeat visit from the same site)."""
+    try:
+        frame = sys._getframe(depth)
+        site = (frame.f_code.co_filename, frame.f_lineno)
+    except ValueError:  # shallow stack (embedded interpreters)
+        site = ("<unknown>", 0)
+    if site in _WARNED_SITES:
+        return False
+    _WARNED_SITES.add(site)
+    warnings.warn(
+        f"constructing {constructor} from loose keyword arguments is "
+        f"deprecated; build a core.config.{config} and pass "
+        "config=... (see docs/api.md for the field-by-field migration "
+        "table)",
+        DeprecationWarning,
+        stacklevel=depth + 1,
+    )
+    return True
+
+
 @dataclasses.dataclass(frozen=True)
 class FabricConfig:
     """The whole construction surface of a PBoxFabric, as one value."""
@@ -100,14 +158,59 @@ class FabricConfig:
     faults: FaultConfig = FaultConfig()
     placement: PlacementConfig = PlacementConfig()
 
+    # -- legacy adapter --------------------------------------------------
+    @classmethod
+    def from_legacy_kwargs(cls, **kw: Any) -> "FabricConfig":
+        """Build a config from the pre-consolidation keyword surface.
+
+        Accepts exactly the JAX package's legacy keywords (see
+        ``LEGACY_KWARGS``); anything else is a TypeError, as is a value
+        other than ``True`` for ``use_pallas`` / ``fused_wire_path``."""
+        unknown = set(kw) - set(LEGACY_KWARGS)
+        if unknown:
+            raise TypeError(
+                f"unknown PBoxFabric argument(s): {sorted(unknown)}; "
+                f"legacy keywords are {sorted(LEGACY_KWARGS)}")
+        for name, path in LEGACY_KWARGS.items():
+            if path is None and name in kw and kw[name] is not True:
+                raise TypeError(
+                    f"{name}={kw[name]!r} has no counterpart in the PyTorch "
+                    "fabric: the device picks the kernel route (the CUDA "
+                    "kernel on the card, its plain version on the CPU), and "
+                    "the fused and unfused wire routes give the same bits; "
+                    "only the JAX default True is accepted")
+        wire = WireConfig(
+            topology=kw.get("topology"),
+            compression=kw.get("compression"),
+            link=kw.get("link"),
+        )
+        faults = FaultConfig(
+            replication=kw.get("replication", 1),
+            fault_plan=kw.get("fault_plan"),
+        )
+        placement = PlacementConfig(
+            policy=kw.get("placement", "contiguous"),
+            plan=kw.get("plan"),
+        )
+        return cls(
+            num_shards=kw.get("num_shards", 1),
+            mode=kw.get("mode", "sync"),
+            staleness=kw.get("staleness", 0),
+            num_workers=kw.get("num_workers", 1),
+            min_push_fraction=kw.get("min_push_fraction", 1.0),
+            namespace=kw.get("namespace"),
+            chunk_base=kw.get("chunk_base", 0),
+            wire=wire,
+            faults=faults,
+            placement=placement,
+        )
+
     # -- validation ------------------------------------------------------
     def validate(self) -> "FabricConfig":
         """Check every cross-field rule before any fabric state exists.
 
-        One named ``FabricConfigError`` per rule, then
-        ``NotImplementedError`` for a tenancy namespace, which the port
-        does not cover yet; returns self so constructors can chain
-        ``config.validate()``."""
+        One named ``FabricConfigError`` per rule; returns self so
+        constructors can chain ``config.validate()``."""
         if self.mode not in _MODES:
             raise FabricConfigError(
                 "mode", f"unknown mode {self.mode!r}; one of {_MODES}")
@@ -174,10 +277,6 @@ class FabricConfig:
                     "plan_replication",
                     f"plan places {plan.replica_racks.shape[1]} chain "
                     f"copies, fabric replicates at {repl}")
-        if self.namespace is not None or self.chunk_base != 0:
-            raise NotImplementedError(
-                "the PyTorch fabric has no tenancy tier yet; a tenancy "
-                "namespace is not ported")
         return self
 
     # -- introspection ---------------------------------------------------

@@ -75,9 +75,14 @@ place), ``copy_``d into buffers each group keeps between rounds, and
 replication and recovery bytes land on the same rack and core accounting
 as training traffic.  ``reshard`` changes the shard count in place at a
 round edge, one state slot at a time; ``replace_chain_racks`` re-homes a
-chain.  The port has no tenancy tier yet: ``FabricConfig.validate``
-refuses a namespace, and the event clock's shared-clock factors stay at
-1.0.
+chain.
+
+Tenancy (``core/tenancy.py``): a ``MultiJobFabric`` builds one fabric per
+tenant job over its shared shard set.  ``namespace`` / ``chunk_base`` place
+the job's chunks in the box-wide namespace (``global_chunk_ids``), and a
+``shared_clock`` inflates the job's wire stages by the box's fair share
+and books each round on the box's link queues.  Both touch only routing
+metadata and the event clock: the bits are those of a dedicated fabric.
 
 A sparse tier (``core/sparse.SparseTier(fabric=...)``) attaches to a fabric
 without a topology: it inherits the shard and worker counts, replication,
@@ -101,7 +106,7 @@ from repro_torch.core.compression import (
     roundtrip,
     wire_bytes,
 )
-from repro_torch.core.config import FabricConfig
+from repro_torch.core.config import FabricConfig, warn_legacy_call
 from repro_torch.core.placement import (
     PlacementPlan,
     PlanDelta,
@@ -420,6 +425,12 @@ class PBoxFabric:
     State lives on ``device``: the CUDA card unless the caller passes
     another (the tests pass ``"cpu"``); with no card and no device given,
     construction raises.
+
+    ``config`` is the construction surface; the JAX package's legacy
+    keywords are accepted instead of it (never beside it) through
+    ``FabricConfig.from_legacy_kwargs``, with a ``DeprecationWarning`` once
+    per call site.  ``shared_clock`` is the owning ``MultiJobFabric``, a
+    runtime link rather than a config value.
     """
 
     def __init__(
@@ -430,10 +441,18 @@ class PBoxFabric:
         *,
         config: FabricConfig | None = None,
         device: torch.device | str | None = None,
+        shared_clock: Any | None = None,
+        **legacy: Any,
     ):
-        config = config if config is not None else FabricConfig()
-        # every cross-field rule (and every unported knob) fails HERE,
-        # before any state is built
+        if config is not None and legacy:
+            raise TypeError(
+                "pass config=FabricConfig(...) or legacy keywords, not "
+                f"both (got legacy {sorted(legacy)})")
+        if config is None:
+            if legacy:
+                warn_legacy_call()
+            config = FabricConfig.from_legacy_kwargs(**legacy)
+        # every cross-field rule fails HERE, before any state is built
         config.validate()
         self.config = config
         self.device = resolve_device(device)
@@ -448,6 +467,12 @@ class PBoxFabric:
         self.num_shards = config.num_shards
         self.min_push_fraction = config.min_push_fraction
         self.link = config.wire.link or LinkModel()
+        # tenancy hooks: the job's place in the box-wide chunk namespace
+        # (global id = chunk_base + local id) and the box's shared event
+        # clock; routing metadata and timing only, never bits
+        self.namespace = config.namespace
+        self.chunk_base = config.chunk_base
+        self.shared_clock = shared_clock
         # codec chunks align with PS chunks so per-chunk scales ride the
         # same wire framing
         self.compression = dataclasses.replace(
@@ -1063,12 +1088,21 @@ class PBoxFabric:
         with ToR aggregation, every worker's without).  The worst active
         link degradation slows the rack stage: the clock is
         round-granular, and the slowest rack is a sync round's barrier.
-        The JAX package's arithmetic, with its shared-clock factors at 1.0
-        (tenancy is not ported)."""
+
+        With a ``shared_clock`` (a tenant of a ``MultiJobFabric``) both wire
+        stages are inflated by the clock's fair-share scales, and the
+        round's link occupancy is booked back on the box's queues.  The
+        JAX package's arithmetic, product for product."""
+        rack_scale = core_scale = 1.0
+        if self.shared_clock is not None:
+            rack_scale, core_scale = self.shared_clock.wire_scales(self)
+            if rack_scale < 1.0 or core_scale < 1.0:
+                raise ValueError(
+                    "shared-clock scales cannot beat a dedicated link")
         bpe_scale = wire_bytes(self.compression, self.space.chunk_elems) / (
             4.0 * self.space.chunk_elems)
         degrade = max(self._link_degrade.values(), default=1.0)
-        wire = self.link.wire_us_per_chunk * bpe_scale * degrade
+        wire = self.link.wire_us_per_chunk * bpe_scale * rack_scale * degrade
         agg = self.link.agg_us_per_chunk
         c = self.space.num_chunks
         idx = np.arange(c, dtype=np.float64)
@@ -1076,7 +1110,10 @@ class PBoxFabric:
         if self.topology is not None:
             share = (1.0 if streams is None
                      else max(1.0, streams / self.topology.num_racks))
-            core = wire * self.topology.oversubscription * share
+            # rack_scale rode in on ``wire``: only the core tier's extra
+            # contention is applied on top
+            core = (wire * self.topology.oversubscription * share
+                    * (core_scale / rack_scale))
             edge_done = (idx + 1.0) * wire
             # the core relays chunk i while chunk i+1 crosses the rack link
             arrival = (np.maximum.accumulate(edge_done - idx * core)
@@ -1099,6 +1136,21 @@ class PBoxFabric:
         self.stats.sim_agg_us += c * agg
         self.stats.sim_pipelined_us += makespan
         self.stats.sim_serialized_us += c * wire + c * core + c * agg
+        if self.shared_clock is not None:
+            self.shared_clock.record_round(
+                self,
+                rack_us=c * wire,
+                core_us=c * core,
+                rack_demand_us=c * wire / rack_scale,
+                core_demand_us=c * core / core_scale,
+                makespan_us=makespan,
+            )
+            # switch-pool occupancy: an optional protocol method, so a
+            # clock without it keeps working
+            if (self._round_switch_chunks
+                    and hasattr(self.shared_clock, "record_switch")):
+                self.shared_clock.record_switch(
+                    self, pool_us=self._round_switch_chunks * agg)
 
     # -- fault tier: chain replication, failover, injection ----------------
     def _hop_cost(self, src_rack: int, dst_rack: int) -> float:
@@ -1659,9 +1711,20 @@ class PBoxFabric:
         """Rack hosting ``worker`` (0 when no topology is attached)."""
         return self.topology.rack_of[worker] if self.topology else 0
 
+    def global_chunk_ids(self, local_ids: np.ndarray | None = None) -> np.ndarray:
+        """Map local chunk ids into the box-wide namespace (``chunk_base``
+        offset; identity on a dedicated fabric)."""
+        if local_ids is None:
+            local_ids = np.arange(self.space.num_chunks)
+        ids = np.asarray(local_ids, dtype=np.int64)
+        if ids.size and (ids.min() < 0 or ids.max() >= self.space.num_chunks):
+            raise ValueError("local chunk id out of range")
+        return ids + self.chunk_base
+
     def describe(self) -> str:
         lines = [
-            f"PBoxFabric: {self.num_shards} shards x "
+            (f"[{self.namespace}] " if self.namespace else "")
+            + f"PBoxFabric: {self.num_shards} shards x "
             f"{self.space.num_chunks} chunks ({self.space.chunk_elems} elems), "
             f"mode={self.mode}, workers={self.num_workers}, "
             f"codec={self.compression.codec}, "
@@ -1763,8 +1826,8 @@ class WorkerHarness:
 
     @property
     def job(self) -> str | None:
-        """Tenant namespace this harness drives: None until the port has
-        the tenancy tier."""
+        """Tenant namespace this harness drives (None on a dedicated
+        fabric)."""
         return getattr(self.server, "namespace", None)
 
     def telemetry(self) -> dict:

@@ -354,3 +354,15 @@ def test_smoke_faults_on_card_match_cpu(cuda):
     assert launches["none/racks2/R3/crash1"]["fused_agg_opt"] > 0
     assert launches["int8/racks1/R2/crash2"]["wire_fused"] > 0
     assert launches["none/racks1/R2/sparse_tier"]["embedding_bag"] > 0
+
+
+@pytest.mark.gpu
+def test_smoke_tenancy_on_card_matches_cpu(cuda):
+    """chip_smoke.py's phase 18: the tenancy tier at the SMOKE config,
+    every box on the card against the same box on the CPU and each tenant
+    against its dedicated twin on the card, bitwise."""
+    launches = _chip_smoke().smoke_tenancy_check(cuda)
+    assert len(launches) == 41
+    assert launches["2t/shards4/racks2/none"]["fused_agg_opt"] > 0
+    assert launches["3t/shards1/racks1/int8"]["wire_fused"] > 0
+    assert launches["switch/grant+refuse+return"]["wire_fused"] > 0

@@ -190,11 +190,56 @@ def test_fabric_does_not_write_init_flat():
 @pytest.mark.parametrize("cfg", [
     dict(namespace="job0"),
     dict(chunk_base=8),
+    dict(namespace="job1", chunk_base=40),
+    dict(chunk_base=-1),
 ])
 def test_unported_knobs_raise(cfg):
-    """The tenancy namespace is the one knob the port refuses."""
-    with pytest.raises(NotImplementedError, match="namespace"):
-        FabricConfig(num_workers=K, **cfg).validate()
+    """The tenancy namespace, once refused, validates since the tenancy
+    tier was ported: ``namespace`` / ``chunk_base`` validate as in the JAX
+    package (``chunk_base=-1`` raises the named ``[chunk_base]`` error on
+    both), a fabric under one maps its chunks into the box-wide namespace
+    as the JAX fabric does (``global_chunk_ids``, the out-of-range refusal)
+    and names it in ``describe()`` (the ``[namespace]`` prefix and the
+    config's ``ns=<name>@<base>``), and trains bit for bit as JAX does."""
+    from repro.core.config import FabricConfigError as JaxConfigError
+
+    if cfg.get("chunk_base", 0) < 0:
+        with pytest.raises(tconfig.FabricConfigError,
+                           match=r"\[chunk_base\]") as ei:
+            FabricConfig(num_workers=K, **cfg).validate()
+        with pytest.raises(JaxConfigError) as ej:
+            JaxConfig(num_workers=K, **cfg).validate()
+        assert (ei.value.rule, str(ei.value)) == (ej.value.rule,
+                                                  str(ej.value))
+        return
+    assert FabricConfig(num_workers=K, **cfg).validate().namespace == \
+        cfg.get("namespace")
+    ref, jgrad = _jax_fabric("adamw", 2, **cfg)
+    fab, tgrad = _torch_fabric("adamw", 2, **cfg)
+    for f, g in ((ref, jgrad), (fab, tgrad)):
+        for _ in range(2):
+            _push_round(f, g)
+    np.testing.assert_array_equal(_bits(ref.params), _bits(fab.params.numpy()))
+    assert dataclasses.asdict(ref.stats) == dataclasses.asdict(fab.stats)
+    assert (fab.namespace, fab.chunk_base) == (ref.namespace, ref.chunk_base)
+    np.testing.assert_array_equal(ref.global_chunk_ids(),
+                                  fab.global_chunk_ids())
+    np.testing.assert_array_equal(ref.global_chunk_ids([0, 3]),
+                                  fab.global_chunk_ids([0, 3]))
+    for bad in ([-1], [fab.space.num_chunks]):
+        with pytest.raises(ValueError, match="out of range"):
+            fab.global_chunk_ids(bad)
+    jtop, ttop = ref.describe().splitlines()[0], fab.describe().splitlines()[0]
+    ns = cfg.get("namespace")
+    prefix = f"[{ns}] PBoxFabric: " if ns else "PBoxFabric: "
+    assert jtop.startswith(prefix) and ttop.startswith(prefix)
+    jcfg = ref.config.describe().splitlines()[0]
+    tcfg = fab.config.describe().splitlines()[0]
+    if ns:
+        assert jcfg.endswith(f" ns={ns}@{cfg.get('chunk_base', 0)}")
+        assert tcfg.endswith(f" ns={ns}@{cfg.get('chunk_base', 0)}")
+    else:
+        assert " ns=" not in jcfg and " ns=" not in tcfg
 
 
 @pytest.mark.parametrize("knob", ["replication", "seeded_plan",

@@ -122,3 +122,34 @@ def test_fault_slice_imports_with_jax_blocked(module):
         timeout=180, cwd=ROOT,
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+TENANCY_SLICE = ("core/tenancy.py", "core/config.py", "core/fabric.py",
+                 "core/__init__.py")
+
+
+@pytest.mark.parametrize("module", TENANCY_SLICE)
+def test_tenancy_slice_modules_are_checked(module):
+    """The tenancy tier's modules (the shared box, the namespace knobs and
+    the legacy adapter, the shared-clock hooks) are among the files
+    checked above."""
+    assert ROOT / "src" / "repro_torch" / module in PORT_FILES
+
+
+def test_tenancy_imports_with_jax_blocked():
+    """``core/tenancy`` imports on its own in a process where ``import
+    jax`` and ``import repro`` fail, and pulls in neither."""
+    code = (
+        "import importlib, sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        "importlib.import_module('repro_torch.core.tenancy')\n"
+        "assert not any(m.split('.')[0] in ('jax', 'jaxlib', 'repro')\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=180, cwd=ROOT,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

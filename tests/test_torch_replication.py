@@ -10,12 +10,12 @@ residuals, ``fault_trace`` and ``export_fault_trace()`` equal bit for bit
 (``assert_fault_same``).  Inside the port, a sync run that crashes and
 fails over at any round is bitwise equal to the failure-free run, for 1
 and 2 racks, 1-4 shards and every codec (the JAX package's headline
-invariant), and the chain never aliases the slab the kernels write.
+invariant), and the chain never aliases the slab the kernels write.  The
+two tenancy cases (a co-tenant's shard crash, a box-wide engine crash) run
+each ``MultiJobFabric`` on both packages and compare them with
+``tests/test_torch_tenancy.assert_box_same``.
 
-Not mirrored here: the two tenancy cases
-(``test_cotenant_shard_crash_isolated``,
-``test_box_wide_engine_crash_every_tenant_fails_over``), which wait for the
-port's ``core/tenancy.py``, and the 2-rack form of
+Not mirrored here: the 2-rack form of
 ``test_chaos_sparse_table_failover``, which waits for the sparse tier under
 a topology; its 1-rack form is here.
 """
@@ -29,6 +29,7 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+import test_torch_tenancy as tenancy  # noqa: E402
 from test_torch_topology import assert_same  # noqa: E402
 
 from repro.core import sparse as jsparse  # noqa: E402
@@ -716,6 +717,96 @@ def test_describe_reports_the_chain():
     assert line == [ln for ln in ref.describe().splitlines()
                     if "replication:" in ln]
     assert "1 failovers (1 re-silvered)" in line[0]
+
+
+# ---------------------------------------------------------------------------
+# tenancy: per-job failover isolation (tests/test_replication.py:466-530)
+# ---------------------------------------------------------------------------
+def _tenant_specs(pkg, events):
+    """Two R = 2 tenants of tests/test_replication.py; job0 carries the
+    fault schedule ``events``.  Targets made with numpy from a seed."""
+    jobs = []
+    n = 2 * TILE_ELEMS - 128
+    for j, ev in ((0, events), (1, ())):
+        rng = np.random.default_rng(10 + j)
+        targets = [pkg.arr(rng.standard_normal((n,)).astype(np.float32))
+                   for _ in range(K)]
+
+        def grad_fn(p, batch, targets=targets):
+            return {"w": 2 * (p["w"] - targets[batch % K])}
+
+        spec = pkg.ten.JobSpec(
+            name=f"job{j}", params={"w": pkg.zeros(n)},
+            optimizer=pkg.opt.momentum(0.05, 0.9), num_workers=K,
+            chunk_elems=pkg.tile, replication=2,
+            fault_plan=tenancy.fault_plan(pkg, list(ev)))
+        jobs.append((spec, grad_fn))
+    return jobs
+
+
+def test_cotenant_shard_crash_isolated():
+    """A tenant's shard crash + failover perturbs no co-tenant's bits, and
+    the crashing tenant itself stays bit-identical to its dedicated twin
+    (same plan, R = 2); every bit, counter and fault trace as in JAX."""
+    def run(pkg):
+        b = tenancy.box(pkg, num_shards=2, num_racks=2)
+        specs = _tenant_specs(pkg, [(2, "shard_crash", 0)])
+        handles = [b.attach(s) for s, _ in specs]
+        harnesses = [pkg.harness(h, g, lambda w, s: w)
+                     for h, (_, g) in zip(handles, specs)]
+        for _ in range(60):
+            for h in harnesses:
+                if min(h.steps_done) < 5:
+                    h.tick()
+        assert all(min(h.steps_done) >= 5 for h in harnesses)
+        return b, handles, [tenancy.dedicated(pkg, s, g, b, 5)
+                            for s, g in specs]
+
+    (jb, jhandles, jdeds), (tb, handles, deds) = tenancy.both(run)
+    tenancy.assert_box_same(jb, tb)
+    for jh, th, jd, td in zip(jhandles, handles, jdeds, deds):
+        assert_fault_same(jh.fabric, th.fabric)
+        assert_fault_same(jd, td)
+        assert same_bits(td, th.fabric), (
+            f"{th.name}: co-tenant crash perturbed tenant bits")
+    assert handles[0].stats.failovers == 1
+    assert handles[1].stats.failovers == 0
+
+
+def test_box_wide_engine_crash_every_tenant_fails_over():
+    """``MultiJobFabric.crash_shard``: the physical engine dies for every
+    tenant; each promotes its own chain replica, and an R = 1 tenant
+    raises ``ShardLost`` only after the replicated tenants failed over."""
+    def run(pkg):
+        b = tenancy.box(pkg, num_shards=2)
+        specs = _tenant_specs(pkg, ())
+        handles = [b.attach(s) for s, _ in specs]
+        for h, (_, g) in zip(handles, specs):
+            pkg.harness(h, g, lambda w, s: w).run(3)
+        before = [tenancy.params_np(h.fabric).copy() for h in handles]
+        actions = b.crash_shard(1)
+        kept = [np.array_equal(x, tenancy.params_np(h.fabric))
+                for x, h in zip(before, handles)]
+        b.attach(pkg.ten.JobSpec(
+            name="fragile", params={"w": pkg.zeros(TILE_ELEMS)},
+            optimizer=pkg.opt.sgd(0.1), num_workers=K,
+            chunk_elems=pkg.tile, replication=1))
+        err = outcome(lambda: b.crash_shard(0))
+        return b, handles, actions, kept, err
+
+    (jb, jhandles, jactions, jkept, jerr), \
+        (tb, handles, actions, kept, err) = tenancy.both(run)
+    tenancy.assert_box_same(jb, tb)
+    for jh, th in zip(jhandles, handles):
+        assert_fault_same(jh.fabric, th.fabric)
+    assert actions == jactions == {"job0": "failed_over",
+                                   "job1": "failed_over"}
+    assert kept == jkept == [True, True]
+    assert isinstance(err, ShardLost) and isinstance(jerr, JaxShardLost)
+    assert str(err) == str(jerr)
+    # the replicated tenants recovered before the fragile one raised
+    assert [h.stats.failovers for h in handles] == [2, 2]
+    assert tb.jobs["fragile"].stats.shards_crashed == 1
 
 
 # ---------------------------------------------------------------------------

@@ -7,10 +7,11 @@ Mirrors tests/test_switch.py: the ToR and core aggregation pools
 are ``tests/test_torch_topology.py``'s pair; every case compares params,
 optimizer state, every stats field (``ServerStats``, ``ShardStats``,
 ``RackStats``, ``SwitchStats``, the ``sim_*`` clock floats), the
-error-feedback residuals and ``fault_trace`` exactly.
-
-Not mirrored here: the tenancy cases (switch-register grants of a
-``MultiJobFabric``), which wait for the port's tenancy tier.
+error-feedback residuals and ``fault_trace`` exactly.  The tenancy
+cases (a ``MultiJobFabric``'s switch-register grants: a granted tenant
+against its identically granted dedicated twin, the full-slab-or-nothing
+budget returned at detach, the ineligible jobs) run each box on both
+packages and compare them with ``tests/test_torch_tenancy.assert_box_same``.
 """
 import dataclasses
 
@@ -21,6 +22,7 @@ torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+import test_torch_tenancy as tenancy  # noqa: E402
 from test_torch_topology import (  # noqa: E402
     K,
     MODES,
@@ -35,6 +37,7 @@ from repro.core import topology as jtopo  # noqa: E402
 from repro.core.replication import FaultEvent as JaxEvent  # noqa: E402
 from repro.core.replication import FaultPlan as JaxPlan  # noqa: E402
 from repro_torch.core import config as tconfig  # noqa: E402
+from repro_torch.core.chunking import ParamSpace  # noqa: E402
 from repro_torch.core.compression import CompressionConfig, wire_bytes  # noqa: E402
 from repro_torch.core.config import (  # noqa: E402
     FabricConfig,
@@ -500,3 +503,78 @@ def test_core_pool_failure_falls_back_to_per_rack_uplinks():
     assert s.core_switch_rounds == 0 and s.bytes_switch_saved == 0
     assert s.switch_rounds == 2
     assert [r["action"] for r in fab.fault_trace] == ["switch_failed:core"]
+
+
+# ---------------------------------------------------------------------------
+# tenancy: register-budget grants (tests/test_switch.py:314-370)
+# ---------------------------------------------------------------------------
+def tenant_job(pkg, name, *, workers=4, elems=3000, **kw):
+    """tests/test_switch.py's int8 tenant: targets made with numpy from a
+    seed of the job's name, in either package."""
+    kw.setdefault("codec", "int8")
+    return tenancy.make_job(pkg, name, 0.5, workers=workers, elems=elems,
+                            **kw)
+
+
+def test_granted_tenant_matches_dedicated_twin():
+    def run(pkg):
+        b = tenancy.box(pkg, num_shards=2, num_racks=2,
+                        switch=dict(enabled=True, tor_slots=16,
+                                    core_slots=16))
+        spec, grad_fn = tenant_job(pkg, "a")
+        handle = b.attach(spec)
+        pkg.harness(handle, grad_fn, lambda w, s: w).run(4)
+        return b, handle, tenancy.dedicated(pkg, spec, grad_fn, b, 4)
+
+    (jb, _, jtwin), (tb, handle, twin) = tenancy.both(run)
+    tenancy.assert_box_same(jb, tb)
+    assert_same(jtwin, twin)
+    grant = tb.switch_grants["a"]
+    assert grant.enabled and grant.tor_slots == handle.space.num_chunks
+    assert handle.stats.switch_rounds == twin.stats.switch_rounds == 4
+    assert torch.equal(handle.fabric.params, twin.params)
+    # pool occupancy is booked on the shared switch link
+    assert "switch" in tb.links and tb.links["switch"].stats.busy_us > 0
+
+
+def test_grant_budget_is_full_slab_or_nothing_and_returned_on_detach():
+    def run(pkg):
+        spec_a, _ = tenant_job(pkg, "a")
+        # the two packages lay a tree out alike: the port's count serves
+        chunks = ParamSpace.build(
+            {"w": torch.zeros(3000), "b": torch.zeros(50)},
+            chunk_elems=pkg.tile, num_owners=2).num_chunks
+        b = tenancy.box(pkg, num_shards=2, num_racks=2,
+                        switch=dict(enabled=True, tor_slots=chunks))
+        b.attach(spec_a)
+        seen = [b._tor_slots_left]
+        spec_b, grad_b = tenant_job(pkg, "b")
+        hb = b.attach(spec_b)
+        seen.append("b" in b.switch_grants)
+        pkg.harness(hb, grad_b, lambda w, s: w).run(2)
+        seen.append(hb.stats.switch_rounds)
+        b.detach("a")
+        seen.append(b._tor_slots_left)
+        b.attach(tenant_job(pkg, "c")[0])
+        seen.append(b.switch_grants["c"].tor_slots)
+        return b, chunks, seen
+
+    (jb, _, jseen), (tb, chunks, seen) = tenancy.both(run)
+    tenancy.assert_box_same(jb, tb)
+    assert seen == jseen == [0, False, 0, chunks, chunks]
+
+
+def test_ineligible_jobs_are_never_granted():
+    def run(pkg):
+        b = tenancy.box(pkg, num_shards=2, num_racks=2,
+                        switch=dict(enabled=True, tor_slots=64,
+                                    core_slots=64))
+        for spec, grad_fn in (tenant_job(pkg, "bf16", codec="bf16"),
+                              tenant_job(pkg, "async", mode="async")):
+            pkg.harness(b.attach(spec), grad_fn, lambda w, s: w).run(2)
+        return b
+
+    jb, tb = tenancy.both(run)
+    tenancy.assert_box_same(jb, tb)
+    assert not tb.switch_grants
+    assert tb._tor_slots_left == 64 and tb._core_slots_left == 64

@@ -9,7 +9,10 @@
     (tests/test_wire_path.py:70-160 for the JAX package);
 (b) the oracle (``ref.py``) at the JAX test's tolerance;
 (c) the support matrix, which must route like the JAX package's, and the
-    error paths.
+    error paths;
+(d) the tenancy box's int8 tenant, on the fused route, against the JAX
+    tenant with ``fused_wire_path`` on and off
+    (tests/test_wire_path.py:262 for the JAX package).
 The CUDA kernel is held against the plain version and the unfused kernel
 pipeline on the card by tests/test_torch_cuda_kernels.py and chip_smoke.py.
 """
@@ -233,3 +236,45 @@ def test_operand_shapes_checked():
     with pytest.raises(ValueError, match="param has shape"):
         tops.fused_wire_update(tpay, tsc, tp[:128], (torch.zeros(CHUNK),) * 2,
                                tspec, 1, codec="int8", chunk_elems=CHUNK)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_tenancy_threads_fused_wire_knob(fused):
+    """tests/test_wire_path.py:262 for the port.  The port's box has no
+    ``fused_wire_path`` knob: its int8 tenant (and the dedicated twin)
+    takes the fused route wherever ``wire_path_supported`` allows, and
+    equals the JAX tenant trained with the knob on and off, bitwise in
+    every tenant field and box view (``assert_box_same``)."""
+    from test_torch_tenancy import JAX, PORT, assert_box_same, dedicated
+
+    from repro.core import tenancy as jten
+    from repro_torch.core import tenancy as tten
+
+    n, k = 8192, 2
+    rng = np.random.default_rng(21)
+    targets = [rng.standard_normal(n).astype(np.float32) for _ in range(k)]
+    jbox = jten.MultiJobFabric(num_shards=2, num_racks=2,
+                               fused_wire_path=fused)
+    tbox = tten.MultiJobFabric(num_shards=2, num_racks=2, device="cpu")
+    runs = []
+    for pkg, b in ((JAX, jbox), (PORT, tbox)):
+        tt = [pkg.arr(t) for t in targets]
+        spec = pkg.ten.JobSpec(name="j", params={"w": pkg.zeros(n)},
+                               optimizer=pkg.opt.sgd(lr=0.05),
+                               num_workers=k, codec="int8")
+
+        def grad_fn(p, batch, tt=tt):
+            return {"w": 2 * (p["w"] - tt[batch])}
+
+        h = b.attach(spec)
+        pkg.harness(h, grad_fn, lambda w, s: w).run(3)
+        runs.append((h, dedicated(pkg, spec, grad_fn, b, 3)))
+    (jh, jded), (th, tded) = runs
+    assert jh.fabric._fused_wire is fused and jded._fused_wire is fused
+    assert th.fabric._fused_wire and tded._fused_wire
+    assert th.stats.fused_wire_rounds == 3
+    assert jh.stats.fused_wire_rounds == (3 if fused else 0)
+    # the one counter that names the route; every other field must match
+    jh.stats.fused_wire_rounds = th.stats.fused_wire_rounds
+    assert_box_same(jbox, tbox)
+    assert torch.equal(tded.params, th.fabric.params)
