@@ -145,7 +145,40 @@ raises on failure (the script then exits non-zero and prints no result):
    multi-hot shape, B = 32,768 x L = 20; fused_agg_opt and wire_fused also
    at K = 1 without averaging, as the async path runs them); and the
    switch pool's plain-torch integer math (shared scale, int8 encode,
-   residual, int32 slot sum, dequantize) at full width.
+   residual, int32 slot sum, dequantize) at full width;
+20. the serving path at full width (run after phase 18): gemma3-1b served
+   through ``launch/serve.py``'s body, ``serve(arch.config, args)``, with
+   the CLI's arguments (``--source fabric --train-rounds 1``, 4 shards, 2
+   racks at 1:4, R = 2, 2 workers, batch 4, a 1024-token prompt, 32
+   tokens, ``--max-staleness 1``).  Counts set to 0 just before the call
+   and read just after: 4 fused_agg_opt, no codec launch.  The read (from
+   the chain tails) equals ``fabric.params`` bitwise at version 1; after a
+   round of card-drawn gradients the cached read still holds version 1's
+   bits (SHA-1 and a kept copy) and a ``max_staleness=0`` read version
+   2's.  The scan decode's logits against a forward of the 1,055-token
+   sequence and the unrolled decode's (rolling 512-slot caches) against
+   the scan decode's, within 5 % of the largest logit; ``assemble``, a
+   miss, a hit, the prefill and a decode step timed, with the peak.  Then
+   ``--source checkpoint`` (saved at round 0, restored, served back
+   bitwise);
+21. sparse serving at full width: dlrm-mlperf (as phase 6) under a 2-rack
+   ``NetworkTopology``, R = 1: one training round (52 embedding_bag, 52
+   segment_sum, 4 fused_agg_opt), then a ``SparseReadPlane`` of 2
+   frontends serving a Zipf(1.05) trace of 12 x 4,096 rows over the two
+   largest tables, a second round between reads; every served row equals
+   ``tier.table(name)[ids]`` bitwise; hit rate, rack and core bytes and
+   ms per ``read_rows`` batch reported;
+22. the serving path at the SMOKE config, card == CPU bitwise in every
+   read, stats field, clock float, served request and ``describe``:
+   ReadPlane and HierarchicalReadPlane over 1 and 2 racks x R = 1, 2, 3
+   with a shard crash between reads; a FrontDoor over ``generate_trace``
+   traces (open, closed loop, diurnal, flash crowd, a mixed trace through
+   a hierarchical plane); serve tenants on a MultiJobFabric over codecs
+   none, bf16, int8; a SparseReadPlane at R = 2 over 2 racks with a shard
+   failover and a fabric ``restore`` between reads; each case's launches
+   equal to the CPU run's plain-version calls.  Then prefill and the scan
+   and unrolled decodes in f32, card against CPU: ids equal, logits
+   within 1e-4 of the largest.
 
 The line before the last is the kernel table as JSON (each row with its
 launches on every path); the last line is ``{"ok": true, "device":
@@ -990,7 +1023,8 @@ def dlrm_capped_config():
         min(v, DLRM_ROW_CAP) for v in cfg.vocabs))
 
 
-def dlrm_setup(cfg, dev, num_shards: int, codec: str = "none"):
+def dlrm_setup(cfg, dev, num_shards: int, codec: str = "none",
+               topology=None):
     """The dense MLPs in a ``num_shards`` fabric and the tables in a
     fabric-attached SparseTier, built one table at a time from seeded
     generators (tables, bottom MLP, top MLP: seeds 0, 1, 2, in
@@ -998,11 +1032,12 @@ def dlrm_setup(cfg, dev, num_shards: int, codec: str = "none"):
     holds its slabs.  Each table is padded to a multiple of the shard
     count (``padded_vocab``, the JAX package's ``init_tables(tp)``
     convention): a row placement needs a row for every shard, and
-    Criteo's 3-row table has fewer than 4.  Ids never reach the pad rows."""
+    Criteo's 3-row table has fewer than 4.  Ids never reach the pad rows.
+    A ``topology`` goes to the fabric, and the tier inherits it."""
     import torch
 
     from repro_torch.core.chunking import ParamSpace
-    from repro_torch.core.config import FabricConfig
+    from repro_torch.core.config import FabricConfig, WireConfig
     from repro_torch.core.fabric import PBoxFabric
     from repro_torch.core.sparse import SparseTier
     from repro_torch.models.common import embed_init
@@ -1016,7 +1051,8 @@ def dlrm_setup(cfg, dev, num_shards: int, codec: str = "none"):
     space = ParamSpace.build(dense)
     fab = PBoxFabric(space, sgd(DLRM_LR), space.flatten(dense), device=dev,
                      config=FabricConfig(num_shards=num_shards,
-                                         num_workers=WORKERS))
+                                         num_workers=WORKERS,
+                                         wire=WireConfig(topology=topology)))
     tier = SparseTier(fabric=fab, lr=DLRM_LR, codec=codec, placement="hash")
     for i, v in enumerate(cfg.vocabs):
         init = embed_init(g_tables, (padded_vocab(v, num_shards), cfg.embed_dim),
@@ -2903,7 +2939,9 @@ class PlainCalls:
     NAMES = {"fused_agg_opt": ("fused_agg_opt", "fused_agg_opt_torch"),
              "quantize_chunks": ("quant", "quantize_chunks_torch"),
              "dequantize_chunks": ("quant", "dequantize_chunks_torch"),
-             "wire_fused": ("wire_path", "wire_fused_torch")}
+             "wire_fused": ("wire_path", "wire_fused_torch"),
+             "embedding_bag": ("embedding_bag", "embedding_bag_torch"),
+             "segment_sum": ("embedding_bag", "segment_sum_torch")}
 
     def __enter__(self):
         import importlib
@@ -3279,6 +3317,707 @@ def profile_summary(prof, steady_round_ms: float, last_launches,
     return {"device_busy_ms": busy_us / 1e3}
 
 
+# -- phases 20 to 22: the serving path -----------------------------------------
+# the full-width serve run: the CLI's arguments (launch/serve.py), gemma3-1b
+# at its published config through a 4-shard, 2-rack (1:4 core), R = 2 fabric
+SERVE_ARGV = ["--arch", "gemma3-1b", "--source", "fabric", "--train-rounds",
+              "1", "--serve-shards", str(SHARDS), "--serve-racks", "2",
+              "--serve-replication", "2", "--serve-workers", str(WORKERS),
+              "--batch", "4", "--prompt-len", str(SEQ), "--tokens", "32",
+              "--max-staleness", "1", "--seed", "0"]
+# decode against a forward of the longer sequence, and the unrolled
+# (rolling window) decode against the scan decode, in bf16: the largest
+# logit difference over the largest |logit|.  At the SMOKE config in bf16
+# (4 layers, d=64, window 8, prompts of 24 tokens, 8 steps, 3 seeds) both
+# differences stay within 1.64 % of the largest logit (0.0088-0.0107 of
+# 0.64-0.66: 2-3 bf16 ulps), from bf16 rounding in matmuls of other shapes;
+# full width stacks 6.5x the layers, so the bound is 3x that, 5 %.
+SERVE_LOGIT_TOL = 0.05
+# the same checks card against CPU at the SMOKE config in f32: cuBLAS and
+# the CPU BLAS sum in other orders (f32 logits of order 1)
+SMOKE_LOGIT_TOL = 1e-4
+
+
+def rel_logit_err(a, b) -> float:
+    """Largest |a - b| over the largest |b| (f32 logits, any shape)."""
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max()).item()
+
+
+def _digest(t) -> str:
+    return hashlib.sha1(t.cpu().numpy().tobytes()).hexdigest()
+
+
+def serve_path(dev) -> dict:
+    """Phase 20: gemma3-1b served at full width through ``launch/serve.py``'s
+    body (``serve(arch.config, args)``): one round of the CLI's synthetic
+    training (the float64 numpy draws, rounded to f32), a ``max_staleness=1``
+    read from the R = 2 chain tails, a prefill of 4 x 1024 tokens and 31
+    greedy decode steps (32 tokens).  Counts set to 0 just before the call
+    and read just after: 4 fused_agg_opt, no codec launch.  Then a round of
+    gradients drawn on the card, the cached read served again (still version
+    1's bits) and a ``max_staleness=0`` read (version 2's).  The scan decode
+    is held against a forward of the 1,055-token sequence and the unrolled
+    decode (rolling 512-slot caches seeded from the prefill's) against the
+    scan decode, at SERVE_LOGIT_TOL; ``assemble``, a miss, a hit, the prefill and a decode
+    step are timed.  Then ``--source checkpoint`` (no training round:
+    saved at round 0 and served back through a SnapshotSource)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.config import ServeConfig
+    from repro_torch.core.serving import FabricSource, ReadPlane
+    from repro_torch.launch import serve as S
+    from repro_torch.models import transformer as T
+
+    cfg = get_arch("gemma3-1b").config
+    args = S.build_argparser().parse_args(SERVE_ARGV)
+    memory = PathMemory(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _zero_counts()  # every count to 0 just before the path...
+    out = S.serve(cfg, args, device=dev)
+    torch.cuda.synchronize()
+    launches = _counts()  # ...and read just after
+    cli_s = time.perf_counter() - t0
+    _check_counts("serve path", launches, {"fused_agg_opt": SHARDS})
+    fabric, plane, params = out["fabric"], out["plane"], out["params"]
+    info = out["read"]
+    if (info["version"], info["staleness"], info["replication"],
+            info["shards"]) != (1, 0, 2, SHARDS):
+        raise AssertionError(f"serve read provenance {info}")
+    v1 = plane.frontends[0].flat
+    if not same_bits(v1, fabric.params):
+        raise AssertionError("the served read is not fabric.params' bits")
+    v1_copy = v1.clone()
+    v1_sha = _digest(v1)
+    gen = out["generated"]
+    if gen.shape != (args.batch, args.tokens) or not ((gen >= 0) & (gen < cfg.vocab)).all():
+        raise AssertionError(f"generated ids {gen.shape} out of range")
+    n = fabric.space.flat_elems
+    log(f"serve path: {cfg.name} full width, flat {n} (N params "
+        f"{cfg.param_count()}), {SHARDS} shards over 2 racks (1:4 core), "
+        f"R = 2, 1 CLI round in {cli_s:.1f} s (the numpy draws of "
+        f"{WORKERS} x {n} float64 normals included); launches {launches}; "
+        f"CLI prefill {out['prefill_ms']:.1f} ms, decode "
+        f"{out['decode_ms']:.1f} ms for {args.tokens - 1} steps (host "
+        "clock)")
+    log("  " + plane.describe())
+
+    # round 2 with card-drawn gradients; the cached read must not move
+    g = torch.Generator(device=dev).manual_seed(7)
+    _zero_counts()
+    for w in range(WORKERS):
+        fabric.pull(w)
+    for w in range(WORKERS):
+        fabric.push(w, 1e-3 * torch.randn(n, generator=g, device=dev))
+    torch.cuda.synchronize()
+    _check_counts("serve round 2", _counts(), {"fused_agg_opt": SHARDS})
+    hit = plane.read(0)
+    if not (hit.cache_hit and hit.version == 1 and hit.staleness == 1):
+        raise AssertionError(f"max_staleness=1 read after round 2: {hit}")
+    if not same_bits(hit.flat, v1_copy) or _digest(hit.flat) != v1_sha:
+        raise AssertionError("the cached read lost version 1's bits")
+    if same_bits(hit.flat, fabric.params):
+        raise AssertionError("round 2 did not change the params")
+    fresh_plane = ReadPlane(fabric, config=ServeConfig(max_staleness=0))
+    fresh = fresh_plane.read(0)
+    if fresh.cache_hit or fresh.version != 2 or not same_bits(
+            fresh.flat, fabric.params):
+        raise AssertionError(f"max_staleness=0 read: {fresh}")
+    del v1_copy, hit, fresh, fresh_plane
+    # read-side times: the tails assembled (CUDA events), a miss and a
+    # batch of 4 hits (host clock around synchronized work)
+    source = FabricSource(fabric)
+    assemble_ms = [cuda_ms(source.assemble, 1) for _ in range(3)]
+
+    def miss():
+        ReadPlane(fabric, config=ServeConfig(max_staleness=1)).read_batch(
+            0, 4)
+
+    miss_ms = [timed(miss) for _ in range(3)]
+    hit_ms = [timed(lambda: plane.read_batch(0, 4)) for _ in range(5)]
+    sim_us = plane.stats.sim_serve_us
+    # decode checks and times on the served params
+    rng = np.random.default_rng(args.seed)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (args.batch, args.prompt_len)).astype(np.int32)).to(dev)
+    ids = torch.from_numpy(gen.astype(np.int32)).to(dev)
+    max_seq = args.prompt_len + args.tokens
+    with torch.no_grad():
+        nxt, cache = T.prefill(params, prompts, cfg, max_seq)
+        if not torch.equal(nxt, ids[:, 0]):
+            raise AssertionError("prefill disagrees with the CLI's prefill")
+        scan = []
+        for i in range(args.tokens - 1):
+            x = T.decode_hidden(params, ids[:, i], cache, SEQ + i, cfg)
+            scan.append(T.head_logits(params, x, cfg))
+            if not torch.equal(scan[-1].argmax(-1).int(), ids[:, i + 1]):
+                raise AssertionError(f"decode step {i} disagrees with the "
+                                     "CLI's")
+        seq = torch.cat([prompts, ids[:, :-1]], dim=1)  # 1,055 tokens
+        hidden, _ = T.forward(params, seq, cfg)
+        fwd = [T.head_logits(params, hidden[:, SEQ + i], cfg)
+               for i in range(args.tokens - 1)]
+        del hidden
+        decode_err = max(rel_logit_err(a, b) for a, b in zip(scan, fwd))
+        decode_ids = sum(int(torch.equal(a.argmax(-1), b.argmax(-1)))
+                         for a, b in zip(scan, fwd))
+        # the unrolled decode over the same history: its caches seeded from
+        # the prefill's (global layers: positions 0..1023; local layers:
+        # the last 512, position p in slot p % 512), then the 31 generated
+        # tokens decoded through it (a replay of all 1,055 steps through
+        # the eager unrolled path takes ~40 s; phase 22 and the CPU tests
+        # replay from position 0)
+        caches = T.init_cache_unrolled(cfg, args.batch, max_seq, device=dev)
+        for li, layer in enumerate(caches):
+            w = layer["k"].shape[1]
+            pos = torch.arange(max(0, SEQ - w), SEQ, device=dev)
+            slots = pos if cfg.is_global_layer(li) else pos % w
+            for key in ("k", "v"):
+                layer[key][:, slots] = cache[key][li][:, pos]
+        t0 = time.perf_counter()
+        unrolled = []
+        for i in range(args.tokens - 1):
+            x = T.decode_hidden_unrolled(params, ids[:, i], caches, SEQ + i,
+                                         cfg)
+            unrolled.append(T.head_logits(params, x, cfg))
+        torch.cuda.synchronize()
+        unrolled_s = time.perf_counter() - t0
+        unrolled_err = max(rel_logit_err(a, b)
+                           for a, b in zip(unrolled, scan))
+        for name, err in (("decode vs forward", decode_err),
+                          ("unrolled vs scan decode", unrolled_err)):
+            if not err <= SERVE_LOGIT_TOL:
+                raise AssertionError(f"{name}: logits differ by {err:.4f} of"
+                                     f" the largest, over {SERVE_LOGIT_TOL}")
+        prefill_ms = [cuda_ms(lambda: T.prefill(params, prompts, cfg,
+                                                max_seq), 1)
+                      for _ in range(3)]
+        step_ms = [cuda_ms(lambda: T.decode_step(params, ids[:, 5], cache,
+                                                 SEQ + 5, cfg), 1)
+                   for _ in range(10)]
+        del cache, caches, scan, fwd, unrolled
+    peak = memory.now()[1]
+    log(f"  round-2 checks: cached read (staleness 1) == version 1 (SHA-1 "
+        f"{v1_sha[:12]}), fresh read == version 2; assemble "
+        f"{[round(x, 3) for x in assemble_ms]} ms (CUDA events), miss "
+        f"{[round(x, 2) for x in miss_ms]} ms, hit (batch of 4) "
+        f"{[round(x, 3) for x in hit_ms]} ms (host clock), sim_serve_us "
+        f"{sim_us}")
+    steps = args.tokens - 1
+    log(f"  decode: {args.batch} x {SEQ} prompt, {steps} steps; vs a forward"
+        f" of {seq.shape[1]} tokens {decode_err:.5f} of the largest logit "
+        f"({decode_ids}/{steps} steps with every greedy id equal), unrolled "
+        f"vs scan {unrolled_err:.5f} (tolerance {SERVE_LOGIT_TOL}); "
+        f"{steps} unrolled steps "
+        f"{unrolled_s:.1f} s; prefill {[round(x, 2) for x in prefill_ms]} ms,"
+        f" decode step {statistics.median(step_ms):.3f} ms (median of 10; "
+        f"CUDA events); peak {peak / 2**30:.2f} GiB")
+    stats = dataclasses.asdict(plane.stats)
+    stats.pop("latency")
+    del out, fabric, plane, params, source, prompts, ids, seq, v1
+    torch.cuda.empty_cache()
+
+    # --source checkpoint: saved at round 0, restored, served back
+    ckpt_dir = ROOT / "build" / "serve_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    cargs = S.build_argparser().parse_args(
+        SERVE_ARGV[:SERVE_ARGV.index("--train-rounds")]
+        + ["--source", "checkpoint", "--train-rounds", "0", "--checkpoint",
+           str(ckpt_dir), "--serve-shards", str(SHARDS), "--serve-racks", "2",
+           "--serve-replication", "2", "--batch", "1", "--prompt-len", "16",
+           "--tokens", "2"])
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cout = S.serve(cfg, cargs, device=dev)
+        torch.cuda.synchronize()
+        ckpt_s = time.perf_counter() - t0
+        cread = cout["plane"].frontends[0].flat
+        if (cout["read"]["version"] != 0
+                or not same_bits(cread, cout["fabric"].params)):
+            raise AssertionError("the checkpoint-served read is not the "
+                                 "fabric's bits")
+        del cout, cread
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"  checkpoint source: saved at round 0 ({n * 4} B of params), "
+        f"restored and served back bitwise in {ckpt_s:.1f} s (fabric build, "
+        f"save, restore, a 1 x 16 prefill and one decode step)")
+    return {"launches": launches, "peak_bytes": peak, "cli_s": cli_s,
+            "assemble_ms": assemble_ms, "miss_ms": miss_ms, "hit_ms": hit_ms,
+            "prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+            "decode_err": decode_err, "unrolled_err": unrolled_err,
+            "sim_serve_us": sim_us, "stats": stats, "ckpt_s": ckpt_s,
+            "flat_elems": n}
+
+
+def sparse_serve_path(dev) -> dict:
+    """Phase 21: dlrm-mlperf (tables capped at DLRM_ROW_CAP rows, as phase
+    6) under a 2-rack NetworkTopology (1:4 core), R = 1: one training round
+    of 2 workers (counts set to 0 just before and read just after: 52
+    embedding_bag, 52 segment_sum, 4 fused_agg_opt), then a SparseReadPlane
+    of 2 frontends (one a rack, 65,536 hot rows each) serving a Zipfian
+    trace (skew 1.05) of 4,096-row batches over the two largest tables,
+    interleaved with a second round.  Every served row equals a direct
+    ``tier.table(name)[ids]`` bitwise; the hit rate, the rack and core
+    bytes and the ms per ``read_rows`` batch are reported."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.config import ServeConfig
+    from repro_torch.core.serving import SparseReadPlane, zipfian_trace
+    from repro_torch.core.topology import NetworkTopology
+    from repro_torch.data.synthetic import recsys_batches
+
+    cfg = dlrm_capped_config()
+    memory = PathMemory(dev)
+    topo = NetworkTopology(num_workers=WORKERS, num_racks=2)
+    space, fab, tier = dlrm_setup(cfg, dev, SHARDS, topology=topo)
+    if tier.topology is not topo or tier.replication != 1:
+        raise AssertionError("the tier did not inherit the topology")
+    streams = [recsys_batches("dlrm-mlperf", cfg, DLRM_BATCH, seed=w)
+               for w in range(WORKERS)]
+    losses: list = []
+    n = cfg.n_sparse
+    torch.cuda.synchronize()
+    _zero_counts()  # every count to 0 just before the round...
+    t0 = time.perf_counter()
+    dlrm_round(space, fab, tier, cfg, streams, dev, losses)
+    torch.cuda.synchronize()
+    round_ms = [(time.perf_counter() - t0) * 1e3]
+    launches = _counts()  # ...and read just after
+    _check_counts("sparse serve round 1", launches,
+                  {"embedding_bag": n * WORKERS, "segment_sum": n * WORKERS,
+                   "fused_agg_opt": sum(1 for s in fab.shards
+                                        if s.num_chunks)})
+    order = sorted(range(n), key=lambda i: -cfg.vocabs[i])[:2]
+    names = [f"t{i}" for i in order]
+    plane = SparseReadPlane(tier, config=ServeConfig(
+        num_frontends=2, cache_rows=65536, name="rows",
+        serve_us_per_read=0.01))
+    batch, batches = 4096, 12
+    traces = {name: zipfian_trace(tier.tables[name].num_rows,
+                                  batch * batches, 1.05, seed=i)
+              for i, name in enumerate(names)}
+    read_ms, served = [], 0
+    for b in range(batches):
+        if b == batches // 2:  # the second round lands between reads
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dlrm_round(space, fab, tier, cfg, streams, dev, losses)
+            torch.cuda.synchronize()
+            round_ms.append((time.perf_counter() - t0) * 1e3)
+        name = names[b % 2]
+        ids = traces[name][b * batch:(b + 1) * batch]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = plane.read_rows(b % 2, name, ids)
+        torch.cuda.synchronize()
+        read_ms.append((time.perf_counter() - t0) * 1e3)
+        direct = tier.table(name)[torch.from_numpy(ids).to(dev)]
+        if not same_bits(res.rows, direct):
+            raise AssertionError(f"batch {b}: served rows of {name} differ "
+                                 "from the direct table read")
+        if not np.array_equal(res.versions, tier.row_versions(name)[ids]):
+            raise AssertionError(f"batch {b}: stamped versions differ")
+        served += len(ids)
+        del direct, res
+    finite_losses(losses)
+    st, ts = plane.stats, tier.stats
+    if st.row_reads != served or st.row_hits + st.row_misses != served:
+        raise AssertionError(f"SparseServeStats do not add up: {st}")
+    if not (st.bytes_rack_link > 0 and st.bytes_core_link > 0
+            and st.bytes_refreshed == st.bytes_rack_link
+            + st.bytes_core_link):
+        raise AssertionError(f"serve bytes not split by rack: {st}")
+    peak = memory.now()[1]
+    log(f"sparse serve path: {cfg.name} (tables capped at {DLRM_ROW_CAP} "
+        f"rows) over 2 racks (1:4 core), R = 1; round 1 launches {launches};"
+        f" rounds {[round(x, 1) for x in round_ms]} ms; tier rack / core "
+        f"bytes {ts.bytes_rack_link} / {ts.bytes_core_link}, sim push / "
+        f"lookup us {ts.sim_push_us:.1f} / {ts.sim_lookup_us:.1f}")
+    log(f"  {plane.describe()}; served {served} rows of {names} in "
+        f"{batches} batches of {batch}, every row == the direct table read; "
+        f"hit rate {st.hit_rate:.4f} ({st.stale_rows} version-stale, "
+        f"{st.evictions} evictions); serve rack / core bytes "
+        f"{st.bytes_rack_link} / {st.bytes_core_link}; read_rows ms "
+        f"{[round(x, 1) for x in read_ms]} (host clock); sim_serve_us "
+        f"{st.sim_serve_us:.1f}; peak {peak / 2**30:.2f} GiB")
+    stats = dataclasses.asdict(st)
+    del space, fab, tier, plane, streams
+    torch.cuda.empty_cache()
+    return {"launches": launches, "peak_bytes": peak, "round_ms": round_ms,
+            "read_ms": read_ms, "stats": stats, "served": served,
+            "tables": names}
+
+
+def _record(x):
+    """A comparable record of a serving result: tensors to the host,
+    dataclasses and trackers to plain fields (floats kept exact)."""
+    import torch
+
+    from repro_torch.core.serving import LatencyTracker
+
+    if torch.is_tensor(x):
+        return x.detach().cpu()
+    if isinstance(x, LatencyTracker):
+        return ("tracker", x.counts.tolist(), x.count, x.total_us, x.min_us,
+                x.max_us, [x.quantile(q) for q in (0.5, 0.99, 0.999)])
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return (type(x).__name__,
+                {f.name: _record(getattr(x, f.name))
+                 for f in dataclasses.fields(x)})
+    if isinstance(x, dict):
+        return {k: _record(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_record(v) for v in x]
+    if hasattr(x, "dtype") and hasattr(x, "tolist"):  # numpy
+        return ("array", str(x.dtype), x.tolist())
+    return x
+
+
+def _same_record(a, b, where: str) -> None:
+    import torch
+
+    if torch.is_tensor(a) or torch.is_tensor(b):
+        if not (torch.is_tensor(a) and torch.is_tensor(b)
+                and same_bits(a, b)):
+            raise AssertionError(f"{where}: tensors differ")
+    elif isinstance(a, dict) and isinstance(b, dict):
+        if a.keys() != b.keys():
+            raise AssertionError(f"{where}: keys {a.keys()} != {b.keys()}")
+        for k in a:
+            _same_record(a[k], b[k], f"{where}.{k}")
+    elif isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"{where}: {len(a)} != {len(b)} items")
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same_record(x, y, f"{where}[{i}]")
+    elif a != b and not (isinstance(a, float) and math.isnan(a)
+                         and isinstance(b, float) and math.isnan(b)):
+        raise AssertionError(f"{where}: {a!r} != {b!r}")
+
+
+def smoke_serve_check(dev) -> dict:
+    """Phase 22: the serving path at gemma3-1b's SMOKE config (its flat
+    space, 4 shards, chunks of 4096), every case on ``dev`` against the
+    same case on the CPU: every ReadResult (bits, version, staleness, hit,
+    frontend, ``sim_us``), every ServeStats / SparseServeStats field (the
+    latency bins and ``sim_serve_us`` included), every ServedRequest,
+    ``describe()``, and the fabric's params bitwise.  Cases: ReadPlane and
+    HierarchicalReadPlane over 1 and 2 racks x R = 1, 2, 3 with a shard
+    crash between reads (failed over at R >= 2, twice at R = 3; ShardLost
+    at R = 1); a FrontDoor running ``generate_trace`` traces (open, closed
+    loop, diurnal, flash crowd; and a mixed trace through a hierarchical
+    plane); serve tenants (a flat and a hierarchical plane) beside a
+    training job on a 2-rack MultiJobFabric over codecs none, bf16, int8;
+    a SparseReadPlane at R = 2 over 2 racks with a shard failover and a
+    fabric ``restore`` between reads.  Gradients are numpy draws, the same
+    bits on both devices.  Each case's launches on the card equal the CPU
+    run's calls of the plain versions.  Then prefill, the scan decode and
+    the unrolled decode in f32, card against CPU: greedy ids equal, logits
+    within SMOKE_LOGIT_TOL.  Returns each case's launches on ``dev``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import config as C
+    from repro_torch.core import serving as S
+    from repro_torch.core import workload as WL
+    from repro_torch.core.chunking import ParamSpace
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.core.fabric import PBoxFabric
+    from repro_torch.core.replication import ShardLost
+    from repro_torch.core.sparse import SparseTier
+    from repro_torch.core.tenancy import JobSpec, MultiJobFabric
+    from repro_torch.core.topology import NetworkTopology
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import adamw, momentum, sgd
+
+    mcfg = get_arch("gemma3-1b").smoke_config
+    tree = T.init_params(mcfg, torch.Generator().manual_seed(0),
+                         device="cpu")
+    space = ParamSpace.build(tree, chunk_elems=4096)
+    init = space.flatten(tree)
+    grads: dict = {}  # (flat length, seed) -> a numpy-drawn gradient
+    cpu = torch.device("cpu")
+
+    def fabric(device, racks, R, codec="none", opt=None):
+        topo = (NetworkTopology(num_workers=WORKERS, num_racks=racks)
+                if racks > 1 else None)
+        return PBoxFabric(space, opt or momentum(0.05, 0.9), init,
+                          device=device, config=C.FabricConfig(
+                              num_shards=SHARDS, num_workers=WORKERS,
+                              wire=C.WireConfig(
+                                  topology=topo,
+                                  compression=CompressionConfig(codec=codec)),
+                              faults=C.FaultConfig(replication=R)))
+
+    def train(fab, r):
+        n = fab.space.flat_elems
+        for w in range(fab.num_workers):
+            fab.pull(w)
+        for w in range(fab.num_workers):
+            key = (n, (w + r) % 4)
+            if key not in grads:
+                grads[key] = torch.from_numpy((1e-2 * np.random.default_rng(
+                    key[1]).standard_normal(n)).astype(np.float32))
+            fab.push(w, grads[key].to(fab.device))
+
+    def crash(fab, shard):
+        try:
+            return fab.crash_shard(shard)
+        except ShardLost as e:
+            return f"ShardLost: {e}"
+
+    def hier_config(**kw):
+        return C.ServeConfig(
+            slos=(("rt", C.SLOConfig(latency_budget_us=400.0, priority=2.0)),
+                  ("bulk", C.SLOConfig(latency_budget_us=400.0,
+                                       staleness_bound=3))),
+            hierarchy=C.HierarchyConfig(enabled=True,
+                                        staleness_ladder=(0, 1, 3),
+                                        frontends_per_tier=(1, 1, 2)), **kw)
+
+    def planes_case(racks, R):
+        def run(device):
+            fab = fabric(device, racks, R)
+            flat = S.ReadPlane(fab, config=C.ServeConfig(
+                num_frontends=2, max_staleness=1, serve_us_per_read=0.3))
+            hier = S.HierarchicalReadPlane(fab, config=hier_config())
+            reads, fates = [], []
+            for r in range(4):
+                train(fab, r)
+                if r == 1 or (r == 2 and R == 3):
+                    fates.append(crash(fab, 1))
+                reads += [flat.read(0), *flat.read_batch(1, 3)]
+                reads += [hier.read(f) for f in range(len(hier.frontends))]
+            return {"reads": reads, "fates": fates, "flat": flat.stats,
+                    "hier": hier.stats, "describe": [flat.describe(),
+                                                     hier.describe()],
+                    "params": fab.params}
+        return run
+
+    def traces():
+        c = C
+        open_t = c.TenantLoadConfig(name="o", n_requests=30, batch_max=2,
+                                    arrival=c.ArrivalConfig(
+                                        interarrival_us=7.0))
+        return {
+            "open": (open_t, c.TenantLoadConfig(
+                name="p", n_requests=20, arrival=c.ArrivalConfig(
+                    process="poisson", interarrival_us=9.0))),
+            "closed": (c.TenantLoadConfig(name="c", clients=3, think_us=12.0,
+                                          requests_per_client=5,
+                                          staleness_req=1),),
+            "diurnal": (dataclasses.replace(open_t, diurnal=c.DiurnalConfig(
+                enabled=True, amplitude=0.6, period_us=300.0, phase=0.1)),),
+            "flash": (dataclasses.replace(open_t, flash=c.FlashCrowdConfig(
+                enabled=True, at_us=50.0, duration_us=80.0, magnitude=6.0)),),
+            "mixed": (c.TenantLoadConfig(
+                name="rt", n_requests=15, arrival=c.ArrivalConfig(
+                    process="poisson", interarrival_us=20.0)),
+                      c.TenantLoadConfig(
+                name="bulk", n_requests=25, staleness_req=3,
+                arrival=c.ArrivalConfig(process="mmpp", interarrival_us=10.0,
+                                        burst_factor=5.0,
+                                        burst_dwell_us=60.0)),
+                      c.TenantLoadConfig(name="cl", clients=2, think_us=15.0,
+                                         requests_per_client=6,
+                                         staleness_req=3)),
+        }
+
+    def door_case(shape):
+        trace = WL.generate_trace(C.WorkloadConfig(tenants=traces()[shape]),
+                                  3)
+
+        def run(device):
+            fab = fabric(device, 2, 2)
+            admission = C.AdmissionConfig(enabled=True, rate_per_us=0.2,
+                                          burst=3, shed_slack=0.7)
+            if shape == "mixed":
+                plane = S.HierarchicalReadPlane(fab, config=hier_config(
+                    admission=admission))
+            else:
+                plane = S.ReadPlane(fab, config=C.ServeConfig(
+                    num_frontends=2, max_staleness=1, serve_us_per_read=2.0,
+                    slos=(("o", C.SLOConfig(latency_budget_us=40.0,
+                                            priority=2.0)),
+                          ("c", C.SLOConfig(latency_budget_us=60.0,
+                                            staleness_bound=1))),
+                    admission=admission))
+            fired = [0]
+
+            def on_time(now):
+                while fired[0] < 4 and now >= (fired[0] + 1) * 50.0:
+                    train(fab, fired[0])
+                    fired[0] += 1
+
+            door = S.FrontDoor(plane)
+            outs = door.run(trace, on_time=on_time)
+            if not any(o.admitted for o in outs):
+                raise AssertionError(f"door/{shape}: nothing admitted")
+            return {"outs": outs, "stats": plane.stats,
+                    "door": door.describe(), "plane": plane.describe(),
+                    "params": fab.params}
+        return run
+
+    def tenants_case(codec):
+        def run(device):
+            box = MultiJobFabric(num_shards=SHARDS, num_racks=2,
+                                 device=device)
+            h = box.attach(JobSpec(name="train", params=tree,
+                                   optimizer=adamw(3e-3),
+                                   num_workers=WORKERS, codec=codec,
+                                   chunk_elems=4096, replication=2))
+            flat = box.attach_serving(
+                JobSpec(name="serve", params=None, optimizer=None,
+                        num_workers=2, priority=1.0, bandwidth_cap=0.5),
+                "train", max_staleness=1)
+            hier = box.attach_serving(
+                JobSpec(name="geo", params=None, optimizer=None,
+                        num_workers=1, priority=2.0), "train",
+                config=hier_config())
+            reads = []
+            for r in range(3):
+                train(h, r)
+                if r == 1:
+                    box.apply_tenant_shares({"serve": 3.0})
+                reads += [flat.read(r % 2), *flat.read_batch(1, 2)]
+                reads += [hier.read(f) for f in range(len(hier.frontends))]
+            util, desc = box.utilization(), box.describe()
+            box.detach_serving("geo")
+            return {"reads": reads, "flat": flat.stats, "hier": hier.stats,
+                    "util": util, "describe": desc,
+                    "links": {k: dict(q.stats.by_job)
+                              for k, q in box.links.items()},
+                    "params": h.fabric.params,
+                    "stats": h.fabric.stats}
+        return run
+
+    def sparse_case(device):
+        topo = NetworkTopology(num_workers=WORKERS, num_racks=2)
+        dense = {"w": torch.zeros(2 * 4096)}
+        dspace = ParamSpace.build(dense, chunk_elems=4096)
+        fab = PBoxFabric(dspace, sgd(0.1), dspace.flatten(dense),
+                         device=device, config=C.FabricConfig(
+                             num_shards=SHARDS, num_workers=WORKERS,
+                             wire=C.WireConfig(topology=topo),
+                             faults=C.FaultConfig(replication=2)))
+        tier = SparseTier(fabric=fab, codec="int8", lr=0.05)
+        v, d = 4096, 32
+        tier.add_table("t0", np.random.default_rng(5).standard_normal(
+            (v, d)).astype(np.float32))
+        plane = S.SparseReadPlane(tier, config=C.ServeConfig(
+            num_frontends=2, cache_rows=256, name="rows"))
+        trace = S.zipfian_trace(v, 1200, 1.1, seed=2)
+        rng = np.random.default_rng(9)
+
+        out, snap = [], None
+
+        def sparse_round():
+            for w in range(WORKERS):
+                ids = rng.integers(0, v, size=200)
+                out.append(tier.lookup(w, "t0", ids[:50],
+                                       np.arange(0, 51, 5)))
+                rows = rng.standard_normal((200, d)).astype(np.float32)
+                tier.push(w, {"t0": (ids, torch.from_numpy(rows).to(
+                    device))})
+
+        for step in range(8):
+            if step in (1, 2, 5):
+                sparse_round()
+            if step == 2:
+                snap = fab.snapshot()
+            if step == 3:
+                out.append(fab.crash_shard(1))
+            if step == 6:
+                fab.restore(snap)
+            ids = trace[step * 150:(step + 1) * 150]
+            res = plane.read_rows(step % 2, "t0", ids)
+            if not same_bits(res.rows, tier.table("t0")[
+                    torch.from_numpy(ids).to(device)]):
+                raise AssertionError(f"sparse step {step}: served rows "
+                                     "differ from the direct table read")
+            out.append(res)
+        return {"reads": out, "stats": plane.stats, "tier": tier.stats,
+                "table": tier.table("t0"), "versions": tier.row_versions(
+                    "t0"), "describe": [plane.describe(), tier.describe()]}
+
+    cases = {f"plane/racks{racks}/R{R}": planes_case(racks, R)
+             for racks in (1, 2) for R in (1, 2, 3)}
+    cases |= {f"door/{shape}": door_case(shape)
+              for shape in ("open", "closed", "diurnal", "flash", "mixed")}
+    cases |= {f"tenants/{codec}": tenants_case(codec)
+              for codec in ("none", "bf16", "int8")}
+    cases["sparse/R2/racks2"] = sparse_case
+    launches = {}
+    for label, run in cases.items():
+        _zero_counts()
+        card = _record(run(dev))
+        torch.cuda.synchronize()
+        launches[label] = _counts()
+        with PlainCalls() as plain:
+            host = _record(run(cpu))
+        _same_record(card, host, label)
+        if launches[label] != plain.counts:
+            raise AssertionError(f"{label}: card launches {launches[label]},"
+                                 f" CPU plain-version calls {plain.counts}")
+        if not any(launches[label].values()):
+            raise AssertionError(f"{label}: no kernel launched")
+
+    # prefill, the scan decode and the unrolled decode, card against CPU
+    def decode(device):
+        params = _tree_to(tree, device)
+        toks = torch.from_numpy(np.random.default_rng(4).integers(
+            0, mcfg.vocab, (3, 20)).astype(np.int32)).to(device)
+        nxt, cache = T.prefill(params, toks, mcfg, 28)
+        caches = T.init_cache_unrolled(mcfg, 3, 28, device=device)
+        for pos in range(20):
+            T.decode_hidden_unrolled(params, toks[:, pos], caches, pos, mcfg)
+        ids, scan, unrolled = [nxt], [], []
+        for i in range(7):
+            x = T.decode_hidden(params, ids[-1], cache, 20 + i, mcfg)
+            u = T.decode_hidden_unrolled(params, ids[-1], caches, 20 + i,
+                                         mcfg)
+            scan.append(T.head_logits(params, x, mcfg))
+            unrolled.append(T.head_logits(params, u, mcfg))
+            ids.append(T._greedy_logits(params, x, mcfg))
+        return (torch.stack(ids).cpu(), torch.stack(scan).cpu(),
+                torch.stack(unrolled).cpu())
+
+    with torch.no_grad():
+        card_ids, card_scan, card_unrolled = decode(dev)
+        cpu_ids, cpu_scan, cpu_unrolled = decode(cpu)
+    errs = (rel_logit_err(card_scan, cpu_scan),
+            rel_logit_err(card_unrolled, cpu_unrolled),
+            rel_logit_err(card_unrolled, card_scan))
+    if not torch.equal(card_ids, cpu_ids) or max(errs) > SMOKE_LOGIT_TOL:
+        raise AssertionError(f"SMOKE decode card vs CPU: ids equal "
+                             f"{torch.equal(card_ids, cpu_ids)}, logit "
+                             f"errors {errs} (tolerance {SMOKE_LOGIT_TOL})")
+    total = {k: sum(c[k] for c in launches.values()) for k in _counts()}
+    log(f"SMOKE serve sweep: {len(cases)} cases card == CPU bitwise (reads, "
+        f"every stats field and clock float, served requests, describe, "
+        f"params); launches {total}, each case's equal to the CPU run's "
+        f"plain-version calls; decode card vs CPU: ids equal, logits "
+        f"{errs[0]:.2e} (scan) / {errs[1]:.2e} (unrolled) of the largest, "
+        f"unrolled vs scan on the card {errs[2]:.2e}")
+    return launches
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
 # -- phase 19: kernel timings ------------------------------------------------
 def time_fused_agg_opt(dev, n: int, k: int, average: bool = True) -> dict:
     import torch
@@ -3648,6 +4387,10 @@ def main() -> int:
     smoke_topo = smoke_topology_check(dev)
     smoke_fault = smoke_fault_check(dev)
     smoke_tenancy = smoke_tenancy_check(dev)
+    torch.cuda.empty_cache()
+    serve = serve_path(dev)
+    sparse_serve = sparse_serve_path(dev)
+    smoke_serve = smoke_serve_check(dev)
     switch_math = switch_math_ms(dev, int8["flat"], int8["chunk"])
     d = dlrm_capped_config().embed_dim
     timing = {"fused_agg_opt": time_fused_agg_opt(dev, f32["n"], WORKERS),
@@ -3687,7 +4430,11 @@ def main() -> int:
              "tenancy_box": tenancy["launches"],
              "tenancy_twins": tenancy["twin_launches"],
              "smoke_tenancy": {k: sum(c[k] for c in smoke_tenancy.values())
-                               for k in f32["launches"]}}
+                               for k in f32["launches"]},
+             "serve_gemma": serve["launches"],
+             "serve_sparse": sparse_serve["launches"],
+             "smoke_serve": {k: sum(c[k] for c in smoke_serve.values())
+                             for k in f32["launches"]}}
     # K = 1 without averaging: the async pushes (f32 ones only at SMOKE)
     k1_launches = {"fused_agg_opt": smoke["async/none"]["fused_agg_opt"],
                    "wire_fused": asyn["launches"]["wire_fused"]
@@ -3774,7 +4521,15 @@ def main() -> int:
         f"{tenancy['dedicated_ms']['a'][1]:.1f} / b "
         f"{tenancy['dedicated_ms']['b'][1]:.1f} ms, detach "
         f"{tenancy['detach_ms']:.1f} ms, re-attach {tenancy['attach_ms']:.1f}"
-        f" ms"
+        f" ms; serve gemma {serve['peak_bytes'] / 2**30:.2f} GiB (assemble "
+        f"{statistics.median(serve['assemble_ms']):.3f} ms, miss "
+        f"{statistics.median(serve['miss_ms']):.2f} ms, hit "
+        f"{statistics.median(serve['hit_ms']):.3f} ms, prefill 4 x {SEQ} "
+        f"{statistics.median(serve['prefill_ms']):.2f} ms, decode step "
+        f"{statistics.median(serve['decode_step_ms']):.3f} ms), sparse serve "
+        f"{sparse_serve['peak_bytes'] / 2**30:.2f} GiB (read_rows "
+        f"{statistics.median(sparse_serve['read_ms']):.1f} ms a batch, hit "
+        f"rate {sparse_serve['stats']['row_hits'] / sparse_serve['served']:.4f})"
         + f"; switch integer math "
         f"{sum(v['ms'] for v in switch_math.values()):.3f} ms; whole run "
         f"{time.perf_counter() - t_start:.1f} s")

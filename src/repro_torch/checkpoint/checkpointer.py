@@ -205,43 +205,3 @@ def flat_to_fabric_snapshot(flat: dict) -> dict:
         if key in flat:
             snap[key] = flat[key]
     return snap
-
-
-def fabric_snapshot_to_flat(snap: dict) -> dict:
-    """``PBoxFabric.snapshot()`` -> flat name->array dict for the
-    checkpointer (numbered ``slot{i}`` arrays like TrainState)."""
-    out = {
-        "params": np.asarray(snap["params"]),
-        "step": np.int64(snap["step"]),
-    }
-    for i, s in enumerate(snap["state"]):
-        out[f"slot{i}"] = np.asarray(s)
-    if "worker_clock" in snap:
-        out["worker_clock"] = np.asarray(snap["worker_clock"], np.int64)
-    dead = snap.get("dead_workers")
-    if dead is not None:
-        out["dead_workers"] = np.asarray(dead, np.int64)
-    if "replication" in snap:
-        out["replication"] = np.int64(snap["replication"])
-    return out
-
-
-def flat_to_fabric_snapshot(flat: dict) -> dict:
-    """Inverse of ``fabric_snapshot_to_flat``, tolerant of legacy
-    checkpoints: missing ``worker_clock``/``dead_workers``/``replication``
-    just aren't in the returned snapshot (``PBoxFabric.restore`` defaults
-    them to all-alive, clocks at the restored step)."""
-    slots = []
-    i = 0
-    while f"slot{i}" in flat:
-        slots.append(np.asarray(flat[f"slot{i}"]))
-        i += 1
-    snap = {
-        "params": np.asarray(flat["params"]),
-        "state": tuple(slots),
-        "step": int(flat["step"]),
-    }
-    for key in ("worker_clock", "dead_workers", "replication"):
-        if key in flat:
-            snap[key] = flat[key]
-    return snap

@@ -1,7 +1,7 @@
 """The port's core: the PHub/PBox parameter exchange (torch counterpart of
 ``repro.core``: the fabric with its straggler modes, rack topology and
-switch tier, the fault tier, the tenancy tier) and the sparse embedding
-tier."""
+switch tier, the fault tier, the tenancy tier), the read plane and the
+sparse embedding tier."""
 from repro_torch.core.chunking import DEFAULT_CHUNK_ELEMS, ParamSpace, TensorSlot
 from repro_torch.core.config import FabricConfig, FabricConfigError
 from repro_torch.core.fabric import (
@@ -19,6 +19,13 @@ from repro_torch.core.replication import (
     ShardLost,
 )
 from repro_torch.core.server import PHubServer
+from repro_torch.core.serving import (
+    FabricSource,
+    ReadPlane,
+    ReadResult,
+    ServeStats,
+    SnapshotSource,
+)
 from repro_torch.core.sparse import (
     RowPlacement,
     ShardedEmbeddingTable,
@@ -56,6 +63,11 @@ __all__ = [
     "ShardStats",
     "PHubServer",
     "WorkerHarness",
+    "FabricSource",
+    "ReadPlane",
+    "ReadResult",
+    "ServeStats",
+    "SnapshotSource",
     "RowPlacement",
     "ShardedEmbeddingTable",
     "SparseStats",

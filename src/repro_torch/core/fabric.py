@@ -84,10 +84,12 @@ the job's chunks in the box-wide namespace (``global_chunk_ids``), and a
 and books each round on the box's link queues.  Both touch only routing
 metadata and the event clock: the bits are those of a dedicated fabric.
 
-A sparse tier (``core/sparse.SparseTier(fabric=...)``) attaches to a fabric
-without a topology: it inherits the shard and worker counts, replication,
+A sparse tier (``core/sparse.SparseTier(fabric=...)``) attaches to a
+fabric: it inherits the shard and worker counts, topology, replication,
 plan, link model, chunk size and device, registers in ``sparse_tiers``,
-and fails over and reshards with the fabric's engines.
+and fails over and reshards with the fabric's engines.  Read planes
+(``core/serving.py``) register in ``read_planes``; ``restore`` invalidates
+their caches and the sparse tiers' serving caches.
 """
 from __future__ import annotations
 
@@ -550,6 +552,10 @@ class PBoxFabric:
         self.dead_workers: set[int] = set()
         self._link_degrade: dict[int, float] = {}  # rack -> slowdown >= 1
         self._fault_cursor = 0  # last round whose faults already fired
+        # read planes (core/serving.py) register here as weakrefs, so a
+        # dropped plane's O(model) caches stay collectable, and restore()
+        # invalidates the live ones.  Serving never writes fabric state.
+        self.read_planes: list = []  # weakrefs to attached ReadPlanes
         self.sparse_tiers: list = []  # weakrefs to attached SparseTiers
         self.step = 0
         self.worker_clock = np.zeros(self.num_workers, dtype=np.int64)
@@ -1696,8 +1702,17 @@ class PBoxFabric:
         self._switch_cursor = self.step
         for group, shard in zip(self.replicas, self.shards):
             group.sync(shard, round_=self.step)  # provisioning, not wire
+        # serving caches stamped with rounds from the abandoned timeline
+        # must never serve again (the restored counter may rewind past
+        # them, and the same round number will hold different bits); dead
+        # planes are pruned as a side effect
+        self.read_planes = [r for r in self.read_planes if r() is not None]
+        for ref in self.read_planes:
+            plane = ref()
+            if plane is not None:
+                plane.invalidate()
         # attached sparse tiers drop caches stamped on the abandoned
-        # timeline
+        # timeline the same way
         self.sparse_tiers = [r for r in self.sparse_tiers
                              if r() is not None]
         for ref in self.sparse_tiers:
@@ -1762,6 +1777,10 @@ class PBoxFabric:
                 f"{s.failovers} failovers ({s.resilvers} re-silvered), "
                 f"{len(self.dead_workers)} workers down"
             )
+        for ref in self.read_planes:
+            plane = ref()
+            if plane is not None:
+                lines.append("  " + plane.describe())
         for shard in self.shards:
             lines.append(
                 f"  shard {shard.shard_id}: {shard.num_chunks} chunks, "

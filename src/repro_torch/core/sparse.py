@@ -40,12 +40,16 @@ later round can touch.  The port keeps that: with replication the round
 replaces the slabs it updates; with replication 1 nothing else holds a
 slab, so the round updates it in place (same bits, no copy).
 
-This slice runs with no topology (every shard and worker on rack 0, hop
-cost 1.0): a ``topology`` raises ``NotImplementedError``, as do a
-placement plan that carries solved row maps (``row_owner``) and serving
-(``SparseReadPlane``, core/serving.py), which are not ported yet.  A plan
-without row maps (a fabric-attached tier reads the fabric's) gives the
-chain racks.
+Under a ``NetworkTopology`` the shards' home and chain racks come from the
+placement plan (the topology's default plan unless one is given), and every
+pull, push and chain hop is priced per hop: a rack-local hop on the rack
+link, a cross-rack hop on the oversubscribed core (``_account``), with the
+event-clock time scaled by ``hop_cost`` in the JAX package's order
+(``_us``).  With no topology every shard and worker sits on rack 0 at hop
+cost 1.0.  Serving (``SparseReadPlane``, core/serving.py) reads through
+``serve_rack``, the cheapest backup rack of a shard's chain.  A placement
+plan that carries solved row maps (``row_owner``) raises
+``NotImplementedError``: the placement solver is not ported yet.
 """
 from __future__ import annotations
 
@@ -66,17 +70,13 @@ ROW_ID_BYTES = 4  # one int32 row id per routed row
 SCALE_BYTES = 4  # one f32 scale per int8-encoded row
 
 
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"the PyTorch sparse tier runs with no topology and no solved row "
-        f"placement only; {what} is not ported yet")
-
-
 def _check_plan(plan: Any) -> None:
     """Refuse a placement plan the tier cannot follow yet: one with solved
     row maps (the placement solver is not ported)."""
     if plan is not None and getattr(plan, "row_owner", None):
-        raise _unported("a placement plan with row_owner maps")
+        raise NotImplementedError(
+            "the PyTorch sparse tier places rows by policy only; a placement "
+            "plan with row_owner maps is not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -347,6 +347,11 @@ class _SparseChain:
         self.copies = [payload for _ in range(self.factor - 1)]
         self.synced_round = round_
 
+    def tail(self) -> dict:
+        if not self.copies:
+            raise ShardLost(self.shard_id, 0, self.synced_round, self.factor)
+        return self.copies[-1]
+
     def promote(self) -> dict:
         if not self.copies:
             raise ShardLost(self.shard_id, 0, -1, self.factor)
@@ -359,11 +364,12 @@ class _SparseChain:
 class SparseTier:
     """Row-sharded embedding tables over the fabric's shard set.
 
-    Standalone (``num_shards``/``num_workers`` given) or attached to a live
-    ``PBoxFabric`` — attached, the tier co-resides with the dense shards
-    (shard ``s`` of every table lives on ``PBoxShard s``), inherits the
-    fabric's shard and worker counts, link model, chunk size, replication
-    and device, and registers in ``fabric.sparse_tiers``.
+    Standalone (``num_shards``/``num_workers``/``topology`` given) or
+    attached to a live ``PBoxFabric`` — attached, the tier co-resides with
+    the dense shards (shard ``s`` of every table lives on ``PBoxShard s``),
+    inherits the fabric's shard and worker counts, topology, link model,
+    chunk size, replication and device, and registers in
+    ``fabric.sparse_tiers``.
 
     The update is synchronous lazy sparse SGD: ``push`` stages one
     worker's coalesced (ids, grad-rows) set per table; when every live
@@ -401,13 +407,15 @@ class SparseTier:
                 chunk_elems = fabric.space.chunk_elems
             if device is None:
                 device = fabric.device
-        if topology is not None:
-            raise _unported("a network topology")
         _check_plan(plan)
         self.num_shards = int(num_shards or 1)
         self.num_workers = int(num_workers or 1)
         if self.num_shards < 1 or self.num_workers < 1:
             raise ValueError("num_shards and num_workers must be >= 1")
+        if topology is not None and topology.num_workers < self.num_workers:
+            raise ValueError(
+                f"topology places {topology.num_workers} workers, tier has "
+                f"{self.num_workers}")
         if codec not in ("none", "bf16", "int8"):
             raise ValueError(f"unknown codec {codec!r}")
         if replication < 1:
@@ -415,7 +423,7 @@ class SparseTier:
         if placement not in ("hash", "range"):
             raise ValueError(f"unknown placement policy {placement!r}")
         self.device = resolve_device(device)
-        self.topology = None
+        self.topology = topology
         self.fabric = fabric
         self.plan = plan
         self.default_placement = placement
@@ -429,7 +437,8 @@ class SparseTier:
         self.tables: dict[str, ShardedEmbeddingTable] = {}
         self.stats = SparseStats()
         self.round = 0
-        # with no topology every shard and its chain sit on rack 0
+        # shard home racks + anti-affine chain racks, shared by every table
+        # (the placement plan's layout, else the topology's, else rack 0)
         self.chain_racks = self._resolve_chain_racks()
         self.home_racks = self.chain_racks[:, 0]
         self._chains = [
@@ -440,22 +449,25 @@ class SparseTier:
         self._inbox: dict[int, dict[str, tuple[np.ndarray, torch.Tensor]]] = {}
         # per-(worker, table) dense codec residuals (worker-NIC EF)
         self._ef: dict[tuple[int, str], torch.Tensor] = {}
-        # sparse serving planes register here as weakrefs so on_restore()
-        # can invalidate their caches (serving is not ported yet)
+        # sparse serving planes (core/serving.SparseReadPlane) register
+        # here as weakrefs so on_restore() can invalidate their caches
         self.read_planes: list[Any] = []
         if fabric is not None and hasattr(fabric, "sparse_tiers"):
             fabric.sparse_tiers.append(weakref.ref(self))
 
     def _resolve_chain_racks(self) -> np.ndarray:
         """Shard -> chain-rack rows for the tier's shard count: the
-        attached plan's when its shard space and depth match, else rack 0
-        (no topology)."""
+        attached plan's when its shard space and depth match, else the
+        topology's plan-backed/default map, else rack 0."""
         plan = self.plan
         if (plan is not None
                 and getattr(plan, "num_shards", None) == self.num_shards
                 and plan.replica_racks.shape[1] >= self.replication):
             return np.asarray(plan.replica_racks[:, :self.replication],
                               dtype=np.int64).copy()
+        if self.topology is not None:
+            return self.topology.replica_racks(self.num_shards,
+                                               self.replication)
         return np.zeros((self.num_shards, self.replication), dtype=np.int64)
 
     # -- tables ----------------------------------------------------------
@@ -493,12 +505,22 @@ class SparseTier:
     def _worker_rack(self, worker: int) -> int:
         if not 0 <= worker < self.num_workers:
             raise ValueError(f"no worker {worker}")
-        return 0
+        if self.topology is None:
+            return 0
+        return self.topology.rack_of[worker]
 
-    def _us(self, nbytes: int) -> float:
-        """Event-clock cost of ``nbytes``: the link model's per-chunk time
-        pro-rated by bytes (hop cost 1.0 with no topology)."""
-        return self.wire_us_per_chunk * nbytes / (4 * self.chunk_elems)
+    def _hop_cost(self, src: int, dst: int) -> float:
+        if self.topology is None:
+            return 1.0
+        return self.topology.hop_cost(src, dst)
+
+    def _us(self, nbytes: int, src_rack: int, dst_rack: int) -> float:
+        """Event-clock cost of ``nbytes`` between two racks: the link
+        model's per-chunk time pro-rated by bytes, scaled by hop cost (the
+        JAX package's product order)."""
+        chunk_bytes = 4 * self.chunk_elems
+        return (self.wire_us_per_chunk * nbytes / chunk_bytes
+                * self._hop_cost(src_rack, dst_rack))
 
     def _account(self, nbytes: int, src_rack: int, dst_rack: int) -> None:
         if src_rack == dst_rack:
@@ -535,8 +557,9 @@ class SparseTier:
         for s, count in zip(*np.unique(owners, return_counts=True)):
             nbytes = int(per_row * count)
             self.stats.bytes_pulled += nbytes
-            self._account(nbytes, int(self.home_racks[s]), rack)
-            self.stats.sim_lookup_us += self._us(nbytes)
+            src = int(self.home_racks[s])
+            self._account(nbytes, src, rack)
+            self.stats.sim_lookup_us += self._us(nbytes, src, rack)
         block = table.rows(uniq)  # (U, D), order-preserving by global id
         # jagged -> padded *block-local* bags, built on the host and checked
         # there by the kernel's wrapper before they cross to the device
@@ -599,8 +622,9 @@ class SparseTier:
                 for s, count in zip(*np.unique(owners, return_counts=True)):
                     nbytes = row_wire_bytes(self.codec, table.dim, int(count))
                     self.stats.bytes_pushed += nbytes
-                    self._account(nbytes, rack, int(self.home_racks[s]))
-                    self.stats.sim_push_us += self._us(nbytes)
+                    dst = int(self.home_racks[s])
+                    self._account(nbytes, rack, dst)
+                    self.stats.sim_push_us += self._us(nbytes, rack, dst)
         self._inbox[worker] = staged
         self.stats.pushes += 1
         if len(self._inbox) >= self._barrier():
@@ -689,7 +713,18 @@ class SparseTier:
                 self.stats.rows_replicated += n
                 self.stats.bytes_replicated += nbytes
                 self._account(nbytes, src, dst)
-                self.stats.sim_replication_us += self._us(nbytes)
+                self.stats.sim_replication_us += self._us(nbytes, src, dst)
+
+    def serve_rack(self, shard_id: int, frontend_rack: int) -> int:
+        """The rack serving reads of ``shard_id``: the cheapest *backup*
+        rack when a chain exists (serving never queues on the primary
+        engine), the home rack otherwise."""
+        if not self._chains:
+            return int(self.home_racks[shard_id])
+        racks = self._chains[shard_id].racks[1:]
+        if self.topology is None:
+            return int(racks[0])
+        return self.topology.nearest_rack(racks, frontend_rack)
 
     def failover(self, shard_id: int) -> str:
         """One engine dies at a round edge: promote the chain head's
@@ -714,10 +749,12 @@ class SparseTier:
         self.stats.failovers += 1
         # re-silver: the promoted state streams back into the chain's
         # empty slot (first hop's racks price it)
-        src, dst = (chain.racks[0], chain.racks[1 % len(chain.racks)])
-        self.stats.bytes_replicated += resilver_bytes
-        self._account(resilver_bytes, src, dst)
-        self.stats.sim_replication_us += self._us(resilver_bytes)
+        if self.replication > 1:
+            src, dst = (chain.racks[0], chain.racks[1 % len(chain.racks)])
+            self.stats.bytes_replicated += resilver_bytes
+            self._account(resilver_bytes, src, dst)
+            self.stats.sim_replication_us += self._us(resilver_bytes, src,
+                                                      dst)
         chain.sync(self._shard_payload(shard_id), self.round)
         self.stats.resilvers += 1
         return "failed_over"
@@ -749,6 +786,8 @@ class SparseTier:
             plan = getattr(self.fabric, "plan", None)
         _check_plan(plan)
         self.plan = plan
+        if self.fabric is not None and self.fabric.topology is not None:
+            self.topology = self.fabric.topology  # plan-backed refresh
         old_tables = self.tables
         self.num_shards = new_num_shards
         self.chain_racks = self._resolve_chain_racks()
@@ -774,7 +813,7 @@ class SparseTier:
     def on_restore(self) -> None:
         """The owning fabric restored a snapshot: sparse serving caches
         stamped with rounds from the abandoned timeline must never serve
-        again."""
+        again (mirrors PBoxFabric.restore's read-plane invalidation)."""
         self.read_planes = [r for r in self.read_planes if r() is not None]
         for ref in self.read_planes:
             plane = ref()

@@ -45,9 +45,12 @@ the chunk space.  A snapshot of either package re-attaches on the other.
 
 The JAX constructor arguments ``use_pallas`` / ``fused_wire_path`` become
 ``device``: the kernels run on the card, their plain versions on the CPU,
-and the fused wire route is taken wherever the kernel supports it.  Serve
-tenants (``attach_serving`` and its kin) wait for the port's
-``core/serving.py``.
+and the fused wire route is taken wherever the kernel supports it.
+
+Serve tenants (``attach_serving``): a read plane (``core/serving.py``)
+attached as a co-tenant of a training job joins the fair-share priority
+totals and books its refresh streams on the box's link queues, but owns no
+chunk space; detaching the source job detaches its serve tenants with it.
 """
 from __future__ import annotations
 
@@ -63,6 +66,7 @@ from repro_torch.core.config import (
     FabricConfig,
     FaultConfig,
     PlacementConfig,
+    ServeConfig,
     SwitchConfig,
     WireConfig,
 )
@@ -278,9 +282,11 @@ class MultiJobFabric:
         self._core_slots_left = self.switch.core_slots
         self.switch_grants: dict[str, SwitchConfig] = {}
         self.jobs: dict[str, JobHandle] = {}
-        # serve tenants wait for the port's core/serving.py: the dict stays
-        # empty, so the fair-share totals are the JAX formula's
+        # serve tenants (core/serving.py): read planes attached as
+        # co-tenants join the fair-share priority totals and book refresh
+        # streams on the shared links, but own no chunk space
         self.serving: dict[str, Any] = {}
+        self._serve_source: dict[str, str] = {}  # serve name -> job name
         self._next_chunk_base = 0
         # plan-driven fair-share weight overrides (tenant name -> weight):
         # they shadow the attach-time JobSpec priorities; timing only
@@ -371,8 +377,10 @@ class MultiJobFabric:
     def detach(self, name: str) -> dict:
         """Evict a job; returns its snapshot (params, optimizer state, step,
         worker clocks, as host copies) so ``attach(snapshot=...)`` resumes
-        it, on this box or another one (elastic re-target included).  Any
-        switch-slot grant returns to the box's register budget."""
+        it, on this box or another one (elastic re-target included).  Serve
+        tenants reading the job detach with it (their planes keep working
+        against the now-dedicated fabric, uncontended).  Any switch-slot
+        grant returns to the box's register budget."""
         if name not in self.jobs:
             raise KeyError(f"job {name!r} is not attached")
         handle = self.jobs.pop(name)
@@ -385,19 +393,87 @@ class MultiJobFabric:
         # a detached job no longer contends: its handle, if still driven,
         # behaves like a dedicated fabric
         handle.fabric.shared_clock = None
+        for sname, src in list(self._serve_source.items()):
+            if src == name:
+                self.detach_serving(sname)
         return handle.fabric.snapshot()
 
-    # -- serve tenants ---------------------------------------------------
-    def attach_serving(self, spec: JobSpec, source: str, **kw: Any):
-        """A read plane as a co-tenant: waits for the port's
-        ``core/serving.py``."""
-        raise _unported_serving("attach_serving")
+    # -- serve tenants (core/serving.py) ---------------------------------
+    def attach_serving(
+        self,
+        spec: JobSpec,
+        source: str,
+        *,
+        config=None,
+        max_staleness: int = 0,
+        serve_us_per_read: float = 0.05,
+    ):
+        """Attach a read plane as a co-tenant serving ``source``'s params.
+
+        The serve job rides the same ``JobSpec`` surface as a training
+        tenant: ``priority`` joins the weighted-fair-share totals (so serve
+        traffic inflates co-tenants' wire stages and vice versa),
+        ``bandwidth_cap`` floors its own share, and ``num_workers`` is the
+        frontend count.  ``params``/``optimizer`` are ignored (a serve
+        tenant owns no chunk space: it reads the source job's replica
+        tails).  Contention is timing-only: attaching a serve tenant leaves
+        every training tenant bit-identical.
+
+        ``config`` (a ``core.config.ServeConfig``) carries the serving
+        knobs beyond the JobSpec (staleness bound, SLOs, admission,
+        hierarchy); the spec's name/priority/cap/frontend count override
+        the config's.  With ``config.hierarchy.enabled`` the attached plane
+        is a ``HierarchicalReadPlane`` sized by its ``frontends_per_tier``.
+        """
+        from repro_torch.core.serving import HierarchicalReadPlane, ReadPlane
+
+        if spec.name in self.jobs or spec.name in self.serving:
+            raise ValueError(f"tenant {spec.name!r} is already attached")
+        if source not in self.jobs:
+            raise KeyError(f"serve source job {source!r} is not attached")
+        if config is None:
+            config = ServeConfig(max_staleness=max_staleness,
+                                 serve_us_per_read=serve_us_per_read)
+        config = dataclasses.replace(
+            config,
+            name=spec.name,
+            priority=spec.priority,
+            bandwidth_cap=spec.bandwidth_cap,
+            num_frontends=spec.num_workers,
+        )
+        cls = (HierarchicalReadPlane if config.hierarchy.enabled
+               else ReadPlane)
+        plane = cls(self.jobs[source], config=config, shared=self)
+        self.serving[spec.name] = plane
+        self._serve_source[spec.name] = source
+        return plane
 
     def detach_serving(self, name: str):
-        raise _unported_serving("detach_serving")
+        """Detach a serve tenant: its plane keeps serving (standalone,
+        uncontended) but stops contending on the shared wire."""
+        if name not in self.serving:
+            raise KeyError(f"serve tenant {name!r} is not attached")
+        plane = self.serving.pop(name)
+        self._serve_source.pop(name, None)
+        self._share_override.pop(name, None)
+        plane.shared = None
+        return plane
 
     def serve_scale(self, plane) -> float:
-        raise _unported_serving("serve_scale")
+        """Fair-share inflation for one serve tenant's refresh streams:
+        total active priority weight (training + serve tenants) over the
+        plane's own, the rule ``wire_scales`` applies to training
+        transfers.  The plane applies its own bandwidth-cap floor on top.
+        A hierarchical plane's tier planes share their parent's attachment
+        (one serve tenant, one priority weight)."""
+        attached = self.serving.get(plane.name)
+        if attached is None or (attached is not plane
+                                and attached is not getattr(
+                                    plane, "parent", None)):
+            raise KeyError(
+                f"serve tenant {plane.name!r} is not attached to this box")
+        return (self._total_priority()
+                / self._priority_of(plane.name, plane.priority))
 
     def _total_priority(self) -> float:
         return (sum(self._priority_of(h.name, h.spec.priority)
@@ -581,16 +657,14 @@ class MultiJobFabric:
                 f"{h.chunk_base + h.fabric.space.num_chunks}), "
                 f"steps={t['steps']}, sim_step={t['sim_step_us']:.1f}us"
             )
+        for name, plane in self.serving.items():
+            lines.append(
+                f"  serve {name} (reads {self._serve_source.get(name)}): "
+                + plane.describe()
+            )
         for q in self.links.values():
             lines.append("  " + q.describe())
         return "\n".join(lines)
-
-
-def _unported_serving(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"the PyTorch tenancy tier attaches training jobs only; "
-        f"{what} needs the read plane (core/serving.py), which is not "
-        "ported yet")
 
 
 def dedicated_fabric(spec: JobSpec, box: MultiJobFabric) -> PBoxFabric:

@@ -341,3 +341,198 @@ def test_describe_names_the_whole_construction_surface():
     assert fab_text.startswith("[t0] PBoxFabric: 2 shards x ")
     for line in text.splitlines():
         assert line.strip() in fab_text
+
+
+# ---------------------------------------------------------------------------
+# the serving surface: ServeConfig and its legacy adapters
+# ---------------------------------------------------------------------------
+def snapshot_plane(**kw):
+    """The lightest ReadPlane: a static snapshot source on the CPU, no
+    fabric (construction-surface tests only need the adapter)."""
+    from repro_torch.core.serving import ReadPlane, SnapshotSource
+
+    return ReadPlane(SnapshotSource(np.zeros(TILE_ELEMS, np.float32),
+                                    device="cpu"), **kw)
+
+
+def test_serve_config_equivalent_to_legacy_kwargs():
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        legacy = snapshot_plane(max_staleness=3, num_frontends=2,
+                                name="edge", priority=2.0,
+                                bandwidth_cap=0.5, serve_us_per_read=0.1)
+    cfg = snapshot_plane(config=tconfig.ServeConfig(
+        max_staleness=3, num_frontends=2, name="edge", priority=2.0,
+        bandwidth_cap=0.5, serve_us_per_read=0.1))
+    assert legacy.config == cfg.config
+    assert tconfig.SERVE_LEGACY_KWARGS == jconfig.SERVE_LEGACY_KWARGS
+    assert tconfig.SPARSE_SERVE_LEGACY_KWARGS == \
+        jconfig.SPARSE_SERVE_LEGACY_KWARGS
+    sentinels = {"max_staleness": 3, "num_frontends": 2, "name": "edge",
+                 "priority": 2.0, "bandwidth_cap": 0.5,
+                 "serve_us_per_read": 0.1}
+    assert set(sentinels) == set(tconfig.SERVE_LEGACY_KWARGS)
+    built = tconfig.ServeConfig.from_legacy_kwargs(**sentinels)
+    for kw, path in tconfig.SERVE_LEGACY_KWARGS.items():
+        assert _resolve(built, path) == sentinels[kw]
+    assert dataclasses.astuple(built) == dataclasses.astuple(
+        jconfig.ServeConfig.from_legacy_kwargs(**sentinels))
+    sparse_sentinels = {"num_frontends": 4, "cache_rows": 99,
+                        "name": "rows", "serve_us_per_read": 0.2}
+    sparse = tconfig.ServeConfig.from_sparse_legacy_kwargs(
+        **sparse_sentinels)
+    for kw, path in tconfig.SPARSE_SERVE_LEGACY_KWARGS.items():
+        assert _resolve(sparse, path) == sparse_sentinels[kw]
+    assert dataclasses.astuple(sparse) == dataclasses.astuple(
+        jconfig.ServeConfig.from_sparse_legacy_kwargs(**sparse_sentinels))
+    assert tconfig.ServeConfig.from_sparse_legacy_kwargs().name == \
+        "sparse-serve"
+    assert tconfig.ServeConfig.from_legacy_kwargs().name == "serve"
+
+
+def test_serve_legacy_kwargs_warn_once_per_site_config_never():
+    from repro_torch.core.serving import ReadPlane, SnapshotSource
+
+    flat = np.zeros(TILE_ELEMS, np.float32)
+
+    def site():
+        return ReadPlane(SnapshotSource(flat, device="cpu"), max_staleness=1)
+
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        site()
+        site()
+    dep = [w for w in rec if issubclass(w.category, DeprecationWarning)
+           and "ServeConfig" in str(w.message)]
+    assert len(dep) == 1, "one site, two calls: exactly one warning"
+    assert "ReadPlane" in str(dep[0].message)
+    assert "docs/api.md" in str(dep[0].message)
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        snapshot_plane(config=tconfig.ServeConfig(max_staleness=1))
+        snapshot_plane()
+    assert not [w for w in rec if issubclass(w.category, DeprecationWarning)]
+    for call, jcall in (
+            (lambda: tconfig.ServeConfig.from_legacy_kwargs(staleness=1),
+             lambda: jconfig.ServeConfig.from_legacy_kwargs(staleness=1)),
+            (lambda: tconfig.ServeConfig.from_sparse_legacy_kwargs(
+                max_staleness=1),
+             lambda: jconfig.ServeConfig.from_sparse_legacy_kwargs(
+                 max_staleness=1))):
+        with pytest.raises(TypeError) as e:
+            call()
+        with pytest.raises(TypeError) as je:
+            jcall()
+        assert str(e.value) == str(je.value)
+    with pytest.raises(TypeError, match="not.*both"):
+        snapshot_plane(config=tconfig.ServeConfig(), max_staleness=1)
+
+
+def _hier(m, **kw):
+    return m.HierarchyConfig(enabled=True, **kw)
+
+
+SERVE_RULES = [
+    (lambda m: m.ServeConfig(num_frontends=0), "serve_frontends"),
+    (lambda m: m.ServeConfig(max_staleness=-1), "serve_staleness"),
+    (lambda m: m.ServeConfig(priority=0.0), "serve_priority"),
+    (lambda m: m.ServeConfig(bandwidth_cap=1.5), "serve_bandwidth_cap"),
+    (lambda m: m.ServeConfig(serve_us_per_read=-0.1), "serve_cost"),
+    (lambda m: m.ServeConfig(cache_rows=0), "serve_cache_rows"),
+    (lambda m: m.ServeConfig(slos=(("", m.SLOConfig()),)), "slo_tenant"),
+    (lambda m: m.ServeConfig(slos=(("a", m.SLOConfig()),
+                                   ("a", m.SLOConfig()))), "slo_tenant"),
+    (lambda m: m.ServeConfig(slos=(("a", m.SLOConfig(
+        latency_budget_us=0.0)),)), "slo_budget"),
+    (lambda m: m.ServeConfig(slos=(("a", m.SLOConfig(
+        staleness_bound=-1)),)), "slo_staleness"),
+    (lambda m: m.ServeConfig(slos=(("a", m.SLOConfig(priority=0.0)),)),
+     "slo_priority"),
+    (lambda m: m.ServeConfig(admission=m.AdmissionConfig(
+        enabled=True, rate_per_us=0.0)), "admission_rate"),
+    (lambda m: m.ServeConfig(admission=m.AdmissionConfig(
+        enabled=True, burst=0)), "admission_burst"),
+    (lambda m: m.ServeConfig(admission=m.AdmissionConfig(
+        enabled=True, shed_slack=0.0)), "admission_slack"),
+    (lambda m: m.ServeConfig(hierarchy=_hier(
+        m, staleness_ladder=(0,), frontends_per_tier=(1,))),
+     "hierarchy_ladder"),
+    (lambda m: m.ServeConfig(hierarchy=_hier(
+        m, staleness_ladder=(1, 4), frontends_per_tier=(1, 1))),
+     "hierarchy_ladder"),
+    (lambda m: m.ServeConfig(hierarchy=_hier(
+        m, staleness_ladder=(0, 4, 4), frontends_per_tier=(1, 1, 1))),
+     "hierarchy_ladder"),
+    (lambda m: m.ServeConfig(hierarchy=_hier(
+        m, staleness_ladder=(0, 4), frontends_per_tier=(1,))),
+     "hierarchy_frontends"),
+    (lambda m: m.ServeConfig(hierarchy=_hier(
+        m, staleness_ladder=(0, 4), frontends_per_tier=(1, 0))),
+     "hierarchy_frontends"),
+    (lambda m: m.ServeConfig(hierarchy=_hier(
+        m, staleness_ladder=(0, 4), frontends_per_tier=(1, 1),
+        geo_oversubscription=0.5)), "hierarchy_geo"),
+]
+
+
+@pytest.mark.parametrize("build,rule", SERVE_RULES,
+                         ids=[f"{r}{i}" for i, (_, r) in
+                              enumerate(SERVE_RULES)])
+def test_serve_validation_rules_are_named(build, rule):
+    cfg = build(tconfig)
+    with pytest.raises(FabricConfigError, match=rf"\[{rule}\]") as ei:
+        cfg.validate()
+    with pytest.raises(jconfig.FabricConfigError) as ej:
+        build(jconfig).validate()
+    assert ei.value.rule == ej.value.rule == rule
+    assert str(ei.value) == str(ej.value)
+    with pytest.raises(FabricConfigError):
+        snapshot_plane(config=cfg)
+    relaxed = dataclasses.replace(
+        cfg,
+        admission=dataclasses.replace(cfg.admission, enabled=False),
+        hierarchy=dataclasses.replace(cfg.hierarchy, enabled=False))
+    if rule.startswith(("admission", "hierarchy")):
+        assert relaxed.validate() is relaxed
+
+
+def test_serve_describe_round_trips_the_surface():
+    def build(m):
+        return m.ServeConfig(
+            num_frontends=2, max_staleness=3, name="edge",
+            bandwidth_cap=0.25,
+            slos=(("rt", m.SLOConfig(latency_budget_us=120.0,
+                                     priority=2.0)),),
+            admission=m.AdmissionConfig(enabled=True, rate_per_us=1.5,
+                                        burst=6, shed_slack=0.4),
+            hierarchy=m.HierarchyConfig(enabled=True,
+                                        staleness_ladder=(0, 2, 8),
+                                        frontends_per_tier=(1, 1, 2)))
+
+    text = build(tconfig).validate().describe()
+    assert text == build(jconfig).validate().describe()
+    for token in ("edge", "frontends=2", "stale<=3", "cap=0.25",
+                  "rt(<120us", "1.5/us burst=6", "ladder=0/2/8",
+                  "frontends=1/1/2", "geo=1:8"):
+        assert token in text, f"describe() lost {token}"
+
+
+def test_workload_config_describes_and_validates_like_jax():
+    """The workload surface (its rules are held one by one, message for
+    message, in test_torch_workload.py): describe() equal for a mix of
+    every arrival shape and loop kind."""
+    def build(m):
+        return m.WorkloadConfig(tenants=(
+            m.TenantLoadConfig(name="o", n_requests=5,
+                               diurnal=m.DiurnalConfig(enabled=True),
+                               flash=m.FlashCrowdConfig(enabled=True)),
+            m.TenantLoadConfig(name="p", n_requests=3, batch_max=2,
+                               arrival=m.ArrivalConfig(process="mmpp")),
+            m.TenantLoadConfig(name="c", clients=2, think_us=4.0,
+                               requests_per_client=3, staleness_req=2),
+        ))
+
+    cfg = build(tconfig)
+    assert cfg.validate() is cfg
+    assert cfg.describe() == build(jconfig).validate().describe()
+    assert dataclasses.astuple(cfg) == dataclasses.astuple(build(jconfig))

@@ -366,3 +366,61 @@ def test_smoke_tenancy_on_card_matches_cpu(cuda):
     assert launches["2t/shards4/racks2/none"]["fused_agg_opt"] > 0
     assert launches["3t/shards1/racks1/int8"]["wire_fused"] > 0
     assert launches["switch/grant+refuse+return"]["wire_fused"] > 0
+
+
+@pytest.mark.gpu
+def test_smoke_serving_on_card_matches_cpu(cuda):
+    """chip_smoke.py's phase 22: the read planes, the front door over
+    generated traces, serve tenants and sparse serving at the SMOKE
+    config, every case on the card against the CPU bitwise, and prefill
+    and decode card against CPU within the stated tolerance."""
+    launches = _chip_smoke().smoke_serve_check(cuda)
+    assert len(launches) == 15
+    assert launches["plane/racks2/R3"]["fused_agg_opt"] > 0
+    assert launches["tenants/int8"]["wire_fused"] > 0
+    assert launches["sparse/R2/racks2"]["embedding_bag"] > 0
+
+
+@pytest.mark.gpu
+def test_cached_read_keeps_its_bits_on_card(cuda):
+    """On the card the kernels write slabs and chain buffers in place: a
+    read cached at ``max_staleness=1`` still holds its version's bits after
+    another round, at R = 1, 2 and 3, and a fresh read equals the card
+    fabric and the same fabric run on the CPU."""
+    from repro_torch.core.config import FaultConfig, ServeConfig
+    from repro_torch.core.serving import ReadPlane
+    from repro_torch.core.topology import NetworkTopology
+
+    space = ParamSpace.build({"w": torch.zeros(5 * SLAB + 77)},
+                             chunk_elems=SLAB)
+    rng = np.random.default_rng(3)
+    grads = [torch.from_numpy(rng.standard_normal(space.flat_elems)
+                              .astype(np.float32)) for _ in range(4)]
+    for replication in (1, 2, 3):
+        runs = {}
+        for dev in (cuda, torch.device("cpu")):
+            fab = PBoxFabric(
+                space, topt.momentum(0.05, 0.9), torch.zeros(
+                    space.flat_elems), device=dev,
+                config=FabricConfig(
+                    num_shards=3, num_workers=2,
+                    wire=WireConfig(topology=NetworkTopology(2, 2)),
+                    faults=FaultConfig(replication=replication)))
+            plane = ReadPlane(fab, config=ServeConfig(max_staleness=1))
+            reads = []
+            for r in range(3):
+                for w in range(2):
+                    fab.pull(w)
+                for w in range(2):
+                    fab.push(w, grads[(w + r) % 4].to(dev))
+                reads.append(plane.read(0))
+                reads.append(ReadPlane(fab, config=ServeConfig()).read(0))
+            runs[dev.type] = [(r.version, r.cache_hit, r.flat.cpu().clone())
+                              for r in reads]
+            # a read cached at version 1 kept its bits through round 2
+            assert reads[2].cache_hit and reads[2].version == 1
+            assert torch.equal(reads[2].flat.cpu(), reads[0].flat.cpu())
+            assert torch.equal(reads[-1].flat.cpu(), fab.params.cpu())
+        for a, b in zip(runs["cuda"], runs["cpu"]):
+            assert a[:2] == b[:2]
+            assert torch.equal(a[2].view(torch.int32), b[2].view(torch.int32))

@@ -153,3 +153,46 @@ def test_tenancy_imports_with_jax_blocked():
         timeout=180, cwd=ROOT,
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+SERVING_SLICE = ("core/serving.py", "core/workload.py", "core/hierarchy.py",
+                 "core/config.py", "core/sparse.py", "core/tenancy.py",
+                 "models/transformer.py", "launch/__init__.py",
+                 "launch/serve.py", "checkpoint/checkpointer.py")
+
+
+@pytest.mark.parametrize("module", SERVING_SLICE)
+def test_serving_slice_modules_are_checked(module):
+    """The serving path's modules (the read planes, the workload and tier
+    ladder, the inference path, the serve driver) are among the files
+    checked above."""
+    assert ROOT / "src" / "repro_torch" / module in PORT_FILES
+
+
+@pytest.mark.parametrize("module", ["repro_torch.core.serving",
+                                    "repro_torch.core.workload",
+                                    "repro_torch.core.hierarchy",
+                                    "repro_torch.launch.serve"])
+def test_serving_imports_with_jax_blocked(module):
+    """Each serving module imports on its own in a process where ``import
+    jax`` and ``import repro`` fail, and pulls in neither; the serve
+    driver's ``--help`` runs as ``python -m``."""
+    code = (
+        "import importlib, sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        f"importlib.import_module({module!r})\n"
+        "assert not any(m.split('.')[0] in ('jax', 'jaxlib', 'repro')\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ok')\n"
+    )
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=180, cwd=ROOT, env=env)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    if module.endswith(".serve"):
+        out = subprocess.run(
+            [sys.executable, "-m", module, "--help"], capture_output=True,
+            text=True, timeout=180, cwd=ROOT, env=env)
+        assert out.returncode == 0 and "--serve-replication" in out.stdout

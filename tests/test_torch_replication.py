@@ -15,9 +15,8 @@ two tenancy cases (a co-tenant's shard crash, a box-wide engine crash) run
 each ``MultiJobFabric`` on both packages and compare them with
 ``tests/test_torch_tenancy.assert_box_same``.
 
-Not mirrored here: the 2-rack form of
-``test_chaos_sparse_table_failover``, which waits for the sparse tier under
-a topology; its 1-rack form is here.
+``test_chaos_sparse_table_failover`` runs in its 1-rack form and, with the
+sparse tier under a topology, its 2-rack form (the JAX test's).
 """
 import dataclasses
 import json
@@ -896,3 +895,54 @@ def test_chaos_sparse_table_failover():
                                       tiers[0].row_versions("t0"))
     assert dataclasses.asdict(tiers[1].stats) == \
         dataclasses.asdict(tiers[0].stats)
+
+
+def test_chaos_sparse_table_failover_two_racks():
+    """tests/test_replication.py's form of the sparse chaos soak: the
+    fabric over 2 racks (1:4 core), a seeded plan of shard crashes over 2
+    racks, the attached int8 SparseTier inheriting the topology.  Both
+    tiers fail over bit-exactly; port == JAX (tables, versions, every
+    SparseStats field incl. the rack and core bytes and ``sim_*`` floats)
+    and port == its failure-free twin."""
+    seed, rounds, v, d = 0, 10, 96, 8
+    plan = FaultPlan.generate(seed, rounds=rounds, num_shards=4,
+                              num_workers=K, num_racks=2,
+                              shard_crash_rate=0.25)
+    events = [(e.round, e.kind, e.target) for e in plan.events]
+    init = np.random.default_rng(seed).standard_normal((v, d)).astype(
+        np.float32)
+
+    def build(pkg, fab):
+        kw = {} if pkg is jsparse else {"device": "cpu"}
+        tier = pkg.SparseTier(fabric=fab, codec="int8", lr=0.05, **kw)
+        tier.add_table("t0", init)
+        return tier
+
+    ref, fab = pair(shards=4, racks=2, replication=2, events=events)
+    base = port(shards=4, racks=2, replication=2)
+    tiers = [build(jsparse, ref), build(tsparse, fab), build(tsparse, base)]
+    assert tiers[1].topology is fab.topology is not None
+    np.testing.assert_array_equal(tiers[1].chain_racks, tiers[0].chain_racks)
+    grads = make_grads(fab.space.flat_elems, seed=seed)
+    for r in range(rounds):
+        for w in range(K):
+            rng = np.random.default_rng((seed, r, w))
+            ids = rng.integers(0, v, size=10)
+            rows = rng.standard_normal((10, d)).astype(np.float32)
+            for f, tier in zip((ref, fab, base), tiers):
+                tier.push(w, {"t0": (ids, _to(f, rows))})
+                f.pull(w)
+                f.push(w, _to(f, grads[(w + r) % K]))
+    n_crashes = sum(e.kind == "shard_crash" for e in plan.events
+                    if e.round <= fab.step)
+    assert n_crashes and tiers[1].stats.failovers == n_crashes
+    assert_fault_same(ref, fab)
+    assert same_bits(base, fab)
+    for tier in tiers[1:]:
+        np.testing.assert_array_equal(_bits(tier.table("t0").numpy()),
+                                      _bits(tiers[0].table("t0")))
+        np.testing.assert_array_equal(tier.row_versions("t0"),
+                                      tiers[0].row_versions("t0"))
+    assert dataclasses.asdict(tiers[1].stats) == \
+        dataclasses.asdict(tiers[0].stats)
+    assert tiers[1].stats.bytes_core_link > 0

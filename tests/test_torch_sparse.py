@@ -1,6 +1,7 @@
 """The port's sparse tier (``repro_torch.core.sparse``) against the JAX tier.
 
-Mirrors the topology-free, serving-free cases of tests/test_sparse_tier.py.
+Mirrors the topology-free, serving-free cases of tests/test_sparse_tier.py
+(the topology and serving cases are in test_torch_sparse_serving.py).
 Both tiers see the same numpy inputs; the port runs on the CPU, where its
 kernels take their plain versions (bitwise equal to the CUDA kernels).
 Because the port repeats the JAX tier's float operations in the same
@@ -423,9 +424,29 @@ def test_tier_barrier_follows_fabric_dead_workers():
 
 
 def test_unported_knobs_raise():
-    with pytest.raises(NotImplementedError, match="topology"):
-        tsparse.SparseTier(num_shards=2, num_workers=2, topology=object(),
-                           device="cpu")
+    # a topology is ported now: the tier takes the JAX tier's home and
+    # chain racks from it and refuses one that places too few workers with
+    # the JAX tier's message
+    from repro.core.topology import NetworkTopology as JaxTopology
+    from repro_torch.core.topology import NetworkTopology
+
+    racked = tsparse.SparseTier(num_shards=4, num_workers=2, replication=2,
+                                device="cpu",
+                                topology=NetworkTopology(num_workers=4,
+                                                         num_racks=2))
+    jracked = jsparse.SparseTier(num_shards=4, num_workers=2, replication=2,
+                                 topology=JaxTopology(num_workers=4,
+                                                      num_racks=2))
+    np.testing.assert_array_equal(racked.chain_racks, jracked.chain_racks)
+    np.testing.assert_array_equal(racked.home_racks, jracked.home_racks)
+    with pytest.raises(ValueError) as e:
+        tsparse.SparseTier(num_shards=2, num_workers=3, device="cpu",
+                           topology=NetworkTopology(num_workers=2,
+                                                    num_racks=2))
+    with pytest.raises(ValueError) as je:
+        jsparse.SparseTier(num_shards=2, num_workers=3,
+                           topology=JaxTopology(num_workers=2, num_racks=2))
+    assert str(e.value) == str(je.value)
     # a plan without row maps gives the chain racks, as in the JAX tier;
     # one with solved row maps still raises
     from repro.core.placement import PlacementPlan as JaxPlacementPlan

@@ -17,7 +17,8 @@ Beyond the mirror: a tenant detached on one package re-attaches on the
 other; ``JobSpec.params`` stays untouched, a detach snapshot stays equal
 after the re-attached job trains on (and restores twice to the same
 bits), and no two tenants share storage; ``apply_tenant_shares`` /
-``apply_plan_delta`` in mid-run; ``attach_serving`` refuses.  The
+``apply_plan_delta`` in mid-run; a serve tenant beside two training jobs
+(the rest of the serve-tenant cases are in test_torch_serving.py).  The
 switch-grant, failover and fused-wire tenancy cases are in
 test_torch_switch.py, test_torch_replication.py and
 test_torch_wire_path.py.
@@ -588,15 +589,48 @@ def test_tenant_shares_mid_run_match_jax():
 
 
 def test_serving_tenants_are_refused():
-    b = box(PORT, num_shards=2)
-    spec, _ = make_job(PORT, "A", 1.0)
-    b.attach(spec)
-    for call in (lambda: b.attach_serving(spec, "A"),
-                 lambda: b.detach_serving("A"),
-                 lambda: b.serve_scale(None)):
-        with pytest.raises(NotImplementedError, match="core/serving.py"):
-            call()
-    assert b.serving == {} and b._total_priority() == 1.0
+    """Serve tenants are ported now: nothing is refused.  A read plane
+    attached as a co-tenant (priority 2, bandwidth cap 0.5) beside two
+    training jobs contends on the fair-share clock exactly as in JAX: the
+    box, the link queues' bookings, the plane's stats and reads, the serve
+    share and ``_total_priority`` all equal, and a detach of the source
+    job detaches the serve tenant with it."""
+    def run(pkg):
+        b = box(pkg, num_shards=2, num_racks=2)
+        jobs = [make_job(pkg, "A", 1.0, replication=2),
+                make_job(pkg, "B", 1.5, priority=2.0)]
+        handles = [b.attach(s) for s, _ in jobs]
+        plane = b.attach_serving(
+            pkg.ten.JobSpec(name="S", params=None, optimizer=None,
+                            num_workers=2, priority=2.0, bandwidth_cap=0.5),
+            "A", max_staleness=1)
+        shares = [b.serve_scale(plane), b._total_priority(),
+                  [b.wire_scales(h.fabric) for h in handles]]
+        pairs = [(h, g) for h, (_, g) in zip(handles, jobs)]
+        reads = []
+        for step in range(3):
+            drive(pkg, pairs, steps=step + 1)
+            reads.append(plane.read_batch(step % 2, 2)[0])
+        desc = b.describe()
+        by_job = {n: dict(q.stats.by_job) for n, q in b.links.items()}
+        b.detach("A")
+        return b, plane, shares, reads, desc, by_job
+
+    (jb, jp, jshares, jreads, jdesc, jby), (tb, tp, shares, reads, desc,
+                                             by) = both(run)
+    assert shares == jshares and desc == jdesc and by == jby
+    assert "serve S (reads A)" in desc and by["core"].get("S", 0.0) > 0.0
+    assert_box_same(jb, tb)
+    assert tp.stats.sim_serve_us == jp.stats.sim_serve_us
+    assert tp.describe() == jp.describe()
+    for jr, tr in zip(jreads, reads):
+        assert (tr.version, tr.staleness, tr.cache_hit, tr.sim_us) == \
+            (jr.version, jr.staleness, jr.cache_hit, jr.sim_us)
+        np.testing.assert_array_equal(
+            tr.flat.numpy().view(np.uint32),
+            np.asarray(jr.flat, np.float32).view(np.uint32))
+    assert tb.serving == {} and tp.shared is None
+    assert tb._total_priority() == jb._total_priority() == 2.0
 
 
 @pytest.mark.parametrize("codec", ["none", "bf16", "int8"])

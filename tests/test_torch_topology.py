@@ -559,10 +559,31 @@ def test_describe_names_the_topology():
 
 
 def test_sparse_tier_on_a_topology_fabric_still_raises():
-    """The sparse tier under a topology is not ported: attaching one to a
-    topology fabric raises, as before the rack tier existed."""
+    """Attaching a sparse tier to a topology fabric no longer raises (the
+    sparse tier under a topology is ported): the tier inherits the
+    fabric's topology and chain racks, and a round of pushes and a lookup
+    price their rack and core bytes and ``sim_*`` floats as the JAX tier
+    attached to the JAX fabric does."""
+    from repro.core.sparse import SparseTier as JaxSparseTier
     from repro_torch.core.sparse import SparseTier
 
     fab, _, _ = torch_fabric("sync", "none", 2)
-    with pytest.raises(NotImplementedError, match="topology"):
-        SparseTier(fabric=fab)
+    ref, _, _ = jax_fabric("sync", "none", 2)
+    tier = SparseTier(fabric=fab, codec="int8")
+    jtier = JaxSparseTier(fabric=ref, codec="int8")
+    assert tier.topology is fab.topology
+    np.testing.assert_array_equal(tier.chain_racks, jtier.chain_racks)
+    init = np.random.default_rng(3).standard_normal((40, 8)).astype(
+        np.float32)
+    for t, to in ((tier, torch.from_numpy), (jtier, jnp.asarray)):
+        t.add_table("e", init)
+        rng = np.random.default_rng(4)
+        for w in range(fab.num_workers):
+            ids = rng.integers(0, 40, size=6)
+            t.push(w, {"e": (ids, to(rng.standard_normal((6, 8)).astype(
+                np.float32)))})
+        t.lookup(3, "e", np.array([1, 5, 5, 39]), np.array([0, 2, 4]))
+    np.testing.assert_array_equal(_bits(tier.table("e").numpy()),
+                                  _bits(jtier.table("e")))
+    assert dataclasses.asdict(tier.stats) == dataclasses.asdict(jtier.stats)
+    assert tier.stats.bytes_core_link > 0 and tier.stats.bytes_rack_link > 0

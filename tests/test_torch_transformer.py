@@ -145,3 +145,127 @@ def test_loss_and_grad_frees_the_weights_without_gc():
         assert alive() is None
     finally:
         gc.enable()
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill, decode_step and the unrolled window caches against JAX
+# ---------------------------------------------------------------------------
+# f32 at SMOKE: the greedy ids are held equal, the caches and logits at
+# rtol 1e-5 / atol 1e-5 (XLA's and torch's matmul and softmax summation
+# orders differ in the last bits; the logits are O(0.1-1))
+SERVE_TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _serve_pair(batch=2, prompt=12):
+    from repro.models import transformer as jT
+
+    jcfg = jax_get_arch("gemma3-1b").smoke_config
+    tcfg = get_arch("gemma3-1b").smoke_config
+    jparams = jax_init(jcfg, jax.random.PRNGKey(0), tp=1)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    toks = np.random.default_rng(7).integers(
+        0, tcfg.vocab, (batch, prompt)).astype(np.int32)
+    return jT, jcfg, tcfg, jparams, tparams, toks
+
+
+def _jax_logits(jT, jparams, x, jcfg):
+    """The JAX head's masked f32 logits of final hidden states ``x``."""
+    from repro.models.common import rms_norm as jrms
+
+    h = jrms(x, jparams["ln_f"], jcfg.eps)
+    logits = (h @ jparams["head"].T).astype(jnp.float32)
+    gid = jnp.arange(jparams["head"].shape[0])
+    return np.asarray(jnp.where(gid < jcfg.vocab, logits, -1e30))
+
+
+@pytest.mark.parametrize("prompt", [5, 12])
+def test_prefill_and_decode_match_jax(prompt):
+    """prefill over a prompt shorter and longer than the 8-token window,
+    then 6 greedy decode steps: ids equal, caches and the decode steps'
+    logits at SERVE_TOL, and the port's decode == its own prefill of the
+    longer sequence (the tests/test_models_smoke.py:18 check)."""
+    jT, jcfg, tcfg, jparams, tparams, toks = _serve_pair(prompt=prompt)
+    max_seq, steps = 24, 6
+    dist = Dist.none()
+    jnxt, jcache = jT.prefill(jparams, jnp.asarray(toks), jcfg, dist, 1,
+                              max_seq)
+    tnxt, tcache = tt.prefill(tparams, torch.from_numpy(toks), tcfg, max_seq)
+    np.testing.assert_array_equal(tnxt.numpy(), np.asarray(jnxt))
+    assert tnxt.dtype == torch.int32 and tuple(tcache["k"].shape) == \
+        tuple(jcache["k"].shape)
+    for key in ("k", "v"):
+        np.testing.assert_allclose(tcache[key].numpy(),
+                                   np.asarray(jcache[key]), **SERVE_TOL)
+    seq = toks
+    for i in range(steps):
+        pos = prompt + i
+        jnxt2, jcache = jT.decode_step(jparams, jnxt, jcache, jnp.int32(pos),
+                                       jcfg, dist, 1)
+        tx = tt.decode_hidden(tparams, tnxt, tcache, pos, tcfg)
+        tlogits = tt.head_logits(tparams, tx, tcfg).numpy()
+        tnxt2 = tt._greedy_logits(tparams, tx, tcfg)
+        np.testing.assert_array_equal(tnxt2.numpy(), np.asarray(jnxt2))
+        # the decode step's logits against the JAX forward of the longer
+        # sequence at that position
+        seq = np.concatenate([seq, tnxt.numpy()[:, None]], axis=1)
+        jx = jT.forward(jparams, jnp.asarray(seq), jcfg, dist, 1)[0]
+        np.testing.assert_allclose(
+            tlogits, _jax_logits(jT, jparams, jx[:, -1], jcfg), **SERVE_TOL)
+        # and the port's own prefill of the longer sequence
+        pnxt, _ = tt.prefill(tparams, torch.from_numpy(seq), tcfg, max_seq)
+        np.testing.assert_array_equal(pnxt.numpy(), tnxt2.numpy())
+        jnxt, tnxt = jnxt2, tnxt2
+    for key in ("k", "v"):
+        np.testing.assert_allclose(tcache[key].numpy(),
+                                   np.asarray(jcache[key]), **SERVE_TOL)
+
+
+def test_unrolled_decode_matches_jax_and_the_scan_decode():
+    """The rolling-window caches (local layers keep 8 slots) replayed token
+    by token past the window: ids equal to JAX's unrolled path, every
+    layer's cache at SERVE_TOL, and the logits equal to the port's scan
+    decode at SERVE_TOL (the tests/test_models_smoke.py:44 check, here with
+    local layers)."""
+    jT, jcfg, tcfg, jparams, tparams, toks = _serve_pair(prompt=12)
+    max_seq, dist = 24, Dist.none()
+    jcu = jT.init_cache_unrolled(jcfg, 2, max_seq, 1)
+    tcu = tt.init_cache_unrolled(tcfg, 2, max_seq, device="cpu")
+    assert [tuple(c["k"].shape) for c in tcu] == \
+        [tuple(c["k"].shape) for c in jcu]
+    scan = tt.init_cache(tcfg, 2, max_seq, device="cpu")
+    jcur = jnp.asarray(toks[:, 0])
+    tcur = torch.from_numpy(toks[:, 0])
+    scur = tcur
+    for i in range(1, 18):
+        jnew, jcu = jT.decode_step_unrolled(jparams, jcur, jcu,
+                                            jnp.int32(i - 1), jcfg, dist, 1)
+        ux = tt.decode_hidden_unrolled(tparams, tcur, tcu, i - 1, tcfg)
+        sx = tt.decode_hidden(tparams, scur, scan, i - 1, tcfg)
+        tnew = tt._greedy_logits(tparams, ux, tcfg)
+        np.testing.assert_array_equal(tnew.numpy(), np.asarray(jnew))
+        np.testing.assert_allclose(tt.head_logits(tparams, ux, tcfg).numpy(),
+                                   tt.head_logits(tparams, sx, tcfg).numpy(),
+                                   **SERVE_TOL)
+        if i < 12:  # replay the prompt, then generate
+            jcur = jnp.asarray(toks[:, i])
+            tcur = scur = torch.from_numpy(toks[:, i])
+        else:
+            jcur, tcur = jnew, tnew
+            scur = tnew
+    for jc, tc in zip(jcu, tcu):
+        for key in ("k", "v"):
+            np.testing.assert_allclose(tc[key].numpy(), np.asarray(jc[key]),
+                                       **SERVE_TOL)
+    step_ids, caches = tt.decode_step_unrolled(tparams, tcur, tcu, 17, tcfg)
+    assert caches is tcu and step_ids.shape == (2,)
+
+
+def test_serving_caches_default_to_the_card(monkeypatch):
+    tcfg = get_arch("gemma3-1b").smoke_config
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tt.init_cache(tcfg, 1, 8)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tt.init_cache_unrolled(tcfg, 1, 8)
+    assert tt.init_cache(tcfg, 1, 8, device="cpu")["k"].shape == \
+        (tcfg.n_layers, 1, 8, tcfg.n_kv_heads, tcfg.head_dim)
