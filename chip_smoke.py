@@ -180,6 +180,35 @@ raises on failure (the script then exits non-zero and prints no result):
    and unrolled decodes in f32, card against CPU: ids equal, logits
    within 1e-4 of the largest.
 
+23. the closed loop at full width (under deterministic algorithms, after
+   phase 15): gemma3-1b, 2 workers (one a rack, 1:4 core), AdamW, codec
+   none, R = 2, a ReadPlane of 2 frontends, an Autoscaler (``min_shards``
+   4, ``max_shards`` 8, ``scale_up_busy_us`` 0.0, cooldown 10 rounds,
+   ``solve_placement``).  Round 1; ``auto.step()`` doubles the shards to 8
+   through ``reshard`` and ``resolve_placement`` applies the solver's
+   deltas; rounds 2-3; ``auto.apply_plan`` of a 4-shard plan from
+   ``PlacementProblem.standard(...).solve(seed=0)`` (one ``shard_count``
+   delta: ``reshard(4, plan=...)``); round 4.  Counts set to 0 just before
+   and read just after: 24 fused_agg_opt, no codec launch;
+   ``rescales == 2``; the live plan equals the host re-solve after
+   ``step()`` (chain and frontend racks) and the applied plan's chain
+   racks after ``apply_plan``, the events equal ``diff_plans``; params
+   and both AdamW slots hash (SHA-1) to phase 15's fixed-layout R = 1 run
+   A and the losses equal its; a read after round 4 equals
+   ``fab.params``, a read taken before the second reshard keeps its bits.
+   Rounds, ``step`` / ``apply_plan`` with the solve split out, reshards,
+   allocator retries and the peak are reported;
+24. the closed loop at the SMOKE config, card == CPU bitwise in params,
+   slots, residuals, every stats field, fault traces, ``auto.events``,
+   ``describe()``, ``telemetry()``, reads and sparse tables: codec none /
+   int8 x racks 1 / 2 / 4 x shards 1 -> 2, 2 -> 8, 8 -> 2; scale-up and
+   scale-down from busy telemetry; straggler proposals on the delta path;
+   ``resolve_placement``; two sparse autoscaled runs whose 8-shard plan
+   carries a solved row map from a Zipf row load; a sparse reshard and
+   failover; ``tenant_shares`` through ``shared=`` on a MultiJobFabric;
+   each autoscaled run equal to its fixed-layout twin on the card, each
+   case's launches equal to the CPU run's plain-version calls.
+
 The line before the last is the kernel table as JSON (each row with its
 launches on every path); the last line is ``{"ok": true, "device":
 {...}}``.
@@ -2204,6 +2233,14 @@ def host_state(fab) -> list:
     return out
 
 
+def state_digest(arrays: list) -> str:
+    """SHA-1 over host arrays' bytes, in order (no copy)."""
+    h = hashlib.sha1()
+    for x in arrays:
+        h.update(memoryview(x).cast("B"))
+    return h.hexdigest()
+
+
 def same_host_bits(a: list, b: list) -> bool:
     import numpy as np
 
@@ -2297,6 +2334,7 @@ def failover_path(dev, gw: GemmaWorkers, rehearsal: dict) -> dict:
         raise AssertionError("a replication-1 fabric built a chain")
     core_a = fab.stats.bytes_core_link
     want = host_state(fab)
+    digest_a = state_digest(want)  # phase 23's fixed-layout reference
     del fab
     torch.cuda.empty_cache()
     _check_counts("failover run A", launches_a,
@@ -2424,7 +2462,8 @@ def failover_path(dev, gw: GemmaWorkers, rehearsal: dict) -> dict:
             "chain_ms": chain_ms, "chain_bound_ms": chain_bound,
             "failover": failover, "resilver_bound_ms": resilver_bound,
             "reshard_ms": reshard_ms, "reshard_peak_bytes": reshard_peak,
-            "peak_a": peak_a, "peak_b": peak_b}
+            "peak_a": peak_a, "peak_b": peak_b, "digest_a": digest_a,
+            "losses_a": losses_a}
 
 
 def smoke_fault_check(dev) -> dict:
@@ -2931,6 +2970,15 @@ def tenancy_path(dev) -> dict:
                               for k in twin_a_launches}}
 
 
+def _residuals(fab) -> list:
+    """Every codec error-feedback residual of ``fab`` (None where a stage
+    keeps none), in a fixed order: rack uplinks, the core, the rack-side
+    worker NICs, the fabric's worker NICs."""
+    return ([r._uplink_ef for r in fab.rack_aggs] + [fab._core_ef]
+            + [r._worker_ef[w] for r in fab.rack_aggs for w in r.members]
+            + [fab._worker_ef[w] for w in sorted(fab._worker_ef)])
+
+
 class PlainCalls:
     """Counts the calls of each kernel's plain version while the block
     runs (module attributes, swapped in and restored): what a CPU run
@@ -3057,9 +3105,7 @@ def smoke_tenancy_check(dev) -> dict:
         raise AssertionError("tenant scheduler livelock")
 
     def fab_bits(fab):
-        efs = ([r._uplink_ef for r in fab.rack_aggs] + [fab._core_ef]
-               + [r._worker_ef[w] for r in fab.rack_aggs for w in r.members]
-               + [fab._worker_ef[w] for w in sorted(fab._worker_ef)])
+        efs = _residuals(fab)
         return ([fab.params.cpu()]
                 + [fab._assemble_rows(lambda sh, k=k: sh.state[k]).reshape(
                     -1).cpu() for k in range(fab.spec.num_state_slots)]
@@ -4018,6 +4064,628 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
+# -- phases 23 and 24: the placement solver and the closed-loop autoscaler ----
+AUTO_ROUNDS = FAULT_ROUNDS  # phase 15's run A is the fixed-layout twin
+AUTO_POLICY = dict(min_shards=SHARDS, max_shards=2 * SHARDS,
+                   scale_up_busy_us=0.0, cooldown_rounds=10,
+                   solve_placement=True)
+
+
+def contiguous_owner(num_chunks: int, num_shards: int):
+    """The contiguous policy's chunk -> shard map (``_partition``)."""
+    import numpy as np
+
+    sizes = [len(a) for a in np.array_split(np.arange(num_chunks),
+                                            num_shards)]
+    return np.repeat(np.arange(num_shards, dtype=np.int64), sizes)
+
+
+def autoscale_path(dev, gw: GemmaWorkers, ref: dict) -> dict:
+    """Phase 23: the closed loop at full width.  gemma3-1b, 2 workers (one
+    in each of 2 racks, 1:4 core), AdamW, codec none, R = 2, 4 shards, a
+    ReadPlane of 2 frontends, and an Autoscaler under AUTO_POLICY.  Round
+    1; ``auto.step()`` (any busy time is above the 0.0 threshold: the
+    shard count doubles to 8 through ``reshard``, then
+    ``resolve_placement`` applies the solver's deltas); rounds 2 and 3; a
+    read; ``auto.apply_plan`` of the 4-shard plan that
+    ``PlacementProblem.standard(...).solve(seed=0)`` builds from the live
+    shapes (one ``shard_count`` delta: ``reshard(4, plan=plan)``); round
+    4; a read.
+
+    Checks: the counts set to 0 just before the sequence and read just
+    after give 4 + 8 + 8 + 4 fused_agg_opt launches and no codec launch;
+    ``rescales == 2``; after ``step()`` the live plan equals the solved
+    plan (the same problem solved again on the host) in chain and frontend
+    racks, and the events equal ``diff_plans(base, solved)`` after the
+    reshard; after ``apply_plan`` the live chain racks equal the applied
+    plan's and the frontends stay; params and both AdamW slots hash to
+    phase 15's fixed-layout R = 1 run (SHA-1 of the host state) and the
+    losses equal its; the read after round 4 equals ``fab.params``, and
+    the read taken before the second reshard keeps its bits (SHA-1 and a
+    host copy).  Times each round, each ``step`` / ``apply_plan`` with
+    the solve split out, each reshard, and the allocator retries and the
+    peak."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.config import FaultConfig, ServeConfig
+    from repro_torch.core.placement import (
+        PlacementPlan,
+        PlacementProblem,
+        current_plan,
+        diff_plans,
+    )
+    from repro_torch.core.serving import ReadPlane
+    from repro_torch.runtime.autoscaler import Autoscaler, AutoscalerPolicy
+
+    t_phase = time.perf_counter()
+    space = gw.space
+    n_hi = AUTO_POLICY["max_shards"]
+    owner = {n: contiguous_owner(space.num_chunks, n) for n in (SHARDS, n_hi)}
+
+    def problem(n):
+        # what Autoscaler._problem reads off the fabric, rebuilt on the host
+        return PlacementProblem.standard(
+            num_shards=n, num_racks=RACKS, replication=2, num_frontends=2,
+            oversubscription=OVERSUB, codec="none",
+            chunk_elems=space.chunk_elems,
+            chunks_per_shard=np.bincount(owner[n], minlength=n))
+
+    def retries():
+        return torch.cuda.memory_stats(dev).get("num_alloc_retries", 0)
+
+    memory = PathMemory(dev)
+    fab = gw.fabric(2, topology=topology(2),
+                    faults=FaultConfig(replication=2))
+    plane = ReadPlane(fab, config=ServeConfig(num_frontends=2))
+    auto = Autoscaler(fab, policy=AutoscalerPolicy(**AUTO_POLICY),
+                      planes=[plane])
+    reshard_ms: list = []
+    solve_ms: list = []
+    reshard = fab.reshard
+    solve = PlacementProblem.solve
+
+    def timed_reshard(n, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = reshard(n, **kw)
+        torch.cuda.synchronize()
+        reshard_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def timed_solve(self, **kw):
+        t0 = time.perf_counter()
+        out = solve(self, **kw)
+        solve_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def host_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    fab.reshard = timed_reshard
+    PlacementProblem.solve = timed_solve
+    try:
+        retries_by = [retries()]
+        round_ms = []
+
+        def train(s):
+            round_ms.append(timed(lambda: gw.round(fab, s)))
+            retries_by.append(retries())
+
+        _zero_counts()  # every count to 0 just before the sequence...
+        train(0)
+        step_events, step_ms = host_ms(auto.step)
+        step_solve = list(solve_ms)
+        live_step = current_plan(fab, planes=[plane])
+        train(1)
+        train(2)
+        r3 = plane.read(0)
+        if r3.version != 3 or not same_bits(r3.flat, fab.params):
+            raise AssertionError(f"autoscale read after round 3: version "
+                                 f"{r3.version}, not fab.params' bits")
+        r3_host = r3.flat.to("cpu", copy=True)
+        r3_sha = _digest(r3_host)
+        fab._flat_cache = None
+        solve_ms.clear()
+        plan4 = problem(SHARDS).solve(seed=0)
+        plan_solve = list(solve_ms)
+        apply_events, apply_ms = host_ms(lambda: auto.apply_plan(plan4))
+        live_apply = current_plan(fab, planes=[plane])
+        train(3)
+        launches = _counts()  # ...and read just after
+    finally:
+        PlacementProblem.solve = solve
+        del fab.reshard
+    peak = memory.now()[1]
+    losses = gw.finite_losses()
+    _check_counts("autoscale path", launches, {
+        "fused_agg_opt": SHARDS + n_hi + n_hi + SHARDS})
+
+    # the solver again on the host, from the shapes after the reshard
+    base = PlacementPlan.default(
+        n_hi, num_racks=RACKS, replication=2, num_frontends=2).replace(
+        chunk_owner=owner[n_hi], origin="live")
+    solved = problem(n_hi).solve(start=base, sweeps=auto.policy.solver_sweeps,
+                                 local_moves=auto.policy.solver_moves,
+                                 seed=auto.seed)
+    deltas = diff_plans(base, solved)
+    moved = int(np.sum(owner[n_hi] != owner[SHARDS]))
+    kinds = [e.kind for e in step_events]
+    if (kinds != ["reshard"] + [d.kind for d in deltas]
+            or not step_events[0].detail.startswith(
+                f"-> {n_hi} shards ({moved} chunks moved, ")
+            or any(not e.detail.startswith(d.describe())
+                   for e, d in zip(step_events[1:], deltas))):
+        raise AssertionError(f"autoscale step events {step_events}, expected "
+                             f"a reshard to {n_hi} then {deltas}")
+    # auto.events as the JAX loop keeps it: resolve_placement's apply_plan
+    # records the re-placement deltas, and step() records them again after
+    # its reshard
+    again = [d.kind for d in deltas]
+    if [e.kind for e in auto.events] != again + kinds + ["reshard"]:
+        raise AssertionError(f"auto.events {auto.events}")
+    if (not np.array_equal(live_step.replica_racks, solved.replica_racks)
+            or live_step.frontend_racks != solved.frontend_racks):
+        raise AssertionError(f"after step() the live plan "
+                             f"{live_step.describe()} is not the solved "
+                             f"{solved.describe()}")
+    if [(e.kind, e.detail) for e in apply_events] != [
+            ("reshard", f"-> {SHARDS} shards ({moved} chunks moved)")]:
+        raise AssertionError(f"autoscale apply_plan events {apply_events}")
+    if (not np.array_equal(live_apply.replica_racks, plan4.replica_racks)
+            or live_apply.frontend_racks != live_step.frontend_racks):
+        raise AssertionError(f"after apply_plan the live plan "
+                             f"{live_apply.describe()}, applied "
+                             f"{plan4.describe()}")
+    if fab.stats.rescales != 2 or fab.num_shards != SHARDS:
+        raise AssertionError(f"rescales {fab.stats.rescales}, shards "
+                             f"{fab.num_shards}")
+    r4 = plane.read(0)
+    if r4.version != AUTO_ROUNDS or not same_bits(r4.flat, fab.params):
+        raise AssertionError(f"autoscale read after round 4: version "
+                             f"{r4.version}, not fab.params' bits")
+    fab._flat_cache = None
+    del r4
+    kept = r3.flat.to("cpu", copy=True)
+    if not same_bits(kept, r3_host) or _digest(kept) != r3_sha:
+        raise AssertionError("the read taken before the second reshard "
+                             "lost its bits")
+    del kept, r3_host, r3
+    digest = state_digest(host_state(fab))
+    if digest != ref["digest_a"]:
+        raise AssertionError("the autoscaled run's params and AdamW slots "
+                             "differ from phase 15's fixed-layout run")
+    if losses != ref["losses_a"]:
+        raise AssertionError(f"autoscaled losses {losses}, the fixed-layout "
+                             f"run's {ref['losses_a']}")
+    describe = auto.describe()
+    events = [(e.round, e.kind, e.detail) for e in auto.events]
+    stats = {k: getattr(fab.stats, k) for k in (
+        "rescales", "chunks_moved", "replica_moves", "bytes_replication",
+        "bytes_core_link")}
+    retries_by = [b - a for a, b in zip(retries_by, retries_by[1:])]
+    del plane, auto, fab
+    torch.cuda.empty_cache()
+    log(f"autoscale path: {gw.cfg.name} full width, 2 workers over {RACKS} "
+        f"racks (core 1:{OVERSUB:g}), AdamW, codec none, R = 2, "
+        f"{SHARDS} -> {n_hi} -> {SHARDS} shards over {AUTO_ROUNDS} rounds, a "
+        f"ReadPlane of 2 frontends; launches {launches}")
+    log(f"  events {events}; {describe}; stats {stats}")
+    log(f"  the re-solve at {n_hi} shards gave {len(deltas)} deltas "
+        f"({solved.describe()}); the {SHARDS}-shard plan "
+        f"{plan4.describe()}")
+    log(f"  round wall ms {[round(x, 1) for x in round_ms]} (rounds 2 and "
+        f"4 first after a reshard); step() {step_ms:.1f} ms host (solve "
+        f"{[round(x, 2) for x in step_solve]} ms), apply_plan "
+        f"{apply_ms:.1f} ms host (its plan's solve "
+        f"{[round(x, 2) for x in plan_solve]} ms); reshards "
+        f"{[round(x, 1) for x in reshard_ms]} ms host; allocator retries by "
+        f"round {retries_by}; peak device memory {peak} bytes "
+        f"({peak / 2**30:.2f} GiB)")
+    log(f"  params and both AdamW slots == phase 15's fixed-layout R = 1 run "
+        f"(SHA-1 {digest}); losses {losses}; the read before the second "
+        f"reshard kept its bits; the read after round {AUTO_ROUNDS} == "
+        f"fab.params; phase {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "round_ms": round_ms, "step_ms": step_ms,
+            "apply_ms": apply_ms, "solve_ms": step_solve + plan_solve,
+            "reshard_ms": reshard_ms, "retries": retries_by,
+            "peak_bytes": peak, "events": events}
+
+
+def _fabric_record(fab) -> dict:
+    """A comparable record of a fabric: params, optimizer slots and codec
+    residuals (host copies), every stats field, the fault traces, chunk
+    ownership and chain racks."""
+    fab._flat_cache = None
+    return _record({
+        "params": fab.params,
+        "state": [fab._assemble_rows(lambda sh, k=k: sh.state[k]).reshape(-1)
+                  for k in range(fab.spec.num_state_slots)],
+        "ef": _residuals(fab), "stats": fab.stats,
+        "shards": [sh.stats for sh in fab.shards],
+        "racks": [r.stats for r in fab.rack_aggs],
+        "trace": fab.fault_trace, "export": fab.export_fault_trace(),
+        "owner": fab.chunk_owner, "plan": fab.plan.replica_racks,
+        "chains": [g.racks for g in fab.replicas], "step": fab.step})
+
+
+def _telemetry(auto):
+    """``telemetry()``, or the error it raises (a SparseReadPlane's stats
+    carry no SLO fields, in either package)."""
+    try:
+        return auto.telemetry()
+    except AttributeError as e:
+        return f"AttributeError: {e}"
+
+
+def smoke_autoscale_check(dev, only=None) -> dict:
+    """Phase 24: the closed loop at gemma3-1b's SMOKE config (its flat
+    space, chunks of 4096, 4 workers, momentum), every case on ``dev``
+    against the same case on the CPU, bitwise in params, optimizer slots,
+    residuals, every stats field, the fault traces, ``auto.events``,
+    ``describe()``, the ``telemetry()`` dict (key for key, float for
+    float), the read planes' stats and reads, and the sparse tiers'
+    tables, versions and stats.  Cases (tests/test_autoscaler.py's, on
+    R = 2 fabrics under a ``NetworkTopology``): codec none / int8 x racks
+    1 / 2 / 4 x shards 1 -> 2, 2 -> 8, 8 -> 2 (a chain re-home and a
+    frontend move, then a ``shard_count`` delta; each run equals its
+    fixed-layout twin on the card); scale-up and scale-down from busy
+    telemetry; straggler proposals through ``ShardRebalancer``;
+    ``resolve_placement`` (twice the same events); two sparse autoscaled
+    runs (codec none / int8) whose 8-shard plan carries a solved row map
+    from a Zipf row load (lookups, pushes and reads between the levers);
+    a sparse reshard refused mid-round, then done and failed over; a
+    ``tenant_shares`` plan through ``shared=`` on a MultiJobFabric.
+    Gradients are numpy draws, the same bits on both devices.  Each case's
+    launches on the card equal the CPU run's calls of the plain versions.
+    ``only`` names a subset of the cases.  Returns each case's launches on
+    ``dev``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import config as C
+    from repro_torch.core import serving as S
+    from repro_torch.core.chunking import ParamSpace
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.core.fabric import PBoxFabric
+    from repro_torch.core.placement import (
+        PlacementProblem,
+        PlanDelta,
+        current_plan,
+        diff_plans,
+    )
+    from repro_torch.core.sparse import SparseTier
+    from repro_torch.core.tenancy import JobSpec, MultiJobFabric
+    from repro_torch.core.topology import NetworkTopology
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import adamw, momentum
+    from repro_torch.runtime.autoscaler import Autoscaler, AutoscalerPolicy
+    from repro_torch.runtime.straggler import ShardRebalancer
+
+    t_phase = time.perf_counter()
+    k = 4  # workers, as tests/test_autoscaler.py's K
+    v, d = 256, 16  # sparse table rows and width
+    mcfg = get_arch("gemma3-1b").smoke_config
+    tree = T.init_params(mcfg, torch.Generator().manual_seed(0),
+                         device="cpu")
+    space = ParamSpace.build(tree, chunk_elems=4096)
+    init = space.flatten(tree)
+    table = np.random.default_rng(7).standard_normal((v, d)).astype(
+        np.float32)
+    zipf = 1.0 / (np.arange(v) + 1.0) ** 1.05
+    grads: dict = {}
+    cpu = torch.device("cpu")
+
+    def fabric(device, shards, racks, codec="none", R=2):
+        return PBoxFabric(space, momentum(0.05, 0.9), init, device=device,
+                          config=C.FabricConfig(
+                              num_shards=shards, num_workers=k,
+                              wire=C.WireConfig(
+                                  topology=NetworkTopology(num_workers=k,
+                                                           num_racks=racks),
+                                  compression=CompressionConfig(codec=codec)),
+                              faults=C.FaultConfig(replication=R)))
+
+    def train(fab, r):
+        n = fab.space.flat_elems
+        for w in range(fab.num_workers):
+            fab.pull(w)
+        for w in range(fab.num_workers):
+            key = (n, (w + r) % 4)
+            if key not in grads:
+                grads[key] = torch.from_numpy((1e-2 * np.random.default_rng(
+                    key[1]).standard_normal(n)).astype(np.float32))
+            fab.push(w, grads[key].to(fab.device))
+
+    def perturb(base, racks):
+        rr = np.asarray(base.replica_racks).copy()
+        rr[0] = (rr[0] + 1) % racks
+        fe = list(base.frontend_racks)
+        if fe:
+            fe[0] = (fe[0] + 1) % racks
+        return base.replace(replica_racks=rr, frontend_racks=tuple(fe),
+                            origin="solved")
+
+    def outcome(auto, **extra):
+        return {"events": auto.events, "describe": auto.describe(),
+                "telemetry": _telemetry(auto),
+                "fab": _fabric_record(auto.fabric),
+                "planes": [p.stats for p in auto.planes],
+                "frontends": [[fe.rack for fe in p.frontends]
+                              for p in auto.planes], **extra}
+
+    def dense_case(codec, racks, shards, target):
+        def run(device):
+            fa = fabric(device, shards, racks, codec)
+            fb = fabric(device, shards, racks, codec)
+            plane = S.ReadPlane(fb, config=C.ServeConfig(num_frontends=2))
+            auto = Autoscaler(fb, planes=[plane], policy=AutoscalerPolicy(
+                min_shards=1, max_shards=8, cooldown_rounds=0,
+                solve_placement=False))
+            for r in range(2):
+                train(fa, r)
+                train(fb, r)
+            moved = auto.apply_plan(perturb(current_plan(fb, planes=[plane]),
+                                            racks))
+            for r in range(2, 4):
+                train(fa, r)
+                train(fb, r)
+            auto.apply_delta(PlanDelta(kind="shard_count",
+                                       new_shards=target))
+            for r in range(4, 6):
+                train(fa, r)
+                train(fb, r)
+            read = plane.read(0)
+            checks = [same_bits(fa.params, fb.params),
+                      same_bits(read.flat, fb.params),
+                      fb.num_shards == target, fb.stats.rescales == 1,
+                      racks == 1 or {"replica_racks", "frontend_move"}
+                      <= {e.kind for e in moved}]
+            return outcome(auto, read=read, checks=checks)
+        return run
+
+    def scale_up(device):
+        fa, fb = fabric(device, 1, 2), fabric(device, 1, 2)
+        auto = Autoscaler(fb, policy=AutoscalerPolicy(
+            min_shards=1, max_shards=4, scale_up_busy_us=0.0,
+            scale_down_busy_us=0.0, cooldown_rounds=1,
+            solve_placement=False))
+        ticks = []
+        for r in range(4):
+            train(fa, r)
+            train(fb, r)
+            ticks.append(_telemetry(auto))
+            auto.step()
+        checks = [fb.num_shards == 4, fb.stats.rescales == 2,
+                  same_bits(fa.params, fb.params)]
+        return outcome(auto, ticks=ticks, checks=checks)
+
+    def scale_down(device):
+        fab = fabric(device, 8, 2)
+        auto = Autoscaler(fab, policy=AutoscalerPolicy(
+            min_shards=2, max_shards=8, scale_up_busy_us=1e12,
+            scale_down_busy_us=1e12, cooldown_rounds=0,
+            solve_placement=False))
+        train(fab, 0)
+        shards = []
+        for _ in range(3):
+            auto.step()
+            shards.append(fab.num_shards)
+        train(fab, 1)
+        return outcome(auto, checks=[shards == [4, 2, 2]])
+
+    def straggler(device):
+        fa, fb = fabric(device, 4, 2), fabric(device, 4, 2)
+        reb_a = ShardRebalancer(fa, cooldown=0)
+        reb_b = ShardRebalancer(fb, cooldown=0)
+        auto = Autoscaler(fb, rebalancer=reb_b,
+                          policy=AutoscalerPolicy(solve_placement=False))
+        for r in range(2):
+            train(fa, r)
+            train(fb, r)
+        for _ in range(25):
+            for reb in (reb_a, reb_b):
+                reb.record(0, 10.0)
+                for sh in range(1, 4):
+                    reb.record(sh, 0.1)
+        legacy = reb_a.maybe_rebalance()
+        events = auto.step()
+        for r in range(2, 4):
+            train(fa, r)
+            train(fb, r)
+        checks = [legacy == [0], [e.kind for e in events] == ["chunk_moves"],
+                  fb.shards[0].num_chunks == 0,
+                  np.array_equal(fa.chunk_owner, fb.chunk_owner),
+                  same_bits(fa.params, fb.params)]
+        return outcome(auto, checks=checks)
+
+    def resolve(device):
+        runs = []
+        for _ in range(2):
+            fab = fabric(device, 4, 2)
+            plane = S.ReadPlane(fab, config=C.ServeConfig(num_frontends=2))
+            auto = Autoscaler(fab, planes=[plane], seed=3)
+            for r in range(2):
+                train(fab, r)
+            events = auto.resolve_placement()
+            for r in range(2, 4):
+                train(fab, r)
+            runs.append((auto, [(e.kind, e.detail) for e in events]))
+        plain = fabric(device, 4, 2)
+        for r in range(4):
+            train(plain, r)
+        (auto, ev_a), (twin, ev_b) = runs
+        checks = [ev_a == ev_b,
+                  same_bits(auto.fabric.params, twin.fabric.params),
+                  same_bits(plain.params, auto.fabric.params)]
+        return outcome(auto, checks=checks)
+
+    def sparse_stack(device, codec):
+        fab = fabric(device, 2, 2)
+        plane = S.ReadPlane(fab, config=C.ServeConfig(num_frontends=2))
+        tier = SparseTier(fabric=fab, codec=codec, lr=0.1)
+        tier.add_table("t0", table)
+        splane = S.SparseReadPlane(tier, config=C.ServeConfig(
+            num_frontends=2, cache_rows=64))
+        return fab, plane, tier, splane
+
+    def sparse_round(tier, rng, out):
+        for w in range(tier.num_workers):
+            ids = rng.integers(0, v, size=24)
+            out.append(tier.lookup(w, "t0", ids[:12], np.arange(0, 13, 3)))
+            rows = rng.standard_normal((24, d)).astype(np.float32)
+            tier.push(w, {"t0": (ids, torch.from_numpy(rows).to(
+                tier.device))})
+
+    def sparse_case(codec):
+        def run(device):
+            fa, _, ta, _ = sparse_stack(device, codec)
+            fb, plane, tb, splane = sparse_stack(device, codec)
+            auto = Autoscaler(fb, planes=[plane, splane],
+                              policy=AutoscalerPolicy(cooldown_rounds=0))
+            looked: list = []
+            for run_id, (fab, tier) in enumerate(((fa, ta), (fb, tb))):
+                rng = np.random.default_rng(11)
+                for r in range(2):
+                    train(fab, r)
+                    sparse_round(tier, rng, looked if run_id else [])
+            moved = auto.apply_plan(perturb(
+                current_plan(fb, planes=[plane, splane]), 2))
+            plan = PlacementProblem.standard(
+                num_shards=8, num_racks=2, replication=2, num_frontends=4,
+                chunk_elems=space.chunk_elems,
+                row_load={"t0": zipf}).solve(seed=0)
+            rescale = auto.apply_plan(plan)
+            for run_id, (fab, tier) in enumerate(((fa, ta), (fb, tb))):
+                rng = np.random.default_rng(13)
+                for r in range(2, 4):
+                    train(fab, r)
+                    sparse_round(tier, rng, looked if run_id else [])
+            res = splane.read_rows(1, "t0", np.arange(v))
+            checks = [any(e.kind == "frontend_move" for e in moved),
+                      [e.kind for e in rescale] == ["reshard"],
+                      tb.num_shards == 8 and tb.stats.rescales == 1,
+                      tb.tables["t0"].placement.policy == "plan",
+                      np.array_equal(tb.tables["t0"].placement.owner,
+                                     plan.row_owner["t0"]),
+                      same_bits(fa.params, fb.params),
+                      same_bits(ta.table("t0"), tb.table("t0")),
+                      np.array_equal(ta.row_versions("t0"),
+                                     tb.row_versions("t0")),
+                      same_bits(res.rows, tb.table("t0"))]
+            return outcome(auto, checks=checks, looked=looked, rows=res,
+                           table=tb.table("t0"),
+                           versions=tb.row_versions("t0"),
+                           tier=tb.stats, owner=plan.row_owner["t0"],
+                           describe_tier=tb.describe())
+        return run
+
+    def sparse_failover(device):
+        fab = fabric(device, 2, 2)
+        tier = SparseTier(fabric=fab, replication=2)
+        tier.add_table("t0", table)
+        out: list = []
+        sparse_round(tier, np.random.default_rng(5), out)
+        ones = torch.ones((4, d), device=tier.device)
+        tier.push(0, {"t0": (np.arange(4), ones)})
+        try:
+            tier.reshard(4)
+            refused = None
+        except RuntimeError as e:
+            refused = str(e)
+        for w in range(1, tier.num_workers):
+            tier.push(w, {"t0": (np.arange(4), ones)})
+        before = tier.table("t0").clone()
+        tier.reshard(4)
+        kept = same_bits(tier.table("t0"), before)
+        action = tier.failover(1)
+        checks = [refused is not None, kept, len(tier._chains) == 4,
+                  same_bits(tier.table("t0"), before)]
+        return {"refused": refused, "action": action, "checks": checks,
+                "looked": out, "table": tier.table("t0"),
+                "versions": tier.row_versions("t0"), "tier": tier.stats,
+                "describe": tier.describe()}
+
+    def shares(device):
+        def attach_two(box):
+            return [box.attach(JobSpec(name=name, params=tree,
+                                       optimizer=adamw(3e-3), num_workers=2,
+                                       chunk_elems=4096, priority=pri))
+                    for name, pri in (("a", 2.0), ("b", 1.0))]
+
+        box = MultiJobFabric(num_shards=2, num_racks=2, device=device)
+        handles = attach_two(box)
+        for h in handles:
+            train(h, 0)
+        auto = Autoscaler(handles[0].fabric, shared=box)
+        base = current_plan(handles[0].fabric)
+        first = auto.apply_plan(base.replace(
+            tenant_shares={"a": 1.0, "b": 3.0}))
+        again = auto.apply_plan(base.replace(
+            tenant_shares={"a": 1.0, "b": 3.0}))
+        solved = PlacementProblem.standard(
+            num_shards=2, num_racks=2,
+            tenant_demand={"a": 2.0, "b": 5.0}).solve(seed=0)
+        auto.apply_delta(diff_plans(base, solved)[-1])
+        for h in handles:
+            train(h, 1)
+        plain = MultiJobFabric(num_shards=2, num_racks=2, device=device)
+        for h in attach_two(plain):
+            train(h, 0)
+            train(h, 1)
+        checks = [[e.kind for e in first] == ["tenant_shares"], again == [],
+                  box._share_override == {"a": 1.0, "b": 2.5},
+                  all(same_bits(h.fabric.params, p.fabric.params)
+                      for h, p in zip(handles, plain.jobs.values()))]
+        return outcome(auto, checks=checks,
+                       tenants=[_fabric_record(h.fabric) for h in handles],
+                       util=box.utilization(), box=box.describe(),
+                       links={n: dict(q.stats.by_job)
+                              for n, q in box.links.items()})
+
+    cases = {f"dense/{codec}/racks{racks}/{s}->{t}": dense_case(
+        codec, racks, s, t) for codec in ("none", "int8")
+        for racks in (1, 2, 4) for s, t in ((1, 2), (2, 8), (8, 2))}
+    cases |= {"scale_up/busy": scale_up, "scale_down/idle": scale_down,
+              "straggler/delta_path": straggler, "resolve/seed3": resolve}
+    cases |= {f"sparse/{codec}/solved_rows": sparse_case(codec)
+              for codec in ("none", "int8")}
+    cases |= {"sparse/reshard+failover": sparse_failover,
+              "tenant_shares/shared": shares}
+    if only is not None:
+        cases = {label: cases[label] for label in only}
+    launches = {}
+    for label, run in cases.items():
+        _zero_counts()
+        card = _record(run(dev))
+        torch.cuda.synchronize()
+        launches[label] = _counts()
+        with PlainCalls() as plain:
+            host = _record(run(cpu))
+        if not all(card["checks"]):
+            raise AssertionError(f"{label}: checks on {dev} {card['checks']}")
+        _same_record(card, host, label)
+        if launches[label] != plain.counts:
+            raise AssertionError(f"{label}: card launches {launches[label]},"
+                                 f" CPU plain-version calls {plain.counts}")
+        if not any(launches[label].values()):
+            raise AssertionError(f"{label}: no kernel launched")
+    grads.clear()
+    total = {key: sum(c[key] for c in launches.values()) for key in _counts()}
+    log(f"SMOKE autoscale sweep: {len(cases)} cases card == CPU bitwise "
+        f"(params, slots, residuals, every stats field, fault traces, "
+        f"events, describe, telemetry, reads, sparse tables); each "
+        f"autoscaled run == its fixed-layout twin on {dev.type}; launches "
+        f"{total}, each case's equal to the CPU run's plain-version calls; "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 # -- phase 19: kernel timings ------------------------------------------------
 def time_fused_agg_opt(dev, n: int, k: int, average: bool = True) -> dict:
     import torch
@@ -4378,6 +5046,7 @@ def main() -> int:
         rack = rack_chain_path(dev, gw)
         switch = switch_path(dev, gw)
         fault = failover_path(dev, gw, rehearsal)
+        auto = autoscale_path(dev, gw, fault)
         del gw
         torch.cuda.empty_cache()
         tenancy = tenancy_path(dev)
@@ -4391,6 +5060,7 @@ def main() -> int:
     serve = serve_path(dev)
     sparse_serve = sparse_serve_path(dev)
     smoke_serve = smoke_serve_check(dev)
+    smoke_auto = smoke_autoscale_check(dev)
     switch_math = switch_math_ms(dev, int8["flat"], int8["chunk"])
     d = dlrm_capped_config().embed_dim
     timing = {"fused_agg_opt": time_fused_agg_opt(dev, f32["n"], WORKERS),
@@ -4434,7 +5104,10 @@ def main() -> int:
              "serve_gemma": serve["launches"],
              "serve_sparse": sparse_serve["launches"],
              "smoke_serve": {k: sum(c[k] for c in smoke_serve.values())
-                             for k in f32["launches"]}}
+                             for k in f32["launches"]},
+             "autoscale_gemma": auto["launches"],
+             "smoke_autoscale": {k: sum(c[k] for c in smoke_auto.values())
+                                 for k in f32["launches"]}}
     # K = 1 without averaging: the async pushes (f32 ones only at SMOKE)
     k1_launches = {"fused_agg_opt": smoke["async/none"]["fused_agg_opt"],
                    "wire_fused": asyn["launches"]["wire_fused"]
@@ -4530,6 +5203,11 @@ def main() -> int:
         f"{sparse_serve['peak_bytes'] / 2**30:.2f} GiB (read_rows "
         f"{statistics.median(sparse_serve['read_ms']):.1f} ms a batch, hit "
         f"rate {sparse_serve['stats']['row_hits'] / sparse_serve['served']:.4f})"
+        + f"; autoscale {auto['peak_bytes'] / 2**30:.2f} GiB (rounds "
+        f"{[round(x, 1) for x in auto['round_ms']]} ms, reshards "
+        f"{[round(x, 1) for x in auto['reshard_ms']]} ms, solves "
+        f"{[round(x, 2) for x in auto['solve_ms']]} ms, retries "
+        f"{auto['retries']})"
         + f"; switch integer math "
         f"{sum(v['ms'] for v in switch_math.values()):.3f} ms; whole run "
         f"{time.perf_counter() - t_start:.1f} s")

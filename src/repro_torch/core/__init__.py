@@ -1,8 +1,13 @@
 """The port's core: the PHub/PBox parameter exchange (torch counterpart of
 ``repro.core``: the fabric with its straggler modes, rack topology and
 switch tier, the fault tier, the tenancy tier), the read plane and the
-sparse embedding tier."""
-from repro_torch.core.chunking import DEFAULT_CHUNK_ELEMS, ParamSpace, TensorSlot
+sparse embedding tier, and the placement layer."""
+from repro_torch.core.chunking import (
+    DEFAULT_CHUNK_ELEMS,
+    ParamSpace,
+    TensorSlot,
+    zeros_like_space,
+)
 from repro_torch.core.config import FabricConfig, FabricConfigError
 from repro_torch.core.fabric import (
     LinkModel,
@@ -11,6 +16,13 @@ from repro_torch.core.fabric import (
     ServerStats,
     ShardStats,
     WorkerHarness,
+)
+from repro_torch.core.placement import (
+    PlacementPlan,
+    PlacementProblem,
+    PlanDelta,
+    current_plan,
+    diff_plans,
 )
 from repro_torch.core.replication import (
     FaultEvent,
@@ -54,6 +66,12 @@ __all__ = [
     "ParamSpace",
     "TensorSlot",
     "DEFAULT_CHUNK_ELEMS",
+    "zeros_like_space",
+    "PlacementPlan",
+    "PlacementProblem",
+    "PlanDelta",
+    "current_plan",
+    "diff_plans",
     "FabricConfig",
     "FabricConfigError",
     "LinkModel",

@@ -22,6 +22,8 @@ from typing import Any
 
 import torch
 
+from repro_torch.device import resolve_device
+
 TILE_ELEMS = 8 * 128
 DEFAULT_CHUNK_ELEMS = 8192
 
@@ -182,6 +184,15 @@ class ParamSpace:
             f"({self.chunks_per_owner} chunks each), padding="
             f"{self.padding_elems} ({100.0 * self.padding_elems / self.flat_elems:.2f}%)"
         )
+
+
+def zeros_like_space(space: ParamSpace, dtype: torch.dtype = torch.float32,
+                     *, device: torch.device | str | None = None
+                     ) -> torch.Tensor:
+    """A zero flat slab of the space's padded length, on ``device`` (the
+    card unless the caller passes another)."""
+    return torch.zeros((space.flat_elems,), dtype=dtype,
+                       device=resolve_device(device))
 
 
 def tensor_chunk_map(space: ParamSpace) -> list[tuple[str, int, int]]:

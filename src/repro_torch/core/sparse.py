@@ -48,8 +48,9 @@ event-clock time scaled by ``hop_cost`` in the JAX package's order
 (``_us``).  With no topology every shard and worker sits on rack 0 at hop
 cost 1.0.  Serving (``SparseReadPlane``, core/serving.py) reads through
 ``serve_rack``, the cheapest backup rack of a shard's chain.  A placement
-plan that carries solved row maps (``row_owner``) raises
-``NotImplementedError``: the placement solver is not ported yet.
+plan that carries a solved row map (``row_owner``, from
+``PlacementProblem.solve``) places that table's rows, at ``add_table`` and
+at every ``reshard``, when the map fits the table and the shard count.
 """
 from __future__ import annotations
 
@@ -68,15 +69,6 @@ from repro_torch.runtime.sparse_push import coalesce_ids_rows
 
 ROW_ID_BYTES = 4  # one int32 row id per routed row
 SCALE_BYTES = 4  # one f32 scale per int8-encoded row
-
-
-def _check_plan(plan: Any) -> None:
-    """Refuse a placement plan the tier cannot follow yet: one with solved
-    row maps (the placement solver is not ported)."""
-    if plan is not None and getattr(plan, "row_owner", None):
-        raise NotImplementedError(
-            "the PyTorch sparse tier places rows by policy only; a placement "
-            "plan with row_owner maps is not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -407,7 +399,6 @@ class SparseTier:
                 chunk_elems = fabric.space.chunk_elems
             if device is None:
                 device = fabric.device
-        _check_plan(plan)
         self.num_shards = int(num_shards or 1)
         self.num_workers = int(num_workers or 1)
         if self.num_shards < 1 or self.num_workers < 1:
@@ -470,16 +461,39 @@ class SparseTier:
                                                self.replication)
         return np.zeros((self.num_shards, self.replication), dtype=np.int64)
 
+    def _plan_row_owner(self, name: str, num_rows: int) -> np.ndarray | None:
+        """The attached plan's solved row map for ``name`` when it fits
+        this tier's shard space and the table's row count, else None."""
+        plan = self.plan
+        if plan is None:
+            return None
+        owner = getattr(plan, "row_owner", {}).get(name)
+        if owner is None:
+            return None
+        owner = np.asarray(owner, dtype=np.int64)
+        if (owner.shape != (num_rows,) or owner.size == 0
+                or owner.min() < 0 or owner.max() >= self.num_shards):
+            return None
+        return owner
+
     # -- tables ----------------------------------------------------------
     def add_table(self, name: str, init: Any,
                   *, placement: str | None = None) -> ShardedEmbeddingTable:
-        """Create a row-sharded table from ``init`` (V, D), placed by
-        ``placement`` or the tier's default policy.  The slabs are copies:
-        the caller may drop ``init``."""
+        """Create a row-sharded table from ``init`` (V, D).  An explicit
+        ``placement`` policy wins; otherwise the attached plan's solved row
+        map for ``name`` (if it fits) is used, falling back to the tier's
+        default policy.  The slabs are copies: the caller may drop
+        ``init``."""
         if name in self.tables:
             raise ValueError(f"table {name!r} already exists")
-        plan = RowPlacement(int(np.shape(init)[0]), self.num_shards,
-                            placement or self.default_placement)
+        num_rows = int(np.shape(init)[0])
+        solved = (self._plan_row_owner(name, num_rows)
+                  if placement is None else None)
+        if solved is not None:
+            plan = RowPlacement.from_owner(solved, self.num_shards)
+        else:
+            plan = RowPlacement(num_rows, self.num_shards,
+                                placement or self.default_placement)
         table = ShardedEmbeddingTable(name, init, plan, self.device)
         self.tables[name] = table
         if self._chains:
@@ -768,8 +782,10 @@ class SparseTier:
         and the error-feedback residuals are dense and shard-independent,
         so resharding moves only the accounting, never numerics.  Chains
         are rebuilt at the new count with a provisioning sync, at the racks
-        of ``plan`` (default: the attached fabric's plan); a plan with row
-        maps raises ``NotImplementedError``."""
+        of ``plan`` (default: the attached fabric's plan).  A table the plan
+        gives a fitting solved row map is placed by it; any other keeps its
+        policy (a table placed by an earlier map falls back to the tier's
+        default policy)."""
         new_num_shards = int(new_num_shards)
         if new_num_shards < 1:
             raise ValueError("num_shards must be >= 1")
@@ -784,7 +800,6 @@ class SparseTier:
                     f"over {new_num_shards} shards")
         if plan is None and self.fabric is not None:
             plan = getattr(self.fabric, "plan", None)
-        _check_plan(plan)
         self.plan = plan
         if self.fabric is not None and self.fabric.topology is not None:
             self.topology = self.fabric.topology  # plan-backed refresh
@@ -794,10 +809,14 @@ class SparseTier:
         self.home_racks = self.chain_racks[:, 0]
         new_tables: dict[str, ShardedEmbeddingTable] = {}
         for name, t in old_tables.items():
-            policy = (t.placement.policy
-                      if t.placement.policy in ("hash", "range")
-                      else self.default_placement)
-            rp = RowPlacement(t.num_rows, new_num_shards, policy)
+            solved = self._plan_row_owner(name, t.num_rows)
+            if solved is not None:
+                rp = RowPlacement.from_owner(solved, new_num_shards)
+            else:
+                policy = (t.placement.policy
+                          if t.placement.policy in ("hash", "range")
+                          else self.default_placement)
+                rp = RowPlacement(t.num_rows, new_num_shards, policy)
             nt = ShardedEmbeddingTable(name, t.dense(), rp, self.device)
             nt.versions = t.versions  # global per-row rounds, shard-free
             new_tables[name] = nt

@@ -99,3 +99,26 @@ def test_build_validation_matches_jax():
             JaxSpace.build({"a": jnp.zeros(4)}, **bad)
     with pytest.raises(TypeError):
         ParamSpace.build({"a": [torch.zeros(2)]})
+
+
+@pytest.mark.parametrize("make", [smoke_tree, quad_tree], ids=["smoke", "quad"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_zeros_like_space_matches_jax(make, dtype):
+    """A zero slab of the padded flat length, in the asked dtype, on the
+    asked device (the card when none is given, which raises here)."""
+    from repro.core.chunking import zeros_like_space as jax_zeros
+    from repro_torch.core.chunking import zeros_like_space
+
+    jtree = make()
+    js = JaxSpace.build(jtree, chunk_elems=2048, num_owners=3)
+    ts = ParamSpace.build(params_from_numpy(as_numpy(jtree), "cpu"),
+                          chunk_elems=2048, num_owners=3)
+    ref = np.asarray(jax_zeros(js, getattr(jnp, dtype)))
+    out = zeros_like_space(ts, getattr(torch, dtype), device="cpu")
+    assert out.shape == ref.shape == (ts.flat_elems,)
+    assert out.dtype == getattr(torch, dtype) and out.device.type == "cpu"
+    np.testing.assert_array_equal(out.float().numpy(), ref.astype(np.float32))
+    assert zeros_like_space(ts, device="cpu").dtype == torch.float32
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            zeros_like_space(ts)

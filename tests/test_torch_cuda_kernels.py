@@ -382,6 +382,19 @@ def test_smoke_serving_on_card_matches_cpu(cuda):
 
 
 @pytest.mark.gpu
+def test_smoke_autoscale_on_card_matches_cpu(cuda):
+    """chip_smoke.py's phase 24 on two cases: a SMOKE autoscaled dense run
+    on the int8 wire over 2 racks (a chain re-home and a frontend move,
+    then a reshard 2 -> 8) and a placement re-solve, each card == CPU
+    bitwise and equal to its fixed-layout twin on the card."""
+    cases = ("dense/int8/racks2/2->8", "resolve/seed3")
+    launches = _chip_smoke().smoke_autoscale_check(cuda, only=cases)
+    assert list(launches) == list(cases)
+    assert launches["dense/int8/racks2/2->8"]["wire_fused"] > 0
+    assert launches["resolve/seed3"]["fused_agg_opt"] > 0
+
+
+@pytest.mark.gpu
 def test_cached_read_keeps_its_bits_on_card(cuda):
     """On the card the kernels write slabs and chain buffers in place: a
     read cached at ``max_staleness=1`` still holds its version's bits after

@@ -196,3 +196,54 @@ def test_serving_imports_with_jax_blocked(module):
             [sys.executable, "-m", module, "--help"], capture_output=True,
             text=True, timeout=180, cwd=ROOT, env=env)
         assert out.returncode == 0 and "--serve-replication" in out.stdout
+
+
+PLACEMENT_SLICE = ("core/placement.py", "core/sparse.py", "core/chunking.py",
+                   "core/__init__.py", "runtime/autoscaler.py",
+                   "runtime/__init__.py", "optim/schedules.py",
+                   "optim/optimizers.py", "optim/__init__.py")
+
+
+@pytest.mark.parametrize("module", PLACEMENT_SLICE)
+def test_placement_slice_modules_are_checked(module):
+    """The placement solver's and the autoscaler's modules (the solver,
+    the solved row maps, the control loop, the schedules and the tree-wise
+    optimizer) are among the files checked above."""
+    assert ROOT / "src" / "repro_torch" / module in PORT_FILES
+
+
+@pytest.mark.parametrize("module", ["repro_torch.runtime.autoscaler",
+                                    "repro_torch.optim.schedules",
+                                    "repro_torch.core.placement"])
+def test_placement_slice_imports_with_jax_blocked(module):
+    """The autoscaler, the schedules and the extended placement module
+    each import on their own in a process where ``import jax`` and
+    ``import repro`` fail, pull in neither, and expose the JAX package's
+    names."""
+    names = {
+        "repro_torch.runtime.autoscaler": ("Autoscaler", "AutoscalerPolicy",
+                                           "ScaleEvent"),
+        "repro_torch.optim.schedules": ("constant_schedule", "linear_warmup",
+                                        "cosine_schedule",
+                                        "warmup_cosine_schedule"),
+        "repro_torch.core.placement": (
+            "PlacementProblem", "PlanScore", "Objective", "Constraint",
+            "CoreByteCost", "LoadBalance", "HotRowSkew", "RackCapacity",
+            "ReplicaAntiAffinity", "ChunkBalance", "current_plan",
+            "diff_plans"),
+    }[module]
+    code = (
+        "import importlib, sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        f"mod = importlib.import_module({module!r})\n"
+        f"assert all(hasattr(mod, n) for n in {names!r})\n"
+        "assert not any(m.split('.')[0] in ('jax', 'jaxlib', 'repro')\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=180, cwd=ROOT,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

@@ -1,18 +1,23 @@
 """The PyTorch placement plan and its fabric hooks against the JAX ones.
 
-Mirrors the plan half of tests/test_placement.py: ``PlacementPlan`` (the
+Mirrors every test of tests/test_placement.py: ``PlacementPlan`` (the
 default plan is the anti-affine heuristic, validation, ``replace``,
 ``describe``), a fabric built under an explicit plan (chain racks and a
-pinned ``chunk_owner``), and the timing-only plan deltas:
-``test_replica_move_is_timing_only``, ``test_reshard_is_bit_identical``
-and ``test_reshard_requires_round_edge``.  Every fabric case holds the
-port against the JAX fabric bit for bit (params, optimizer state, every
-stats field, ``fault_trace`` and ``export_fault_trace()``), and against
-its own undisturbed twin.
+pinned ``chunk_owner``), the row placement's ``"plan"`` policy, the solver
+(determinism, feasibility, never worse than the default plan, solved row
+maps, tenant shares), ``diff_plans``, ``rebalance_chunks``,
+``current_plan`` and the timing-only plan deltas.  Every fabric case holds
+the port against the JAX fabric bit for bit (params, optimizer state,
+every stats field, ``fault_trace`` and ``export_fault_trace()``), and
+against its own undisturbed twin.
 
-Not mirrored here: the solver (``PlacementProblem``, objectives,
-constraints), ``current_plan`` and ``diff_plans``, which wait for the rest
-of ``core/placement.py``.
+``test_solve_matches_jax`` holds ``PlacementProblem.solve(seed)`` equal to
+the JAX solver's plan field for field (chain racks, frontends, row maps,
+tenant shares, origin, ``describe()``) and ``evaluate``'s terms,
+violations and total equal to the float, over shards 1 / 3 / 8 x racks
+1 / 2 / 4 x R 1 / 2 / 3 x frontends 0 / 2 x codec none / int8, with and
+without a row load and a tenant demand.  Where the JAX solver raises, the
+port raises the same error.
 """
 import numpy as np
 import pytest
@@ -33,10 +38,14 @@ from test_torch_replication import (  # noqa: E402
     same_bits,
 )
 
+from repro.core import placement as jplacement  # noqa: E402
+from repro.core import sparse as jsparse  # noqa: E402
 from repro.core.placement import PlacementPlan as JaxPlan  # noqa: E402
 from repro.core.placement import PlanDelta as JaxDelta  # noqa: E402
 from repro.core.topology import NetworkTopology as JaxTopology  # noqa: E402
 from repro_torch.core import config as tconfig  # noqa: E402
+from repro_torch.core import placement as tplacement  # noqa: E402
+from repro_torch.core import sparse as tsparse  # noqa: E402
 from repro_torch.core.placement import PlacementPlan, PlanDelta  # noqa: E402
 from repro_torch.core.topology import NetworkTopology  # noqa: E402
 
@@ -272,3 +281,380 @@ def test_jax_topology_plan_agrees():
         np.testing.assert_array_equal(t.replica_racks(shards, factor),
                                       j.replica_racks(shards, factor))
     np.testing.assert_array_equal(t.home_racks(3), j.home_racks(3))
+
+
+# ---------------------------------------------------------------------------
+# row placement under a plan
+# ---------------------------------------------------------------------------
+def test_row_placement_plan_policy_golden():
+    """'plan' rows wrap an explicit owner array verbatim; the default
+    'hash' policy stays splitmix64; the port's maps and errors equal
+    JAX's."""
+    owner = np.array([1, 0, 1, 2, 0, 2, 1, 0])
+    for pkg in (tsparse, jsparse):
+        rp = pkg.RowPlacement.from_owner(owner, 3)
+        np.testing.assert_array_equal(rp.owner, owner)
+        assert rp.policy == "plan"
+        np.testing.assert_array_equal(rp.shard_rows[1], [0, 2, 6])
+        np.testing.assert_array_equal(rp.local_of(1, np.array([2, 6])),
+                                      [1, 2])
+    for bad in (lambda pkg: pkg.RowPlacement.from_owner(np.array([0, 3]), 3),
+                lambda pkg: pkg.RowPlacement(4, 2, "plan")):
+        with pytest.raises(ValueError) as te:
+            bad(tsparse)
+        with pytest.raises(ValueError) as je:
+            bad(jsparse)
+        assert str(te.value) == str(je.value)
+    hash_rp = tsparse.RowPlacement(64, 4, "hash")
+    assert hash_rp.owner.min() >= 0 and hash_rp.owner.max() <= 3
+    np.testing.assert_array_equal(hash_rp.owner,
+                                  jsparse.RowPlacement(64, 4, "hash").owner)
+
+
+# ---------------------------------------------------------------------------
+# solver: determinism, feasibility, parity with JAX
+# ---------------------------------------------------------------------------
+def assert_plan_same(jp, tp):
+    """Every field of two plans (JAX's and the port's), exactly."""
+    for name in ("num_shards", "num_racks", "replication", "frontend_racks",
+                 "origin"):
+        assert getattr(jp, name) == getattr(tp, name), name
+    np.testing.assert_array_equal(jp.replica_racks, tp.replica_racks)
+    assert (jp.chunk_owner is None) == (tp.chunk_owner is None)
+    if jp.chunk_owner is not None:
+        np.testing.assert_array_equal(jp.chunk_owner, tp.chunk_owner)
+    assert list(jp.row_owner) == list(tp.row_owner)
+    for name, owner in jp.row_owner.items():
+        np.testing.assert_array_equal(owner, tp.row_owner[name])
+    assert list(jp.tenant_shares.items()) == list(tp.tenant_shares.items())
+    assert jp.describe() == tp.describe()
+
+
+def assert_score_same(js, ts):
+    """``evaluate``'s terms (insertion order), violations and total, to
+    the float."""
+    assert list(js.terms.items()) == list(ts.terms.items())
+    assert [type(v) for v in js.terms.values()] == \
+        [type(v) for v in ts.terms.values()]
+    assert js.violations == ts.violations
+    assert js.total == ts.total and js.feasible == ts.feasible
+
+
+def problems(**kw):
+    """(JAX problem, port problem) of ``PlacementProblem.standard(**kw)``."""
+    return (jplacement.PlacementProblem.standard(**kw),
+            tplacement.PlacementProblem.standard(**kw))
+
+
+def test_solver_is_deterministic_and_feasible():
+    kw = dict(num_shards=8, num_racks=4, replication=2, num_frontends=3,
+              chunks_per_shard=[5, 1, 1, 1, 5, 1, 1, 1],
+              row_load={"emb": np.arange(32.0) + 1.0})
+    jprob, prob = problems(**kw)
+    a = prob.solve(seed=7)
+    b = prob.solve(seed=7)
+    np.testing.assert_array_equal(a.replica_racks, b.replica_racks)
+    assert a.frontend_racks == b.frontend_racks
+    np.testing.assert_array_equal(a.row_owner["emb"], b.row_owner["emb"])
+    score = prob.evaluate(a)
+    assert score.feasible
+    assert score.total <= prob.evaluate(prob.default_plan()).total
+    assert_plan_same(jprob.solve(seed=7), a)
+    assert_score_same(jprob.evaluate(jprob.solve(seed=7)), score)
+
+
+def test_solver_never_worsens_the_default_plan():
+    for seed in (0, 1, 2):
+        jprob, prob = problems(num_shards=4, num_racks=2, replication=2,
+                               num_frontends=2, chunks_per_shard=[7, 1, 1, 1])
+        solved = prob.solve(seed=seed)
+        assert (prob.evaluate(solved).total
+                <= prob.evaluate(prob.default_plan()).total)
+        assert_plan_same(jprob.solve(seed=seed), solved)
+
+
+def test_solved_row_map_balances_hot_rows():
+    """LPT rows: a Zipf-ish load lands with lower skew than the hash map;
+    the map equals JAX's."""
+    load = 1.0 / (np.arange(256) + 1.0)
+    jprob, prob = problems(num_shards=4, num_racks=1, row_load={"emb": load})
+    solved = prob.solve(seed=0)
+    owner = solved.row_owner["emb"]
+    per_shard = np.array([load[owner == s].sum() for s in range(4)])
+    hash_owner = tsparse.RowPlacement(256, 4, "hash").owner
+    hash_load = np.array([load[hash_owner == s].sum() for s in range(4)])
+    assert per_shard.max() <= hash_load.max()
+    # deterministic tie-break: lowest row ids first
+    assert int(owner[0]) == 0
+    np.testing.assert_array_equal(owner, jprob.solve(seed=0).row_owner["emb"])
+    np.testing.assert_array_equal(prob.default_row_owner("emb"), hash_owner)
+
+
+def test_tenant_shares_follow_demand():
+    jprob, prob = problems(num_shards=2, num_racks=1,
+                           tenant_demand={"big": 3.0, "small": 1.0})
+    solved = prob.solve(seed=0)
+    assert solved.tenant_shares == {"big": 3.0, "small": 1.0}
+    assert_plan_same(jprob.solve(seed=0), solved)
+
+
+def _outcome(fn):
+    try:
+        return fn(), None
+    except Exception as e:  # noqa: BLE001 - compared across packages
+        return None, e
+
+
+@pytest.mark.parametrize("codec", ["none", "int8"])
+@pytest.mark.parametrize("frontends", [0, 2])
+@pytest.mark.parametrize("replication", [1, 2, 3])
+@pytest.mark.parametrize("racks", [1, 2, 4])
+@pytest.mark.parametrize("shards", [1, 3, 8])
+def test_solve_matches_jax(shards, racks, replication, frontends, codec):
+    """The port's solver picks JAX's plan, field for field, and scores it
+    to the float, with and without a row load and a tenant demand, from
+    the default start and from a perturbed one."""
+    rng = np.random.default_rng(shards * 100 + racks * 10 + replication)
+    chunks = rng.integers(1, 9, size=shards).tolist()
+    for extra in ({}, {"row_load": {"emb": 1.0 / (np.arange(48) + 1.0),
+                                    "user": rng.random(40)},
+                       "tenant_demand": {"b": 3.0, "a": 1.5}}):
+        kw = dict(num_shards=shards, num_racks=racks,
+                  replication=replication, num_frontends=frontends,
+                  oversubscription=3.0, codec=codec, chunk_elems=1024,
+                  chunks_per_shard=chunks, **extra)
+        jprob, jerr = _outcome(
+            lambda: jplacement.PlacementProblem.standard(**kw))
+        prob, terr = _outcome(
+            lambda: tplacement.PlacementProblem.standard(**kw))
+        if jerr is not None:
+            assert type(terr) is type(jerr) and str(terr) == str(jerr)
+            continue
+        starts = [(None, None)]
+        rr = (np.arange(shards)[:, None] * 3
+              + np.arange(replication)[None, :]) % racks
+        starts.append((JaxPlan(shards, num_racks=racks,
+                               replication=replication, replica_racks=rr,
+                               frontend_racks=(racks - 1,) * frontends),
+                       PlacementPlan(shards, num_racks=racks,
+                                     replication=replication,
+                                     replica_racks=rr,
+                                     frontend_racks=(racks - 1,) * frontends)))
+        for jstart, tstart in starts:
+            for seed in (0, 5):
+                jplan, jerr = _outcome(
+                    lambda: jprob.solve(start=jstart, seed=seed))
+                plan, terr = _outcome(
+                    lambda: prob.solve(start=tstart, seed=seed))
+                if jerr is not None:
+                    assert type(terr) is type(jerr)
+                    assert str(terr) == str(jerr)
+                    continue
+                assert terr is None
+                assert_plan_same(jplan, plan)
+                assert_score_same(jprob.evaluate(jplan), prob.evaluate(plan))
+        assert_score_same(jprob.evaluate(jprob.default_plan()),
+                          prob.evaluate(prob.default_plan()))
+        assert prob.shard_bytes_total() == jprob.shard_bytes_total()
+
+
+def test_objectives_and_constraints_match_jax():
+    """Each objective and constraint alone, on a plan that violates every
+    constraint, against JAX's; and the problem's validation errors."""
+    owner = np.array([0, 0, 0, 1])
+    kw = dict(num_shards=2, num_racks=2, replication=2, num_frontends=2,
+              chunk_elems=1024, row_load={"t": np.arange(6.0)})
+    jprob, prob = jplacement.PlacementProblem(**kw), \
+        tplacement.PlacementProblem(**kw)
+    jplan = JaxPlan(2, num_racks=2, replication=2,
+                    replica_racks=np.array([[0, 0], [0, 1]]),
+                    frontend_racks=(1, 0), chunk_owner=owner)
+    tplan = PlacementPlan(2, num_racks=2, replication=2,
+                          replica_racks=np.array([[0, 0], [0, 1]]),
+                          frontend_racks=(1, 0), chunk_owner=owner)
+    for name in ("CoreByteCost", "LoadBalance", "HotRowSkew"):
+        jo, to = getattr(jplacement, name)(), getattr(tplacement, name)()
+        assert jo.name == to.name
+        assert jo.score(jplan, jprob) == to.score(tplan, prob)
+    for name in ("RackCapacity", "ReplicaAntiAffinity", "ChunkBalance"):
+        jc, tc = getattr(jplacement, name)(), getattr(tplacement, name)()
+        assert jc.name == tc.name
+        assert tc.violations(tplan, prob) == jc.violations(jplan, jprob)
+        assert tc.violations(tplan, prob)
+    assert tplacement.RackCapacity(max_primaries=0).violations(tplan, prob) \
+        == jplacement.RackCapacity(max_primaries=0).violations(jplan, jprob)
+    for pkg, p in ((jplacement, jprob), (tplacement, prob)):
+        p.add_objective(pkg.CoreByteCost(serve_weight=0.5), weight=2.0)
+        p.add_constraint(pkg.ChunkBalance())
+    assert_score_same(jprob.evaluate(jplan), prob.evaluate(tplan))
+    for bad in (dict(num_shards=0), dict(num_shards=2, oversubscription=0.5),
+                dict(num_shards=2, chunks_per_shard=[1])):
+        with pytest.raises(ValueError) as te:
+            tplacement.PlacementProblem(**bad)
+        with pytest.raises(ValueError) as je:
+            jplacement.PlacementProblem(**bad)
+        assert str(te.value) == str(je.value)
+    for pkg, p in ((jplacement, jprob), (tplacement, prob)):
+        with pytest.raises(ValueError, match="objective weight must be > 0"):
+            p.add_objective(pkg.LoadBalance(), weight=0.0)
+        with pytest.raises(ValueError, match="start plan does not match"):
+            p.solve(start=p.default_plan().replace(num_racks=4))
+
+
+# ---------------------------------------------------------------------------
+# diff / apply round-trips
+# ---------------------------------------------------------------------------
+def test_diff_plans_kinds_and_shard_count_subsumption():
+    def deltas(pkg, a, b):
+        return [(d.kind, d.moves, d.shard, d.racks, d.frontend, d.rack,
+                 d.new_shards, d.shares, d.describe())
+                for d in pkg.diff_plans(a, b)]
+
+    for pkg, plan_cls in ((tplacement, PlacementPlan),
+                          (jplacement, JaxPlan)):
+        a = plan_cls.default(2, num_racks=2, replication=2, num_frontends=2)
+        b = a.replace(replica_racks=np.array([[1, 0], [1, 0]]),
+                      frontend_racks=(1, 1), origin="solved")
+        ds = pkg.diff_plans(a, b)
+        assert [d.kind for d in ds] == ["replica_racks", "frontend_move"]
+        assert ds[1].frontend == 0 and ds[1].rack == 1  # fe 1 unchanged
+        grown = plan_cls.default(4, num_racks=2, replication=2)
+        ds = pkg.diff_plans(a, grown)
+        assert [d.kind for d in ds] == ["shard_count"]
+        assert ds[0].new_shards == 4
+        with pytest.raises(ValueError, match="different rack counts"):
+            pkg.diff_plans(a, plan_cls.default(2, num_racks=4,
+                                               replication=2))
+        assert pkg.diff_plans(a, a) == ()
+    # every kind at once, in the JAX order, against JAX
+    out = []
+    for pkg, plan_cls in ((tplacement, PlacementPlan),
+                          (jplacement, JaxPlan)):
+        a = plan_cls(3, num_racks=3, replication=2,
+                     frontend_racks=(0, 1, 2), chunk_owner=[0, 1, 2, 0],
+                     tenant_shares={"x": 1.0})
+        b = a.replace(replica_racks=np.array([[0, 1], [2, 0], [2, 1]]),
+                      chunk_owner=np.array([2, 1, 0, 0]),
+                      frontend_racks=(0, 2), tenant_shares={"y": 2.0,
+                                                            "x": 1.0})
+        out.append(deltas(pkg, a, b))
+    assert out[0] == out[1]
+    assert [d[0] for d in out[0]] == ["replica_racks", "replica_racks",
+                                      "chunk_moves", "frontend_move",
+                                      "tenant_shares"]
+
+
+def test_rebalance_chunks_golden_and_delta():
+    owner = np.array([0, 1, 2, 0, 1, 2])
+    out = tplacement.rebalance_chunks(owner, [0], 3)
+    assert not np.any(out == 0)
+    counts = np.bincount(out, minlength=3)
+    assert counts.max() - counts[1:].min() <= 1
+    np.testing.assert_array_equal(
+        out, jplacement.rebalance_chunks(owner, [0], 3))
+    delta = tplacement.chunk_rebalance_delta(owner, [0], 3)
+    assert delta.kind == "chunk_moves"
+    assert {c for c, _ in delta.moves} == {0, 3}
+    assert delta.moves == jplacement.chunk_rebalance_delta(owner, [0],
+                                                           3).moves
+    assert tplacement.chunk_rebalance_delta(owner, [], 3) is None
+
+
+def test_apply_plan_delta_lands_the_target_layout():
+    ref, fab = pair(shards=2, racks=2, replication=2)
+    grads = make_grads(fab.space.flat_elems)
+    for f in (ref, fab):
+        drive(f, grads, 2)
+    for pkg, f in ((jplacement, ref), (tplacement, fab)):
+        base = pkg.current_plan(f)
+        target = base.replace(
+            replica_racks=np.array([[1, 0], [1, 0]]), origin="solved")
+        for delta in pkg.diff_plans(base, target):
+            f.apply_plan_delta(delta)
+        live = pkg.current_plan(f)
+        np.testing.assert_array_equal(live.replica_racks,
+                                      target.replica_racks)
+        assert f.stats.replica_moves > 0
+        # plan-backed topology sees the move too
+        np.testing.assert_array_equal(
+            f.topology.replica_racks(2, 2), target.replica_racks)
+    assert_fault_same(ref, fab)
+    assert_plan_same(jplacement.current_plan(ref),
+                     tplacement.current_plan(fab))
+
+
+def test_fabric_rejects_foreign_delta_kinds():
+    ref, fab = pair(shards=2, racks=2)
+    for kw in (dict(kind="frontend_move", frontend=0, rack=1),
+               dict(kind="tenant_shares", shares=(("a", 1.0),))):
+        err = both(ref, fab, lambda f: f.apply_plan_delta(
+            (PlanDelta if f is fab else JaxDelta)(**kw)))
+        assert isinstance(err, ValueError)
+
+
+def test_chunk_move_delta_is_timing_only():
+    ref, fab = pair(shards=2, racks=2)
+    twin = pair(shards=2, racks=2)[1]
+    grads = make_grads(fab.space.flat_elems)
+    for f in (ref, fab, twin):
+        drive(f, grads, 2)
+    delta = tplacement.chunk_rebalance_delta(fab.chunk_owner, [0], 2)
+    jdelta = jplacement.chunk_rebalance_delta(ref.chunk_owner, [0], 2)
+    assert fab.apply_plan_delta(delta) == len(delta.moves) == \
+        ref.apply_plan_delta(jdelta)
+    assert fab.shards[0].num_chunks == 0
+    for f in (ref, fab, twin):
+        drive(f, grads, 3, start=2)
+    assert same_bits(twin, fab)
+    assert_fault_same(ref, fab)
+
+
+def test_current_plan_reflects_live_layout():
+    ref, fab = pair(shards=2, racks=2, replication=2)
+    grads = make_grads(fab.space.flat_elems)
+    for f in (ref, fab):
+        drive(f, grads, 1)
+    live = tplacement.current_plan(fab)
+    assert live.origin == "live"
+    np.testing.assert_array_equal(live.chunk_owner, fab.chunk_owner)
+    assert not np.shares_memory(live.chunk_owner, fab.chunk_owner)
+    for f in (ref, fab):
+        f.replace_chain_racks(1, (0, 1))
+    live2 = tplacement.current_plan(fab)
+    assert tuple(live2.replica_racks[1]) == (0, 1)
+    assert_plan_same(jplacement.current_plan(ref), live2)
+
+
+def test_rebalance_chunks_all_shards_slow_is_a_no_op():
+    """No healthy target left: the assignment comes back unchanged and
+    the delta form is None (nowhere to move to is not an error)."""
+    owner = np.array([0, 1, 0, 1, 2])
+    np.testing.assert_array_equal(
+        tplacement.rebalance_chunks(owner, [0, 1, 2], 3), owner)
+    assert tplacement.chunk_rebalance_delta(owner, [0, 1, 2], 3) is None
+    ref, fab = pair(shards=2)
+    grads = make_grads(fab.space.flat_elems)
+    for f in (ref, fab):
+        drive(f, grads, 1)
+    before = fab.chunk_owner.copy()
+    assert fab.rebalance([0, 1]) == ref.rebalance([0, 1]) == 0
+    np.testing.assert_array_equal(fab.chunk_owner, before)
+    assert_fault_same(ref, fab)
+
+
+def test_rebalance_chunks_single_shard_fabric_is_a_no_op():
+    one = np.zeros(4, dtype=np.int64)
+    np.testing.assert_array_equal(tplacement.rebalance_chunks(one, [0], 1),
+                                  one)
+    assert tplacement.chunk_rebalance_delta(one, [0], 1) is None
+    ref, fab = pair(shards=1)
+    grads = make_grads(fab.space.flat_elems)
+    for f in (ref, fab):
+        drive(f, grads, 1)
+    params = fab.params.clone()
+    assert fab.rebalance([0]) == ref.rebalance([0]) == 0
+    assert fab.shards[0].num_chunks == fab.space.num_chunks
+    for f in (ref, fab):
+        drive(f, grads, 2, start=1)  # still trains normally afterwards
+    assert not torch.equal(fab.params, params)
+    assert_fault_same(ref, fab)

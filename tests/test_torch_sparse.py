@@ -381,11 +381,43 @@ def test_reshard_errors():
         tier.reshard(0)
     with pytest.raises(ValueError):
         tier.reshard(V + 1)
-    with pytest.raises(NotImplementedError, match="row_owner"):
-        tier.reshard(4, plan=PlacementPlan(4, row_owner={"t0": np.zeros(V)}))
     tier.push(0, {"t0": (np.array([1]), torch.ones((1, D)))})
     with pytest.raises(RuntimeError):
         tier.reshard(4)
+    # a plan with a solved row map (once refused) places the resharded
+    # rows by that map, as the JAX tier does: tables, row versions and
+    # every SparseStats field equal, and equal to the unresharded run; a
+    # map that does not fit the table falls back to the policy
+    from repro.core.placement import PlacementPlan as JaxPlacementPlan
+    from repro_torch.core.placement import PlacementProblem
+
+    owner = PlacementProblem.standard(
+        num_shards=4, row_load={"t0": 1.0 / (np.arange(V) + 1.0)}).solve(
+        seed=0).row_owner["t0"]
+    base = drive(drive(make_tier(tsparse, 2, codec="int8", replication=2),
+                       rounds=2), rounds=2, seed=31)
+    for row_owner, policy in (({"t0": owner}, "plan"),
+                              ({"t0": owner[:-1]}, "hash")):
+        port = drive(make_tier(tsparse, 2, codec="int8", replication=2),
+                     rounds=2)
+        ref = drive(make_tier(jsparse, 2, codec="int8", replication=2),
+                    rounds=2)
+        port.reshard(4, plan=PlacementPlan(4, replication=2,
+                                           row_owner=row_owner))
+        ref.reshard(4, plan=JaxPlacementPlan(4, replication=2,
+                                             row_owner=row_owner))
+        assert port.tables["t0"].placement.policy == policy
+        np.testing.assert_array_equal(port.tables["t0"].placement.owner,
+                                      ref.tables["t0"].placement.owner)
+        assert_tiers_equal(port, ref)
+        drive(port, rounds=2, seed=31)
+        drive(ref, rounds=2, seed=31)
+        assert_tiers_equal(port, ref)
+        np.testing.assert_array_equal(_bits(port.table("t0").numpy()),
+                                      _bits(base.table("t0").numpy()))
+        port.failover(1)
+        ref.failover(1)
+        assert_tiers_equal(port, ref)
 
 
 def _fabric(num_shards, num_workers, link=None):
@@ -448,7 +480,8 @@ def test_unported_knobs_raise():
                            topology=JaxTopology(num_workers=2, num_racks=2))
     assert str(e.value) == str(je.value)
     # a plan without row maps gives the chain racks, as in the JAX tier;
-    # one with solved row maps still raises
+    # one with a solved row map (once refused) places that table's rows
+    # by it, as in the JAX tier, unless add_table names a policy
     from repro.core.placement import PlacementPlan as JaxPlacementPlan
 
     racks = np.array([[0, 1], [1, 0]])
@@ -462,9 +495,29 @@ def test_unported_knobs_raise():
                               replica_racks=racks))
     np.testing.assert_array_equal(tier.chain_racks, ref.chain_racks)
     np.testing.assert_array_equal(tier.home_racks, ref.home_racks)
-    with pytest.raises(NotImplementedError, match="row_owner"):
-        tsparse.SparseTier(num_shards=2, num_workers=2, device="cpu",
-                           plan=PlacementPlan(2, row_owner={"t0": [0, 1]}))
+    owner = np.arange(V) % 3 % 2
+    for placement, policy in ((None, "plan"), ("range", "range")):
+        tier = tsparse.SparseTier(num_shards=2, num_workers=K, device="cpu",
+                                  plan=PlacementPlan(2, row_owner={
+                                      "t0": owner, "t1": [0, 1]}))
+        ref = jsparse.SparseTier(num_shards=2, num_workers=K,
+                                 plan=JaxPlacementPlan(2, row_owner={
+                                     "t0": owner, "t1": [0, 1]}))
+        for t in (tier, ref):
+            t.add_table("t0", INIT, placement=placement)
+            t.add_table("t1", INIT[:5])  # the map does not fit: hash
+            drive(t)
+        assert tier.tables["t0"].placement.policy == policy
+        assert tier.tables["t1"].placement.policy == "hash"
+        for name in ("t0", "t1"):
+            np.testing.assert_array_equal(
+                tier.tables[name].placement.owner,
+                ref.tables[name].placement.owner)
+        assert_tiers_equal(tier, ref)
+    np.testing.assert_array_equal(
+        tsparse.SparseTier(num_shards=2, num_workers=K, device="cpu",
+                           plan=PlacementPlan(2, row_owner={"t0": owner}))
+        .add_table("t0", INIT).placement.owner, owner)
     with pytest.raises(ValueError):
         tsparse.SparseTier(codec="fp8", device="cpu")
     with pytest.raises(ValueError):
