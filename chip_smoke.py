@@ -207,7 +207,35 @@ raises on failure (the script then exits non-zero and prints no result):
    carries a solved row map from a Zipf row load; a sparse reshard and
    failover; ``tenant_shares`` through ``shared=`` on a MultiJobFabric;
    each autoscaled run equal to its fixed-layout twin on the card, each
-   case's launches equal to the CPU run's plain-version calls.
+   case's launches equal to the CPU run's plain-version calls;
+25. the SPMD path at full width (under deterministic algorithms, a
+   world-1 NCCL process group, ``launch/steps.build_lm_train``):
+   gemma3-1b trained by the PS train step with AdamW, a batch of 2 x 1024
+   tokens, 3 steps each under pbox and allreduce on a 1 x 1 (data, model)
+   mesh and pbox_hier with the int8 codec and error feedback on a 1 x 1 x
+   1 (pod, data, model) mesh.  Counts set to 0 just before each and read
+   just after: 3 fused_agg_opt (and 3 quantize, 6 dequantize under
+   pbox_hier); pbox == allreduce bitwise in params, m and v; the step-1
+   losses equal; ``attach_telemetry``'s bytes the exchange's model; step
+   2's ``device_update`` booked over three windows of 64 chunks and
+   replayed through the same function on the CPU (the plain versions),
+   bitwise.  Steps (host clock), ``device_update`` (CUDA events) and the
+   peak are reported;
+26. the SPMD step at gemma3-1b's SMOKE config, world 1, card == CPU
+   bitwise: strategy x codec (none; bf16 and int8 under pbox_hier) x
+   optimizer x microbatches 1 / 2 / 3 x pull f32 / bf16, each
+   microbatch's gradient booked on the card and fed to the same step on
+   the CPU through a loss whose gradient it is; launches equal to the CPU
+   run's plain-version calls; the zero-compute step of each strategy
+   moving every parameter to -0.1;
+27. ``launch/train.main`` on the card at the SMOKE config: 6 steps with
+   checkpoints at 3 and 6, then a run stopped after step 3 and resumed to
+   6, bitwise equal to it (the CLI's ``--full`` trains ``train_4k``'s
+   256 x 4096 batch, which one card does not hold: phase 25 is the full
+   width);
+28. two ranks in two processes on cuda:0 over gloo (NCCL takes one rank a
+   card): pbox, allreduce and pbox_hier int8 over 2 pods at the SMOKE
+   config, each rank equal to the same exchange done by hand, bitwise.
 
 The line before the last is the kernel table as JSON (each row with its
 launches on every path); the last line is ``{"ok": true, "device":
@@ -4686,9 +4714,616 @@ def smoke_autoscale_check(dev, only=None) -> dict:
     return launches
 
 
-# -- phase 19: kernel timings ------------------------------------------------
-def time_fused_agg_opt(dev, n: int, k: int, average: bool = True) -> dict:
+# -- phases 25 to 27: the SPMD path over torch.distributed --------------------
+# phase 25's batch: SPMD_BATCH sequences of SEQ tokens (train_4k's 256 x 4096
+# cut to fit the phase's time), SPMD_STEPS steps a strategy; the card's step
+# 2 is replayed on the CPU over windows of SPMD_WINDOW chunks
+SPMD_BATCH, SPMD_STEPS, SPMD_WINDOW, SPMD_BOOK = 2, 3, 64, 1
+# phase 26: gemma3-1b SMOKE, a global batch of 6 x 16 tokens, 2 steps a case
+SMOKE_SPMD_BATCH, SMOKE_SPMD_SEQ, SMOKE_SPMD_STEPS = 6, 16, 2
+
+
+class LocalMesh:
+    """A world-1 mesh whose collectives are the identity, for replaying the
+    exchange on the CPU: at world 1 every collective of the card's NCCL
+    group is a copy."""
+
+    def __init__(self, axes):
+        self.axis_names = tuple(axes)
+        self.shape = {a: 1 for a in axes}
+
+    def axis_size(self, axes) -> int:
+        return 1
+
+    def axis_index(self, axes) -> int:
+        return 0
+
+    def psum(self, x, axes):
+        return x
+
+    pmean = psum_scatter = psum
+
+    def all_gather(self, x, axes, axis: int = 0, tiled: bool = True):
+        return x if tiled else x.unsqueeze(axis)
+
+
+@contextlib.contextmanager
+def world_one(dev):
+    """A world-1 NCCL process group on the card for the block."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_process_group
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_spmd_")
+    init_process_group(dev, init_method=f"file://{tmp}/rendezvous")
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _windows(n: int, chunk: int) -> list:
+    """Chunk-aligned windows of SPMD_WINDOW chunks at the start, the middle
+    and the end (the padding) of an n-element slab."""
+    w = SPMD_WINDOW * chunk
+    mid = (n // chunk // 2) * chunk
+    return [(0, w), (mid, mid + w), (n - w, n)]
+
+
+def book_update(ex, book: dict, events: list, book_call: int, chunk: int):
+    """Wrap ``ex.device_update``: CUDA events around every call, and at
+    call ``book_call`` host copies of every input's and output's windows
+    (inputs before the call: the kernel updates them in place)."""
     import torch
+
+    real = ex.device_update
+
+    def booked(gflat, pflat, state, lr_scale=1.0, *, mesh):
+        call = len(events)
+        wins = _windows(pflat.shape[0], chunk) if call == book_call else []
+
+        def cut(x):
+            return [x[a:b].cpu() for a, b in wins] if x is not None else None
+
+        if wins:
+            book["in"] = {"g": cut(gflat), "p": cut(pflat),
+                          "slots": [cut(s) for s in state["slots"]],
+                          "ef": cut(state["ef"]), "step": state["step"].cpu(),
+                          "lr_scale": lr_scale}
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        new_p, new_state = real(gflat, pflat, state, lr_scale, mesh=mesh)
+        end.record()
+        events.append((start, end))
+        if wins:
+            book["out"] = {"p": cut(new_p),
+                           "slots": [cut(s) for s in new_state["slots"]],
+                           "ef": cut(new_state["ef"])}
+        return new_p, new_state
+
+    ex.device_update = booked
+    return real
+
+
+def replay_book(real, book: dict, axes) -> float:
+    """Each booked window through ``device_update`` on the CPU (the
+    kernels' plain versions), against the card's outputs, bitwise."""
+    i = book["in"]
+    err = 0.0
+    for w in range(len(i["g"])):
+        state = {"slots": tuple(s[w] for s in i["slots"]),
+                 "ef": i["ef"][w] if i["ef"] is not None else None,
+                 "step": i["step"]}
+        new_p, new_state = real(i["g"][w], i["p"][w], state, i["lr_scale"],
+                                mesh=LocalMesh(axes))
+        pairs = [(new_p, book["out"]["p"][w])]
+        pairs += [(a, b[w]) for a, b in zip(new_state["slots"],
+                                            book["out"]["slots"])]
+        if new_state["ef"] is not None:
+            pairs.append((new_state["ef"], book["out"]["ef"][w]))
+        for a, b in pairs:
+            err = max(err, max_abs_err(a, b))
+            if not same_bits(a, b):
+                raise AssertionError(
+                    f"CPU replay of the booked update differs in window {w}, "
+                    f"max |err| {max_abs_err(a, b)}")
+    return err
+
+
+def spmd_path(dev) -> dict:
+    """gemma3-1b at full width trained by the SPMD PS step (world 1 over
+    NCCL) with AdamW, SPMD_STEPS steps a strategy: pbox and allreduce on a
+    1 x 1 (data, model) mesh, pbox_hier with the int8 codec and error
+    feedback on a 1 x 1 x 1 (pod, data, model) mesh.  Call inside
+    ``world_one`` and ``deterministic``."""
+    import torch
+
+    from repro_torch.configs.registry import ShapeCell, get_arch
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.core.exchange import ExchangeConfig
+    from repro_torch.core.fabric import ServerStats
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import build_lm_train, make_exchange
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.trainer import (
+        attach_telemetry,
+        init_train_state,
+        local_state,
+    )
+
+    arch = get_arch("gemma3-1b")
+    cfg = arch.config
+    cell = ShapeCell("train_2x1k", "train",
+                     {"seq_len": SEQ, "global_batch": SPMD_BATCH})
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+               for b in itertools.islice(
+                   lm_batches(cfg.vocab, SPMD_BATCH, SEQ, 0), SPMD_STEPS)]
+    dp = make_mesh((1, 1), ("data", "model"))
+    pod = make_mesh((1, 1, 1), ("pod", "data", "model"))
+    int8 = CompressionConfig(codec="int8")
+    runs, init, kept = {}, None, None
+    for label, mesh, xcfg, want in (
+            ("pbox", dp, ExchangeConfig("pbox"), {"fused_agg_opt": 1}),
+            ("allreduce", dp, ExchangeConfig("allreduce"),
+             {"fused_agg_opt": 1}),
+            ("pbox_hier_int8", pod, ExchangeConfig("pbox_hier",
+                                                   compression=int8),
+             {"fused_agg_opt": 1, "quantize_chunks": 1,
+              "dequantize_chunks": 2})):
+        ex = make_exchange(mesh, "lm", exchange_cfg=xcfg)
+        plan = build_lm_train(arch, cell, mesh, ex)
+        space = plan.meta["space"]
+        if init is None:
+            gen = torch.Generator(device=dev).manual_seed(0)
+            fn = lambda g: T.init_params(cfg, g)  # noqa: E731
+        else:
+            gen, fn = None, lambda _: space.unflatten(init)  # noqa: E731
+        state = init_train_state(mesh, init_params_fn=fn, exchange=ex,
+                                 space=space, n_groups=1, key=gen,
+                                 ps_dtype=cfg.param_dtype, device=dev)
+        if init is None:
+            init = state.pflat[0].clone()
+        stats = ServerStats()
+        step = attach_telemetry(plan.fn, ex, space, mesh, stats)
+        book, events = {}, []
+        real = book_update(ex, book, events, SPMD_BOOK,
+                           xcfg.compression.chunk_elems)
+        pflat, slots, ef, stc = local_state(state, mesh, ex)
+        del state
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_counts()
+        losses, step_ms = [], []
+        for b in batches:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pflat, slots, ef, stc, met = step(pflat, slots, ef, stc, b)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(met["loss"])
+        launches = _counts()
+        _check_counts(f"spmd {label}", launches,
+                      {k: v * SPMD_STEPS for k, v in want.items()})
+        peak = torch.cuda.max_memory_allocated(dev)
+        losses = finite_losses(losses)
+        update_ms = [s.elapsed_time(e) for s, e in events]
+        mb = ex.modeled_bytes(space.flat_elems, 1, 1)
+        if (stats.steps, stats.pushes, stats.bytes_pushed,
+                stats.bytes_pulled) != (
+                SPMD_STEPS, SPMD_STEPS, SPMD_STEPS * int(
+                    mb["push"] + (mb["xpod"] or 0.0)),
+                SPMD_STEPS * int(mb["pull"])):
+            raise AssertionError(f"spmd {label}: telemetry {stats} against "
+                                 f"modeled bytes {mb}")
+        err = replay_book(real, book, mesh.axis_names)
+        runs[label] = {"launches": launches, "losses": losses,
+                       "step_ms": step_ms, "update_ms": update_ms,
+                       "peak_bytes": peak, "replay_err": err,
+                       "flat": space.flat_elems}
+        log(f"spmd {label}: losses {losses}, steps {[round(x, 1) for x in step_ms]}"
+            f" ms, device_update {[round(x, 2) for x in update_ms]} ms, peak "
+            f"{peak / 2**30:.2f} GiB, launches {launches}; step {SPMD_BOOK + 1}"
+            " replayed on the CPU over 3 windows bitwise")
+        if label == "pbox":
+            kept = (pflat, slots)
+        elif label == "allreduce":
+            if not (same_bits(pflat, kept[0]) and all(
+                    same_bits(a, b) for a, b in zip(slots, kept[1]))):
+                raise AssertionError("spmd: pbox and allreduce differ at "
+                                     "world 1")
+            kept = None
+        del pflat, slots, ef
+        torch.cuda.empty_cache()
+    first = {label: r["losses"][0] for label, r in runs.items()}
+    if len(set(first.values())) != 1:
+        raise AssertionError(f"spmd: step-1 losses differ: {first}")
+    log("spmd: pbox == allreduce bitwise (params, m, v) after "
+        f"{SPMD_STEPS} steps; step-1 losses equal across strategies")
+    return runs
+
+
+def smoke_spmd_cases():
+    for strategy, codec in (("allreduce", "none"), ("pbox", "none"),
+                            ("pbox_hier", "none"), ("pbox_hier", "bf16"),
+                            ("pbox_hier", "int8")):
+        for opt in ("sgd", "momentum", "adam", "adamw"):
+            for mb in (1, 2, 3):
+                for pull in (None, "bf16"):
+                    yield (f"{strategy}/{codec}/{opt}/mb{mb}/pull_{pull}",
+                           strategy, codec, opt, mb, pull)
+
+
+def _smoke_spmd_step(cfg, mesh, strategy, codec, opt, mb, pull, loss_fn):
+    import torch
+
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.core.exchange import ExchangeConfig, PSExchange
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import Dist
+    from repro_torch.optim import optimizers as O
+    from repro_torch.optim.schedules import linear_warmup
+    from repro_torch.runtime.trainer import make_ps_train_step
+
+    spec = {"sgd": O.sgd(0.05), "momentum": O.momentum(0.05, 0.9),
+            "adam": O.adam(1e-3), "adamw": O.adamw(1e-3)}[opt]
+    ex = PSExchange(spec, ExchangeConfig(
+        strategy, compression=CompressionConfig(codec=codec),
+        pull_dtype=torch.bfloat16 if pull else None),
+        meshlib.worker_axes(mesh), meshlib.pod_axis(mesh)
+        if strategy == "pbox_hier" else None)
+    step, space, _, _ = make_ps_train_step(
+        mesh, loss_fn=loss_fn, global_param_template=T.abstract_params(cfg),
+        exchange=ex, dist=Dist(), ps_dtype=cfg.param_dtype,
+        microbatches=mb, lr_schedule=linear_warmup(3))
+    return step, space, ex
+
+
+def smoke_spmd_check(dev, only=None) -> dict:
+    """Phase 26: every ``smoke_spmd_cases`` case at gemma3-1b's SMOKE config
+    and world 1, the step on the card against a CPU replay: each
+    microbatch's gradient booked on the card (recomputed before the step,
+    under deterministic algorithms: the same bits the step computes) and
+    fed to the same step on the CPU through a loss whose gradient is
+    exactly the booked one.  Params, slots and residuals bitwise; the
+    card's launches equal to the CPU's plain-version calls.  Then the
+    zero-compute step for each strategy on the card: every param at -0.1.
+    Call inside ``world_one`` and ``deterministic``."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.exchange import ExchangeConfig, PSExchange
+    from repro_torch.core.zero_compute import (
+        init_zero_compute_state,
+        make_zero_compute_step,
+    )
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import momentum
+    from repro_torch.runtime.trainer import tracked_params
+
+    cfg = get_arch("gemma3-1b").smoke_config
+    meshes = {"dp": make_mesh((1, 1), ("data", "model")),
+              "pod": make_mesh((1, 1, 1), ("pod", "data", "model"))}
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(7)
+    batches = [{k: torch.from_numpy(rng.integers(
+        0, cfg.vocab, (SMOKE_SPMD_BATCH, SMOKE_SPMD_SEQ)).astype(np.int32))
+        for k in ("tokens", "labels")} for _ in range(SMOKE_SPMD_STEPS)]
+
+    def model_loss(p, b, dist):
+        return T.lm_loss(p, b["tokens"], b["labels"], cfg)
+
+    def pairs_of(p, g):
+        if isinstance(p, dict):
+            return [x for k in p for x in pairs_of(p[k], g[k])]
+        return [(p, g)]
+
+    def replay_loss(p, b, dist):
+        # d/dp of sum(p * g) is g exactly: the booked gradient, leaf by leaf
+        g = tracked_params(space_of[0], b["g"].reshape(-1))
+        loss = sum((a * w).sum() for a, w in pairs_of(p, g))
+        return loss, {"ce": loss.detach(), "aux": loss.detach() * 0}
+
+    out, space_of = {}, [None]
+    for name, strategy, codec, opt, mb, pull in smoke_spmd_cases():
+        if only is not None and name not in only:
+            continue
+        mesh = meshes["pod" if strategy == "pbox_hier" else "dp"]
+        step, space, ex = _smoke_spmd_step(cfg, mesh, strategy, codec, opt,
+                                           mb, pull, model_loss)
+        space_of[0] = space
+        cstep, _, cex = _smoke_spmd_step(cfg, LocalMesh(mesh.axis_names),
+                                         strategy, codec, opt, mb, pull,
+                                         replay_loss)
+        flat = space.flatten(params)
+        n = ex.slab_elems(space)
+        st = ex.init_slab_state(space, device=dev)
+        card = [flat.to(dev).reshape(1, -1), tuple(
+            s.reshape(1, -1) for s in st["slots"]),
+            st["ef"].reshape(1, -1) if st["ef"] is not None else None,
+            st["step"]]
+        cst = cex.init_slab_state(space, device="cpu")
+        cpu = [flat.clone().reshape(1, -1), tuple(
+            s.reshape(1, -1) for s in cst["slots"]),
+            cst["ef"].reshape(1, -1) if cst["ef"] is not None else None,
+            cst["step"]]
+        _zero_counts()
+        booked = []
+        for b in batches:
+            rows = SMOKE_SPMD_BATCH // mb
+            gs = []
+            for i in range(mb):
+                leaf = card[0].reshape(-1).detach().requires_grad_(True)
+                mbatch = {k: v[i * rows:(i + 1) * rows].to(dev)
+                          for k, v in b.items()}
+                loss, _ = model_loss(tracked_params(space, leaf), mbatch, None)
+                gs.append(torch.autograd.grad(loss, leaf)[0].cpu())
+            booked.append(torch.stack(gs))
+            card[:4] = step(*card, {k: v.to(dev) for k, v in b.items()})[:4]
+        launches = _counts()
+        with PlainCalls() as plain:
+            for g in booked:
+                cpu[:4] = cstep(*cpu, {"g": g})[:4]
+        if launches != plain.counts:
+            raise AssertionError(f"smoke spmd {name}: card launches "
+                                 f"{launches}, CPU plain calls {plain.counts}")
+        pairs = [(card[0], cpu[0])] + list(zip(card[1], cpu[1]))
+        if card[2] is not None:
+            pairs.append((card[2], cpu[2]))
+        for a, b in pairs:
+            if not same_bits(a.cpu(), b):
+                raise AssertionError(
+                    f"smoke spmd {name}: card != CPU, max |err| "
+                    f"{max_abs_err(a.cpu(), b)}")
+        if int(card[3]) != SMOKE_SPMD_STEPS or any(
+                s.shape[-1] != n for s in card[1]):
+            raise AssertionError(f"smoke spmd {name}: step or slab size")
+        out[name] = launches
+    for strategy, pod in (("pbox", None), ("pbox_hier", "pod"),
+                          ("allreduce", None)):
+        if only is not None and f"zero/{strategy}" not in only:
+            continue
+        ex = PSExchange(momentum(0.1, 0.9), ExchangeConfig(strategy),
+                        ("pod", "data", "model"), pod)
+        flat = 8192 * 8
+        zstep = make_zero_compute_step(meshes["pod"], ex, flat)
+        state = init_zero_compute_state(meshes["pod"], ex, flat, device=dev)
+        p0, g0 = torch.zeros(flat, device=dev), torch.ones(flat, device=dev)
+        _zero_counts()
+        p2, _ = zstep(p0, g0, state)
+        launches = _counts()
+        if not torch.equal(p2, torch.full_like(p2, -0.1)):
+            raise AssertionError(f"zero-compute {strategy}: params "
+                                 f"{p2[:4].tolist()}, expected -0.1")
+        want = {k: int(k == "fused_agg_opt") for k in launches}
+        if launches != want:
+            raise AssertionError(f"zero-compute {strategy}: launches "
+                                 f"{launches}, expected {want}")
+        out[f"zero/{strategy}"] = launches
+    zero = [k[5:] for k in out if k.startswith("zero/")]
+    log(f"smoke spmd: {len(out) - len(zero)} cases card == CPU bitwise "
+        "(strategy x codec x optimizer x microbatches 1/2/3 x pull "
+        f"f32/bf16); zero-compute -0.1 under {', '.join(zero)}")
+    return out
+
+
+def cli_check(dev) -> dict:
+    """Phase 27: ``launch/train.main`` on the card at gemma3-1b's SMOKE
+    config, world 1: six steps with checkpoints at 3 and 6, then a run
+    stopped after step 3 and resumed to 6, bitwise equal to the first.
+    Call inside ``world_one`` and ``deterministic``."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.train import main
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    base = ["--arch", "gemma3-1b", "--mesh", "1x1", "--log-every", "3"]
+    try:
+        t0 = time.perf_counter()
+        full = main(base + ["--steps", "6", "--ckpt-dir", str(tmp / "full"),
+                            "--ckpt-every", "3"], device=dev)
+        full_s = time.perf_counter() - t0
+        main(base + ["--steps", "3", "--ckpt-dir", str(tmp / "crash"),
+                     "--ckpt-every", "3"], device=dev)
+        res = main(base + ["--steps", "6", "--ckpt-dir", str(tmp / "crash"),
+                           "--resume"], device=dev)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if res["start"] != 3 or res["losses"] != full["losses"][3:]:
+        raise AssertionError(f"cli: resumed losses {res['losses']} against "
+                             f"{full['losses']}")
+    if not (same_bits(res["pflat"], full["pflat"]) and all(
+            same_bits(a, b) for a, b in zip(res["slots"], full["slots"]))):
+        raise AssertionError("cli: the resumed run differs from the "
+                             "uninterrupted one")
+    if not full["losses"][-1] < full["losses"][0]:
+        raise AssertionError(f"cli: loss did not fall: {full['losses']}")
+    log(f"cli: main() 6 steps in {full_s:.1f} s, losses "
+        f"{[round(x, 4) for x in full['losses']]}; stopped at 3 and resumed:"
+        " bitwise equal (params, m, v)")
+    return {"losses": full["losses"], "seconds": full_s}
+
+
+# phase 28: two ranks on the one card over gloo (torch's gloo takes CUDA
+# tensors in its reduce-scatter and all-gather; NCCL takes one rank a card)
+GLOO_CASES = (("pbox", "none"), ("allreduce", "none"), ("pbox_hier", "int8"))
+GLOO_BATCH, GLOO_STEPS = 4, 2
+
+
+def _gloo_batches(cfg):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(11)
+    return [{k: torch.from_numpy(rng.integers(
+        0, cfg.vocab, (GLOO_BATCH, SMOKE_SPMD_SEQ)).astype(np.int32))
+        for k in ("tokens", "labels")} for _ in range(GLOO_STEPS)]
+
+
+def _gloo_rank(rank, world, path, out_dir, device):
+    """One rank of phase 28: gemma3-1b SMOKE, this rank's rows of each
+    batch, GLOO_STEPS AdamW steps per ``GLOO_CASES`` case on ``device``
+    (cuda:0); saves its final params, slots and residual."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.trainer import shard_batch
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dist.init_process_group("gloo", init_method=f"file://{path}", rank=rank,
+                            world_size=world)
+    try:
+        cfg = get_arch("gemma3-1b").smoke_config
+        params = T.init_params(cfg, torch.Generator().manual_seed(0))
+        meshes = {"dp": Mesh((2, 1), ("data", "model")),
+                  "pod": Mesh((2, 1, 1), ("pod", "data", "model"))}
+        out = {}
+        for strategy, codec in GLOO_CASES:
+            mesh = meshes["pod" if strategy == "pbox_hier" else "dp"]
+            step, space, ex = _smoke_spmd_step(
+                cfg, mesh, strategy, codec, "adamw", 1, None,
+                lambda p, b, d: T.lm_loss(p, b["tokens"], b["labels"], cfg))
+            st = ex.init_slab_state(space, device=dev)
+            state = [space.flatten(params).to(dev).reshape(1, -1),
+                     tuple(s.reshape(1, -1) for s in st["slots"]),
+                     st["ef"].reshape(1, -1) if st["ef"] is not None
+                     else None, st["step"]]
+            for b in _gloo_batches(cfg):
+                mine = {k: v.to(dev) for k, v in
+                        shard_batch(b, mesh, ex).items()}
+                state[:4] = step(*state, mine)[:4]
+            out[strategy] = {"pflat": state[0].cpu(),
+                             "slots": [s.cpu() for s in state[1]],
+                             "ef": state[2].cpu() if state[2] is not None
+                             else None}
+        torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def gloo_cuda_check(dev) -> dict:
+    """Phase 28: 2 ranks in 2 processes on cuda:0 over gloo, each case
+    against the same exchange done by hand in this process (each rank's
+    gradient computed here under deterministic algorithms, the sums,
+    codec and update in the exchange's order), bitwise."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core import compression as comp
+    from repro_torch.core.chunking import ParamSpace
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import optimizers as O
+    from repro_torch.optim.schedules import linear_warmup
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
+    t0 = time.perf_counter()
+    try:
+        ctx = mp.start_processes(_gloo_rank, args=(2, f"{tmp}/rendezvous",
+                                                   tmp, str(dev)),
+                                 nprocs=2, join=False, start_method="spawn")
+        deadline = time.monotonic() + 300
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise AssertionError("gloo ranks on cuda:0 timed out")
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt") for r in range(2)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    cfg = get_arch("gemma3-1b").smoke_config
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    space = ParamSpace.build(params, num_owners=2)
+    spec = O.adamw(1e-3)
+    codec = comp.CompressionConfig(codec="int8")
+    with deterministic():
+        want = {strategy: _gloo_by_hand(dev, cfg, params, space, spec, codec,
+                                        strategy, linear_warmup(3))
+                for strategy, _ in GLOO_CASES}
+    for strategy, _ in GLOO_CASES:
+        p, m, v, efs = want[strategy]
+        n = p.shape[0] // 2
+        for r, got in enumerate(ranks):
+            out = got[strategy]
+            lo, hi = (r * n, (r + 1) * n) if strategy == "pbox" else (0, 2 * n)
+            pairs = [(out["pflat"][0], p)] + list(zip(
+                [s[0] for s in out["slots"]], [m[lo:hi], v[lo:hi]]))
+            if strategy == "pbox_hier":
+                pairs.append((out["ef"][0], efs[r]))
+            for a, b in pairs:
+                if not same_bits(a, b):
+                    raise AssertionError(
+                        f"gloo on cuda:0, {strategy}: rank {r} differs from "
+                        f"the exchange by hand, max |err| {max_abs_err(a, b)}")
+    log(f"gloo on cuda:0: 2 ranks x {len(GLOO_CASES)} cases (pbox, allreduce,"
+        f" pbox_hier int8 over 2 pods) == the exchange by hand, bitwise, in "
+        f"{seconds:.1f} s")
+    return {"seconds": seconds}
+
+
+def _gloo_by_hand(dev, cfg, params, space, spec, codec, strategy, sched):
+    """Phase 28's reference: both ranks' gradients here, then the
+    exchange's arithmetic in its order; returns host (p, m, v, residuals)."""
+    import torch
+
+    from repro_torch.core import compression as comp
+    from repro_torch.kernels.fused_agg_opt.ops import fused_aggregate_update
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.trainer import tracked_params
+
+    p = space.flatten(params).to(dev)
+    m, v = torch.zeros_like(p), torch.zeros_like(p)
+    efs = [torch.zeros_like(p), torch.zeros_like(p)]
+    for i, b in enumerate(_gloo_batches(cfg)):
+        gs = []
+        for r in range(2):
+            leaf = p.detach().requires_grad_(True)
+            rows = {k: val[r * 2:(r + 1) * 2].to(dev)
+                    for k, val in b.items()}
+            loss, _ = T.lm_loss(tracked_params(space, leaf),
+                                rows["tokens"], rows["labels"], cfg)
+            gs.append(torch.autograd.grad(loss, leaf)[0])
+        if strategy == "pbox_hier":
+            parts = []
+            for r in range(2):
+                payload, efs[r] = comp.encode(codec, gs[r] * 0.5, efs[r])
+                parts.append(payload)
+            g = comp.decode(codec, parts[0]) + comp.decode(codec, parts[1])
+        else:
+            g = (gs[0] + gs[1]) * 0.5
+        step = torch.full((), i + 1, dtype=torch.int32, device=dev)
+        p, (m, v) = fused_aggregate_update(g[None], p, (m, v), spec, step,
+                                           sched(step), average=False)
+    return p.cpu(), m.cpu(), v.cpu(), [e.cpu() for e in efs]
+
+
+# -- phase 19: kernel timings ------------------------------------------------
+def time_fused_agg_opt(dev, n: int, k: int, average: bool = True,
+                       dtype=None) -> dict:
+    """AdamW over K gradient rows of N elements, grads and param in
+    ``dtype`` (f32 unless given; the SPMD path's are bf16)."""
+    import torch
+
+    dtype = dtype or torch.float32
 
     from repro_torch.kernels.fused_agg_opt import kernel as K
     from repro_torch.kernels.fused_agg_opt.ops import scalar_packet
@@ -4696,8 +5331,8 @@ def time_fused_agg_opt(dev, n: int, k: int, average: bool = True) -> dict:
 
     spec = adamw(3e-3)
     gen = torch.Generator(device=dev).manual_seed(1)
-    grads = torch.randn((k, n), generator=gen, device=dev)
-    p = torch.randn(n, generator=gen, device=dev)
+    grads = torch.randn((k, n), generator=gen, device=dev).to(dtype)
+    p = torch.randn(n, generator=gen, device=dev).to(dtype)
     m = torch.randn(n, generator=gen, device=dev) * 0.1
     v = (torch.randn(n, generator=gen, device=dev) * 0.1).abs()
     packet = scalar_packet(spec, 1, device=dev)
@@ -4716,11 +5351,12 @@ def time_fused_agg_opt(dev, n: int, k: int, average: bool = True) -> dict:
         grads, p, (m, v), packet, spec, average=average), reps=20)
     plain_ms = cuda_ms(lambda: K.fused_agg_opt_torch(
         grads, p, (m, v), packet, spec, average=average), reps=5)
+    w = p.element_size()
     b = bound(torch.cuda.get_device_name(dev),
-              (k * 4 + 2 * 4 + 2 * 2 * 4) * n,  # grads in; param, m, v in+out
+              (k * w + 2 * w + 2 * 2 * 4) * n,  # grads in; param, m, v in+out
               adamw_ops(k) * n)
     log(f"timing fused_agg_opt (AdamW, K={k}, average={average}, N={n}, "
-        f"f32): kernel "
+        f"{dtype}): kernel "
         f"{kernel_ms:.4f} ms (median of 20), plain version {plain_ms:.4f} ms "
         f"(median of 5); bound {b['bound_ms']:.4f} ms = {b['bytes']} bytes "
         f"(operations: {b['op_ms']:.4f} ms); kernel reaches "
@@ -5061,6 +5697,13 @@ def main() -> int:
     sparse_serve = sparse_serve_path(dev)
     smoke_serve = smoke_serve_check(dev)
     smoke_auto = smoke_autoscale_check(dev)
+    torch.cuda.empty_cache()
+    with world_one(dev), deterministic():
+        spmd = spmd_path(dev)
+        smoke_spmd = smoke_spmd_check(dev)
+        cli = cli_check(dev)
+    gloo = gloo_cuda_check(dev)
+    torch.cuda.empty_cache()
     switch_math = switch_math_ms(dev, int8["flat"], int8["chunk"])
     d = dlrm_capped_config().embed_dim
     timing = {"fused_agg_opt": time_fused_agg_opt(dev, f32["n"], WORKERS),
@@ -5069,6 +5712,10 @@ def main() -> int:
               # the async path's K = 1 pushes, without averaging
               "fused_agg_opt_k1": time_fused_agg_opt(dev, f32["n"], 1,
                                                      average=False),
+              # the SPMD step's update: K = 1, bf16, the whole flat
+              "fused_agg_opt_spmd": time_fused_agg_opt(
+                  dev, spmd["pbox"]["flat"], 1, average=False,
+                  dtype=torch.bfloat16),
               "wire_fused_k1": time_wire(dev, asyn["n"], 1, asyn["chunk"],
                                          average=False),
               "embedding_bag": time_embedding_bag(
@@ -5076,7 +5723,8 @@ def main() -> int:
               "segment_sum": time_segment_sum(dev, DLRM_BATCH, d, DLRM_ROW_CAP)}
     multi_hot = time_embedding_bag(dev, DLRM_BATCH, 20, d, DLRM_ROW_CAP,
                                    "multi-hot", 2)
-    replayed = {"fused_agg_opt": f32_err,
+    replayed = {"fused_agg_opt": max(f32_err, *(run["replay_err"]
+                                                for run in spmd.values())),
                 "wire_fused": max(int8_err, async_err), **codec_err,
                 **dlrm_err}
     # every path's launches, by kernel; the SMOKE cases summed
@@ -5107,7 +5755,11 @@ def main() -> int:
                              for k in f32["launches"]},
              "autoscale_gemma": auto["launches"],
              "smoke_autoscale": {k: sum(c[k] for c in smoke_auto.values())
-                                 for k in f32["launches"]}}
+                                 for k in f32["launches"]},
+             **{f"spmd_{label}": run["launches"]
+                for label, run in spmd.items()},
+             "smoke_spmd": {k: sum(c.get(k, 0) for c in smoke_spmd.values())
+                            for k in f32["launches"]}}
     # K = 1 without averaging: the async pushes (f32 ones only at SMOKE)
     k1_launches = {"fused_agg_opt": smoke["async/none"]["fused_agg_opt"],
                    "wire_fused": asyn["launches"]["wire_fused"]
@@ -5166,6 +5818,16 @@ def main() -> int:
                 **{key: timing[f"{kname}_k1"][key] for key in (
                     "ms", "plain_ms", "bound_ms", "bound_by",
                     "max_abs_err")}}} if kname in k1_launches else {}),
+            **({"spmd_k1_bf16": {
+                "launches": sum(run["launches"][kname]
+                                for run in spmd.values()),
+                "device_update_ms": {label: statistics.median(
+                    run["update_ms"][1:]) for label, run in spmd.items()},
+                "replay_max_abs_err": max(run["replay_err"]
+                                          for run in spmd.values()),
+                **{key: timing["fused_agg_opt_spmd"][key] for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "max_abs_err")}}} if kname == "fused_agg_opt" else {}),
         })
     log(f"main path peaks: f32 {f32['peak_bytes'] / 2**30:.2f} GiB, int8 "
         f"{int8['peak_bytes'] / 2**30:.2f} GiB, dlrm "
@@ -5208,6 +5870,13 @@ def main() -> int:
         f"{[round(x, 1) for x in auto['reshard_ms']]} ms, solves "
         f"{[round(x, 2) for x in auto['solve_ms']]} ms, retries "
         f"{auto['retries']})"
+        + "; spmd " + ", ".join(
+            f"{label} steady step {statistics.median(run['step_ms'][1:]):.1f}"
+            f" ms (device_update {statistics.median(run['update_ms'][1:]):.2f}"
+            f" ms), peak {run['peak_bytes'] / 2**30:.2f} GiB"
+            for label, run in spmd.items())
+        + f"; cli 6 SMOKE steps {cli['seconds']:.1f} s; gloo on cuda:0 "
+        f"{gloo['seconds']:.1f} s"
         + f"; switch integer math "
         f"{sum(v['ms'] for v in switch_math.values()):.3f} ms; whole run "
         f"{time.perf_counter() - t_start:.1f} s")

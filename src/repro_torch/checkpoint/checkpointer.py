@@ -20,8 +20,12 @@ and the caller's meta).
     replayable recovery needs.  Checkpoints without that metadata still
     load: ``restore_fabric`` treats them as an all-alive fabric.
 
-The JAX package's ``train_state_to_flat`` / ``flat_to_train_state`` serve
-its SPMD trainer, which the port does not have yet.
+``train_state_to_flat`` / ``flat_to_train_state`` carry the SPMD
+trainer's global ``TrainState`` (``pflat``, ``slot{i}``, ``ef`` as
+``(n_groups, flat)`` arrays, each owner's slab at its linear index), the
+JAX trainer's layout.  bf16 arrays go to disk as 2-byte raw values (numpy
+dtype ``V2``), which is how ``np.save`` writes the JAX package's bf16
+arrays, and come back as bf16 tensors.
 """
 from __future__ import annotations
 
@@ -35,14 +39,30 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
+
+def _host_array(v) -> np.ndarray:
+    if not torch.is_tensor(v):
+        return np.array(v)
+    v = v.detach().to("cpu", copy=True)
+    if v.dtype == torch.bfloat16:  # raw 2-byte values, as np.save keeps JAX's
+        return v.view(torch.int16).numpy().view(np.dtype("V2"))
+    return v.numpy()
+
 
 def _to_host(state: dict) -> dict:
     """name -> a host numpy copy of each tensor or array (None dropped)."""
-    return {
-        k: (v.detach().to("cpu", copy=True).numpy() if torch.is_tensor(v)
-            else np.array(v))
-        for k, v in state.items() if v is not None
-    }
+    return {k: _host_array(v) for k, v in state.items() if v is not None}
+
+
+def _from_host(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A restored array as a tensor on ``device``; 2-byte raw values (and
+    ``ml_dtypes`` bf16 arrays) as bf16."""
+    a = np.array(a, copy=True)
+    if a.dtype == np.dtype("V2") or a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 class Checkpointer:
@@ -205,3 +225,32 @@ def flat_to_fabric_snapshot(flat: dict) -> dict:
         if key in flat:
             snap[key] = flat[key]
     return snap
+
+
+def train_state_to_flat(state) -> dict:
+    """TrainState -> flat dict for the checkpointer."""
+    out = {"pflat": state.pflat, "step": state.step}
+    for i, s in enumerate(state.slots):
+        out[f"slot{i}"] = s
+    if state.ef is not None:
+        out["ef"] = state.ef
+    return out
+
+
+def flat_to_train_state(flat: dict, cls, *,
+                        device: torch.device | str | None = None):
+    """Inverse of ``train_state_to_flat``: ``cls`` (the trainer's
+    ``TrainState``) of tensors on ``device`` (the card unless the caller
+    passes another)."""
+    dev = resolve_device(device)
+    slots = []
+    i = 0
+    while f"slot{i}" in flat:
+        slots.append(_from_host(flat[f"slot{i}"], dev))
+        i += 1
+    return cls(
+        pflat=_from_host(flat["pflat"], dev),
+        slots=tuple(slots),
+        ef=_from_host(flat["ef"], dev) if "ef" in flat else None,
+        step=_from_host(flat["step"], dev).to(torch.int32),
+    )

@@ -1,14 +1,17 @@
 """The port's core: the PHub/PBox parameter exchange (torch counterpart of
 ``repro.core``: the fabric with its straggler modes, rack topology and
 switch tier, the fault tier, the tenancy tier), the read plane and the
-sparse embedding tier, and the placement layer."""
+sparse embedding tier, the placement layer, and the SPMD exchange over
+``torch.distributed``)."""
 from repro_torch.core.chunking import (
     DEFAULT_CHUNK_ELEMS,
     ParamSpace,
     TensorSlot,
     zeros_like_space,
 )
+from repro_torch.core.compression import CompressionConfig
 from repro_torch.core.config import FabricConfig, FabricConfigError
+from repro_torch.core.exchange import ExchangeConfig, PSExchange
 from repro_torch.core.fabric import (
     LinkModel,
     PBoxFabric,
@@ -67,6 +70,9 @@ __all__ = [
     "TensorSlot",
     "DEFAULT_CHUNK_ELEMS",
     "zeros_like_space",
+    "ExchangeConfig",
+    "PSExchange",
+    "CompressionConfig",
     "PlacementPlan",
     "PlacementProblem",
     "PlanDelta",

@@ -1,5 +1,5 @@
-"""The geo read-plane tier ladder (torch counterpart of the serving half of
-``repro/core/hierarchy.py``).
+"""Two-level collective schedules and the geo read-plane tier ladder
+(torch counterpart of ``repro/core/hierarchy.py``).
 
 The paper's §3 insight (aggregate inside the rack at full bisection
 bandwidth, forward one stream upward) read in the serving direction gives
@@ -13,13 +13,59 @@ hop) plus a WAN factor, and ``select_tier`` routes a read to the **nearest
 tier that satisfies its staleness bound**.
 
 Plain Python: the same floats as the JAX package's, operation for
-operation.  The JAX module's SPMD collectives (``hierarchical_psum``,
-``hierarchical_pmean``, ``two_level_all_gather``) belong to the SPMD path,
-which is not ported yet.
+operation.
+
+The two-level collective schedules (``hierarchical_psum``,
+``hierarchical_pmean``, ``two_level_all_gather``) are per-rank functions on
+tensors over a ``launch.mesh.Mesh``, the counterparts of the JAX ones
+inside ``shard_map``; they take the mesh as the keyword ``mesh``.
+``hierarchical_pmean`` multiplies by the f32 reciprocal of the rank count,
+as XLA compiles the JAX function's ``/ n`` under ``jit``.
 """
 from __future__ import annotations
 
 import dataclasses
+
+import torch
+
+
+def _as_tuple(axes) -> tuple:
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def hierarchical_psum(x: torch.Tensor, inner_axes, outer_axis: str | None,
+                      *, mesh) -> torch.Tensor:
+    """psum factored as inner reduce-scatter + outer all-reduce + inner
+    all-gather.  Mathematically == a psum over inner+outer but moves only
+    |x| / n_inner bytes across the outer (inter-pod) boundary."""
+    if outer_axis is None:
+        return mesh.psum(x, inner_axes)
+    flat = x.reshape(-1)
+    slab = mesh.psum_scatter(flat, inner_axes)
+    slab = mesh.psum(slab, outer_axis)
+    out = mesh.all_gather(slab, inner_axes)
+    return out.reshape(x.shape)
+
+
+def hierarchical_pmean(x: torch.Tensor, inner_axes, outer_axis: str | None,
+                       *, mesh) -> torch.Tensor:
+    n = mesh.axis_size(_as_tuple(inner_axes))
+    if outer_axis is not None:
+        n *= mesh.axis_size(outer_axis)
+    return hierarchical_psum(x, inner_axes, outer_axis, mesh=mesh) * (1.0 / n)
+
+
+def two_level_all_gather(x: torch.Tensor, inner_axes,
+                         outer_axis: str | None, axis: int = 0, *,
+                         mesh) -> torch.Tensor:
+    """All-gather staged inner-then-outer (same bytes, but the outer stage
+    ships the already-concatenated inner block once per pod instead of one
+    message per device: fewer, larger transfers across the slow
+    boundary)."""
+    y = mesh.all_gather(x, inner_axes, axis=axis)
+    if outer_axis is not None:
+        y = mesh.all_gather(y, outer_axis, axis=axis)
+    return y
 
 
 # ---------------------------------------------------------------------------

@@ -26,7 +26,9 @@ def scalar_packet(spec: OptimizerSpec, step: int, lr_scale: float = 1.0, *,
                   device: torch.device | str | None = None) -> torch.Tensor:
     """The (1, 4) f32 scalar operand ``[lr_t, bc1, bc2, tok]``, on ``device``.
 
-    ``lr_t`` is the scheduled learning rate (``spec.lr * lr_scale``);
+    ``lr_t`` is the scheduled learning rate (``spec.lr * lr_scale``, in
+    f32 when ``lr_scale`` is a schedule's 0-d tensor, as JAX's traced
+    scale is);
     ``bc1``/``bc2`` are Adam's bias corrections ``1/(1-beta^t)`` for
     1-based ``step`` (1.0 for stateless/momentum optimizers).  ``tok`` is
     the JAX package's fence token, always ``0.0``; it rides along so the
@@ -35,8 +37,11 @@ def scalar_packet(spec: OptimizerSpec, step: int, lr_scale: float = 1.0, *,
     never waits for the card."""
     device = resolve_device(device)
     t = step_tensor(step, device)
-    lr_t = torch.full((), spec.lr * lr_scale, dtype=torch.float32,
-                      device=device)
+    if isinstance(lr_scale, torch.Tensor):  # a schedule's f32 scalar
+        lr_t = spec.lr * lr_scale.to(device=device, dtype=torch.float32)
+    else:
+        lr_t = torch.full((), spec.lr * lr_scale, dtype=torch.float32,
+                          device=device)
     if spec.num_state_slots == 2:
         bc1 = torch.reciprocal(1.0 - spec.beta1**t)
         bc2 = torch.reciprocal(1.0 - spec.beta2**t)
@@ -71,8 +76,8 @@ def fused_aggregate_update(
     param: torch.Tensor,  # (N,)
     state: tuple,  # opt state slots
     spec: OptimizerSpec,
-    step: int,  # 1-based
-    lr_scale: float = 1.0,
+    step: int | torch.Tensor,  # 1-based
+    lr_scale: float | torch.Tensor = 1.0,
     *,
     average: bool = True,
 ) -> tuple[torch.Tensor, tuple]:

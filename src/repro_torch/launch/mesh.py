@@ -1,0 +1,225 @@
+"""Named device meshes over ``torch.distributed`` (torch counterpart of
+``repro/launch/mesh.py``).
+
+A JAX mesh names the axes of a device array, and ``shard_map`` code reduces
+or gathers over axis names.  Here every rank is one process on one device,
+and ``Mesh`` lays the ranks of the default process group row-major over the
+named axes, as ``compat.make_mesh`` orders devices: rank ``r`` sits at the
+row-major coordinates of ``r`` in ``shape``.  For every nonempty tuple of
+axes (in mesh order) the constructor builds one process group per coset,
+so the collectives below can run over any axis tuple.  ``dist.new_group``
+is collective: every rank builds the groups in the same order, in the
+constructor, before any collective runs.  ``torch.distributed`` orders a
+group's members by global rank, which for axes in mesh order is their
+row-major index over those axes: member ``i`` of a group is the rank whose
+linear index over the group's axes is ``i``, as in a tiled JAX
+``psum_scatter`` / ``all_gather``.
+
+The collectives (``psum``, ``psum_scatter``, ``all_gather``, ``pmean``) are
+per-rank functions on tensors, the counterparts of ``lax.psum`` & co. inside
+``shard_map``; over the empty axis tuple they are the identity, as JAX's
+are.  A division by the axis size is a product with its f32 reciprocal:
+XLA compiles JAX's ``x / n`` under ``jit`` to that product.
+
+The backend follows the device: NCCL for the card, gloo for the CPU
+(``init_process_group``).  NCCL takes one rank per card, so one card runs
+the mesh at world 1.  The port's model is tp = 1 throughout, so
+``make_mesh`` refuses a ``model`` axis larger than one (tensor parallelism
+is ROADMAP queue 1, item 6b); ``Mesh`` itself treats every axis alike.
+"""
+from __future__ import annotations
+
+import itertools
+import math
+import os
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.device import resolve_device
+
+TP_ITEM = "ROADMAP queue 1, item 6b"
+
+
+def init_process_group(device: torch.device | str | None = None, *,
+                       init_method: str, rank: int = 0,
+                       world_size: int = 1) -> None:
+    """Start the default process group with the backend ``device`` needs:
+    NCCL for the card, gloo for the CPU.  A failed init raises; nothing
+    falls back to another backend."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        if dev.index is None:  # "cuda": the current card
+            dev = torch.device("cuda", torch.cuda.current_device())
+        torch.cuda.set_device(dev)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=init_method,
+                            rank=rank, world_size=world_size,
+                            **({"device_id": dev} if dev.type == "cuda"
+                               else {}))
+
+
+def _axes(axes) -> tuple:
+    if axes is None:
+        return ()
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+class Mesh:
+    """Named axes laid row-major over the ranks of the default process
+    group (see the module docstring).  ``shape`` is a dict, as on a JAX
+    mesh; ``rank`` and ``coords`` are this process's place in it."""
+
+    def __init__(self, shape, axes):
+        shape, axes = tuple(int(s) for s in shape), tuple(axes)
+        if len(shape) != len(axes) or len(set(axes)) != len(axes):
+            raise ValueError(f"mesh shape {shape} does not match axes {axes}")
+        self.axis_names = axes
+        self.shape = dict(zip(axes, shape))
+        self.size = math.prod(shape)
+        if not dist.is_initialized():
+            raise RuntimeError(
+                "Mesh needs an initialized default process group "
+                "(launch.mesh.init_process_group)")
+        world = dist.get_world_size()
+        if world != self.size:
+            raise ValueError(
+                f"mesh {shape} needs {self.size} ranks, the process group "
+                f"has {world}")
+        self.rank = dist.get_rank()
+        idx = torch.arange(self.size).reshape(shape)
+        here = (idx == self.rank).nonzero()[0].tolist()
+        self.coords = dict(zip(axes, here))
+        self._groups: dict[tuple, dist.ProcessGroup] = {}
+        n = len(axes)
+        for r in range(1, n + 1):
+            for dims in itertools.combinations(range(n), r):
+                rest = [d for d in range(n) if d not in dims]
+                # one group per coset: the other axes' coordinates fixed
+                blocks = idx.permute(*rest, *dims).reshape(-1, math.prod(
+                    shape[d] for d in dims))
+                for ranks in blocks.tolist():
+                    group = dist.new_group(ranks)
+                    if self.rank in ranks:
+                        self._groups[tuple(axes[d] for d in dims)] = group
+
+    # -- axes -----------------------------------------------------------
+    def _canon(self, axes) -> tuple:
+        axes = _axes(axes)
+        for a in axes:
+            if a not in self.shape:
+                raise ValueError(f"{a!r} is not an axis of {self.axis_names}")
+        order = [self.axis_names.index(a) for a in axes]
+        if order != sorted(set(order)):
+            raise ValueError(
+                f"axes {axes} must be distinct and in mesh order "
+                f"{self.axis_names}")
+        return axes
+
+    def axis_size(self, axes) -> int:
+        return math.prod(self.shape[a] for a in self._canon(axes))
+
+    def axis_index(self, axes) -> int:
+        """This rank's row-major index over ``axes`` (``lax.axis_index``)."""
+        i = 0
+        for a in self._canon(axes):
+            i = i * self.shape[a] + self.coords[a]
+        return i
+
+    def group(self, axes) -> dist.ProcessGroup:
+        return self._groups[self._canon(axes)]
+
+    # -- collectives (identity over no axes) ----------------------------
+    def psum(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """Sum over the ranks of ``axes`` into a new tensor."""
+        axes = self._canon(axes)
+        if not axes:
+            return x
+        out = x.clone()
+        dist.all_reduce(out, group=self.group(axes))
+        return out
+
+    def pmean(self, x: torch.Tensor, axes) -> torch.Tensor:
+        return self.psum(x, axes) * (1.0 / self.axis_size(axes))
+
+    def psum_scatter(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """Tiled reduce-scatter along dim 0: member ``i`` of the group gets
+        block ``i`` of the sum."""
+        axes = self._canon(axes)
+        if not axes:
+            return x
+        n = self.axis_size(axes)
+        if x.shape[0] % n:
+            raise ValueError(
+                f"dim 0 of {tuple(x.shape)} does not split over {n} ranks")
+        out = torch.empty((x.shape[0] // n, *x.shape[1:]), dtype=x.dtype,
+                          device=x.device)
+        dist.reduce_scatter_tensor(out, x.contiguous(), group=self.group(axes))
+        return out
+
+    def all_gather(self, x: torch.Tensor, axes, axis: int = 0,
+                   tiled: bool = True) -> torch.Tensor:
+        """Member ``i``'s tensor at block ``i`` along ``axis`` (``tiled``),
+        or stacked on a new ``axis``."""
+        axes = self._canon(axes)
+        if not axes:
+            return x if tiled else x.unsqueeze(axis)
+        n = self.axis_size(axes)
+        out = torch.empty(n * x.numel(), dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(out, x.contiguous().reshape(-1),
+                                    group=self.group(axes))
+        out = out.reshape(n, *x.shape)
+        if not tiled:
+            return out.movedim(0, axis)
+        if axis == 0:
+            return out.reshape(n * x.shape[0], *x.shape[1:])
+        return torch.cat(out.unbind(0), dim=axis)
+
+
+def refuse_tp(shape, axes) -> None:
+    """Raise ``NotImplementedError`` for a model axis larger than one."""
+    if "model" in axes and shape[tuple(axes).index("model")] > 1:
+        raise NotImplementedError(
+            f"a model axis of {shape[tuple(axes).index('model')]}: the port "
+            f"trains at tp = 1; tensor parallelism is {TP_ITEM}")
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> tuple:
+    """The production layout as ``(shape, axes)``: 16 x 16 = 256 ranks
+    ("data", "model"), or 2 pods x 256 ("pod", "data", "model").  Only the
+    layout: a 256-rank process group is the caller's, and its model axis
+    of 16 waits for tensor parallelism (``TP_ITEM``)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return shape, axes
+
+
+def make_mesh(shape: tuple, axes: tuple) -> Mesh:
+    """A mesh for the trainer over the default process group; a model axis
+    larger than one raises ``NotImplementedError``."""
+    refuse_tp(tuple(shape), tuple(axes))
+    return Mesh(shape, axes)
+
+
+def worker_axes(mesh) -> tuple:
+    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+
+
+def pod_axis(mesh) -> str | None:
+    return "pod" if "pod" in mesh.axis_names else None
+
+
+def num_workers(mesh) -> int:
+    n = 1
+    for a in worker_axes(mesh):
+        n *= mesh.shape[a]
+    return n
+
+
+def env_rank() -> tuple[int, int, int] | None:
+    """``(rank, world_size, local_rank)`` as ``torchrun`` sets them, or
+    ``None`` outside ``torchrun``."""
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        return None
+    return (int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"]),
+            int(os.environ.get("LOCAL_RANK", 0)))

@@ -192,9 +192,9 @@ def serve(cfg, args, *, device=None, params=None) -> dict:
     d, m = (int(x) for x in args.mesh.split("x"))
     if d * m > 1:
         raise NotImplementedError(
-            f"--mesh {args.mesh}: the port serves on one device; data and "
-            "model parallelism come with the SPMD path (ROADMAP queue 1, "
-            "item 6)")
+            f"--mesh {args.mesh}: the port serves on one device; the "
+            "serve driver's mesh comes with tensor parallelism (ROADMAP "
+            "queue 1, item 6b)")
     device = resolve_device(device)
     if params is None:
         gen = torch.Generator(device=device).manual_seed(args.seed)

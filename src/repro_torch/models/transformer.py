@@ -135,6 +135,24 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator | None = None
     }
 
 
+def abstract_params(cfg: TransformerConfig) -> dict:
+    """``init_params``'s tree as meta tensors: shapes and dtypes only, no
+    storage (the JAX package's ``jax.eval_shape`` of ``init_params``)."""
+    _check_supported(cfg)
+    L, d, hd, ff = cfg.n_layers, cfg.d_model, cfg.head_dim, cfg.d_ff
+    qdim, kvdim, vp = cfg.n_heads * hd, cfg.n_kv_heads * hd, cfg.vocab_padded(1)
+
+    def meta(*shape):
+        return torch.empty(shape, dtype=cfg.param_dtype, device="meta")
+
+    layers = {"ln1": meta(L, d), "ln2": meta(L, d), "wq": meta(L, d, qdim),
+              "wk": meta(L, d, kvdim), "wv": meta(L, d, kvdim),
+              "wo": meta(L, qdim, d), "w1": meta(L, d, ff),
+              "w3": meta(L, d, ff), "w2": meta(L, ff, d)}
+    return {"embed": meta(vp, d), "layers": layers, "ln_f": meta(d),
+            "head": meta(vp, d)}
+
+
 # ---------------------------------------------------------------------------
 # building blocks
 # ---------------------------------------------------------------------------

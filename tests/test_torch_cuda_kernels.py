@@ -437,3 +437,20 @@ def test_cached_read_keeps_its_bits_on_card(cuda):
         for a, b in zip(runs["cuda"], runs["cpu"]):
             assert a[:2] == b[:2]
             assert torch.equal(a[2].view(torch.int32), b[2].view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_smoke_spmd_on_card_matches_cpu(cuda):
+    """chip_smoke.py's phase 26 on four cases at world 1 over NCCL: the SPMD
+    train step on the card (gemma3-1b SMOKE) against its CPU replay from
+    the card's booked gradients, bitwise, and the zero-compute step under
+    pbox_hier giving -0.1."""
+    cs = _chip_smoke()
+    cases = ("pbox/none/adamw/mb1/pull_None", "allreduce/none/sgd/mb2/pull_bf16",
+             "pbox_hier/int8/adam/mb3/pull_None",
+             "pbox_hier/bf16/momentum/mb1/pull_bf16", "zero/pbox_hier")
+    with cs.world_one(cuda), cs.deterministic():
+        launches = cs.smoke_spmd_check(cuda, only=cases)
+    assert sorted(launches) == sorted(cases)
+    assert launches["pbox_hier/int8/adam/mb3/pull_None"]["quantize_chunks"] \
+        == cs.SMOKE_SPMD_STEPS

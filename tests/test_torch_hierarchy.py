@@ -5,12 +5,18 @@ Mirrors the three ladder tests of tests/test_hierarchy.py (:136-192): each
 builds the same ``HierarchyConfig`` in either package and holds every
 ``ReadTier`` (name, latency floor, staleness bound, frontend count,
 refresh cap) and every ``select_tier`` answer equal, then runs the JAX
-test's own assertions on the port's ladder.  The collectives of that file
-(``hierarchical_psum`` and its kin) wait for the SPMD path (ROADMAP queue
-1, item 6).
+test's own assertions on the port's ladder.
+
+The collectives (``hierarchical_psum``, ``hierarchical_pmean``,
+``two_level_all_gather``) mirror tests/scripts/hier_and_zero_compute.py on
+8 gloo ranks, a (2, 2, 2) ("pod", "data", "model") mesh spawned once for
+the file (``tests/torch_spmd.py``, ~10 s): hierarchical == flat psum bit
+for bit, the pmean the sum times the f32 reciprocal of the rank count (as
+XLA compiles JAX's ``/ n``), and the staged gathers in mesh order.
 """
 import dataclasses
 
+import numpy as np
 import pytest
 
 pytest.importorskip("torch")
@@ -98,3 +104,53 @@ def test_select_tier_routes_to_nearest_satisfying_bound():
             jhier.select_tier(jtiers if bad[0] is tiers else jtiers[1:],
                               bad[1])
         assert str(e.value) == str(je.value)
+
+
+# ---------------------------------------------------------------------------
+# the two-level collectives, on 8 gloo ranks
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def hier_ranks(tmp_path_factory):
+    import torch_spmd
+
+    out = tmp_path_factory.mktemp("hier")
+    torch_spmd.spawn(8, torch_spmd.hierarchy_ranks, out)
+    return [dict(np.load(out / f"hier_r{r}.npz")) for r in range(8)]
+
+
+X = np.arange(32.0, dtype=np.float32).reshape(4, 8)
+
+
+def test_hierarchical_psum_equals_flat(hier_ranks):
+    for r in hier_ranks:
+        np.testing.assert_array_equal(r["flat"], X.sum(axis=0))
+        assert np.array_equal(r["hier"].view(np.uint32),
+                              r["flat"].view(np.uint32))
+        # inner only: the pod's two rows
+        pod = int(r["row"]) // 2
+        np.testing.assert_array_equal(r["inner_only"],
+                                      X[2 * pod] + X[2 * pod + 1])
+
+
+def test_hierarchical_pmean_is_sum_times_reciprocal(hier_ranks):
+    for r in hier_ranks:
+        np.testing.assert_array_equal(r["hier_mean"],
+                                      r["flat"] * np.float32(1 / 4))
+        # values a third off the integers: the staged and the flat sum
+        # add in other orders, so they agree to f32 rounding, not bitwise
+        np.testing.assert_allclose(r["pmean3"], r["flat_mean3"], rtol=1e-6)
+        np.testing.assert_allclose(r["pmean3"], (X + np.float32(1 / 3))
+                                   .mean(axis=0), rtol=1e-6)
+
+
+def test_two_level_all_gather_in_mesh_order(hier_ranks):
+    m2 = np.arange(12.0, dtype=np.float32).reshape(3, 4)
+    for r in hier_ranks:
+        np.testing.assert_array_equal(r["gather"], X.reshape(-1))
+        np.testing.assert_array_equal(
+            r["gather_ax1"], np.concatenate([m2 + 100 * i for i in range(4)],
+                                            axis=1))
+        pod = int(r["row"]) // 2
+        np.testing.assert_array_equal(r["gather_inner"],
+                                      X[2 * pod:2 * pod + 2].reshape(-1))

@@ -247,3 +247,68 @@ def test_placement_slice_imports_with_jax_blocked(module):
         timeout=180, cwd=ROOT,
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+SPMD_SLICE = ("launch/mesh.py", "launch/steps.py", "launch/train.py",
+              "launch/__init__.py", "core/exchange.py", "core/zero_compute.py",
+              "core/hierarchy.py", "core/__init__.py", "runtime/trainer.py",
+              "runtime/__init__.py", "models/common.py",
+              "checkpoint/checkpointer.py", "data/pipeline.py")
+
+
+@pytest.mark.parametrize("module", SPMD_SLICE)
+def test_spmd_slice_modules_are_checked(module):
+    """The SPMD path's modules (the mesh, the exchange and zero-compute
+    engine, the trainer, the step builders and the train driver, the
+    pipeline) are among the files checked above."""
+    assert ROOT / "src" / "repro_torch" / module in PORT_FILES
+
+
+@pytest.mark.parametrize("module", ["repro_torch.launch.mesh",
+                                    "repro_torch.core.exchange",
+                                    "repro_torch.core.zero_compute",
+                                    "repro_torch.runtime.trainer",
+                                    "repro_torch.launch.steps",
+                                    "repro_torch.launch.train",
+                                    "repro_torch.data.pipeline"])
+def test_spmd_slice_imports_with_jax_blocked(module):
+    """Each SPMD module imports on its own in a process where ``import
+    jax`` and ``import repro`` fail, pulls in neither, and exposes the JAX
+    package's names; the train driver's ``--help`` runs as ``python -m``."""
+    names = {
+        "repro_torch.launch.mesh": ("make_mesh", "make_production_mesh",
+                                    "worker_axes", "pod_axis", "num_workers",
+                                    "Mesh"),
+        "repro_torch.core.exchange": ("ExchangeConfig", "PSExchange"),
+        "repro_torch.core.zero_compute": ("make_zero_compute_step",
+                                          "init_zero_compute_state"),
+        "repro_torch.runtime.trainer": ("TrainState", "apply_grad_sync",
+                                        "attach_telemetry",
+                                        "make_ps_train_step",
+                                        "init_train_state"),
+        "repro_torch.launch.steps": ("CellPlan", "default_optimizer",
+                                     "make_exchange", "build_lm_train",
+                                     "build_cell"),
+        "repro_torch.launch.train": ("main",),
+        "repro_torch.data.pipeline": ("Prefetcher",),
+    }[module]
+    code = (
+        "import importlib, sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        f"mod = importlib.import_module({module!r})\n"
+        f"assert all(hasattr(mod, n) for n in {names!r})\n"
+        "assert not any(m.split('.')[0] in ('jax', 'jaxlib', 'repro')\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ok')\n"
+    )
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=180, cwd=ROOT, env=env)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    if module.endswith(".train"):
+        out = subprocess.run(
+            [sys.executable, "-m", module, "--help"], capture_output=True,
+            text=True, timeout=180, cwd=ROOT, env=env)
+        assert out.returncode == 0 and "--ckpt-every" in out.stdout

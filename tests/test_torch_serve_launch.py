@@ -80,7 +80,7 @@ def test_argparser_defaults_route_through_the_fabric():
 
 
 def test_mesh_beyond_one_device_raises():
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="item 6b"):
         run(FAST + ["--mesh", "1x2", "--source", "model"])
 
 

@@ -18,9 +18,9 @@ write slabs and chain buffers in place, JAX's arrays are immutable); a
 ``SnapshotSource`` owns a copy of what it is given; and an uneven link
 (0.7 µs a chunk) on a shared box catches a reordered fair-share product.
 
-Not mirrored: ``test_trainer_telemetry_advances_snapshot_plane`` needs
-``runtime/trainer.py`` (ROADMAP queue 1, item 6), and
-``test_serve_load_reports_percentiles_and_invariants`` /
+``test_trainer_telemetry_advances_snapshot_plane`` runs on both packages
+in tests/test_torch_trainer.py, beside the trainer it needs.  Not
+mirrored: ``test_serve_load_reports_percentiles_and_invariants`` /
 ``test_serve_load_staleness_zero_refreshes_every_round`` need
 ``benchmarks/serve_load.py``, which is not ported.
 """

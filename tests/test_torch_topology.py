@@ -14,7 +14,8 @@ codec-"none" rack aggregation is bit-identical to the flat fabric.
 
 Not mirrored here: the ``elastic_restore`` / ``reshard_flat`` cases, which
 tests/test_torch_elastic.py holds, and the SPMD trainer's telemetry
-(``attach_telemetry``, with the SPMD path).
+(``test_trainer_telemetry_topology_tier``), which tests/test_torch_trainer.py
+runs on both packages.
 """
 import dataclasses
 

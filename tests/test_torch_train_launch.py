@@ -1,0 +1,203 @@
+"""The port's train driver (``repro_torch.launch.train``), the SPMD
+checkpoints and the step builders.
+
+Mirrors tests/scripts/train_restart_elastic.py on a (2, 1) ("data",
+"model") mesh of 2 gloo ranks spawned once for the file
+(``tests/torch_spmd.py``), each rank calling ``main(argv, device="cpu")``:
+
+  * six steps of gemma3-1b SMOKE with checkpoints at steps 3 and 6: the
+    loss falls;
+  * a run that stops after step 3 and a ``--resume`` to step 6 end
+    **bitwise** equal to the uninterrupted run (params, both AdamW slots,
+    losses; the JAX script allows 2e-3, the port is deterministic on the
+    CPU);
+  * ``elastic_restore`` of the checkpoint to 4 owners keeps the payload;
+  * a checkpoint the JAX driver's pieces wrote (subprocess, 2 host
+    devices) after step 3 restores into the port, whose step 4 then
+    matches JAX's step 4 (the slots land at their owners: a swap would
+    show), and the port's checkpoint restores into JAX's ``TrainState``
+    with the same bits.
+
+Beside them, in this process: ``main`` at ``--mesh 1x1`` starts and ends
+its own world-1 group, a model axis of 2 raises ``NotImplementedError``
+(item 6b), and ``build_cell`` refuses what is not ported.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+
+import torch_spmd as S  # noqa: E402
+
+from repro.checkpoint import Checkpointer as JaxCheckpointer  # noqa: E402
+from repro.checkpoint.checkpointer import flat_to_train_state as jax_restore  # noqa: E402
+from repro.runtime.trainer import TrainState as JaxTrainState  # noqa: E402
+from repro_torch.checkpoint import Checkpointer  # noqa: E402
+from repro_torch.checkpoint.checkpointer import (  # noqa: E402
+    flat_to_train_state,
+    train_state_to_flat,
+)
+from repro_torch.configs.registry import get_arch  # noqa: E402
+from repro_torch.core.chunking import ParamSpace  # noqa: E402
+from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.runtime.elastic import elastic_restore  # noqa: E402
+from repro_torch.runtime.trainer import TrainState  # noqa: E402
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The JAX side alongside the 2 ranks (whose last run waits for the
+    JAX checkpoint)."""
+    root = tmp_path_factory.mktemp("launch")
+    proc = S.start_jax("launch", root)
+    try:
+        S.spawn(2, S.train_launch_ranks, root)
+    finally:
+        S.finish_jax(proc)
+    return root
+
+
+def _rank(root, name, r):
+    return dict(np.load(root / f"launch_{name}_r{r}.npz"))
+
+
+def test_loss_falls(runs):
+    for r in range(2):
+        losses = _rank(runs, "full", r)["losses"]
+        assert len(losses) == 6 and np.isfinite(losses).all()
+        assert losses[-1] < losses[0], losses
+
+
+def test_crash_restart_is_bitwise(runs):
+    for r in range(2):
+        full, res = _rank(runs, "full", r), _rank(runs, "resumed", r)
+        assert int(res["start"]) == 3 and int(res["step"]) == 6
+        np.testing.assert_array_equal(res["losses"], full["losses"][3:])
+        for key in ("pflat", "slot0", "slot1"):
+            assert np.array_equal(res[key].view(np.uint32),
+                                  full[key].view(np.uint32)), key
+
+
+def test_checkpoint_holds_the_global_layout(runs):
+    """The step-6 checkpoint is every rank's final state, each rank's slab
+    of the slots at its owner index."""
+    host, _ = Checkpointer(runs / "full").restore()
+    assert int(host["step"]) == 6
+    st = flat_to_train_state(host, TrainState, device="cpu")
+    for r in range(2):
+        got = _rank(runs, "full", r)
+        np.testing.assert_array_equal(st.pflat.numpy(), got["pflat"])
+        for i in range(2):
+            n = got[f"slot{i}"].shape[-1]
+            np.testing.assert_array_equal(
+                st.slots[i].numpy()[:, r * n:(r + 1) * n], got[f"slot{i}"])
+
+
+def test_elastic_restore_to_four_owners_keeps_payload(runs):
+    host, _ = Checkpointer(runs / "full").restore()
+    cfg = get_arch("gemma3-1b").smoke_config
+    space = ParamSpace.build(T.abstract_params(cfg), num_owners=2)
+    new_state, new_space = elastic_restore(dict(host), space, new_owners=4)
+    assert new_space.num_owners == 4
+    assert new_state["pflat"].shape[-1] % 4 == 0
+    np.testing.assert_array_equal(
+        new_state["pflat"][0][: space.payload_elems],
+        host["pflat"][0][: space.payload_elems])
+
+
+def test_jax_checkpoint_restores_into_the_port(runs):
+    j = dict(np.load(runs / "jax_launch.npz"))
+    for r in range(2):
+        got = _rank(runs, "from_jax", r)
+        assert int(got["start"]) == 3 and int(got["step"]) == 4
+        np.testing.assert_allclose(got["losses"], j["losses"][3:], rtol=1e-5)
+        np.testing.assert_allclose(got["pflat"][0], j["pflat"][0],
+                                   rtol=0, atol=1e-4)
+        for i in range(2):
+            n = got[f"slot{i}"].shape[-1]
+            np.testing.assert_allclose(got[f"slot{i}"][0],
+                                       j[f"slot{i}"][0, r * n:(r + 1) * n],
+                                       rtol=1e-3, atol=1e-6)
+
+
+def test_port_checkpoint_restores_into_jax(runs):
+    host, _ = JaxCheckpointer(runs / "full").restore()
+    jst = jax_restore(host, JaxTrainState)
+    mine, _ = Checkpointer(runs / "full").restore()
+    assert int(jst.step) == 6
+    for key, arr in (("pflat", jst.pflat), ("slot0", jst.slots[0]),
+                     ("slot1", jst.slots[1])):
+        assert arr.shape == mine[key].shape == (1, 212992)
+        np.testing.assert_array_equal(np.asarray(arr), mine[key])
+    # and the JAX checkpoint reads back into the port bit for bit
+    jhost, _ = JaxCheckpointer(runs / "jax").restore()
+    st = flat_to_train_state(jhost, TrainState, device="cpu")
+    for key, t in (("pflat", st.pflat), ("slot0", st.slots[0])):
+        np.testing.assert_array_equal(t.numpy(), jhost[key])
+    assert int(st.step) == 3
+
+
+def test_bf16_state_round_trips_as_raw_two_byte_values(tmp_path):
+    """bf16 arrays go to disk as numpy ``V2`` (np.save's form of JAX's
+    bf16) and come back as the same bf16 bits."""
+    x = torch.randn(1, 64, generator=torch.Generator().manual_seed(0))
+    st = TrainState(pflat=x.to(torch.bfloat16), slots=(x.clone(),), ef=None,
+                    step=torch.tensor(5, dtype=torch.int32))
+    ck = Checkpointer(tmp_path)
+    ck.save(5, train_state_to_flat(st))
+    host, _ = ck.restore()
+    assert host["pflat"].dtype == np.dtype("V2")
+    back = flat_to_train_state(host, TrainState, device="cpu")
+    assert back.pflat.dtype == torch.bfloat16
+    assert torch.equal(back.pflat.view(torch.int16), st.pflat.view(torch.int16))
+    assert torch.equal(back.slots[0], st.slots[0]) and int(back.step) == 5
+
+
+def test_main_at_world_one_on_the_cpu(tmp_path, capsys):
+    import torch.distributed as dist
+
+    from repro_torch.launch.train import main
+
+    out = main(["--steps", "2", "--log-every", "1", "--strategy", "pbox_hier",
+                "--ckpt-dir", str(tmp_path)], device="cpu")
+    assert not dist.is_initialized()  # the group it started is gone
+    assert len(out["losses"]) == 2 and np.isfinite(out["losses"]).all()
+    assert out["step"] == 2 and "done" in capsys.readouterr().out
+    assert Checkpointer(tmp_path).latest_step() == 2
+
+
+def test_main_refuses_a_model_axis_and_a_mismatched_world(tmp_path):
+    from repro_torch.launch.train import main
+
+    with pytest.raises(NotImplementedError, match="item 6b"):
+        main(["--mesh", "1x2", "--steps", "1"], device="cpu")
+    with pytest.raises(SystemExit, match="torchrun"):
+        main(["--mesh", "2x1", "--steps", "1"], device="cpu")
+
+
+@pytest.mark.parametrize("arch,shape,item", [
+    ("gemma3-1b", "prefill_32k", "item 6b"),
+    ("gemma3-1b", "decode_32k", "item 6b"),
+    ("gemma3-1b", "long_500k", "item 6b"),
+    ("dlrm-mlperf", "train_batch", "item 6c"),
+])
+def test_build_cell_refuses_what_is_not_ported(tmp_path, arch, shape, item):
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_process_group, make_mesh
+    from repro_torch.launch.steps import build_cell
+
+    init_process_group("cpu", init_method=f"file://{tmp_path}/rendezvous")
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        with pytest.raises(NotImplementedError, match=item):
+            build_cell(arch, shape, mesh, smoke=True)
+        plan = build_cell("gemma3-1b", "train_4k", mesh, smoke=True)
+        assert plan.kind == "train"
+        assert tuple(plan.abstract_args[4]["tokens"].shape) == (2, 32)
+        assert plan.abstract_args[0].dtype == torch.float32
+        full = build_cell("gemma3-1b", "train_4k", mesh)
+        assert full.meta["space"].flat_elems == 1_301_807_104
+        assert tuple(full.abstract_args[4]["tokens"].shape) == (256, 4096)
+    finally:
+        dist.destroy_process_group()

@@ -1,0 +1,430 @@
+"""Rank bodies and the spawn harness for the port's SPMD tests.
+
+``spawn(world, fn, out_dir, ...)`` starts ``world`` processes (the
+``spawn`` start method), each joining a gloo group that rendezvouses in a
+file under ``out_dir`` (no port to collide with other test workers), runs
+``fn(rank, world, out_dir, *args)`` with one intra-op thread, and writes
+its results as ``.npz`` files under ``out_dir``.  Every join has a
+deadline, so a hung collective fails the test instead of the suite.
+
+This module imports torch and the port only, never JAX: spawn re-imports
+it in every child.  The JAX references run in a subprocess
+(``tests/torch_spmd_jax.py``).  Inputs are made with numpy by functions
+both sides share (``toy_params``, ``toy_grads``, ``lm_tokens``).
+"""
+from __future__ import annotations
+
+import os
+import time
+import traceback
+from pathlib import Path
+
+import numpy as np
+
+SPAWN_TIMEOUT = 120.0
+
+# -- shared inputs (numpy, imported by the JAX script as well) -------------
+
+
+def toy_params() -> dict:
+    """exchange_equivalence.py's toy model, made in numpy."""
+    return {"w": np.arange(24, dtype=np.float32).reshape(4, 6)
+            / np.float32(10),
+            "b": np.ones((5,), np.float32)}
+
+
+def toy_grads(widx: int, kind: str = "int") -> dict:
+    """Worker ``widx``'s gradients: exchange_equivalence.py's small
+    integers (every sum exact), or ``"nw3"`` integers whose sums over three
+    workers are mostly not multiples of 3."""
+    w = float(widx)
+    if kind == "int":
+        return {"w": np.full((4, 6), w + 1.0, np.float32),
+                "b": (np.arange(5, dtype=np.float32) * (w + 1))}
+    return {"w": ((np.arange(24, dtype=np.float32).reshape(4, 6) + 1)
+                  * (w + 1) + w * w),
+            "b": np.arange(5, dtype=np.float32) * (w + 2) + 7 * w}
+
+
+EXCHANGE_CASES = {
+    # name: (strategy, codec, ps dtype, pull dtype, error feedback)
+    "allreduce": ("allreduce", "none", "f32", None, True),
+    "pbox": ("pbox", "none", "f32", None, True),
+    "pbox_hier": ("pbox_hier", "none", "f32", None, True),
+    "pbox_hier_int8": ("pbox_hier", "int8", "f32", None, True),
+    "pbox_hier_bf16": ("pbox_hier", "bf16", "f32", None, True),
+    "pbox_pull_bf16": ("pbox", "none", "f32", "bf16", True),
+    "pbox_bf16": ("pbox", "none", "bf16", None, True),
+    "pbox_hier_int8_bf16": ("pbox_hier", "int8", "bf16", None, True),
+    "pbox_hier_bf16_bf16": ("pbox_hier", "bf16", "bf16", None, False),
+    # int8 without error feedback refuses a bf16 slab, in both packages
+    "pbox_hier_int8_bf16_noef": ("pbox_hier", "int8", "bf16", None, False),
+}
+NW3_CASES = ("allreduce", "pbox", "pbox_pull_bf16", "pbox_bf16")
+EXCHANGE_STEPS = 3
+
+
+def lm_tokens(vocab: int, batch: int, seq: int = 16, seed: int = 1):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, vocab, (batch, seq)).astype(np.int32)
+    labs = rng.integers(0, vocab, (batch, seq)).astype(np.int32)
+    return toks, labs
+
+
+TRAINER_CASES = {
+    # name: (strategy, optimizer, microbatches, lr schedule, global batch)
+    "pbox_sgd": ("pbox", "sgd", 1, False, 4),
+    "allreduce_sgd": ("allreduce", "sgd", 1, False, 4),
+    "pbox_momentum_mb2": ("pbox", "momentum", 2, True, 4),
+    "pbox_momentum_mb3": ("pbox", "momentum", 3, True, 6),
+    "pbox_adamw_mb1": ("pbox", "adamw", 1, True, 4),
+}
+TRAINER_STEPS = 2
+
+
+# -- the harness -----------------------------------------------------------
+
+
+def _entry(rank, world, fn, out_dir, args):
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_process_group
+
+    torch.set_num_threads(1)
+    try:
+        init_process_group("cpu", init_method=f"file://{out_dir}/rendezvous",
+                           rank=rank, world_size=world)
+        try:
+            fn(rank, world, out_dir, *args)
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        Path(out_dir, f"error_r{rank}.txt").write_text(traceback.format_exc())
+        raise
+
+
+def spawn(world: int, fn, out_dir, *args, timeout: float = SPAWN_TIMEOUT):
+    """Run ``fn`` on ``world`` gloo ranks; raise with the first rank's
+    traceback if any rank fails, or if the ranks outlive ``timeout``."""
+    import torch.multiprocessing as mp
+
+    out_dir = str(out_dir)
+    os.makedirs(out_dir, exist_ok=True)
+    ctx = mp.start_processes(_entry, args=(world, fn, out_dir, args),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(0.1, deadline - time.monotonic())):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{world} ranks still running after "
+                                   f"{timeout:.0f} s")
+    except BaseException:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+        for p in ctx.processes:
+            p.join(timeout=10)
+        errs = sorted(Path(out_dir).glob("error_r*.txt"))
+        if errs:
+            raise RuntimeError(errs[0].read_text()) from None
+        raise
+
+
+def start_jax(group: str, out_dir):
+    """Start ``tests/torch_spmd_jax.py <group> <out_dir>`` (the JAX side)
+    in a subprocess that sees ``n`` host devices; ``finish_jax`` waits."""
+    import subprocess
+    import sys
+
+    here = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(here.parent / "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    return subprocess.Popen(
+        [sys.executable, str(here / "torch_spmd_jax.py"), group,
+         str(out_dir)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=env)
+
+
+def finish_jax(proc, timeout: float = SPAWN_TIMEOUT) -> None:
+    try:
+        _, err = proc.communicate(timeout=timeout)
+    except BaseException:
+        proc.kill()
+        proc.communicate()
+        raise
+    if proc.returncode != 0:
+        raise RuntimeError(f"the JAX side failed:\n{err[-4000:]}")
+
+
+def wait_for(path, timeout: float = SPAWN_TIMEOUT) -> None:
+    """Wait until ``path`` exists (the JAX side writes it atomically)."""
+    deadline = time.monotonic() + timeout
+    while not Path(path).exists():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path} did not appear in {timeout:.0f} s")
+        time.sleep(0.2)
+
+
+def _save(out_dir, name: str, **arrays) -> None:
+    np.savez(Path(out_dir, f"{name}.npz"),
+             **{k: v for k, v in arrays.items() if v is not None})
+
+
+def _np(t):
+    """A tensor as a numpy array; bf16 as f32 (exact)."""
+    import torch
+
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+# -- rank bodies: the exchange ---------------------------------------------
+
+
+def _exchange_run(mesh, case, worker_axes, pod, kind):
+    import torch
+
+    from repro_torch.core.compression import CompressionConfig
+    from repro_torch.core.exchange import ExchangeConfig, PSExchange
+    from repro_torch.optim.optimizers import adam
+
+    strategy, codec, dt, pull, ef_on = case
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
+    cfg = ExchangeConfig(
+        strategy=strategy,
+        compression=CompressionConfig(codec=codec, error_feedback=ef_on),
+        pull_dtype=torch.bfloat16 if pull == "bf16" else None)
+    ex = PSExchange(adam(1e-2), cfg, worker_axes,
+                    pod if strategy == "pbox_hier" else None)
+    params = _tree(toy_params(), torch.from_numpy)
+    space = ex.build_space(params, dict(mesh.shape))
+    state = ex.init_slab_state(space, device="cpu")
+    pflat = space.flatten(params, dtype)
+    widx = mesh.axis_index(ex.worker_axes)
+    grads = _tree(toy_grads(widx, kind), torch.from_numpy)
+    for _ in range(EXCHANGE_STEPS):
+        pflat, state = ex.device_update(space.flatten(grads, dtype), pflat,
+                                        state, mesh=mesh)
+    return pflat, state
+
+
+def exchange_ranks(rank, world, out_dir):
+    """Every ``EXCHANGE_CASES`` case on the (2, 2, 2) mesh, or every
+    ``NW3_CASES`` case on a (3,) mesh; each rank saves its params, slots,
+    residual and coordinates (or the error its case raised)."""
+    from repro_torch.launch.mesh import Mesh
+
+    if world == 8:
+        mesh = Mesh((2, 2, 2), ("pod", "data", "model"))
+        cases, wa, kind = EXCHANGE_CASES, ("pod", "data", "model"), "int"
+    else:
+        mesh = Mesh((3,), ("data",))
+        cases = {k: EXCHANGE_CASES[k] for k in NW3_CASES}
+        wa, kind = ("data",), "nw3"
+    coords = np.array([mesh.coords[a] for a in mesh.axis_names])
+    for name, case in cases.items():
+        try:
+            pflat, state = _exchange_run(mesh, case, wa, "pod", kind)
+        except ValueError as e:
+            Path(out_dir, f"{name}_r{rank}.err").write_text(
+                f"{type(e).__name__}: {e}")
+            continue
+        _save(out_dir, f"{name}_r{rank}", pflat=_np(pflat),
+              coords=coords, ef=_np(state["ef"]) if state["ef"] is not None
+              else None, step=np.asarray(int(state["step"])),
+              **{f"slot{i}": _np(s) for i, s in enumerate(state["slots"])})
+
+
+# -- rank bodies: hierarchy and zero-compute -------------------------------
+
+
+def hierarchy_ranks(rank, world, out_dir):
+    """tests/scripts/hier_and_zero_compute.py's collectives on the
+    (2, 2, 2) mesh, each rank holding row ``(pod, data)`` of arange(32)."""
+    import torch
+
+    from repro_torch.core import hierarchy as H
+    from repro_torch.launch.mesh import Mesh
+
+    mesh = Mesh((2, 2, 2), ("pod", "data", "model"))
+    row = mesh.axis_index(("pod", "data"))
+    x = torch.arange(32.0).reshape(4, 8)[row]
+    m2 = torch.arange(12.0).reshape(3, 4) + 100 * row
+    out = {
+        "flat": mesh.psum(x, ("pod", "data")),
+        "hier": H.hierarchical_psum(x, ("data",), "pod", mesh=mesh),
+        "hier_mean": H.hierarchical_pmean(x, ("data",), "pod", mesh=mesh),
+        "inner_only": H.hierarchical_psum(x, ("data",), None, mesh=mesh),
+        "gather": H.two_level_all_gather(x, ("data",), "pod", mesh=mesh),
+        "gather_ax1": H.two_level_all_gather(m2, ("data",), "pod", axis=1,
+                                             mesh=mesh),
+        "gather_inner": H.two_level_all_gather(x, "data", None, mesh=mesh),
+        "pmean3": H.hierarchical_pmean(x + 1.0 / 3.0, ("data", "model"),
+                                       "pod", mesh=mesh),
+        "flat_mean3": mesh.pmean(x + 1.0 / 3.0, ("pod", "data", "model")),
+    }
+    _save(out_dir, f"hier_r{rank}", row=np.asarray(row),
+          **{k: _np(v) for k, v in out.items()})
+
+
+ZERO_FLAT = 8192 * 8
+ZERO_CASES = (("pbox", None), ("pbox_hier", "pod"), ("allreduce", None))
+
+
+def zero_compute_ranks(rank, world, out_dir):
+    """One zero-compute step per strategy under momentum(0.1, 0.9): every
+    param moves to -0.1."""
+    import torch
+
+    from repro_torch.core.exchange import ExchangeConfig, PSExchange
+    from repro_torch.core.zero_compute import (
+        init_zero_compute_state,
+        make_zero_compute_step,
+    )
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.optim.optimizers import momentum
+
+    mesh = Mesh((2, 2, 2), ("pod", "data", "model"))
+    for strategy, pod in ZERO_CASES:
+        ex = PSExchange(momentum(0.1, 0.9), ExchangeConfig(strategy=strategy),
+                        ("pod", "data", "model"), pod)
+        step = make_zero_compute_step(mesh, ex, ZERO_FLAT)
+        state = init_zero_compute_state(mesh, ex, ZERO_FLAT, device="cpu")
+        p2, state = step(torch.zeros(ZERO_FLAT), torch.ones(ZERO_FLAT), state)
+        _save(out_dir, f"zero_{strategy}_r{rank}", p=_np(p2),
+              slot0=_np(state["slots"][0]), step=np.asarray(int(state["step"])))
+
+
+# -- rank bodies: the trainer ----------------------------------------------
+
+
+def trainer_setup(mesh, case, params_np, device="cpu"):
+    """The port's train step for a ``TRAINER_CASES`` case on gemma3-1b's
+    SMOKE config: (step, space, exchange, pflat, slots, ef, stc)."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.exchange import ExchangeConfig, PSExchange
+    from repro_torch.interop import params_from_numpy
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import Dist
+    from repro_torch.optim import optimizers as O
+    from repro_torch.optim.schedules import linear_warmup
+    from repro_torch.runtime.trainer import (
+        init_train_state,
+        local_state,
+        make_ps_train_step,
+    )
+
+    strategy, opt, mb, sched, _gb = case
+    cfg = get_arch("gemma3-1b").smoke_config
+    spec = {"sgd": O.sgd(1e-1), "momentum": O.momentum(1e-1, 0.9),
+            "adamw": O.adamw(1e-3, weight_decay=0.1)}[opt]
+    ex = PSExchange(spec, ExchangeConfig(strategy=strategy),
+                    meshlib.worker_axes(mesh), None)
+    dist = Dist(model_axis="model", data_axes=("data",), tp=1, mesh=mesh)
+    step, space, _, ng = make_ps_train_step(
+        mesh, global_param_template=T.abstract_params(cfg), exchange=ex,
+        dist=dist, loss_fn=lambda p, b, d: T.lm_loss(p, b["tokens"],
+                                                     b["labels"], cfg),
+        ps_dtype=cfg.param_dtype, microbatches=mb,
+        lr_schedule=linear_warmup(4) if sched else None)
+    state = init_train_state(
+        mesh, init_params_fn=lambda tree: params_from_numpy(tree, device),
+        exchange=ex, space=space, n_groups=ng, key=params_np,
+        ps_dtype=cfg.param_dtype, device=device)
+    return (step, space, ex, *local_state(state, mesh, ex))
+
+
+def trainer_ranks(rank, world, out_dir):
+    """Every ``TRAINER_CASES`` case on a (2, 1) mesh, from the weights the
+    JAX script saved; each rank saves its losses, params and slots."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.runtime.trainer import shard_batch
+
+    mesh = make_mesh((2, 1), ("data", "model"))
+    params_np = dict(np.load(Path(out_dir, "jax_params.npz")))
+    params_np = _unflat(params_np)
+    for name, case in TRAINER_CASES.items():
+        step, space, ex, pflat, slots, ef, stc = trainer_setup(
+            mesh, case, params_np)
+        toks, labs = lm_tokens(512, case[4])
+        batch = shard_batch({"tokens": torch.from_numpy(toks),
+                             "labels": torch.from_numpy(labs)}, mesh, ex)
+        losses = []
+        for _ in range(TRAINER_STEPS):
+            pflat, slots, ef, stc, met = step(pflat, slots, ef, stc, batch)
+            losses.append(float(met["loss"]))
+        _save(out_dir, f"{name}_r{rank}", pflat=_np(pflat),
+              losses=np.asarray(losses), coords=np.asarray(
+                  [mesh.coords["data"]]),
+              **{f"slot{i}": _np(s) for i, s in enumerate(slots)})
+
+
+def _unflat(flat: dict) -> dict:
+    """``{"layers/wq": a}`` -> ``{"layers": {"wq": a}}``."""
+    tree: dict = {}
+    for k, v in flat.items():
+        node = tree
+        *head, last = k.split("/")
+        for h in head:
+            node = node.setdefault(h, {})
+        node[last] = v
+    return tree
+
+
+def flat_keys(tree: dict, prefix: str = "") -> dict:
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_keys(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+# -- rank bodies: the train driver -----------------------------------------
+
+
+def train_launch_ranks(rank, world, out_dir):
+    """launch/train.main on a (2, 1) mesh: six steps with checkpoints at 3
+    and 6; a crash after step 3 and a resume to 6; a resume of the JAX
+    driver's step-3 checkpoint to step 4."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.train import main
+
+    base = ["--arch", "gemma3-1b", "--mesh", "2x1", "--log-every", "1"]
+    full = main(base + ["--steps", "6", "--ckpt-dir", f"{out_dir}/full",
+                        "--ckpt-every", "3"], device="cpu")
+    main(base + ["--steps", "3", "--ckpt-dir", f"{out_dir}/crash",
+                 "--ckpt-every", "3"], device="cpu")
+    resumed = main(base + ["--steps", "6", "--ckpt-dir", f"{out_dir}/crash",
+                           "--resume"], device="cpu")
+    # the JAX side's step-3 checkpoint, copied: the resumed run writes its
+    # own step 4 beside it
+    wait_for(Path(out_dir, "jax_launch.npz"))
+    if rank == 0:
+        shutil.copytree(Path(out_dir, "jax"), Path(out_dir, "jax_resume"))
+    dist.barrier()
+    from_jax = main(base + ["--steps", "4", "--ckpt-dir",
+                            f"{out_dir}/jax_resume", "--resume"],
+                    device="cpu")
+    for name, out in (("full", full), ("resumed", resumed),
+                      ("from_jax", from_jax)):
+        _save(out_dir, f"launch_{name}_r{rank}", pflat=_np(out["pflat"]),
+              losses=np.asarray(out["losses"]), start=np.asarray(out["start"]),
+              step=np.asarray(out["step"]),
+              **{f"slot{i}": _np(s) for i, s in enumerate(out["slots"])})

@@ -1,0 +1,219 @@
+"""The JAX side of the port's SPMD tests, run as a subprocess:
+
+    python tests/torch_spmd_jax.py <group> <out_dir>
+
+It sets ``XLA_FLAGS=--xla_force_host_platform_device_count`` before it
+imports JAX (the test process's JAX keeps seeing one device), runs the
+JAX package on the inputs ``tests/torch_spmd.py`` makes with numpy, and
+saves what the port is compared with under ``out_dir``.  Groups:
+
+  exchange   every ``EXCHANGE_CASES`` case on a (2, 2, 2) mesh and every
+             ``NW3_CASES`` case on a (3,) mesh, the fused update and the
+             codec on their Pallas kernels (interpret mode);
+  trainer    gemma3-1b SMOKE weights (``jax_params.npz``) and every
+             ``TRAINER_CASES`` case of ``make_ps_train_step`` on a (2, 1)
+             mesh;
+  launch     the JAX driver's pieces on a (2, 1) mesh: three steps, a
+             checkpoint at step 3 (``jax/``), then step 4.
+"""
+import os
+import sys
+from pathlib import Path
+
+DEVICES = {"exchange": 8, "trainer": 2, "launch": 2}
+
+
+def _np32(x):
+    import jax.numpy as jnp
+    import numpy as np
+
+    return np.asarray(x.astype(jnp.float32) if x.dtype == jnp.bfloat16 else x)
+
+
+def exchange(out: Path):
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from jax.sharding import PartitionSpec as P
+
+    from repro import compat
+    from repro.core.compression import CompressionConfig
+    from repro.core.exchange import ExchangeConfig, PSExchange
+    from repro.optim.optimizers import adam
+    from torch_spmd import (EXCHANGE_CASES, EXCHANGE_STEPS, NW3_CASES,
+                            toy_grads, toy_params)
+
+    def run(mesh, wa, name, case, kind):
+        strategy, codec, dt, pull, ef_on = case
+        dtype = {"f32": jnp.float32, "bf16": jnp.bfloat16}[dt]
+        cfg = ExchangeConfig(
+            strategy=strategy, use_pallas=True,
+            compression=CompressionConfig(codec=codec, error_feedback=ef_on),
+            pull_dtype=jnp.bfloat16 if pull == "bf16" else None)
+        ex = PSExchange(adam(1e-2), cfg, wa,
+                        "pod" if strategy == "pbox_hier" else None)
+        params = jax.tree.map(jnp.asarray, toy_params())
+        space = ex.build_space(params, dict(mesh.shape))
+        has_ef = codec != "none" and ef_on
+
+        def body(pflat, slots, ef, step):
+            widx = jax.lax.axis_index(ex.worker_axes)
+            st = {"slots": slots, "ef": ef, "step": step}
+            g = space.flatten(jax.tree.map(
+                jnp.asarray, toy_grads_traced(widx, kind)), dtype)
+            for _ in range(EXCHANGE_STEPS):
+                pflat, st = ex.device_update(g, pflat, st)
+            return pflat, st["slots"], st["ef"], st["step"]
+
+        slab = P(ex.owner_axes) if ex.owner_axes else P()
+        sl = (slab, slab)
+        efs = slab if has_ef else None
+        f = jax.jit(compat.shard_map(
+            body, mesh=mesh, in_specs=(P(), sl, efs, P()),
+            out_specs=(P(), sl, efs, P()), check_vma=False))
+        glob = space.flat_elems
+        ef0 = jnp.zeros((glob,), jnp.float32) if has_ef else None
+        try:
+            pf, slots, ef, step = f(space.flatten(params, dtype),
+                                    (jnp.zeros((glob,)), jnp.zeros((glob,))),
+                                    ef0, jnp.zeros((), jnp.int32))
+        except ValueError as e:
+            (out / f"{name}.err").write_text(f"{type(e).__name__}: {e}")
+            return
+        arrays = {"pflat": _np32(pf), "slot0": _np32(slots[0]),
+                  "slot1": _np32(slots[1]), "step": np.asarray(step)}
+        if ef is not None:
+            arrays["ef"] = _np32(ef)
+        np.savez(out / f"{name}.npz", **arrays)
+
+    def toy_grads_traced(widx, kind):
+        # toy_grads with a traced worker index
+        w = widx.astype(jnp.float32)
+        if kind == "int":
+            return {"w": jnp.full((4, 6), w + 1.0),
+                    "b": jnp.arange(5, dtype=jnp.float32) * (w + 1)}
+        return {"w": ((jnp.arange(24, dtype=jnp.float32).reshape(4, 6) + 1)
+                      * (w + 1) + w * w),
+                "b": jnp.arange(5, dtype=jnp.float32) * (w + 2) + 7 * w}
+
+    # the traced grads equal the numpy ones worker by worker
+    for kind in ("int", "nw3"):
+        for w in range(3):
+            ref = toy_grads(w, kind)
+            got = toy_grads_traced(jnp.int32(w), kind)
+            for k in ref:
+                assert np.array_equal(np.asarray(got[k]), ref[k]), (kind, w, k)
+
+    mesh = compat.make_mesh((2, 2, 2), ("pod", "data", "model"))
+    for name, case in EXCHANGE_CASES.items():
+        run(mesh, ("pod", "data", "model"), name, case, "int")
+    mesh3 = jax.sharding.Mesh(np.asarray(jax.devices()[:3]), ("data",))
+    for name in NW3_CASES:
+        run(mesh3, ("data",), f"nw3_{name}", EXCHANGE_CASES[name], "nw3")
+
+
+def trainer(out: Path):
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from jax.sharding import PartitionSpec as P
+
+    from repro import compat
+    from repro.configs.registry import get_arch
+    from repro.core.exchange import ExchangeConfig, PSExchange
+    from repro.models import transformer as T
+    from repro.models.common import Dist
+    from repro.optim import optimizers as O
+    from repro.optim.schedules import linear_warmup
+    from repro.runtime.trainer import init_train_state, make_ps_train_step
+    from torch_spmd import TRAINER_CASES, TRAINER_STEPS, flat_keys, lm_tokens
+
+    cfg = get_arch("gemma3-1b").smoke_config
+    params = T.init_params(cfg, jax.random.PRNGKey(0), tp=1)
+    np.savez(out / "jax_params.tmp.npz",
+             **flat_keys(jax.tree.map(np.asarray, params)))
+    os.replace(out / "jax_params.tmp.npz", out / "jax_params.npz")
+    mesh = compat.make_mesh((2, 1), ("data", "model"))
+    for name, (strategy, opt, mb, sched, gb) in TRAINER_CASES.items():
+        spec = {"sgd": O.sgd(1e-1), "momentum": O.momentum(1e-1, 0.9),
+                "adamw": O.adamw(1e-3, weight_decay=0.1)}[opt]
+        ex = PSExchange(spec, ExchangeConfig(strategy=strategy,
+                                             use_pallas=True), ("data",))
+        dist = Dist(model_axis="model", data_axes=("data",), tp=1)
+        gshape = jax.eval_shape(
+            lambda: T.init_params(cfg, jax.random.PRNGKey(0), tp=1))
+        step, space, _, ng = make_ps_train_step(
+            mesh, loss_fn=lambda p, b, d: T.lm_loss(
+                p, b["tokens"], b["labels"], cfg, d, 1),
+            param_specs=T.make_param_specs(cfg, 1),
+            sync_tags=T.grad_sync(cfg, 1), global_param_template=gshape,
+            exchange=ex, dist=dist,
+            batch_spec={"tokens": P("data"), "labels": P("data")},
+            ps_dtype=cfg.param_dtype, microbatches=mb,
+            lr_schedule=linear_warmup(4) if sched else None)
+        st = init_train_state(
+            mesh, init_params_fn=lambda k: params,
+            param_specs=T.make_param_specs(cfg, 1), exchange=ex,
+            space=space, n_groups=ng, key=jax.random.PRNGKey(0),
+            ps_dtype=cfg.param_dtype)
+        toks, labs = lm_tokens(cfg.vocab, gb)
+        batch = {"tokens": jnp.asarray(toks), "labels": jnp.asarray(labs)}
+        pflat, slots, ef, stc = st.pflat, st.slots, st.ef, st.step
+        losses = []
+        for _ in range(TRAINER_STEPS):
+            pflat, slots, ef, stc, met = step(pflat, slots, ef, stc, batch)
+            losses.append(float(met["loss"]))
+        np.savez(out / f"{name}.npz", pflat=_np32(pflat),
+                 losses=np.asarray(losses),
+                 **{f"slot{i}": _np32(s) for i, s in enumerate(slots)})
+
+
+def launch(out: Path):
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.checkpoint import Checkpointer
+    from repro.checkpoint.checkpointer import train_state_to_flat
+    from repro.configs.registry import get_arch
+    from repro.data.synthetic import lm_batches
+    from repro.launch.mesh import make_mesh
+    from repro.launch.steps import build_cell, make_exchange
+    from repro.models import transformer as T
+    from repro.runtime.trainer import TrainState, init_train_state
+
+    mesh = make_mesh((2, 1), ("data", "model"))
+    arch = get_arch("gemma3-1b")
+    cfg = arch.smoke_config
+    plan = build_cell("gemma3-1b", "train_4k", mesh, smoke=True)
+    exchange = make_exchange(mesh, "lm")
+    st = init_train_state(
+        mesh, init_params_fn=lambda k: T.init_params(cfg, k, tp=1),
+        param_specs=T.make_param_specs(cfg, 1), exchange=exchange,
+        space=plan.meta["space"], n_groups=plan.meta["n_groups"],
+        key=jax.random.PRNGKey(0), ps_dtype=plan.abstract_args[0].dtype)
+    gb, s = plan.abstract_args[4]["tokens"].shape
+    data = lm_batches(cfg.vocab, gb, s, 0)
+    pflat, slots, ef, stc = st.pflat, st.slots, st.ef, st.step
+    losses = []
+    for i in range(4):
+        b = jax.tree.map(jnp.asarray, next(data))
+        pflat, slots, ef, stc, met = plan.fn(pflat, slots, ef, stc, b)
+        losses.append(float(met["loss"]))
+        if i == 2:
+            Checkpointer(out / "jax").save(3, train_state_to_flat(
+                TrainState(pflat=pflat, slots=slots, ef=ef, step=stc)))
+    np.savez(out / "jax_launch.tmp.npz", pflat=_np32(pflat),
+             losses=np.asarray(losses),
+             **{f"slot{i}": _np32(s) for i, s in enumerate(slots)})
+    os.replace(out / "jax_launch.tmp.npz", out / "jax_launch.npz")
+
+
+if __name__ == "__main__":
+    group, out_dir = sys.argv[1], Path(sys.argv[2])
+    os.environ["XLA_FLAGS"] = (
+        f"--xla_force_host_platform_device_count={DEVICES[group]}")
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    out_dir.mkdir(parents=True, exist_ok=True)
+    {"exchange": exchange, "trainer": trainer, "launch": launch}[group](out_dir)
+    print("OK")
