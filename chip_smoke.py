@@ -143,7 +143,8 @@ raises on failure (the script then exits non-zero and prints no result):
    CUDA events, beside its byte bound and, where one PyTorch call computes
    the same function, that call's time (embedding_bag also at one
    multi-hot shape, B = 32,768 x L = 20; fused_agg_opt and wire_fused also
-   at K = 1 without averaging, as the async path runs them); and the
+   at K = 1 without averaging, as the async path runs them, fused_agg_opt
+   there beside ``torch._fused_adamw_`` or its refusal); and the
    switch pool's plain-torch integer math (shared scale, int8 encode,
    residual, int32 slot sum, dequantize) at full width;
 20. the serving path at full width (run after phase 18): gemma3-1b served
@@ -235,7 +236,32 @@ raises on failure (the script then exits non-zero and prints no result):
    width);
 28. two ranks in two processes on cuda:0 over gloo (NCCL takes one rank a
    card): pbox, allreduce and pbox_hier int8 over 2 pods at the SMOKE
-   config, each rank equal to the same exchange done by hand, bitwise.
+   config, each rank equal to the same exchange done by hand, bitwise;
+29. remat and q-chunked attention at full width (world 1, deterministic
+   algorithms): one 1 x 4096 ``lm_loss_and_grad`` with remat off, then on,
+   each twice (host clock, peak above the weights), bitwise equal in the
+   loss and every gradient; then ``train_4k`` at its published 4096
+   tokens, the global batch cut from 256 to 8 sequences, through
+   ``build_lm_train`` in as many microbatches as the remat peak allows
+   and the SPMD step (pbox, AdamW), 3 steps; counts set to 0 just before
+   and read just after: 3 fused_agg_opt;
+30. the LM serving cells at tp = 1 through ``build_cell``'s plans:
+   ``prefill_32k`` at 1 x 32768 (batch cut from 32) twice, its greedy ids
+   equal, beside the computed bytes of one unchunked layer's f32 scores;
+   ``decode_32k`` at 16 x 32768 (batch cut from 128) from a seeded cache,
+   8 steps ending at position 32767; ``long_500k``'s unrolled decode from
+   seeded caches, 8 steps ending at position 524287 (a 524,288-token
+   prefill is O(S^2) and not run); no kernel launch;
+31. tensor parallelism on the one card: 2 gloo ranks on cuda:0, mesh
+   (1, 2), gemma3-1b at full width (4 heads over 2 ranks, R = 1, kv
+   replicated): 2 train steps of 1 x 1024 (pbox, AdamW), a 1 x 1024
+   prefill and 8 decode steps, against the same seeded model at tp = 1
+   on the card: the step-1 loss within 1e-2 relative, the gathered
+   parameters within 2 x (2.5 lr + one bf16 ulp of the largest), the
+   share of greedy ids that agree printed, the model-axis collectives'
+   host ms a step; then the SMOKE config on 4 gloo ranks at tp = 4 (R =
+   1, kv replicated) and tp = 2, loss at rtol 2e-5 / atol 1e-5 and greedy
+   ids equal to tp = 1 on the card.
 
 The line before the last is the kernel table as JSON (each row with its
 launches on every path); the last line is ``{"ok": true, "device":
@@ -5316,6 +5342,622 @@ def _gloo_by_hand(dev, cfg, params, space, spec, codec, strategy, sched):
     return p.cpu(), m.cpu(), v.cpu(), [e.cpu() for e in efs]
 
 
+# -- phases 29 to 31: remat and chunking, the LM serving cells, tensor
+# parallelism ---------------------------------------------------------------
+REMAT_SEQ = 4096  # train_4k's published sequence length
+TRAIN4K_BATCH, TRAIN4K_STEPS = 8, 3  # train_4k's 256 x 4096 cut to 8 x 4096
+PREFILL_BATCH, DECODE_BATCH, DECODE_STEPS = 1, 16, 8  # from 32 and 128
+TP_SEQ, TP_STEPS, TP_DECODE = 1024, 2, 8
+# bf16 bounds of phase 31's tp = 2 run against tp = 1 on the card: the
+# partial block outputs are rounded to bf16 before the sum over the model
+# axis, which tp = 1 accumulates in f32 inside one product.  Every step
+# trains on the same batch, so the step-2 loss reads the step-1 update.
+# TP_LOSS_RTOL holds both steps' losses; TP_UPDATE_RTOL the worst leaf's
+# ||d_tp2 - d_tp1|| / ||d_tp1||, d = params after the steps - params
+# before.  A control run (tp = 2 with grad_sync off) must fail both
+# bounds, a no-op step the update bound (it reads 1), and the step-1
+# update must move the loss by more than the loss bound.  Set from the
+# card's readings (H100, 700 W): losses 2.0e-5 / 1.5e-6 relative and the
+# update 0.171 (wq) against the control's 4.6e-3 step-2 loss and 0.952
+# (wk); a step's loss moves 0.131.
+TP_LOSS_RTOL = 1e-4
+TP_UPDATE_RTOL = 0.35
+
+
+def _leaves(tree) -> list:
+    """The leaves in key order (trees built in other orders line up)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
+
+
+def remat_path(dev, smoke: bool = False) -> dict:
+    """Phase 29: gemma3-1b at full width, one 1 x 4096 ``lm_loss_and_grad``
+    with remat off, then on (each twice, timed; peaks), their losses and
+    gradients bitwise equal; then ``train_4k`` at 8 x 4096 through
+    ``build_lm_train`` and the SPMD step (pbox, AdamW), in as many
+    microbatches as the measured remat peak allows, TRAIN4K_STEPS steps.
+    ``smoke``: the SMOKE config, 1 x 64 and the SMOKE train cell (the
+    ``gpu`` test).  Call inside ``world_one`` and ``deterministic``."""
+    import torch
+
+    from repro_torch.configs.registry import ShapeCell, get_arch
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import build_lm_train, make_exchange
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.trainer import init_train_state, local_state
+
+    arch = get_arch("gemma3-1b")
+    cfg = arch.smoke_config if smoke else arch.config
+    if not (cfg.remat and cfg.attn_chunk == (8 if smoke else 1024)):
+        raise AssertionError(f"gemma3-1b's config: remat {cfg.remat}, chunk "
+                             f"{cfg.attn_chunk}")
+    seq = 64 if smoke else REMAT_SEQ
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    b = next(lm_batches(cfg.vocab, 1, seq, 0))
+    toks, labs = (torch.from_numpy(b[k]).to(dev) for k in ("tokens", "labels"))
+    out = {}
+    kept = None
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = []
+        for _ in range(2):
+            res = {}
+            ms.append(timed(lambda: res.update(zip(
+                ("loss", "grads"),
+                T.lm_loss_and_grad(params, toks, labs, c)))))
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        loss = res["loss"].item()
+        if not math.isfinite(loss):
+            raise AssertionError(f"remat {remat}: loss {loss}")
+        if kept is None:
+            kept = res
+        else:
+            if not same_bits(res["loss"], kept["loss"]) or not all(
+                    same_bits(a, b) for a, b in zip(_leaves(res["grads"]),
+                                                    _leaves(kept["grads"]))):
+                raise AssertionError("remat on and off differ")
+            kept = None
+        out[f"remat_{'on' if remat else 'off'}"] = {
+            "ms": ms, "peak_bytes": peak, "loss": loss}
+        log(f"phase 29: 1 x {seq} lm_loss_and_grad remat={remat}: "
+            f"{[round(x, 1) for x in ms]} ms, peak {peak / 2**30:.2f} GiB "
+            f"above the weights, loss {loss:.4f}")
+        del res
+    log("phase 29: remat on == off bitwise (loss and every gradient)")
+    del params, kept
+    torch.cuda.empty_cache()
+
+    # train_4k: microbatches from the remat peak (a row's activations),
+    # beside the step's state: p, the accumulated gradient (bf16) and m, v
+    n = cfg.param_count()
+    state_bytes = n * (2 + 2 + 2 + 8) + 2 * n
+    free = 0.85 * torch.cuda.get_device_properties(dev).total_memory
+    rows = max(1, int((free - state_bytes) // out["remat_on"]["peak_bytes"]))
+    rows = max(r for r in (1, 2, 4, 8) if r <= rows)
+    mb = TRAIN4K_BATCH // rows
+    mesh = make_mesh((1, 1), ("data", "model"))
+    cell = ShapeCell("train_4k", "train", {"seq_len": REMAT_SEQ,
+                                           "global_batch": TRAIN4K_BATCH})
+    ex = make_exchange(mesh, "lm")
+    plan = build_lm_train(
+        dataclasses.replace(arch, microbatches={"train_4k": mb}), cell, mesh,
+        ex, smoke=smoke)
+    if smoke:
+        mb = rows = plan.meta["microbatches"]
+    if plan.meta["microbatches"] != mb:
+        raise AssertionError(plan.meta)
+    state = init_train_state(
+        mesh, init_params_fn=lambda g: T.init_params(cfg, g),
+        param_specs=T.make_param_specs(cfg, 1), exchange=ex,
+        space=plan.meta["space"], n_groups=1,
+        key=torch.Generator(device=dev).manual_seed(0),
+        ps_dtype=cfg.param_dtype, device=dev)
+    pflat, slots, ef, stc = local_state(state, mesh, ex)
+    del state
+    gb, s = plan.abstract_args[4]["tokens"].shape
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in bb.items()}
+               for bb in itertools.islice(lm_batches(
+                   cfg.vocab, gb, s, 0), TRAIN4K_STEPS)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts()
+    losses, step_ms = [], []
+    for bb in batches:
+        res = {}
+        step_ms.append(timed(lambda: res.update(
+            zip(("p", "s", "e", "c", "m"), plan.fn(pflat, slots, ef, stc,
+                                                    bb)))))
+        pflat, slots, ef, stc = res["p"], res["s"], res["e"], res["c"]
+        losses.append(res["m"]["loss"])
+    launches = _counts()
+    _check_counts("train_4k", launches, {"fused_agg_opt": TRAIN4K_STEPS})
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = finite_losses(losses)
+    log(f"phase 29: train_4k {gb} x {s} in {mb} "
+        f"microbatches of {rows}: steps {[round(x, 1) for x in step_ms]} ms, "
+        f"losses {losses}, peak {peak / 2**30:.2f} GiB, launches {launches}")
+    del pflat, slots, ef, batches
+    torch.cuda.empty_cache()
+    out["train_4k"] = {"step_ms": step_ms, "losses": losses,
+                       "peak_bytes": peak, "launches": launches,
+                       "microbatches": mb, "rows": rows}
+    return out
+
+
+def _random_cache(shapes: list, dev, seed: int, dtype) -> list:
+    """Seeded caches of the given shapes, drawn layer by layer."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(s, generator=gen, device=dev, dtype=dtype)
+            for s in shapes]
+
+
+def serve_cells_path(dev, smoke: bool = False) -> dict:
+    """Phase 30: the LM serving cells at tp = 1, world 1, through
+    ``build_cell``'s plans: ``prefill_32k`` at 1 x 32768 (twice: the
+    greedy ids equal), ``decode_32k`` at 16 x 32768 from a seeded cache,
+    ``long_500k``'s unrolled decode from a seeded cache ending at
+    position 524287.  ``smoke``: the SMOKE config and the plans' SMOKE
+    shapes.  Call inside ``world_one``."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import transformer as T
+
+    arch = get_arch("gemma3-1b")
+    cfg = arch.smoke_config if smoke else arch.config
+    mesh = make_mesh((1, 1), ("data", "model"))
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    out = {}
+    _zero_counts()
+
+    plan = build_cell("gemma3-1b", "prefill_32k", mesh, smoke=smoke)
+    s = plan.abstract_args[1].shape[1]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    toks = torch.randint(0, cfg.vocab, (PREFILL_BATCH, s), generator=gen,
+                         device=dev, dtype=torch.int32)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ids, ms = [], []
+    for _ in range(2):
+        res = {}
+        ms.append(timed(lambda: res.update(zip(("ids", "cache"),
+                                               plan.fn(params, toks)))))
+        ids.append(res["ids"].cpu())
+        del res
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    if not torch.equal(ids[0], ids[1]):
+        raise AssertionError(f"prefill_32k: re-run ids {ids}")
+    unchunked = PREFILL_BATCH * cfg.n_heads * s * s * 4
+    out["prefill_32k"] = {"ms": ms, "peak_bytes": peak, "batch": PREFILL_BATCH,
+                          "seq": s, "unchunked_scores_bytes": unchunked,
+                          "ids": ids[0].tolist()}
+    log(f"phase 30: prefill_32k {PREFILL_BATCH} x {s}: {[round(x, 1) for x in ms]}"
+        f" ms, peak {peak / 2**30:.2f} GiB above the weights (an unchunked "
+        f"layer's f32 scores alone: {unchunked / 2**30:.2f} GiB); greedy ids "
+        f"{ids[0].tolist()} equal on the re-run")
+    torch.cuda.empty_cache()
+
+    plan = build_cell("gemma3-1b", "decode_32k", mesh, smoke=smoke)
+    L, _, s, hkv, hd = plan.abstract_args[2]["k"].shape
+    shape = (L, DECODE_BATCH, s, hkv, hd)
+    k, v = _random_cache([shape, shape], dev, 6, cfg.dtype)
+    cache = {"k": k.mul_(0.5), "v": v}
+    tok = torch.randint(0, cfg.vocab, (DECODE_BATCH,), generator=gen,
+                        device=dev, dtype=torch.int32)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = []
+    for i in range(DECODE_STEPS):
+        res = {}
+        pos = s - DECODE_STEPS + i
+        ms.append(timed(lambda: res.update(zip(("ids", "cache"), plan.fn(
+            params, tok, cache, pos)))))
+        tok = res["ids"]
+        if res["cache"] is not cache:
+            raise AssertionError("decode_32k: the cache was not updated in "
+                                 "place")
+    if not ((tok >= 0) & (tok < cfg.vocab)).all():
+        raise AssertionError(f"decode_32k: ids {tok}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    out["decode_32k"] = {"ms": ms, "peak_bytes": peak, "batch": DECODE_BATCH,
+                         "seq": s, "cache_bytes": 2 * k.numel() * k.element_size()}
+    log(f"phase 30: decode_32k {DECODE_BATCH} x {s} ({2 * k.numel() * k.element_size() / 2**30:.2f}"
+        f" GiB cache): steps {[round(x, 2) for x in ms]} ms, peak "
+        f"{peak / 2**30:.2f} GiB")
+    del cache, k, v
+    torch.cuda.empty_cache()
+
+    plan = build_cell("gemma3-1b", "long_500k", mesh, smoke=smoke)
+    s = plan.abstract_args[2][cfg.global_every - 1]["k"].shape[1]
+    shapes = [c["k"].shape for c in plan.abstract_args[2]]
+    caches = [{"k": k, "v": v} for k, v in zip(
+        _random_cache(shapes, dev, 7, cfg.dtype),
+        _random_cache(shapes, dev, 8, cfg.dtype))]
+    tok = torch.randint(0, cfg.vocab, (1,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = []
+    for i in range(DECODE_STEPS):
+        res = {}
+        pos = s - DECODE_STEPS + i
+        ms.append(timed(lambda: res.update(zip(("ids", "caches"), plan.fn(
+            params, tok, caches, pos)))))
+        tok = res["ids"]
+    if not ((tok >= 0) & (tok < cfg.vocab)).all():
+        raise AssertionError(f"long_500k: ids {tok}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    cache_bytes = sum(2 * c["k"].numel() * c["k"].element_size()
+                      for c in caches)
+    out["long_500k"] = {"ms": ms, "peak_bytes": peak, "seq": s,
+                        "cache_bytes": cache_bytes,
+                        "last_pos": s - 1}
+    log(f"phase 30: long_500k 1 x {s} unrolled ({cache_bytes / 2**30:.2f} GiB "
+        f"of caches), positions {s - DECODE_STEPS}..{s - 1}: steps "
+        f"{[round(x, 2) for x in ms]} ms, peak {peak / 2**30:.2f} GiB")
+    _check_counts("serving cells", _counts(), {})
+    del caches, params
+    torch.cuda.empty_cache()
+    return out
+
+
+class _CollectiveClock:
+    """Host ms and calls of a mesh's collectives over the model axis (gloo
+    on CUDA tensors stages through the host, so each call has ended when
+    it returns)."""
+
+    def __init__(self, mesh):
+        self.ms, self.calls = 0.0, 0
+        for name in ("psum", "psum_scatter", "all_gather"):
+            real = getattr(mesh, name)
+            setattr(mesh, name, self._wrap(real))
+
+    def _wrap(self, real):
+        def call(x, axes, *a, **kw):
+            if axes != "model":
+                return real(x, axes, *a, **kw)
+            t0 = time.perf_counter()
+            y = real(x, axes, *a, **kw)
+            self.ms += (time.perf_counter() - t0) * 1e3
+            self.calls += 1
+            return y
+        return call
+
+
+def _tp_batches(cfg, batch: int, seq: int, steps: int, seed: int):
+    import torch
+
+    from repro_torch.data.synthetic import lm_batches
+
+    return [{k: torch.from_numpy(v) for k, v in b.items()}
+            for b in itertools.islice(lm_batches(cfg.vocab, batch, seq, seed),
+                                      steps)]
+
+
+def _tp_train_and_serve(cfg, mesh, dev, clock=None,
+                        grad_sync: bool = True) -> dict:
+    """TP_STEPS pbox AdamW steps of one 1 x TP_SEQ batch through
+    ``build_lm_train`` on ``mesh``, then a 1 x TP_SEQ prefill and
+    TP_DECODE greedy steps with the trained local params; the rank's
+    losses, local params (on the host) and ids.  ``grad_sync=False`` is
+    the control: every sync tag "none" and no serving."""
+    from unittest import mock
+
+    import torch
+
+    from repro_torch.configs.registry import ShapeCell, get_arch
+    from repro_torch.launch.steps import build_lm_train, make_exchange
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import Dist
+    from repro_torch.runtime.trainer import (
+        _tree_map,
+        init_train_state,
+        local_state,
+    )
+
+    arch = get_arch("gemma3-1b")
+    tp = mesh.shape["model"]
+    cell = ShapeCell("train_1k", "train", {"seq_len": TP_SEQ,
+                                           "global_batch": 1})
+    ex = make_exchange(mesh, "lm")
+    tags = T.grad_sync(cfg, tp)
+    with (contextlib.nullcontext() if grad_sync else mock.patch.object(
+            T, "grad_sync", lambda *_: _tree_map(lambda _: "none", tags))):
+        plan = build_lm_train(dataclasses.replace(arch, config=cfg), cell,
+                              mesh, ex)
+    state = init_train_state(
+        mesh, init_params_fn=lambda g: T.init_params(cfg, g, tp=tp),
+        param_specs=T.make_param_specs(cfg, tp), exchange=ex,
+        space=plan.meta["space"], n_groups=tp,
+        key=torch.Generator(device=dev).manual_seed(0),
+        ps_dtype=cfg.param_dtype, device=dev)
+    pflat, slots, ef, stc = local_state(state, mesh, ex)
+    # copies: the views would keep every group's state alive
+    pflat, slots = pflat.clone(), tuple(s.clone() for s in slots)
+    del state
+    torch.cuda.empty_cache()
+    losses, step_ms, coll_ms, coll_calls = [], [], [], []
+    _zero_counts()
+    for b in _tp_batches(cfg, 1, TP_SEQ, 1, 0) * TP_STEPS:
+        res = {}
+        before = (clock.ms, clock.calls) if clock else (0.0, 0)
+        step_ms.append(timed(lambda: res.update(zip(
+            ("p", "s", "e", "c", "m"),
+            plan.fn(pflat, slots, ef, stc, {k: v.to(dev)
+                                           for k, v in b.items()})))))
+        coll_ms.append((clock.ms - before[0]) if clock else 0.0)
+        coll_calls.append((clock.calls - before[1]) if clock else 0)
+        pflat, slots, ef, stc = res["p"], res["s"], res["e"], res["c"]
+        losses.append(res["m"]["loss"].item())
+    launches = _counts()
+    _check_counts(f"tp = {tp}", launches, {"fused_agg_opt": TP_STEPS})
+    params = plan.meta["space"].unflatten(pflat[0])
+    if not grad_sync:
+        return {"losses": losses, "params": _tree_to(params, "cpu")}
+    dist = Dist("model", ("data",), tp, mesh) if tp > 1 else None
+    prompt = _tp_batches(cfg, 1, TP_SEQ, 1, 9)[0]["tokens"].to(dev)
+    max_seq = TP_SEQ + TP_DECODE
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nxt, cache = T.prefill(params, prompt, cfg, max_seq, dist=dist)
+        ids = [nxt]
+        for i in range(TP_DECODE):
+            nxt, cache = T.decode_step(params, nxt, cache, TP_SEQ + i, cfg,
+                                       dist)
+            ids.append(nxt)
+        torch.cuda.synchronize()
+        serve_ms = (time.perf_counter() - t0) * 1e3
+    return {"losses": losses, "step_ms": step_ms, "coll_ms": coll_ms,
+            "coll_calls": coll_calls,
+            "params": _tree_to(params, "cpu"),
+            "ids": torch.stack(ids, 1).cpu(),
+            "serve_ms": serve_ms, "launches": launches}
+
+
+def _smoke_tp_run(cfg, mesh, dev) -> dict:
+    """gemma3-1b SMOKE at ``mesh``'s model axis: the loss of a seeded
+    4 x 16 batch, then greedy prefill (max_seq 32) and 6 decode steps."""
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import Dist
+    from repro_torch.runtime.trainer import local_params
+
+    tp = mesh.shape["model"] if mesh is not None else 1
+    dist = Dist("model", ("data",), tp, mesh) if tp > 1 else None
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), tp=tp)
+    if tp > 1:
+        params = local_params(params, T.make_param_specs(cfg, tp), mesh)
+    params = _tree_to(params, dev)
+    b = _tp_batches(cfg, 4, 16, 1, 3)[0]
+    toks, labs = b["tokens"].to(dev), b["labels"].to(dev)
+    with torch.no_grad():
+        loss = T.lm_loss(params, toks, labs, cfg, dist)[1]["ce"]
+        nxt, cache = T.prefill(params, toks, cfg, 32, dist=dist)
+        ids = [nxt]
+        for i in range(6):
+            nxt, cache = T.decode_step(params, nxt, cache, 16 + i, cfg, dist)
+            ids.append(nxt)
+    return {"loss": loss.item(), "ids": torch.stack(ids, 1).cpu()}
+
+
+def _tp_rank(rank, world, path, out_dir, device, smoke):
+    """One rank of phase 31 on ``device`` (cuda:0) over gloo: at world 2,
+    gemma3-1b at full width on a (1, 2) mesh (``_tp_train_and_serve``); at
+    world 4, the SMOKE config on (1, 4) and (2, 2) meshes
+    (``_smoke_tp_run``)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.mesh import Mesh
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dist.init_process_group("gloo", init_method=f"file://{path}", rank=rank,
+                            world_size=world)
+    try:
+        arch = get_arch("gemma3-1b")
+        if world == 2:
+            mesh = Mesh((1, 2), ("data", "model"))
+            clock = _CollectiveClock(mesh)
+            cfg = arch.smoke_config if smoke else arch.config
+            out = _tp_train_and_serve(cfg, mesh, dev, clock)
+            torch.cuda.empty_cache()
+            out["control"] = _tp_train_and_serve(cfg, mesh, dev,
+                                                 grad_sync=False)
+        else:
+            out = {f"tp{m}": _smoke_tp_run(arch.smoke_config, Mesh(
+                (world // m, m), ("data", "model")), dev) for m in (4, 2)}
+        torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_tp(world: int, dev, smoke: bool = False) -> tuple:
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    if dev.type == "cuda" and dev.index is None:  # the ranks need an index
+        dev = torch.device("cuda", torch.cuda.current_device())
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    t0 = time.perf_counter()
+    try:
+        ctx = mp.start_processes(_tp_rank, args=(world, f"{tmp}/rendezvous",
+                                                 tmp, str(dev), smoke),
+                                 nprocs=world, join=False,
+                                 start_method="spawn")
+        deadline = time.monotonic() + 400
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise AssertionError(f"{world} tp ranks on cuda:0 timed out")
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt") for r in range(world)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return ranks, time.perf_counter() - t0
+
+
+def _tp_global(cfg, tp: int, trees: list) -> dict:
+    """The global tree of tp model groups' local trees: each leaf's group
+    pieces joined along the dimension its spec shards."""
+    import torch
+
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.trainer import _tree_map
+
+    def join(spec, *xs):
+        for i, s in enumerate(spec):
+            if s == "model":
+                return torch.cat(xs, dim=i)
+        return xs[0]
+
+    return _tree_map(join, T.make_param_specs(cfg, tp), *trees)
+
+
+def _named_leaves(tree, prefix: str = "") -> list:
+    """(name, leaf) pairs in key order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _named_leaves(tree[k], f"{prefix}{k}/")]
+    return [(prefix[:-1], tree)]
+
+
+def _update_err(p0, ref, got, dev) -> tuple[float, str]:
+    """The worst leaf's ||d_got - d_ref|| / ||d_ref||, d = the leaf after
+    the steps - the leaf before (``p0``), in f32 on the card; and its name.
+    A leaf that did not move in ``ref`` reads inf."""
+    import torch
+
+    worst = (0.0, "")
+    for (name, a0), (_, a1), (_, a2) in zip(
+            *(_named_leaves(t) for t in (p0, ref, got))):
+        x0 = a0.to(dev, torch.float32)
+        d1 = a1.to(dev, torch.float32) - x0
+        d2 = a2.to(dev, torch.float32) - x0
+        rel = (torch.linalg.vector_norm(d2 - d1)
+               / torch.linalg.vector_norm(d1)).item()
+        worst = max(worst, (rel if math.isfinite(rel) else math.inf, name))
+    return worst
+
+
+def tp_path(dev, smoke: bool = False) -> dict:
+    """Phase 31: tensor parallelism on the one card.  2 gloo ranks on
+    cuda:0, mesh (1, 2), gemma3-1b at full width: TP_STEPS train steps on
+    one 1 x TP_SEQ batch, a prefill and TP_DECODE decode steps, against
+    the same seeded model at tp = 1 (world-1 NCCL) on the card: each
+    step's loss within TP_LOSS_RTOL, the update of every leaf within
+    TP_UPDATE_RTOL, which the control run (grad_sync off, whose step-2
+    loss must also miss) and a no-op step (reading 1) must exceed, the
+    share of greedy ids that agree.  Then
+    the SMOKE config on 4 gloo ranks at tp = 4 and tp = 2, against tp = 1
+    on the card at rtol 2e-5 / atol 1e-5, ids equal.  ``smoke``: the
+    2-rank runs at the SMOKE config too (the ``gpu`` test)."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+
+    arch = get_arch("gemma3-1b")
+    cfg = arch.smoke_config if smoke else arch.config
+    torch.cuda.empty_cache()
+    ranks, seconds = _spawn_tp(2, dev, smoke)
+    with world_one(dev), deterministic():
+        ref = _tp_train_and_serve(cfg, make_mesh((1, 1), ("data", "model")),
+                                  dev)
+    for r, got in enumerate(ranks):
+        if got["losses"] != ranks[0]["losses"] or not torch.equal(
+                got["ids"], ranks[0]["ids"]):
+            raise AssertionError(f"tp ranks disagree: {got['losses']}")
+    l2, l1 = ranks[0]["losses"], ref["losses"]
+    lc = ranks[0]["control"]["losses"]
+    # the seeded model both runs start from (init_train_state's draw)
+    p0 = _tree_to(T.init_params(cfg, torch.Generator(device=dev)
+                                .manual_seed(0)), "cpu")
+    g1 = ref["params"]
+    g2 = _tp_global(cfg, 2, [r["params"] for r in ranks])
+    upd, upd_leaf = _update_err(p0, g1, g2, dev)
+    del g2
+    gc = _tp_global(cfg, 2, [r["control"]["params"] for r in ranks])
+    ctl, ctl_leaf = _update_err(p0, g1, gc, dev)
+    del gc, p0
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(l2, l1)]
+    ctl_loss_rel = [abs(a - b) / abs(b) for a, b in zip(lc, l1)]
+    moved = abs(l1[1] - l1[0]) / abs(l1[0])  # what a no-op step leaves out
+    agree = (ranks[0]["ids"] == ref["ids"]).float().mean().item()
+    log(f"phase 31: gemma3-1b tp = 2 over 2 gloo ranks on cuda:0: losses {l2}"
+        f" against tp = 1 {l1}: rel {loss_rel} (bound {TP_LOSS_RTOL}; the "
+        f"step-1 update moves tp = 1's loss by rel {moved:.3g}); update after "
+        f"{TP_STEPS} steps: worst leaf {upd_leaf} at {upd:.4g} (bound "
+        f"{TP_UPDATE_RTOL}); control (grad_sync off): losses {lc} rel "
+        f"{ctl_loss_rel}, worst leaf {ctl_leaf} at {ctl:.4g}; greedy "
+        f"ids agree {agree:.3f}; steps {[round(x, 1) for x in ranks[0]['step_ms']]}"
+        f" ms (model-axis collectives {[round(x, 1) for x in ranks[0]['coll_ms']]}"
+        f" ms in {ranks[0]['coll_calls']} calls), tp = 1 steps "
+        f"{[round(x, 1) for x in ref['step_ms']]} ms; prefill + {TP_DECODE}"
+        f" decode steps {ranks[0]['serve_ms']:.1f} ms (tp = 1 "
+        f"{ref['serve_ms']:.1f}); {seconds:.1f} s")
+    if not all(math.isfinite(x) for x in l2 + l1) or \
+            max(loss_rel) > TP_LOSS_RTOL:
+        raise AssertionError(f"tp = 2 losses {l2} against tp = 1 {l1}")
+    if upd > TP_UPDATE_RTOL:
+        raise AssertionError(f"tp = 2 update differs from tp = 1's: {upd_leaf}"
+                             f" at {upd} (bound {TP_UPDATE_RTOL})")
+    if not ctl > TP_UPDATE_RTOL or not 1.0 > TP_UPDATE_RTOL or \
+            not max(ctl_loss_rel) > TP_LOSS_RTOL or not moved > TP_LOSS_RTOL:
+        raise AssertionError(
+            f"the checks cannot tell a faulty step: control update {ctl}, "
+            f"no-op update 1.0 (bound {TP_UPDATE_RTOL}); control loss rel "
+            f"{ctl_loss_rel}, a no-op step's {moved} (bound {TP_LOSS_RTOL})")
+    full = {"losses_tp2": l2, "losses_tp1": l1, "losses_control": lc,
+            "loss_rel": loss_rel, "control_loss_rel": ctl_loss_rel,
+            "loss_moved": moved, "loss_bound": TP_LOSS_RTOL,
+            "update_err": upd, "update_leaf": upd_leaf,
+            "control_update_err": ctl, "control_update_leaf": ctl_leaf,
+            "update_bound": TP_UPDATE_RTOL, "ids_agree": agree,
+            "step_ms_tp2": ranks[0]["step_ms"], "step_ms_tp1": ref["step_ms"],
+            "coll_ms": ranks[0]["coll_ms"], "coll_calls": ranks[0]["coll_calls"],
+            "serve_ms_tp2": ranks[0]["serve_ms"], "serve_ms_tp1": ref["serve_ms"],
+            "seconds": seconds, "launches_tp1": ref["launches"],
+            "launches_tp2": {k: sum(r["launches"][k] for r in ranks)
+                             for k in ref["launches"]}}
+    del g1, ranks, ref
+    torch.cuda.empty_cache()
+
+    ranks, seconds = _spawn_tp(4, dev)
+    one = _smoke_tp_run(arch.smoke_config, None, dev)
+    for r, got in enumerate(ranks):
+        for key, run in got.items():
+            if not math.isclose(run["loss"], one["loss"], rel_tol=2e-5,
+                                abs_tol=1e-5) or not torch.equal(
+                                    run["ids"], one["ids"]):
+                raise AssertionError(
+                    f"SMOKE {key} rank {r}: loss {run['loss']} ids "
+                    f"{run['ids'].tolist()} against tp = 1 {one['loss']} "
+                    f"{one['ids'].tolist()}")
+    log(f"phase 31: SMOKE tp = 4 and tp = 2 over 4 gloo ranks on cuda:0 == "
+        f"tp = 1 (loss {one['loss']:.6f} at rtol 2e-5 / atol 1e-5, prefill "
+        f"and 6 decode ids equal) in {seconds:.1f} s")
+    full["smoke_seconds"] = seconds
+    return full
+
+
 # -- phase 19: kernel timings ------------------------------------------------
 def time_fused_agg_opt(dev, n: int, k: int, average: bool = True,
                        dtype=None) -> dict:
@@ -5351,6 +5993,21 @@ def time_fused_agg_opt(dev, n: int, k: int, average: bool = True,
         grads, p, (m, v), packet, spec, average=average), reps=20)
     plain_ms = cuda_ms(lambda: K.fused_agg_opt_torch(
         grads, p, (m, v), packet, spec, average=average), reps=5)
+    library_ms = library = None
+    if k == 1 and not average:
+        # one AdamW update with no averaging: torch._fused_adamw_ (what
+        # torch.optim.AdamW(fused=True) calls) computes the same function
+        # in one call, in place (not the same bits)
+        st = [torch.ones((), dtype=torch.float32, device=dev)]
+        try:
+            library_ms = cuda_ms(lambda: torch._fused_adamw_(
+                [p], [grads[0]], [m], [v], [], st, lr=spec.lr,
+                beta1=spec.beta1, beta2=spec.beta2,
+                weight_decay=spec.weight_decay, eps=spec.eps, amsgrad=False,
+                maximize=False), reps=20)
+            library = f"torch._fused_adamw_ {library_ms:.4f} ms"
+        except RuntimeError as e:
+            library = f"torch._fused_adamw_ refuses: {str(e).splitlines()[0]}"
     w = p.element_size()
     b = bound(torch.cuda.get_device_name(dev),
               (k * w + 2 * w + 2 * 2 * 4) * n,  # grads in; param, m, v in+out
@@ -5360,9 +6017,10 @@ def time_fused_agg_opt(dev, n: int, k: int, average: bool = True,
         f"{kernel_ms:.4f} ms (median of 20), plain version {plain_ms:.4f} ms "
         f"(median of 5); bound {b['bound_ms']:.4f} ms = {b['bytes']} bytes "
         f"(operations: {b['op_ms']:.4f} ms); kernel reaches "
-        f"{b['bound_ms'] / kernel_ms:.1%} of the bound; library: none")
+        f"{b['bound_ms'] / kernel_ms:.1%} of the bound; library: "
+        f"{library or 'none'}")
     return {"ms": kernel_ms, "plain_ms": plain_ms, "max_abs_err": err,
-            "library_ms": None, **b}
+            "library_ms": library_ms, "library": library, **b}
 
 
 def time_quant(dev, flat: int, chunk: int) -> dict:
@@ -5702,7 +6360,10 @@ def main() -> int:
         spmd = spmd_path(dev)
         smoke_spmd = smoke_spmd_check(dev)
         cli = cli_check(dev)
+        remat = remat_path(dev)
+        cells = serve_cells_path(dev)
     gloo = gloo_cuda_check(dev)
+    tp = tp_path(dev)
     torch.cuda.empty_cache()
     switch_math = switch_math_ms(dev, int8["flat"], int8["chunk"])
     d = dlrm_capped_config().embed_dim
@@ -5759,7 +6420,10 @@ def main() -> int:
              **{f"spmd_{label}": run["launches"]
                 for label, run in spmd.items()},
              "smoke_spmd": {k: sum(c.get(k, 0) for c in smoke_spmd.values())
-                            for k in f32["launches"]}}
+                            for k in f32["launches"]},
+             "train_4k": remat["train_4k"]["launches"],
+             "tp2_ranks": tp["launches_tp2"],
+             "tp1_reference": tp["launches_tp1"]}
     # K = 1 without averaging: the async pushes (f32 ones only at SMOKE)
     k1_launches = {"fused_agg_opt": smoke["async/none"]["fused_agg_opt"],
                    "wire_fused": asyn["launches"]["wire_fused"]
@@ -5815,9 +6479,10 @@ def main() -> int:
             "launches_by_path": {p: c[kname] for p, c in paths.items()},
             **({"k1_no_average": {
                 "launches": k1_launches[kname],
-                **{key: timing[f"{kname}_k1"][key] for key in (
+                **{key: timing[f"{kname}_k1"].get(key) for key in (
                     "ms", "plain_ms", "bound_ms", "bound_by",
-                    "max_abs_err")}}} if kname in k1_launches else {}),
+                    "max_abs_err", "library_ms", "library")}}}
+               if kname in k1_launches else {}),
             **({"spmd_k1_bf16": {
                 "launches": sum(run["launches"][kname]
                                 for run in spmd.values()),
@@ -5827,7 +6492,8 @@ def main() -> int:
                                           for run in spmd.values()),
                 **{key: timing["fused_agg_opt_spmd"][key] for key in (
                     "ms", "plain_ms", "bound_ms", "bound_by",
-                    "max_abs_err")}}} if kname == "fused_agg_opt" else {}),
+                    "max_abs_err", "library_ms", "library")}}}
+               if kname == "fused_agg_opt" else {}),
         })
     log(f"main path peaks: f32 {f32['peak_bytes'] / 2**30:.2f} GiB, int8 "
         f"{int8['peak_bytes'] / 2**30:.2f} GiB, dlrm "
@@ -5877,6 +6543,20 @@ def main() -> int:
             for label, run in spmd.items())
         + f"; cli 6 SMOKE steps {cli['seconds']:.1f} s; gloo on cuda:0 "
         f"{gloo['seconds']:.1f} s"
+        + f"; 1 x {REMAT_SEQ} fwd+bwd remat off "
+        f"{remat['remat_off']['ms'][1]:.1f} ms / "
+        f"{remat['remat_off']['peak_bytes'] / 2**30:.2f} GiB, on "
+        f"{remat['remat_on']['ms'][1]:.1f} ms / "
+        f"{remat['remat_on']['peak_bytes'] / 2**30:.2f} GiB; train_4k "
+        f"{TRAIN4K_BATCH} x {REMAT_SEQ} steady step "
+        f"{statistics.median(remat['train_4k']['step_ms'][1:]):.1f} ms, peak "
+        f"{remat['train_4k']['peak_bytes'] / 2**30:.2f} GiB; prefill_32k "
+        f"{cells['prefill_32k']['ms'][1]:.1f} ms, decode_32k "
+        f"{statistics.median(cells['decode_32k']['ms'][1:]):.2f} ms a step, "
+        f"long_500k {statistics.median(cells['long_500k']['ms'][1:]):.2f} ms"
+        f" a step; tp = 2 steady step {tp['step_ms_tp2'][-1]:.1f} ms "
+        f"(collectives {tp['coll_ms'][-1]:.1f} ms) against tp = 1 "
+        f"{tp['step_ms_tp1'][-1]:.1f} ms"
         + f"; switch integer math "
         f"{sum(v['ms'] for v in switch_math.values()):.3f} ms; whole run "
         f"{time.perf_counter() - t_start:.1f} s")

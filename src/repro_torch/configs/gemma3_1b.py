@@ -39,6 +39,7 @@ SMOKE = TransformerConfig(
     embed_scale=True,
     dtype=torch.float32,
     param_dtype=torch.float32,
+    attn_chunk=8,
 )
 
 ARCH = ArchDef(

@@ -23,22 +23,23 @@ XLA compiles JAX's ``x / n`` under ``jit`` to that product.
 
 The backend follows the device: NCCL for the card, gloo for the CPU
 (``init_process_group``).  NCCL takes one rank per card, so one card runs
-the mesh at world 1.  The port's model is tp = 1 throughout, so
-``make_mesh`` refuses a ``model`` axis larger than one (tensor parallelism
-is ROADMAP queue 1, item 6b); ``Mesh`` itself treats every axis alike.
+the mesh at world 1 over NCCL, or at a larger world over gloo.  A
+``model`` axis above one is tensor parallelism: the model's collectives
+(``models/common.Dist``) run over its groups, and the trainer keeps one
+flat space per model group.
 """
 from __future__ import annotations
 
 import itertools
 import math
 import os
+import shutil
+import tempfile
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
-
-TP_ITEM = "ROADMAP queue 1, item 6b"
 
 
 def init_process_group(device: torch.device | str | None = None, *,
@@ -57,6 +58,40 @@ def init_process_group(device: torch.device | str | None = None, *,
                             rank=rank, world_size=world_size,
                             **({"device_id": dev} if dev.type == "cuda"
                                else {}))
+
+
+def start_group(world: int, device=None):
+    """Start a driver's process group: join ``torchrun``'s world, or start
+    a world of one rank (rendezvous in a fresh directory).  Returns the
+    device and the group's cleanup, or None for the cleanup when the
+    caller already started the group."""
+    if dist.is_initialized():
+        return resolve_device(device), None
+    env = env_rank()
+    tmp = None
+    if env is not None:
+        rank, size, local = env
+        if device is None:
+            torch.cuda.set_device(local)
+        init_process_group(device, init_method="env://", rank=rank,
+                           world_size=size)
+    elif world == 1:
+        tmp = tempfile.mkdtemp(prefix="repro_torch_")
+        try:
+            init_process_group(device, init_method=f"file://{tmp}/rendezvous")
+        except BaseException:
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise
+    else:
+        raise SystemExit(f"--mesh of {world} ranks: run under torchrun "
+                         f"--nproc-per-node {world}")
+
+    def cleanup():
+        dist.destroy_process_group()
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    return resolve_device(device), cleanup
 
 
 def _axes(axes) -> tuple:
@@ -176,28 +211,17 @@ class Mesh:
         return torch.cat(out.unbind(0), dim=axis)
 
 
-def refuse_tp(shape, axes) -> None:
-    """Raise ``NotImplementedError`` for a model axis larger than one."""
-    if "model" in axes and shape[tuple(axes).index("model")] > 1:
-        raise NotImplementedError(
-            f"a model axis of {shape[tuple(axes).index('model')]}: the port "
-            f"trains at tp = 1; tensor parallelism is {TP_ITEM}")
-
-
 def make_production_mesh(*, multi_pod: bool = False) -> tuple:
     """The production layout as ``(shape, axes)``: 16 x 16 = 256 ranks
     ("data", "model"), or 2 pods x 256 ("pod", "data", "model").  Only the
-    layout: a 256-rank process group is the caller's, and its model axis
-    of 16 waits for tensor parallelism (``TP_ITEM``)."""
+    layout: a 256-rank process group is the caller's."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return shape, axes
 
 
 def make_mesh(shape: tuple, axes: tuple) -> Mesh:
-    """A mesh for the trainer over the default process group; a model axis
-    larger than one raises ``NotImplementedError``."""
-    refuse_tp(tuple(shape), tuple(axes))
+    """A mesh for the trainer over the default process group."""
     return Mesh(shape, axes)
 
 

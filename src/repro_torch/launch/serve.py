@@ -25,10 +25,15 @@ Sources:
 The body is ``serve(cfg, args)``, which takes the model config: ``main``
 calls it with the arch's SMOKE config, as the JAX driver does, and
 ``chip_smoke.py`` calls it with the full config.  It runs on the card
-unless it is given ``device="cpu"``.  The port runs on one device: a
-``--mesh`` other than ``1x1`` raises ``NotImplementedError``.  ``main(argv)``
-returns a result dict (generated ids, read provenance, timings); ``serve``
-adds the live objects (``fabric``, ``plane``, ``params``) for callers that
+unless it is given ``device="cpu"``.  ``--mesh DATAxMODEL`` with more than
+one rank serves over the world's ranks (``torchrun``'s, or a group its
+caller started), as the JAX driver's ``shard_map`` does: rank 0 assembles
+the global tree through the read plane and sends the read to every rank,
+each rank takes its local pieces (``trainer.local_params``), generates for
+its rows of the batch with the model sharded over the model axis, and the
+ids are gathered over the data axis.  ``main(argv)`` returns a result
+dict (generated ids, read provenance, timings); ``serve`` adds the live
+objects (``fabric``, ``plane``, ``params``) for callers that
 keep serving from them.
 """
 from __future__ import annotations
@@ -176,6 +181,19 @@ def _serve_params(args, params, space, device):
     return space.unflatten(read.flat), info, fabric, plane
 
 
+def _broadcast_read(space, params, read_info):
+    """Rank 0's served tree and provenance on every rank: the read's flat
+    (f32, as the fabric holds it) sent over the world group; the other
+    ranks' ``params`` only give the buffer."""
+    import torch.distributed as tdist
+
+    flat = space.flatten(params)
+    tdist.broadcast(flat, src=0)
+    info = [read_info]
+    tdist.broadcast_object_list(info, src=0)
+    return space.unflatten(flat), info[0]
+
+
 def serve(cfg, args, *, device=None, params=None) -> dict:
     """Generate per ``args`` with the model config ``cfg``: init params
     (seeded ``args.seed``, unless ``params`` is given), the read plane per
@@ -188,25 +206,34 @@ def serve(cfg, args, *, device=None, params=None) -> dict:
     from repro_torch.core.chunking import ParamSpace
     from repro_torch.device import resolve_device
     from repro_torch.models import transformer as T
+    from repro_torch.models.common import Dist
 
     d, m = (int(x) for x in args.mesh.split("x"))
-    if d * m > 1:
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the port serves on one device; the "
-            "serve driver's mesh comes with tensor parallelism (ROADMAP "
-            "queue 1, item 6b)")
+    if args.batch % d:
+        raise ValueError(f"--batch {args.batch} does not split over the "
+                         f"{d} data ranks of --mesh {args.mesh}")
     device = resolve_device(device)
+    mesh, dist = None, Dist.none()
+    if d * m > 1:
+        from repro_torch.launch.mesh import make_mesh
+
+        mesh = make_mesh((d, m), ("data", "model"))
+        dist = Dist(model_axis="model", data_axes=("data",), tp=m, mesh=mesh)
     if params is None:
         gen = torch.Generator(device=device).manual_seed(args.seed)
-        params = T.init_params(cfg, gen)
+        params = T.init_params(cfg, gen, tp=m)
     max_seq = args.prompt_len + args.tokens
+    max_seq = -(-max_seq // m) * m
 
     read_info: dict | None = None
     fabric = plane = None
     if args.source != "model":
         space = ParamSpace.build(params)
-        params, read_info, fabric, plane = _serve_params(args, params, space,
-                                                         device)
+        if mesh is None or mesh.rank == 0:
+            params, read_info, fabric, plane = _serve_params(
+                args, params, space, device)
+        if mesh is not None:
+            params, read_info = _broadcast_read(space, params, read_info)
         print(f"read plane [{args.source}]: version {read_info['version']}, "
               f"staleness {read_info['staleness']}, "
               f"{read_info['shards']} shards, "
@@ -218,20 +245,30 @@ def serve(cfg, args, *, device=None, params=None) -> dict:
     prompts = torch.from_numpy(
         rng.integers(0, cfg.vocab, (args.batch, args.prompt_len))
         .astype(np.int32)).to(device)
+    if mesh is not None:
+        from repro_torch.runtime.trainer import local_params
+
+        params = local_params(params, T.make_param_specs(cfg, m), mesh)
+        rows = args.batch // d
+        w = mesh.coords["data"]
+        prompts = prompts[w * rows:(w + 1) * rows]
     with torch.no_grad():
         if device.type == "cuda":  # the prefill's clock starts idle
             torch.cuda.synchronize(device)
         t0 = time.perf_counter()
-        nxt, cache = T.prefill(params, prompts, cfg, max_seq)
-        out = [nxt.cpu().numpy()]
+        nxt, cache = T.prefill(params, prompts, cfg, max_seq, dist=dist)
+        out = [nxt]
         t_prefill = time.perf_counter() - t0
         t0 = time.perf_counter()
         for i in range(args.tokens - 1):
             nxt, cache = T.decode_step(params, nxt, cache,
-                                       args.prompt_len + i, cfg)
-            out.append(nxt.cpu().numpy())
+                                       args.prompt_len + i, cfg, dist)
+            out.append(nxt)
+        ids = torch.stack(out, dim=1)
+        if mesh is not None:
+            ids = mesh.all_gather(ids, "data")
+        gen_ids = ids.cpu().numpy()
         t_dec = time.perf_counter() - t0
-    gen_ids = np.stack(out, axis=1)
     print(f"prefill {args.batch}x{args.prompt_len} in {t_prefill*1e3:.1f} ms; "
           f"{args.tokens-1} decode steps in {t_dec*1e3:.1f} ms "
           f"({t_dec/max(1, args.tokens-1)*1e3:.2f} ms/tok)")
@@ -253,13 +290,22 @@ def main(argv=None, *, device=None) -> dict:
     ``main`` serves ``arch.smoke_config`` too), on the card unless
     ``device`` says otherwise."""
     from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.mesh import start_group
 
     args = build_argparser().parse_args(argv)
     arch = get_arch(args.arch)
     if arch.family != "lm":
         raise SystemExit("serve.py drives LM archs; recsys serving is "
                          "exercised via launch/steps.py serve cells")
-    out = serve(arch.smoke_config, args, device=device)
+    d, m = (int(x) for x in args.mesh.split("x"))
+    cleanup = None
+    if d * m > 1:  # torchrun's world, or the caller's group
+        device, cleanup = start_group(d * m, device)
+    try:
+        out = serve(arch.smoke_config, args, device=device)
+    finally:
+        if cleanup is not None:
+            cleanup()
     return {k: out[k] for k in ("generated", "source", "read", "prefill_ms",
                                 "decode_ms")}
 

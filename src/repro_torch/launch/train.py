@@ -12,9 +12,9 @@ checkpointing and crash-restart (``--resume``).
   PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
       --mesh 4x1
 
-``--mesh DATAxMODEL`` must hold exactly the world's ranks; the model axis
-must be 1 (tensor parallelism is ROADMAP queue 1, item 6b).  ``main(argv,
-device=...)`` is the body: it runs on the card unless ``device`` says
+``--mesh DATAxMODEL`` must hold exactly the world's ranks; a model axis
+above one shards the model over its ranks (tensor parallelism, each model
+group with its own flat space).  ``main(argv, device=...)`` is the body: it runs on the card unless ``device`` says
 otherwise, joins a process group its caller already started, and returns
 the losses, the final step and this rank's final state.  ``--resume``
 skips the batches the restored steps consumed, so a restarted run goes on
@@ -24,8 +24,6 @@ stream from its first batch).
 from __future__ import annotations
 
 import argparse
-import shutil
-import tempfile
 import time
 
 
@@ -47,45 +45,6 @@ def build_argparser() -> argparse.ArgumentParser:
     return ap
 
 
-def _start_group(world: int, device):
-    """Join ``torchrun``'s world, or start a world of one rank (rendezvous
-    in a fresh directory); returns the device and the group's cleanup, or
-    None when the group is the caller's."""
-    import torch
-    import torch.distributed as dist
-
-    from repro_torch.device import resolve_device
-    from repro_torch.launch.mesh import env_rank, init_process_group
-
-    if dist.is_initialized():
-        return resolve_device(device), None
-    env = env_rank()
-    tmp = None
-    if env is not None:
-        rank, size, local = env
-        if device is None:
-            torch.cuda.set_device(local)
-        init_process_group(device, init_method="env://", rank=rank,
-                           world_size=size)
-    elif world == 1:
-        tmp = tempfile.mkdtemp(prefix="repro_torch_train_")
-        try:
-            init_process_group(device, init_method=f"file://{tmp}/rendezvous")
-        except BaseException:
-            shutil.rmtree(tmp, ignore_errors=True)
-            raise
-    else:
-        raise SystemExit(f"--mesh of {world} ranks: run under torchrun "
-                         f"--nproc-per-node {world}")
-
-    def cleanup():
-        dist.destroy_process_group()
-        if tmp is not None:
-            shutil.rmtree(tmp, ignore_errors=True)
-
-    return resolve_device(device), cleanup
-
-
 def main(argv=None, *, device=None) -> dict:
     import torch
     import torch.distributed as dist
@@ -98,7 +57,7 @@ def main(argv=None, *, device=None) -> dict:
     from repro_torch.configs.registry import get_arch
     from repro_torch.data.pipeline import Prefetcher, to_device
     from repro_torch.data.synthetic import lm_batches
-    from repro_torch.launch.mesh import make_mesh, refuse_tp
+    from repro_torch.launch.mesh import make_mesh, start_group
     from repro_torch.launch.steps import build_cell
     from repro_torch.models import transformer as T
     from repro_torch.runtime.trainer import (
@@ -111,8 +70,7 @@ def main(argv=None, *, device=None) -> dict:
 
     args = build_argparser().parse_args(argv)
     d, m = (int(x) for x in args.mesh.split("x"))
-    refuse_tp((d, m), ("data", "model"))
-    dev, cleanup = _start_group(d * m, device)
+    dev, cleanup = start_group(d * m, device)
     try:
         if dist.get_world_size() != d * m:
             raise ValueError(f"--mesh {args.mesh} needs {d * m} ranks, the "
@@ -149,9 +107,10 @@ def main(argv=None, *, device=None) -> dict:
         else:
             gen = torch.Generator(device=dev).manual_seed(args.seed)
             state = init_train_state(
-                mesh, init_params_fn=lambda g: T.init_params(cfg, g),
-                exchange=exchange, space=space, n_groups=plan.meta["n_groups"],
-                key=gen, ps_dtype=plan.abstract_args[0].dtype, device=dev)
+                mesh, init_params_fn=lambda g: T.init_params(cfg, g, tp=m),
+                param_specs=T.make_param_specs(cfg, m), exchange=exchange,
+                space=space, n_groups=plan.meta["n_groups"], key=gen,
+                ps_dtype=plan.abstract_args[0].dtype, device=dev)
 
         pflat, slots, ef, stc = local_state(state, mesh, exchange)
         del state

@@ -3,9 +3,14 @@ embeddings (torch counterpart of ``repro/models/common.py``).
 
 ``Dist`` names the model (tensor-parallel) axis and the batch axes, as the
 JAX one does, and its collectives run over a ``launch.mesh.Mesh``'s
-process groups; each is the identity when its axis is ``None``.  The port
-trains at tp = 1 (tensor parallelism is ROADMAP queue 1, item 6b), so a
-``Dist`` with ``tp > 1`` raises.  Initializers draw from an explicit
+process groups; each is the identity when there is no model axis or it
+has one rank.  The model-axis collectives are differentiable with the
+transposes ``jax.grad`` uses inside a manual ``shard_map``: ``psum``'s
+backward is a ``psum``, ``psum_scatter``'s an ``all_gather`` and
+``all_gather``'s a ``psum_scatter`` (``pmax`` takes no gradient: the JAX
+model stops the gradient before it).  So a rank's backward computes the
+gradient of the sum over ranks of the per-rank loss with respect to its
+local parameters, as JAX's does.  Initializers draw from an explicit
 ``torch.Generator`` on the generator's device; they give other numbers
 than ``jax.random`` for the same seed, so parity tests load the JAX
 package's parameters through ``repro_torch.interop`` instead.
@@ -21,11 +26,61 @@ import torch
 from repro_torch.device import resolve_device
 
 
+class _Psum(torch.autograd.Function):
+    """Sum over the model axis; the backward sums the cotangents."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return mesh.psum(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.mesh.psum(g.contiguous(), ctx.axis), None, None
+
+
+def _scatter(mesh, x, axis_name, dim):
+    """Tiled reduce-scatter of ``x`` along ``dim``."""
+    y = mesh.psum_scatter(x.movedim(dim, 0).contiguous(), axis_name)
+    return y.movedim(0, dim)
+
+
+class _PsumScatter(torch.autograd.Function):
+    """Sum over the model axis and keep this rank's block of ``dim``; the
+    backward all-gathers the cotangent blocks."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _scatter(mesh, x, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (ctx.mesh.all_gather(g.contiguous(), ctx.axis, axis=ctx.dim),
+                None, None, None)
+
+
+class _AllGather(torch.autograd.Function):
+    """Every rank's block along ``dim``, in rank order; the backward sums
+    the cotangents and keeps this rank's block."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return mesh.all_gather(x.contiguous(), axis, axis=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter(ctx.mesh, g, ctx.axis, ctx.dim), None, None, None
+
+
 @dataclasses.dataclass(frozen=True)
 class Dist:
     """Distribution context (static).  ``mesh`` is the port's addition: the
     ``launch.mesh.Mesh`` whose groups the collectives use (JAX code finds
-    its axes in the enclosing ``shard_map``)."""
+    its axes in the enclosing ``shard_map``).  With no model axis, or one
+    of a single rank, the model collectives are the identity, as JAX's are
+    over a one-device axis."""
 
     model_axis: str | None = None  # TP axis name (None = single device)
     data_axes: tuple[str, ...] = ()  # batch-sharding axes
@@ -33,10 +88,8 @@ class Dist:
     mesh: Any = None
 
     def __post_init__(self):
-        if self.tp > 1:
-            raise NotImplementedError(
-                f"tp = {self.tp}: the port trains at tp = 1; tensor "
-                "parallelism is ROADMAP queue 1, item 6b")
+        if self.tp > 1 and (self.model_axis is None or self.mesh is None):
+            raise ValueError(f"tp = {self.tp} needs a model axis and a mesh")
 
     @staticmethod
     def none() -> "Dist":
@@ -46,39 +99,45 @@ class Dist:
     def distributed(self) -> bool:
         return self.model_axis is not None
 
+    @property
+    def _model(self) -> bool:
+        return self.model_axis is not None and self.tp > 1
+
     # -- collectives (identity when single-device) ----------------------
     def psum_model(self, x):
-        if self.model_axis is None:
+        if not self._model:
             return x
-        return self.mesh.psum(x, self.model_axis)
+        return _Psum.apply(x, self.mesh, self.model_axis)
 
     def pmax_model(self, x):
-        if self.model_axis is None:
+        """Max over the model axis; takes no gradient (detach first)."""
+        if not self._model:
             return x
-        out = x.clone()
+        out = x.detach().clone()
         torch.distributed.all_reduce(out, torch.distributed.ReduceOp.MAX,
                                      group=self.mesh.group(self.model_axis))
         return out
 
     def psum_scatter_model(self, x, axis: int):
         """Combine partial results AND split ``axis`` over the model axis."""
-        if self.model_axis is None:
+        if not self._model:
             return x
-        y = self.mesh.psum_scatter(x.movedim(axis, 0), self.model_axis)
-        return y.movedim(0, axis)
+        return _PsumScatter.apply(x, self.mesh, self.model_axis,
+                                  axis % x.dim())
 
     def all_gather_model(self, x, axis: int):
-        if self.model_axis is None:
+        if not self._model:
             return x
-        return self.mesh.all_gather(x, self.model_axis, axis=axis)
+        return _AllGather.apply(x, self.mesh, self.model_axis, axis % x.dim())
 
     def all_gather_data(self, x, axis: int):
         if not self.data_axes:
             return x
         return self.mesh.all_gather(x, self.data_axes, axis=axis)
 
-    def model_index(self):
-        if self.model_axis is None:
+    def model_index(self) -> int:
+        """This rank's coordinate on the model axis (0 without one)."""
+        if not self._model:
             return 0
         return self.mesh.axis_index(self.model_axis)
 

@@ -1,31 +1,49 @@
-"""Decoder-only transformer (torch counterpart of
-``repro/models/transformer.py``): the dense, single-device (tp=1),
-non-sequence-parallel training and serving paths.
+"""Decoder-only transformer with manual tensor parallelism (torch
+counterpart of ``repro/models/transformer.py``): the dense, non-sequence-
+parallel training and serving paths, per rank.
 
-Covers GQA, gemma3's sliding-window/global layer interleaving and its
+Covers GQA (kv heads replicated when ``n_kv_heads < tp``), optional QKV
+biases, gemma3's sliding-window/global layer interleaving and its
 ``sqrt(d)`` embedding scale.  Parameters are a nested
 ``dict[str, Tensor]`` with the JAX package's keys and shapes, stacked over
-layers (``params["layers"]["wq"]`` is ``(L, d, H*hd)``), so the two
-packages' trees flatten to the same chunk space.  QKV biases, activations
-other than SiLU, MoE FFNs and sequence parallelism are not ported yet.
+layers (``params["layers"]["wq"]`` is ``(L, d, H*hd)`` globally), so the
+two packages' trees flatten to the same chunk space.  Activations other
+than SiLU, MoE FFNs and sequence parallelism are not ported yet.
+
+Tensor-parallel layout over the ``model`` axis (size ``tp``), as JAX's:
+q/o heads sharded ``tp_attn = min(tp, n_heads)`` ways and duplicated
+``R = tp / tp_attn`` times in the stored layout (the block output is
+summed over the model axis and divided by R; ``grad_sync`` rescales the
+duplicates' gradients by R); k/v sharded when ``n_kv_heads >= tp``, else
+replicated (their gradients summed over the model axis); the FFN hidden
+dim sharded; embeddings and head vocab-sharded, the loss a distributed
+softmax cross-entropy; the decode cache sequence-sharded with every kv
+head resident, decode attention a log-sum-exp combine across shards.
+Every function takes the rank's local pieces and a ``Dist`` whose
+collectives are differentiable with JAX's transposes
+(``models/common.py``); ``tp`` is ``dist.tp`` (JAX's functions take it
+beside ``dist``), and ``dist=None`` is ``Dist.none()``, one device.
 
 All matrix products are ``torch.matmul``: the JAX package leaves them to
-XLA, outside any Pallas kernel.  Attention runs unchunked (the JAX q-chunks
-only bound memory) with the same math: f32 scores times ``1/sqrt(hd)``,
-mask value -1e30, softmax in f32, a cast to the compute dtype before the PV
-product, and on local layers the window rule ``k > q - window``.
+XLA, outside any Pallas kernel.  Attention is scanned over blocks of
+``attn_chunk`` queries (the whole sequence is one block when the chunk
+does not divide it), each block with the JAX math: f32 scores times
+``1/sqrt(hd)``, mask value -1e30, softmax in f32, a cast to the compute
+dtype before the PV product, and on local layers the window rule
+``k > q - window``; only one block's (cq, Sk) scores are alive at a time.
+``remat`` recomputes each layer in the backward
+(``torch.utils.checkpoint``, JAX's ``jax.checkpoint`` of the layer body),
+so a step keeps one layer's activations instead of all of them.
 
 Serving (``prefill``, ``decode_step``; ``init_cache_unrolled`` /
-``decode_step_unrolled`` with rolling window caches on local layers) is the
-JAX package's with its model axis reduced to one device: the JAX
-functions' ``dist`` and ``tp`` arguments have no counterpart, as in
-``lm_loss``.  Each cast follows the JAX code: the head's product in the
-compute dtype cast to f32 for the greedy argmax (the first maximal id wins
-ties), f32 scores, and the softmax numerator cast to the compute dtype
-before the value product.  A decode step writes the new position into the
-cache it is given and returns that cache (the JAX function returns a new
-one); decode attention is the same plain math as prefill's, as in the JAX
-package, which has no Pallas kernel for it.
+``decode_step_unrolled`` with rolling window caches on local layers) is
+the JAX package's.  Each cast follows the JAX code: the head's product in
+the compute dtype cast to f32 for the greedy argmax (the first maximal id
+wins ties, the lowest id across shards), f32 scores, and the softmax
+numerator cast to the compute dtype before the value product.  A decode
+step writes the new position into the cache it is given and returns that
+cache (the JAX function returns a new one); decode attention is plain
+math, as in the JAX package, which has no Pallas kernel for it.
 """
 from __future__ import annotations
 
@@ -35,9 +53,16 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
-from repro_torch.models.common import apply_rope, dense_init, embed_init, rms_norm
+from repro_torch.models.common import (
+    Dist,
+    apply_rope,
+    dense_init,
+    embed_init,
+    rms_norm,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +75,7 @@ class TransformerConfig:
     head_dim: int
     d_ff: int
     vocab: int
+    qkv_bias: bool = False
     rope_theta: float = 1e6
     sliding_window: int | None = None  # window for local layers
     global_every: int = 0  # 0 = all layers global; k = layers k-1, 2k-1,... global
@@ -57,9 +83,27 @@ class TransformerConfig:
     act: str = "silu"  # the only activation ported so far
     dtype: torch.dtype = torch.bfloat16  # compute dtype
     param_dtype: torch.dtype = torch.bfloat16
+    remat: bool = True
+    attn_chunk: int = 1024  # q-block size for chunked attention
     eps: float = 1e-6
     embed_scale: bool = False  # gemma-style sqrt(d) embedding scale
     seq_parallel: bool = False  # not ported yet
+
+    # ---- TP derived quantities -------------------------------------
+    def tp_attn(self, tp: int) -> int:
+        return min(tp, self.n_heads)
+
+    def attn_replicas(self, tp: int) -> int:
+        return tp // self.tp_attn(tp)
+
+    def heads_local(self, tp: int) -> int:
+        return self.n_heads // self.tp_attn(tp)
+
+    def kv_sharded(self, tp: int) -> bool:
+        return self.n_kv_heads >= tp
+
+    def kv_heads_local(self, tp: int) -> int:
+        return self.n_kv_heads // tp if self.kv_sharded(tp) else self.n_kv_heads
 
     def vocab_padded(self, tp: int = 1) -> int:
         return -(-self.vocab // (tp * 128)) * (tp * 128)
@@ -77,9 +121,15 @@ class TransformerConfig:
         """Exact parameter count (excluding vocab padding), dense FFN."""
         d, hd = self.d_model, self.head_dim
         attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd + self.n_heads * hd * d
+        if self.qkv_bias:
+            attn += self.n_heads * hd + 2 * self.n_kv_heads * hd
         ffn = 3 * d * self.d_ff
         per_layer = attn + ffn + 2 * d
         return self.n_layers * per_layer + 2 * self.vocab * d + d
+
+    def active_param_count(self) -> int:
+        """Per-token active params: all of them while MoE is unported."""
+        return self.param_count()
 
 
 def _check_supported(cfg: TransformerConfig) -> None:
@@ -96,9 +146,12 @@ def _check_supported(cfg: TransformerConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def init_params(cfg: TransformerConfig, generator: torch.Generator | None = None,
-                device: torch.device | str | None = None) -> dict:
-    """Random parameters drawn from ``generator`` (a fresh one seeded 0 on
-    ``device`` when None), laid out as the JAX package's tp=1 tree."""
+                device: torch.device | str | None = None, tp: int = 1) -> dict:
+    """Random global parameters drawn from ``generator`` (a fresh one
+    seeded 0 on ``device`` when None), laid out as the JAX package's tree
+    for ``tp``: the duplicated q/o layout materialized, the vocab tables
+    drawn at ``vocab_padded(1)`` rows and zero-padded to
+    ``vocab_padded(tp)``, so every ``tp`` draws the same model."""
     _check_supported(cfg)
     if generator is None:
         generator = torch.Generator(device=resolve_device(device)).manual_seed(0)
@@ -106,6 +159,7 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator | None = None
         raise ValueError(
             f"generator lives on {generator.device}, device is {device}")
     L, d, hd = cfg.n_layers, cfg.d_model, cfg.head_dim
+    R = cfg.attn_replicas(tp)
     pdt = cfg.param_dtype
     dev = generator.device
     qdim = cfg.n_heads * hd
@@ -114,51 +168,114 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator | None = None
     def zeros(*shape):
         return torch.zeros(shape, dtype=pdt, device=dev)
 
+    def tile_r(x):  # duplicate the head layout R times on the last dim
+        return x.repeat(*(1,) * (x.dim() - 1), R) if R > 1 else x
+
     layers: dict[str, Any] = {
         "ln1": zeros(L, d),
         "ln2": zeros(L, d),
-        "wq": dense_init(generator, (L, d, qdim), d, pdt),
+        "wq": tile_r(dense_init(generator, (L, d, qdim), d, pdt)),
         "wk": dense_init(generator, (L, d, kvdim), d, pdt),
         "wv": dense_init(generator, (L, d, kvdim), d, pdt),
-        "wo": dense_init(generator, (L, d, qdim), qdim, pdt)
+        "wo": tile_r(dense_init(generator, (L, d, qdim), qdim, pdt))
         .transpose(1, 2).contiguous(),
     }
+    if cfg.qkv_bias:
+        layers["bq"] = tile_r(zeros(L, qdim))
+        layers["bk"] = zeros(L, kvdim)
+        layers["bv"] = zeros(L, kvdim)
     layers["w1"] = dense_init(generator, (L, d, cfg.d_ff), d, pdt)
     layers["w3"] = dense_init(generator, (L, d, cfg.d_ff), d, pdt)
     layers["w2"] = dense_init(generator, (L, cfg.d_ff, d), cfg.d_ff, pdt)
-    vp = cfg.vocab_padded(1)
+    vp1, vp = cfg.vocab_padded(1), cfg.vocab_padded(tp)
+
+    def vocab_init():
+        w = embed_init(generator, (vp1, d), pdt)
+        if vp > vp1:  # dead rows: tokens never index them, the loss masks them
+            w = torch.cat([w, zeros(vp - vp1, d)])
+        return w
+
     return {
-        "embed": embed_init(generator, (vp, d), pdt),
+        "embed": vocab_init(),
         "layers": layers,
         "ln_f": zeros(d),
-        "head": embed_init(generator, (vp, d), pdt),
+        "head": vocab_init(),
     }
 
 
-def abstract_params(cfg: TransformerConfig) -> dict:
-    """``init_params``'s tree as meta tensors: shapes and dtypes only, no
-    storage (the JAX package's ``jax.eval_shape`` of ``init_params``)."""
+def abstract_params(cfg: TransformerConfig, tp: int = 1) -> dict:
+    """``init_params``'s global tree for ``tp`` as meta tensors: shapes and
+    dtypes only, no storage (the JAX package's ``jax.eval_shape`` of
+    ``init_params``)."""
     _check_supported(cfg)
     L, d, hd, ff = cfg.n_layers, cfg.d_model, cfg.head_dim, cfg.d_ff
-    qdim, kvdim, vp = cfg.n_heads * hd, cfg.n_kv_heads * hd, cfg.vocab_padded(1)
+    R = cfg.attn_replicas(tp)
+    qdim, kvdim, vp = R * cfg.n_heads * hd, cfg.n_kv_heads * hd, cfg.vocab_padded(tp)
 
     def meta(*shape):
         return torch.empty(shape, dtype=cfg.param_dtype, device="meta")
 
     layers = {"ln1": meta(L, d), "ln2": meta(L, d), "wq": meta(L, d, qdim),
               "wk": meta(L, d, kvdim), "wv": meta(L, d, kvdim),
-              "wo": meta(L, qdim, d), "w1": meta(L, d, ff),
-              "w3": meta(L, d, ff), "w2": meta(L, ff, d)}
+              "wo": meta(L, qdim, d)}
+    if cfg.qkv_bias:
+        layers.update(bq=meta(L, qdim), bk=meta(L, kvdim), bv=meta(L, kvdim))
+    layers.update(w1=meta(L, d, ff), w3=meta(L, d, ff), w2=meta(L, ff, d))
     return {"embed": meta(vp, d), "layers": layers, "ln_f": meta(d),
             "head": meta(vp, d)}
 
 
+def make_param_specs(cfg: TransformerConfig, tp: int) -> dict:
+    """Each parameter's sharding as JAX's ``PartitionSpec`` names it: a
+    tuple of an axis name or None per sharded dimension, ``()`` for
+    replicated."""
+    M = "model" if tp > 1 else None
+    kvs = cfg.kv_sharded(tp)
+    kv = (None, None, M) if kvs else ()
+    kvb = (None, M) if kvs else ()
+    layers: dict[str, Any] = {
+        "ln1": (), "ln2": (),
+        "wq": (None, None, M), "wk": kv, "wv": kv, "wo": (None, M, None),
+    }
+    if cfg.qkv_bias:
+        layers.update(bq=(None, M), bk=kvb, bv=kvb)
+    layers.update(w1=(None, None, M), w3=(None, None, M), w2=(None, M, None))
+    return {"embed": (M, None), "layers": layers, "ln_f": (), "head": (M, None)}
+
+
+def grad_sync(cfg: TransformerConfig, tp: int) -> dict:
+    """Per-tensor gradient correction before the PS exchange (the JAX
+    function's tags): ``psum_model`` for replicated copies whose per-rank
+    gradient covers only the local heads or vocab rows (kv when
+    replicated, the norms), ``scale_R`` for the duplicated q/o layout."""
+    R = cfg.attn_replicas(tp)
+    rep = "psum_model" if tp > 1 else "none"
+    qsync = f"scale_{R}" if R > 1 else "none"
+    kvsync = "none" if cfg.kv_sharded(tp) else rep
+    layers: dict[str, Any] = {"ln1": rep, "ln2": rep, "wq": qsync,
+                              "wk": kvsync, "wv": kvsync, "wo": qsync}
+    if cfg.qkv_bias:
+        layers.update(bq=qsync, bk=kvsync, bv=kvsync)
+    layers.update(w1="none", w3="none", w2="none")
+    return {"embed": "none", "layers": layers, "ln_f": rep, "head": "none"}
+
+
 # ---------------------------------------------------------------------------
-# building blocks
+# building blocks (per-rank code)
 # ---------------------------------------------------------------------------
 
-def _embed(params, tokens, cfg: TransformerConfig):
-    emb = params["embed"][tokens].to(cfg.dtype)
+def _embed(params, tokens, cfg: TransformerConfig, dist: Dist):
+    """Vocab-sharded lookup: local take, mask, psum (the PS 'pull')."""
+    table = params["embed"]
+    if dist.tp > 1:
+        vloc = table.shape[0]
+        local = tokens.long() - dist.model_index() * vloc
+        ok = (local >= 0) & (local < vloc)
+        emb = table[local.clamp(0, vloc - 1)]
+        emb = torch.where(ok[..., None], emb, 0).to(cfg.dtype)
+        emb = dist.psum_model(emb)
+    else:
+        emb = table[tokens].to(cfg.dtype)
     if cfg.embed_scale:
         # sqrt(d) rounded to the compute dtype first, as the JAX package does
         scale = torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype).item()
@@ -167,11 +284,15 @@ def _embed(params, tokens, cfg: TransformerConfig):
 
 
 def _qkv(x, lp, cfg: TransformerConfig, positions):
-    """Returns q (B,S,H,hd) and k/v (B,S,Hkv,hd), q and k rope'd."""
+    """Returns q (B,S,Hloc,hd) and k/v (B,S,Hkv_res,hd), q and k rope'd."""
     hd = cfg.head_dim
     q = x @ lp["wq"]
     k = x @ lp["wk"]
     v = x @ lp["wv"]
+    if cfg.qkv_bias:
+        q = q + lp["bq"]
+        k = k + lp["bk"]
+        v = v + lp["bv"]
     b, s = x.shape[0], x.shape[1]
     q = q.reshape(b, s, -1, hd)
     k = k.reshape(b, s, -1, hd)
@@ -181,91 +302,151 @@ def _qkv(x, lp, cfg: TransformerConfig, positions):
     return q, k, v
 
 
-def _attention(q, k, v, cfg: TransformerConfig, is_global: bool):
-    """Causal (optionally windowed) attention.  q: (B, S, H, hd); k/v:
-    (B, S, H, hd), already one kv head per q head."""
-    s, hd = q.shape[1], q.shape[3]
+def _local_heads(cfg: TransformerConfig, dist: Dist, device):
+    """The global ids of this rank's q heads."""
+    hloc = cfg.heads_local(dist.tp)
+    first = (dist.model_index() % cfg.tp_attn(dist.tp)) * hloc
+    return first + torch.arange(hloc, device=device)
+
+
+def _kv_for_local_q(k, v, cfg: TransformerConfig, dist: Dist):
+    """Select, per local q head, its kv head (resident or replicated)."""
+    kv_global = _local_heads(cfg, dist, k.device) // cfg.q_group
+    if cfg.kv_sharded(dist.tp):
+        kv_local = kv_global - dist.model_index() * cfg.kv_heads_local(dist.tp)
+    else:
+        kv_local = kv_global
+    return k.index_select(2, kv_local), v.index_select(2, kv_local)
+
+
+def _chunked_attention(q, k, v, cfg: TransformerConfig, is_global: bool,
+                       q0: int = 0):
+    """Causal (optionally windowed) attention over blocks of
+    ``attn_chunk`` queries.  q: (B, Sq, H, hd); k/v: (B, Sk, H, hd), one
+    kv head per q head; ``q0`` is the absolute position of q[0]."""
+    sq, hd = q.shape[1], q.shape[3]
+    sk = k.shape[1]
     scale = 1.0 / math.sqrt(hd)
-    pos = torch.arange(s, device=q.device)
-    mask = pos[None, :] <= pos[:, None]  # (q, k) causal
-    if not is_global:
-        win = cfg.sliding_window or s
-        mask = mask & (pos[None, :] > pos[:, None] - win)
-    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * scale
-    scores = torch.where(mask[None, None], scores, -1e30)
-    p = torch.softmax(scores, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v)
+    cq = min(cfg.attn_chunk, sq)
+    if sq % cq:
+        cq = sq
+    kpos = torch.arange(sk, device=q.device)
+    win = cfg.sliding_window or sk
+    outs = []
+    for i in range(sq // cq):
+        qpos = q0 + i * cq + torch.arange(cq, device=q.device)
+        mask = kpos[None, :] <= qpos[:, None]  # (q, k) causal
+        if not is_global:
+            mask = mask & (kpos[None, :] > qpos[:, None] - win)
+        qc = q[:, i * cq:(i + 1) * cq]
+        scores = torch.einsum("bqhd,bkhd->bhqk", qc, k).float() * scale
+        scores = torch.where(mask[None, None], scores, -1e30)
+        p = torch.softmax(scores, dim=-1).to(q.dtype)
+        del scores
+        outs.append(torch.einsum("bhqk,bkhd->bqhd", p, v))
+        del p
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
-def _kv_index(cfg: TransformerConfig, device) -> torch.Tensor:
-    """The kv head serving each q head."""
-    return torch.arange(cfg.n_heads, device=device) // cfg.q_group
+def _combine(out, cfg: TransformerConfig, dist: Dist):
+    """A block's partial outputs summed over the model axis, then / R for
+    the duplicated head layout."""
+    out = dist.psum_model(out)
+    R = cfg.attn_replicas(dist.tp)
+    return out / R if R > 1 else out
 
 
-def _attn_block(x, lp, cfg: TransformerConfig, is_global: bool, positions):
-    """The attention output and the layer's k / v (B, S, Hkv, hd), which
-    prefill keeps as its cache."""
+def _attn_block(x, lp, cfg: TransformerConfig, dist: Dist,
+                is_global: bool, positions):
+    """The attention output and the layer's k / v (B, S, Hkv_res, hd),
+    which prefill keeps as its cache."""
     b, s, _ = x.shape
     q, k, v = _qkv(x, lp, cfg, positions)
-    kv_idx = _kv_index(cfg, x.device)
-    out = _attention(q, k.index_select(2, kv_idx), v.index_select(2, kv_idx),
-                     cfg, is_global)
-    out = out.reshape(b, s, -1) @ lp["wo"]
+    ku, vu = _kv_for_local_q(k, v, cfg, dist)
+    out = _chunked_attention(q, ku, vu, cfg, is_global)
+    del ku, vu
+    out = _combine(out.reshape(b, s, -1) @ lp["wo"], cfg, dist)
     return out.to(x.dtype), k, v
 
 
-def _ffn_block(x, lp, cfg: TransformerConfig):
+def _ffn_block(x, lp, cfg: TransformerConfig, dist: Dist):
     h = F.silu(x @ lp["w1"]) * (x @ lp["w3"])
-    return (h @ lp["w2"]).to(x.dtype)
+    return dist.psum_model(h @ lp["w2"]).to(x.dtype)
 
 
-def _layer(x, lp, is_global: bool, cfg: TransformerConfig, positions):
+def _layer(x, lp, is_global: bool, cfg: TransformerConfig, dist: Dist,
+           positions):
     """One decoder layer: the new hidden states and the layer's k / v."""
     h = rms_norm(x, lp["ln1"], cfg.eps)
-    out, k, v = _attn_block(h, lp, cfg, is_global, positions)
+    out, k, v = _attn_block(h, lp, cfg, dist, is_global, positions)
     x = x + out
     h = rms_norm(x, lp["ln2"], cfg.eps)
-    return x + _ffn_block(h, lp, cfg), k, v
+    return x + _ffn_block(h, lp, cfg, dist), k, v
 
 
-def forward(params, tokens, cfg: TransformerConfig):
-    """tokens (B, S) -> hidden (B, S, d) and the aux loss (0 for a dense
-    FFN).
+def _layer_hidden(x, names, is_global, cfg, dist, positions, *weights):
+    """``_layer``'s hidden states, with the layer's weights as arguments
+    (what ``checkpoint`` recomputes)."""
+    return _layer(x, dict(zip(names, weights)), is_global, cfg, dist,
+                  positions)[0]
 
-    The JAX package's ``jax.checkpoint`` around its layer body (``remat``)
-    becomes nothing here: autograd keeps every layer's activations, about
-    0.1 GB a layer for gemma3-1b at 1 x 1024 tokens, and no layer is
-    recomputed."""
-    _check_supported(cfg)
-    b, s = tokens.shape
-    positions = torch.arange(s, device=tokens.device).expand(b, s)
-    x = _embed(params, tokens, cfg)
+
+def _per_layer(params) -> dict:
     # one unbind per stacked weight: its backward stacks the L layer
     # gradients once, where indexing w[li] per layer would scatter each
     # layer's gradient into a zeroed (L, ...) buffer and sum L of them
-    per_layer = {name: w.unbind(0) for name, w in params["layers"].items()}
+    return {name: w.unbind(0) for name, w in params["layers"].items()}
+
+
+def forward(params, tokens, cfg: TransformerConfig, dist: Dist | None = None):
+    """tokens (B, S) -> hidden (B, S, d) and the aux loss (0 for a dense
+    FFN).  With ``remat`` (and autograd on) each layer is recomputed in
+    the backward: only its input is kept."""
+    _check_supported(cfg)
+    dist = Dist.none() if dist is None else dist
+    b, s = tokens.shape
+    positions = torch.arange(s, device=tokens.device).expand(b, s)
+    x = _embed(params, tokens, cfg, dist)
+    per_layer = _per_layer(params)
+    names = tuple(per_layer)
+    remat = cfg.remat and torch.is_grad_enabled()
     for li in range(cfg.n_layers):
-        lp = {name: ws[li] for name, ws in per_layer.items()}
-        x, _, _ = _layer(x, lp, cfg.is_global_layer(li), cfg, positions)
+        ws = [per_layer[n][li] for n in names]
+        args = (x, names, cfg.is_global_layer(li), cfg, dist, positions,
+                *ws)
+        if remat:
+            x = checkpoint(_layer_hidden, *args, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = _layer_hidden(*args)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux
 
 
-def lm_loss(params, tokens, labels, cfg: TransformerConfig):
-    """Softmax cross-entropy over the full head (tp=1).  Returns the scalar
-    mean loss and {"ce", "aux"}."""
-    x, aux = forward(params, tokens, cfg)
+def lm_loss(params, tokens, labels, cfg: TransformerConfig,
+            dist: Dist | None = None):
+    """Distributed softmax cross-entropy over the vocab-sharded head.
+    Returns the scalar per-worker mean loss and {"ce", "aux"}."""
+    dist = Dist.none() if dist is None else dist
+    x, aux = forward(params, tokens, cfg, dist)
     x = rms_norm(x, params["ln_f"], cfg.eps)
-    head = params["head"]  # (V, d)
-    logits = (x @ head.T).float()  # (B, S, V), in the compute dtype first
-    vpad = head.shape[0]
-    if vpad > cfg.vocab:  # mask vocab-padding rows out of the softmax
-        live = torch.arange(vpad, device=logits.device) < cfg.vocab
-        logits = torch.where(live, logits, -1e30)
-    lab_logit = torch.gather(logits, -1, labels[..., None].long())[..., 0]
-    # the stability max is gradient-free (d lse/d logits is the softmax)
-    mx = torch.amax(logits.detach(), dim=-1)
-    lse = mx + torch.log(torch.sum(torch.exp(logits - mx[..., None]), dim=-1))
+    head = params["head"]  # (Vloc, d)
+    vloc = head.shape[0]
+    midx = dist.model_index()
+    logits = (x @ head.T).float()  # (B, S, Vloc), in the compute dtype first
+    if (midx + 1) * vloc > cfg.vocab:  # mask vocab-padding rows out
+        gid = midx * vloc + torch.arange(vloc, device=logits.device)
+        logits = torch.where(gid < cfg.vocab, logits, -1e30)
+    local = labels.long() - midx * vloc
+    ok = (local >= 0) & (local < vloc)
+    lab = local.clamp(0, vloc - 1)
+    lab_logit = torch.gather(logits, -1, lab[..., None])[..., 0]
+    lab_logit = dist.psum_model(torch.where(ok, lab_logit, 0.0))
+    # the stability max is gradient-free (d lse/d logits is the softmax):
+    # detached before the pmax, which has no gradient
+    mx = dist.pmax_model(torch.amax(logits.detach(), dim=-1))
+    lse = mx + torch.log(dist.psum_model(
+        torch.sum(torch.exp(logits - mx[..., None]), dim=-1)))
     ce = torch.mean(lse - lab_logit)
     return ce + aux, {"ce": ce, "aux": aux}
 
@@ -282,7 +463,8 @@ def _tree_leaves(tree) -> list:
     return [tree]
 
 
-def lm_loss_and_grad(params, tokens, labels, cfg: TransformerConfig):
+def lm_loss_and_grad(params, tokens, labels, cfg: TransformerConfig,
+                     dist: Dist | None = None):
     """(loss, grads): the loss of ``lm_loss`` and its gradient as a tree
     shaped like ``params`` (the port's ``jax.value_and_grad`` of it).
 
@@ -291,137 +473,210 @@ def lm_loss_and_grad(params, tokens, labels, cfg: TransformerConfig):
     leaves kept a worker's whole weight copy alive until the cyclic
     garbage collector happened to run."""
     tracked = _map_tree(lambda t: t.detach().requires_grad_(True), params)
-    loss, _ = lm_loss(tracked, tokens, labels, cfg)
+    loss, _ = lm_loss(tracked, tokens, labels, cfg, dist)
     grads = iter(torch.autograd.grad(loss, _tree_leaves(tracked)))
     return loss.detach(), _map_tree(lambda _: next(grads), params)
 
 
 # ---------------------------------------------------------------------------
-# serving: prefill + decode with a full-length KV cache
+# serving: prefill + decode with a sequence-sharded KV cache
 # ---------------------------------------------------------------------------
 
+def _seq_local(max_seq: int, tp: int) -> int:
+    if max_seq % tp:
+        raise ValueError(f"max_seq={max_seq} does not split over tp={tp}")
+    return max_seq // tp
+
+
 def init_cache(cfg: TransformerConfig, batch_local: int, max_seq: int,
-               device: torch.device | str | None = None) -> dict:
-    """The decode cache: (L, B, max_seq, Hkv, hd) zeros in the compute
-    dtype, on ``device`` (the card unless the caller passes another)."""
-    shape = (cfg.n_layers, batch_local, max_seq, cfg.n_kv_heads,
-             cfg.head_dim)
+               tp: int = 1, device: torch.device | str | None = None) -> dict:
+    """A rank's decode cache: (L, B, max_seq/tp, Hkv, hd) zeros in the
+    compute dtype, its shard of the sequence, on ``device`` (the card
+    unless the caller passes another)."""
+    shape = (cfg.n_layers, batch_local, _seq_local(max_seq, tp),
+             cfg.n_kv_heads, cfg.head_dim)
     dev = resolve_device(device)
     return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
             "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
 
 
-def _prefill_hidden(params, tokens, cfg: TransformerConfig, max_seq: int):
-    """The final hidden states (B, S, d) and the cache of ``tokens``."""
+def _full_kv(k, v, cfg: TransformerConfig, dist: Dist):
+    """Make all kv heads resident (gather over model if weights sharded)."""
+    if cfg.kv_sharded(dist.tp) and dist.tp > 1:
+        k = dist.all_gather_model(k, axis=2)
+        v = dist.all_gather_model(v, axis=2)
+    return k, v
+
+
+def _prefill_hidden(params, tokens, cfg: TransformerConfig, max_seq: int,
+                    dist: Dist):
+    """The final hidden states (B, S, d) and this rank's cache of
+    ``tokens``: its shard of the sequence, zero-padded to ``max_seq``."""
     _check_supported(cfg)
     b, s = tokens.shape
     if s > max_seq:
         raise ValueError(f"{s} prompt tokens exceed max_seq={max_seq}")
     positions = torch.arange(s, device=tokens.device).expand(b, s)
-    x = _embed(params, tokens, cfg)
-    cache = init_cache(cfg, b, max_seq, device=x.device)
-    per_layer = {name: w.unbind(0) for name, w in params["layers"].items()}
+    x = _embed(params, tokens, cfg, dist)
+    cache = init_cache(cfg, b, max_seq, dist.tp, device=x.device)
+    sloc = cache["k"].shape[2]
+    lo = dist.model_index() * sloc
+    n = max(0, min(s - lo, sloc))
+    per_layer = _per_layer(params)
     for li in range(cfg.n_layers):
         lp = {name: ws[li] for name, ws in per_layer.items()}
-        x, k, v = _layer(x, lp, cfg.is_global_layer(li), cfg, positions)
-        cache["k"][li, :, :s] = k
-        cache["v"][li, :, :s] = v
+        x, k, v = _layer(x, lp, cfg.is_global_layer(li), cfg, dist,
+                         positions)
+        k, v = _full_kv(k, v, cfg, dist)
+        cache["k"][li, :, :n] = k[:, lo:lo + n]
+        cache["v"][li, :, :n] = v[:, lo:lo + n]
+        del k, v
     return x, cache
 
 
-def prefill(params, tokens, cfg: TransformerConfig, max_seq: int):
-    """Returns (greedy next-token ids (B,) int32, cache filled with the S
-    prompt tokens and zero-padded to ``max_seq``)."""
-    x, cache = _prefill_hidden(params, tokens, cfg, max_seq)
-    return _greedy_logits(params, x[:, -1], cfg), cache
+def prefill(params, tokens, cfg: TransformerConfig, max_seq: int, *,
+            dist: Dist | None = None):
+    """Returns (greedy next-token ids (B,) int32, this rank's cache of the
+    S prompt tokens, zero-padded to ``max_seq``)."""
+    dist = Dist.none() if dist is None else dist
+    x, cache = _prefill_hidden(params, tokens, cfg, max_seq, dist)
+    return _greedy_logits(params, x[:, -1], cfg, dist), cache
 
 
-def head_logits(params, xlast, cfg: TransformerConfig) -> torch.Tensor:
-    """f32 logits (B, Vpad) of final hidden states ``xlast`` (B, d): the
-    head's product in the compute dtype, cast to f32, with the vocab
-    padding masked to -1e30 (what ``_greedy_logits`` takes the argmax of)."""
+def head_logits(params, xlast, cfg: TransformerConfig,
+                dist: Dist | None = None) -> torch.Tensor:
+    """f32 logits (B, Vloc) of final hidden states ``xlast`` (B, d) over
+    this rank's vocab rows: the head's product in the compute dtype, cast
+    to f32, with the vocab padding masked to -1e30 (what
+    ``_greedy_logits`` takes the argmax of)."""
     x = rms_norm(xlast, params["ln_f"], cfg.eps)
     head = params["head"]
+    vloc = head.shape[0]
     logits = (x @ head.T).float()
-    gid = torch.arange(head.shape[0], device=logits.device)
+    midx = dist.model_index() if dist is not None else 0
+    gid = midx * vloc + torch.arange(vloc, device=logits.device)
     return torch.where(gid < cfg.vocab, logits, -1e30)
 
 
-def _greedy_logits(params, xlast, cfg: TransformerConfig) -> torch.Tensor:
-    """Greedy next token (B,) int32: the first maximal id."""
-    return torch.argmax(head_logits(params, xlast, cfg), dim=-1).to(
-        torch.int32)
+def _greedy_logits(params, xlast, cfg: TransformerConfig,
+                   dist: Dist | None = None) -> torch.Tensor:
+    """Greedy next token (B,) int32 over the vocab-sharded head: the first
+    maximal id of the shard holding the maximum (the lowest one on a tie
+    across shards)."""
+    dist = Dist.none() if dist is None else dist
+    logits = head_logits(params, xlast, cfg, dist)
+    vloc = logits.shape[-1]
+    loc_arg = (torch.argmax(logits, dim=-1)
+               + dist.model_index() * vloc).to(torch.int32)
+    if dist.tp == 1:
+        return loc_arg
+    loc_max = torch.amax(logits, dim=-1)
+    glob_max = dist.pmax_model(loc_max)
+    cand = torch.where(loc_max >= glob_max, loc_arg,
+                       torch.iinfo(torch.int32).max)
+    return -dist.pmax_model(-cand)  # pmin: the lowest winning id
 
 
-def _decode_attn(q, k_cache, v_cache, pos: int, cfg: TransformerConfig,
-                 is_global: bool = True):
-    """One query position against the full-length cache (the JAX
-    ``_decode_attn_distributed`` on one device).  q: (B, H, hd); caches:
-    (B, S, Hkv, hd).  Local layers mask the window: the cache keeps every
-    position for shape uniformity."""
+def _decode_attn_distributed(q, k_loc, v_loc, pos: int, cfg: TransformerConfig,
+                             dist: Dist, is_global: bool = True):
+    """One query position against the sequence-sharded cache.  q: (B,
+    Hloc, hd), the local q heads; k_loc / v_loc: (B, Sloc, Hkv, hd), this
+    rank's shard of the sequence with every kv head.
+
+    Every shard serves every q head: q is gathered over the model axis,
+    each shard computes the partial numerator, denominator and max of all
+    heads against its positions, and the partials are rescaled to the
+    global max and summed; the local heads' slice is returned.  Local
+    layers mask the window (the cache keeps every position for shape
+    uniformity)."""
     hd = q.shape[-1]
+    sloc = k_loc.shape[1]
+    hq = cfg.n_heads
     scale = 1.0 / math.sqrt(hd)
-    kv_idx = _kv_index(cfg, q.device)
-    k_used = k_cache.index_select(2, kv_idx)  # (B, S, H, hd)
-    v_used = v_cache.index_select(2, kv_idx)
-    gpos = torch.arange(k_cache.shape[1], device=q.device)
+    # the gathered layout is [replica 0 heads, replica 1 heads, ...]
+    q_all = dist.all_gather_model(q, axis=1)[:, :hq] if dist.tp > 1 else q
+    kv_idx = torch.arange(hq, device=q.device) // cfg.q_group
+    k_used = k_loc.index_select(2, kv_idx)  # (B, Sloc, Hq, hd)
+    v_used = v_loc.index_select(2, kv_idx)
+    gpos = dist.model_index() * sloc + torch.arange(sloc, device=q.device)
     valid = gpos <= pos
     if cfg.sliding_window is not None and not is_global:
         valid = valid & (gpos > pos - cfg.sliding_window)
-    scores = torch.einsum("bhd,bshd->bhs", q, k_used).float() * scale
+    scores = torch.einsum("bhd,bshd->bhs", q_all, k_used).float() * scale
+    del k_used
     scores = torch.where(valid[None, None, :], scores, -1e30)
-    m = torch.amax(scores, dim=-1)
-    e = torch.exp(scores - m[..., None])
-    den = torch.sum(e, dim=-1)
-    num = torch.einsum("bhs,bshd->bhd", e.to(q.dtype), v_used).float()
-    return (num / den[..., None]).to(q.dtype)
+    m_loc = torch.amax(scores, dim=-1)  # (B, Hq)
+    e = torch.exp(scores - m_loc[..., None])
+    den_loc = torch.sum(e, dim=-1)
+    num_loc = torch.einsum("bhs,bshd->bhd", e.to(q.dtype), v_used).float()
+    if dist.tp == 1:
+        return (num_loc / den_loc[..., None]).to(q.dtype)
+    m_glob = dist.pmax_model(m_loc)
+    r = torch.exp(m_loc - m_glob)
+    num = dist.psum_model(num_loc * r[..., None])
+    den = dist.psum_model(den_loc * r)
+    out_all = num / den[..., None]  # (B, Hq, hd), every shard combined
+    return out_all.index_select(1, _local_heads(cfg, dist, q.device)).to(
+        q.dtype)
 
 
-def _decode_layer_out(x, lp, cfg: TransformerConfig, attn) -> torch.Tensor:
+def _decode_layer_out(x, lp, cfg: TransformerConfig, dist: Dist,
+                      attn) -> torch.Tensor:
     """One decoder layer for one position: ``attn(h)`` is the attention
-    output (B, H, hd) of the normed input ``h`` (B, d)."""
+    output (B, Hloc, hd) of the normed input ``h`` (B, d)."""
     b = x.shape[0]
     h = rms_norm(x, lp["ln1"], cfg.eps)
-    out = attn(h).reshape(b, -1) @ lp["wo"]
+    out = _combine(attn(h).reshape(b, -1) @ lp["wo"], cfg, dist)
     x = x + out.to(x.dtype)
     h = rms_norm(x, lp["ln2"], cfg.eps)
-    return x + _ffn_block(h[:, None], lp, cfg)[:, 0]
+    return x + _ffn_block(h[:, None], lp, cfg, dist)[:, 0]
 
 
-def _decode_qkv(h, lp, cfg: TransformerConfig, pos: int):
+def _decode_qkv(h, lp, cfg: TransformerConfig, dist: Dist, pos: int):
+    """q (B, Hloc, hd) and the full k / v (B, Hkv, hd) of one position."""
     b = h.shape[0]
     positions = torch.full((b, 1), pos, device=h.device)
     q, k, v = _qkv(h[:, None], lp, cfg, positions)
+    k, v = _full_kv(k, v, cfg, dist)
     return q[:, 0], k[:, 0], v[:, 0]
 
 
-def decode_hidden(params, token, cache, pos, cfg: TransformerConfig):
-    """The final hidden state (B, d) of one decode step; writes position
-    ``pos`` of every layer's cache in place."""
+def decode_hidden(params, token, cache, pos, cfg: TransformerConfig,
+                  dist: Dist | None = None):
+    """The final hidden state (B, d) of one decode step; the rank owning
+    position ``pos`` writes it into every layer's cache, in place."""
     _check_supported(cfg)
+    dist = Dist.none() if dist is None else dist
     pos = int(pos)
-    x = _embed(params, token[:, None], cfg)[:, 0]  # (B, d)
-    per_layer = {name: w.unbind(0) for name, w in params["layers"].items()}
+    x = _embed(params, token[:, None], cfg, dist)[:, 0]  # (B, d)
+    sloc = cache["k"].shape[2]
+    mine = pos // sloc == dist.model_index()
+    lpos = pos % sloc
+    per_layer = _per_layer(params)
     for li in range(cfg.n_layers):
         lp = {name: ws[li] for name, ws in per_layer.items()}
         kc, vc = cache["k"][li], cache["v"][li]
 
         def attn(h, lp=lp, kc=kc, vc=vc, li=li):
-            q, k, v = _decode_qkv(h, lp, cfg, pos)
-            kc[:, pos] = k
-            vc[:, pos] = v
-            return _decode_attn(q, kc, vc, pos, cfg, cfg.is_global_layer(li))
+            q, k, v = _decode_qkv(h, lp, cfg, dist, pos)
+            if mine:
+                kc[:, lpos] = k
+                vc[:, lpos] = v
+            return _decode_attn_distributed(q, kc, vc, pos, cfg, dist,
+                                            cfg.is_global_layer(li))
 
-        x = _decode_layer_out(x, lp, cfg, attn)
+        x = _decode_layer_out(x, lp, cfg, dist, attn)
     return x
 
 
-def decode_step(params, token, cache, pos, cfg: TransformerConfig):
+def decode_step(params, token, cache, pos, cfg: TransformerConfig,
+                dist: Dist | None = None):
     """One greedy decode step.  token (B,) int; ``pos``: the count of
     tokens already in the cache.  Returns (next token (B,) int32, the
     cache, updated in place at ``pos``)."""
-    x = decode_hidden(params, token, cache, pos, cfg)
-    return _greedy_logits(params, x, cfg), cache
+    dist = Dist.none() if dist is None else dist
+    x = decode_hidden(params, token, cache, pos, cfg, dist)
+    return _greedy_logits(params, x, cfg, dist), cache
 
 
 # ---------------------------------------------------------------------------
@@ -429,27 +684,30 @@ def decode_step(params, token, cache, pos, cfg: TransformerConfig):
 # ---------------------------------------------------------------------------
 
 def init_cache_unrolled(cfg: TransformerConfig, batch_local: int,
-                        max_seq: int,
+                        max_seq: int, tp: int = 1,
                         device: torch.device | str | None = None) -> list:
-    """Per-layer caches: a rolling window for local layers, full length
-    for global ones, zeros in the compute dtype on ``device``."""
+    """Per-layer caches: a rolling window for local layers (replicated over
+    the model axis: tiny), this rank's sequence shard for global ones,
+    zeros in the compute dtype on ``device``."""
     dev = resolve_device(device)
+    sloc = _seq_local(max_seq, tp)
     caches = []
     for li in range(cfg.n_layers):
-        s = max_seq if cfg.is_global_layer(li) else cfg.sliding_window
+        s = sloc if cfg.is_global_layer(li) else cfg.sliding_window
         shape = (batch_local, s, cfg.n_kv_heads, cfg.head_dim)
         caches.append({"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
                        "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)})
     return caches
 
 
-def _window_decode_attn(q, k_roll, v_roll, pos: int, cfg: TransformerConfig):
-    """Attention over a rolling window cache: slot ``p % w`` holds
-    position ``p``."""
+def _window_decode_attn(q, k_roll, v_roll, pos: int, cfg: TransformerConfig,
+                        dist: Dist):
+    """The local q heads over a rolling window cache (replicated; no
+    collectives): slot ``p % w`` holds position ``p``."""
     hd = q.shape[-1]
     w = k_roll.shape[1]
     scale = 1.0 / math.sqrt(hd)
-    kv_idx = _kv_index(cfg, q.device)
+    kv_idx = _local_heads(cfg, dist, q.device) // cfg.q_group
     k_used = k_roll.index_select(2, kv_idx)
     v_used = v_roll.index_select(2, kv_idx)
     slot_age = torch.remainder(pos % w - torch.arange(w, device=q.device), w)
@@ -460,36 +718,41 @@ def _window_decode_attn(q, k_roll, v_roll, pos: int, cfg: TransformerConfig):
     return torch.einsum("bhs,bshd->bhd", p, v_used)
 
 
-def decode_hidden_unrolled(params, token, caches, pos,
-                           cfg: TransformerConfig):
+def decode_hidden_unrolled(params, token, caches, pos, cfg: TransformerConfig,
+                           dist: Dist | None = None):
     """``decode_hidden`` over ``init_cache_unrolled``'s per-layer caches:
-    global layers write position ``pos``, local layers slot
-    ``pos % window``, in place."""
+    global layers write position ``pos`` on the rank owning it, local
+    layers slot ``pos % window`` on every rank, in place."""
     _check_supported(cfg)
+    dist = Dist.none() if dist is None else dist
     pos = int(pos)
-    x = _embed(params, token[:, None], cfg)[:, 0]
-    per_layer = {name: w.unbind(0) for name, w in params["layers"].items()}
+    x = _embed(params, token[:, None], cfg, dist)[:, 0]
+    per_layer = _per_layer(params)
     for li in range(cfg.n_layers):
         lp = {name: ws[li] for name, ws in per_layer.items()}
         kc, vc = caches[li]["k"], caches[li]["v"]
         glob = cfg.is_global_layer(li)
 
         def attn(h, lp=lp, kc=kc, vc=vc, glob=glob):
-            q, k, v = _decode_qkv(h, lp, cfg, pos)
-            slot = pos if glob else pos % kc.shape[1]
-            kc[:, slot] = k
-            vc[:, slot] = v
+            q, k, v = _decode_qkv(h, lp, cfg, dist, pos)
             if glob:
-                return _decode_attn(q, kc, vc, pos, cfg)
-            return _window_decode_attn(q, kc, vc, pos, cfg)
+                sloc = kc.shape[1]
+                if pos // sloc == dist.model_index():
+                    kc[:, pos % sloc] = k
+                    vc[:, pos % sloc] = v
+                return _decode_attn_distributed(q, kc, vc, pos, cfg, dist)
+            kc[:, pos % kc.shape[1]] = k
+            vc[:, pos % vc.shape[1]] = v
+            return _window_decode_attn(q, kc, vc, pos, cfg, dist)
 
-        x = _decode_layer_out(x, lp, cfg, attn)
+        x = _decode_layer_out(x, lp, cfg, dist, attn)
     return x
 
 
-def decode_step_unrolled(params, token, caches, pos,
-                         cfg: TransformerConfig):
+def decode_step_unrolled(params, token, caches, pos, cfg: TransformerConfig,
+                         dist: Dist | None = None):
     """Decode with heterogeneous per-layer caches (gemma3 long context).
     Returns (next token (B,) int32, the caches, updated in place)."""
-    x = decode_hidden_unrolled(params, token, caches, pos, cfg)
-    return _greedy_logits(params, x, cfg), caches
+    dist = Dist.none() if dist is None else dist
+    x = decode_hidden_unrolled(params, token, caches, pos, cfg, dist)
+    return _greedy_logits(params, x, cfg, dist), caches

@@ -4,36 +4,40 @@
 Data flow per step (per rank):
 
   pflat (flat chunked params, this model group)      <- this rank's state
-    -> views of the flat as the model's tensors
-    -> loss and the flat gradient by autograd     (PHub key chunking)
-    -> grad-sync tags (identity at tp = 1)
+    -> views of the flat as the model's local tensors
+    -> loss / tp and the flat gradient by autograd (PHub key chunking)
+    -> grad-sync tags (psum_model / scale_R for replicated copies)
     -> exchange.device_update: push / fused-update / pull (PBox)
   -> new pflat, new PS state, metrics averaged over every rank
 
 The JAX step is one jitted ``shard_map`` over global arrays.  Here every
 rank of a ``launch.mesh.Mesh`` calls the step on its own pieces:
 
-  * ``pflat``: its group's flat, (1, flat), replicated over the workers;
-  * ``slots`` / ``ef``: its owned slab, (1, slab) each (the whole flat
-    under ``allreduce``);
+  * ``pflat``: its model group's flat (the group is its coordinate on the
+    ``model`` axis), (1, flat), replicated over the workers;
+  * ``slots`` / ``ef``: its owned slab of its group, (1, slab) each (the
+    whole flat under ``allreduce``);
   * ``batch``: its rows of the global batch, in mesh order, as ``P(wa)``
-    shards them (``shard_batch``).
+    shards them (``shard_batch``); every rank of a model group gets the
+    same rows.
 
-The model's tensors are views of one leaf (``torch.split`` of the flat,
-then ``view``), so autograd's backward of the split concatenates the
-leaves' gradients straight into the flat gradient, zero padding included:
-bit for bit ``space.flatten(grads, ps_dtype)`` without the extra copy.  On
-the card the kernel updates the owned slab of ``pflat`` and the slots in
-place: the step consumes its inputs (the JAX step donates them), unless
+The flat space is the local shard's: ``local_template`` cuts the global
+parameter shapes by ``param_specs``, as JAX's does.  The model's tensors
+are views of one leaf (``torch.split`` of the flat, then ``view``), so
+autograd's backward of the split concatenates the leaves' gradients
+straight into the flat gradient, zero padding included: bit for bit
+``space.flatten(grads, ps_dtype)`` without the extra copy.  On the card
+the kernel updates the owned slab of ``pflat`` and the slots in place:
+the step consumes its inputs (the JAX step donates them), unless
 ``donate=False`` asks it to work on copies.
 
 ``TrainState`` is the JAX package's global host view (``(n_groups, flat)``
-arrays, owner ``i``'s slab of the slots at its linear index), the layout
-of the checkpoints, so each package restores the other's.
-``local_state`` cuts a rank's pieces from it and ``global_state`` gathers
-them back; they take the place of JAX's shardings, so JAX's
-``local_template`` and ``state_shardings`` (``ShapeDtypeStruct`` and
-``NamedSharding`` builders) have no counterpart here.
+arrays, group ``g``'s row its model shard, owner ``i``'s slab of the slots
+at its linear index), the layout of the checkpoints, so each package
+restores the other's.  ``local_state`` cuts a rank's pieces from it and
+``global_state`` gathers them back; with ``local_template`` and
+``local_params`` they take the place of JAX's shardings, so JAX's
+``state_shardings`` has no counterpart here.
 """
 from __future__ import annotations
 
@@ -66,9 +70,52 @@ def _tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def local_template(global_tree: Any, specs: Any, mesh) -> Any:
+    """Global parameter shapes cut to a rank's local ones (meta tensors):
+    each dimension a spec names divided by its axes' sizes."""
+
+    def shrink(x, spec):
+        shape = list(x.shape)
+        for i, s in enumerate(spec):
+            for a in _spec_axes(s):
+                shape[i] //= mesh.shape[a]
+        return torch.empty(shape, dtype=x.dtype, device="meta")
+
+    return _tree_map(shrink, global_tree, specs)
+
+
+def _spec_axes(s) -> tuple:
+    if s is None:
+        return ()
+    return s if isinstance(s, tuple) else (s,)
+
+
+def take_local(x: torch.Tensor, spec, group: int, n_groups: int):
+    """Model group ``group``'s block of ``x``: each dimension the spec
+    shards over ``model`` cut into ``n_groups`` blocks (JAX's
+    ``init_train_state`` ``take_local``)."""
+    idx = [slice(None)] * x.dim()
+    for i, s in enumerate(spec):
+        if "model" in _spec_axes(s):
+            n = x.shape[i] // n_groups
+            idx[i] = slice(group * n, (group + 1) * n)
+    return x[tuple(idx)]
+
+
+def local_params(params: Any, specs: Any, mesh) -> Any:
+    """This rank's pieces of a global parameter tree (for instance one
+    carried across from the JAX package by ``repro_torch.interop``), cut
+    by ``specs`` (``transformer.make_param_specs``) at the rank's
+    coordinate on the ``model`` axis; views of ``params``."""
+    tp = mesh.shape.get("model", 1)
+    g = mesh.coords["model"] if tp > 1 else 0
+    return _tree_map(lambda x, s: take_local(x, s, g, tp), params, specs)
+
+
 def apply_grad_sync(grads: Any, tags: Any, dist: Dist) -> Any:
     """Apply per-tensor gradient corrections (see the JAX
-    ``transformer.grad_sync``); the identity at tp = 1."""
+    ``transformer.grad_sync``): ``psum_model`` sums a replicated copy's
+    gradient over the model axis, ``scale_R`` multiplies by R."""
 
     def fix(g, tag):
         if tag == "none" or dist.model_axis is None:
@@ -227,16 +274,19 @@ def make_ps_train_step(
     step(pflat, slots, ef, step_count, batch) ->
         (new_pflat, new_slots, new_ef, new_step, metrics)
 
-    on this rank's pieces (module docstring).  ``param_specs`` and
-    ``batch_spec`` are accepted for JAX call sites: at tp = 1 every
-    parameter is whole on every rank and the batch arrives as this rank's
-    rows.  ``microbatches`` accumulates that many gradients (in
-    ``ps_dtype``, from zeros) before one exchange; ``lr_schedule(step)``
-    scales the rate; ``telemetry`` wraps the step with
-    ``attach_telemetry``."""
+    on this rank's pieces (module docstring).  ``param_specs`` cut
+    ``global_param_template`` to the local shapes of the flat space (whole
+    tensors when None); ``sync_tags`` (``transformer.grad_sync``) correct
+    the gradients before the exchange.  ``batch_spec`` is accepted for JAX
+    call sites: the batch arrives as this rank's rows.  ``microbatches``
+    accumulates that many gradients (in ``ps_dtype``, from zeros) before
+    one exchange; ``lr_schedule(step)`` scales the rate; ``telemetry``
+    wraps the step with ``attach_telemetry``."""
     tp = dist.tp if dist.model_axis is not None else 1
     n_groups = tp if dist.model_axis is not None else 1
-    space = exchange.build_space(global_param_template, dict(mesh.shape))
+    local = (global_param_template if param_specs is None else
+             local_template(global_param_template, param_specs, mesh))
+    space = exchange.build_space(local, dict(mesh.shape))
     n_state = exchange.spec.num_state_slots
     sspecs = _state_specs(exchange, n_state, _has_ef(exchange))
     syncs = sync_tags is not None and dist.model_axis is not None and any(
@@ -335,13 +385,20 @@ def init_train_state(
 ) -> TrainState:
     """The global ``TrainState`` from ``init_params_fn(key)`` (``key`` is
     whatever the function takes, e.g. a seeded ``torch.Generator``), on
-    ``device`` (the card unless the caller passes another).  At tp = 1
-    every model group is the whole model."""
+    ``device`` (the card unless the caller passes another).  Row ``g`` of
+    ``pflat`` is model group ``g``'s local shard of every tensor, cut by
+    ``param_specs`` (the whole model when None)."""
     dev = resolve_device(device)
     params = init_params_fn(key)
-    flat = space.flatten(params, ps_dtype).to(dev)
+    if param_specs is None:
+        flat = space.flatten(params, ps_dtype).to(dev)
+        pflat = flat.reshape(1, -1).expand(n_groups, -1).contiguous()
+        del flat
+    else:
+        pflat = torch.stack([space.flatten(_tree_map(
+            lambda x, s, g=g: take_local(x, s, g, n_groups), params,
+            param_specs), ps_dtype).to(dev) for g in range(n_groups)])
     del params
-    pflat = flat.reshape(1, -1).expand(n_groups, -1).contiguous()
     slots = tuple(
         torch.zeros((n_groups, space.flat_elems), dtype=torch.float32,
                     device=dev)
@@ -354,37 +411,51 @@ def init_train_state(
                       step=torch.zeros((), dtype=torch.int32, device=dev))
 
 
+def _group(mesh) -> tuple[int, int]:
+    """(this rank's model group, the number of groups)."""
+    tp = mesh.shape.get("model", 1)
+    return (mesh.coords["model"] if tp > 1 else 0), tp
+
+
 def local_state(state: TrainState, mesh, exchange: PSExchange) -> tuple:
     """This rank's ``(pflat, slots, ef, step)`` from the global state: its
-    group's flat and its owned slab of the slots and residual (views,
-    which the step then consumes)."""
+    model group's flat and its owned slab of the group's slots and
+    residual (views, which the step then consumes)."""
     n_owner = mesh.axis_size(exchange.owner_axes)
     o = mesh.axis_index(exchange.owner_axes)
+    g, _ = _group(mesh)
 
     def mine(x):
         n = x.shape[-1] // n_owner
-        return x[:1, o * n:(o + 1) * n]
+        return x[g:g + 1, o * n:(o + 1) * n]
 
-    return (state.pflat[:1], tuple(mine(s) for s in state.slots),
+    return (state.pflat[g:g + 1], tuple(mine(s) for s in state.slots),
             mine(state.ef) if state.ef is not None else None, state.step)
 
 
 def global_state(mesh, exchange: PSExchange, pflat, slots, ef,
                  step) -> TrainState:
     """The global ``TrainState`` from every rank's pieces: each owner's slab
-    gathered at its linear index (a collective: every rank calls it)."""
+    gathered at its linear index, each model group's row at its
+    coordinate (a collective: every rank calls it)."""
+    _, tp = _group(mesh)
+
+    def groups(x):
+        x = x.reshape(1, -1)
+        return mesh.all_gather(x, "model") if tp > 1 else x
 
     def gather(x):
-        return mesh.all_gather(x.reshape(-1), exchange.owner_axes).reshape(1, -1)
+        return groups(mesh.all_gather(x.reshape(-1), exchange.owner_axes))
 
-    return TrainState(pflat=pflat.reshape(1, -1),
+    return TrainState(pflat=groups(pflat),
                       slots=tuple(gather(s) for s in slots),
                       ef=gather(ef) if ef is not None else None, step=step)
 
 
 def shard_batch(batch: dict, mesh, exchange: PSExchange) -> dict:
     """This rank's rows of a global batch: worker ``w`` (the linear index
-    over the worker axes) takes rows ``[w*b, (w+1)*b)``."""
+    over the worker axes) takes rows ``[w*b, (w+1)*b)``, whatever its
+    model coordinate."""
     nw = mesh.axis_size(exchange.worker_axes)
     w = mesh.axis_index(exchange.worker_axes)
     return {k: v[w * (v.shape[0] // nw):(w + 1) * (v.shape[0] // nw)]

@@ -454,3 +454,39 @@ def test_smoke_spmd_on_card_matches_cpu(cuda):
     assert sorted(launches) == sorted(cases)
     assert launches["pbox_hier/int8/adam/mb3/pull_None"]["quantize_chunks"] \
         == cs.SMOKE_SPMD_STEPS
+
+
+@pytest.mark.gpu
+def test_remat_and_serving_cells_on_card(cuda):
+    """chip_smoke.py's phases 29 and 30 at the SMOKE config, world 1 over
+    NCCL: remat on == off bitwise, the SMOKE train cell's 3 steps with one
+    fused_agg_opt launch each, the prefill, decode and long-decode plans
+    with the prefill's ids equal on a re-run."""
+    cs = _chip_smoke()
+    with cs.world_one(cuda), cs.deterministic():
+        remat = cs.remat_path(cuda, smoke=True)
+        cells = cs.serve_cells_path(cuda, smoke=True)
+    assert remat["train_4k"]["launches"]["fused_agg_opt"] == cs.TRAIN4K_STEPS
+    assert remat["remat_on"]["loss"] == remat["remat_off"]["loss"]
+    assert len(cells["decode_32k"]["ms"]) == cs.DECODE_STEPS
+    assert cells["long_500k"]["last_pos"] == 63
+
+
+@pytest.mark.gpu
+def test_tensor_parallel_on_card_matches_tp1(cuda, monkeypatch):
+    """chip_smoke.py's phase 31 with its 2-rank runs at the SMOKE config:
+    gloo ranks on the card at tp = 2 against tp = 1 (losses, the update
+    of two steps, which the grad_sync-off control must miss, greedy ids),
+    then tp = 4 and tp = 2 over 4 ranks equal to tp = 1 at rtol 2e-5 /
+    atol 1e-5, ids equal."""
+    import sys
+
+    cs = _chip_smoke()
+    # the spawned ranks import chip_smoke by name
+    monkeypatch.setitem(sys.modules, "chip_smoke", cs)
+    monkeypatch.syspath_prepend(str(CHIP_SMOKE.parent))
+    out = cs.tp_path(cuda, smoke=True)
+    assert out["update_err"] <= out["update_bound"] < out["control_update_err"]
+    assert max(out["loss_rel"]) <= out["loss_bound"] < min(
+        out["loss_moved"], max(out["control_loss_rel"]))
+    assert out["ids_agree"] == 1.0

@@ -312,3 +312,38 @@ def test_spmd_slice_imports_with_jax_blocked(module):
             [sys.executable, "-m", module, "--help"], capture_output=True,
             text=True, timeout=180, cwd=ROOT, env=env)
         assert out.returncode == 0 and "--ckpt-every" in out.stdout
+
+
+@pytest.mark.parametrize("module,names", [
+    ("repro_torch.models.transformer",
+     ("TransformerConfig", "init_params", "abstract_params",
+      "make_param_specs", "grad_sync", "forward", "lm_loss", "init_cache",
+      "prefill", "decode_step", "init_cache_unrolled",
+      "decode_step_unrolled")),
+    ("repro_torch.models.common", ("Dist",)),
+    ("repro_torch.launch.steps", ("build_lm_prefill", "build_lm_decode",
+                                  "build_lm_decode_long")),
+    ("repro_torch.runtime.trainer", ("local_template", "local_params",
+                                     "take_local")),
+    ("repro_torch.launch.serve", ("main", "serve")),
+])
+def test_tp_slice_imports_with_jax_blocked(module, names):
+    """The tensor-parallel slice's modules import with ``import jax`` and
+    ``import repro`` failing, pull in neither, and expose the names the
+    JAX package's TP path uses."""
+    assert ROOT / "src" / (module.replace(".", "/") + ".py") in PORT_FILES
+    code = (
+        "import importlib, sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        f"mod = importlib.import_module({module!r})\n"
+        f"assert all(hasattr(mod, n) for n in {names!r})\n"
+        "assert not any(m.split('.')[0] in ('jax', 'jaxlib', 'repro')\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=180, cwd=ROOT,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

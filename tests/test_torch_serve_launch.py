@@ -8,13 +8,17 @@ freestanding-model path still works, and a fabric that ran zero training
 rounds serves exactly the init params.  Beyond the mirror: with the JAX
 package's init params carried over (``interop.params_from_numpy``), the
 same arguments give JAX's read bits, read provenance and generated ids;
-and a ``--mesh`` other than ``1x1`` raises.
+and at ``--mesh 1x2`` (2 gloo ranks spawned once for the file,
+``tests/torch_spmd.py``; the model sharded over both) every source
+generates the ids of the one-device run from the read of the same version.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
+
+import torch_spmd as S  # noqa: E402
 
 from repro_torch.launch.serve import build_argparser, main, serve  # noqa: E402
 
@@ -79,9 +83,42 @@ def test_argparser_defaults_route_through_the_fabric():
     assert vars(args) == vars(jax_argparser().parse_args([]))
 
 
-def test_mesh_beyond_one_device_raises():
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        run(FAST + ["--mesh", "1x2", "--source", "model"])
+@pytest.fixture(scope="module")
+def mesh_runs(tmp_path_factory):
+    root = tmp_path_factory.mktemp("serve_mesh")
+    S.spawn(2, S.serve_launch_ranks, root)
+    return root
+
+
+@pytest.mark.parametrize("source", list(S.SERVE_MESH_SOURCES))
+def test_mesh_beyond_one_device_raises(mesh_runs, source, tmp_path):
+    """``--mesh 1x2`` serves over the 2 ranks (it raised before tensor
+    parallelism): both ranks generate the one-device run's ids from a read
+    of the same version; a mesh larger than a world the driver cannot
+    start raises."""
+    extra = S.SERVE_MESH_SOURCES[source]
+    if source == "checkpoint":
+        extra = extra + ["--checkpoint", str(tmp_path)]
+    one = run(FAST + extra)
+    for r in range(2):
+        got = dict(np.load(mesh_runs / f"serve_{source}_r{r}.npz"))
+        np.testing.assert_array_equal(got["generated"], one["generated"])
+        assert int(got["version"]) == (one["read"] or {}).get("version", -1)
+    with pytest.raises(SystemExit, match="torchrun"):
+        run(FAST[:2] + ["--mesh", "1x2"] + FAST[4:] + ["--source", "model"])
+
+
+@pytest.mark.parametrize("batch,mesh", [(3, "2x1"), (1, "2x1"), (6, "4x2")])
+def test_batch_that_does_not_split_over_the_data_axis_raises(batch, mesh):
+    """``--batch`` must split evenly over the data ranks, as JAX's
+    ``shard_map`` in_specs require; the driver raises before it starts a
+    mesh."""
+    from repro_torch.configs.registry import get_arch
+
+    args = build_argparser().parse_args(
+        FAST[:2] + ["--mesh", mesh, "--batch", str(batch)] + FAST[6:])
+    with pytest.raises(ValueError, match=f"--mesh {mesh}"):
+        serve(get_arch("gemma3-1b").smoke_config, args, device="cpu")
 
 
 @pytest.mark.parametrize("source,extra", [

@@ -18,9 +18,12 @@ Mirrors tests/scripts/train_restart_elastic.py on a (2, 1) ("data",
     show), and the port's checkpoint restores into JAX's ``TrainState``
     with the same bits.
 
+The same 2 ranks then run ``main`` at ``--mesh 1x2``: the model sharded
+over both (tensor parallelism), whose losses match the world-1 run's.
 Beside them, in this process: ``main`` at ``--mesh 1x1`` starts and ends
-its own world-1 group, a model axis of 2 raises ``NotImplementedError``
-(item 6b), and ``build_cell`` refuses what is not ported.
+its own world-1 group, a mesh larger than the world raises, and
+``build_cell`` builds the LM serving cells as JAX's builder does and
+refuses the recsys family (item 6c).
 """
 import numpy as np
 import pytest
@@ -166,22 +169,36 @@ def test_main_at_world_one_on_the_cpu(tmp_path, capsys):
     assert Checkpointer(tmp_path).latest_step() == 2
 
 
-def test_main_refuses_a_model_axis_and_a_mismatched_world(tmp_path):
+def test_main_refuses_a_model_axis_and_a_mismatched_world(runs):
+    """A model axis of 2 now trains over the 2 ranks (the losses of the
+    world-1 run of the same model at rtol 1e-4: the block outputs are
+    summed over the ranks in another order); a mesh larger than a world
+    the driver cannot start still raises."""
     from repro_torch.launch.train import main
 
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        main(["--mesh", "1x2", "--steps", "1"], device="cpu")
+    one = main(["--arch", "gemma3-1b", "--mesh", "1x1", "--steps", "3",
+                "--log-every", "1"], device="cpu")
+    for r in range(2):
+        got = _rank(runs, "tp2", r)
+        assert int(got["step"]) == 3
+        np.testing.assert_allclose(got["losses"], one["losses"], rtol=1e-4)
+        assert got["pflat"].shape[-1] < one["pflat"].shape[-1]  # a shard
+    np.testing.assert_array_equal(_rank(runs, "tp2", 0)["losses"],
+                                  _rank(runs, "tp2", 1)["losses"])
     with pytest.raises(SystemExit, match="torchrun"):
         main(["--mesh", "2x1", "--steps", "1"], device="cpu")
 
 
 @pytest.mark.parametrize("arch,shape,item", [
-    ("gemma3-1b", "prefill_32k", "item 6b"),
-    ("gemma3-1b", "decode_32k", "item 6b"),
-    ("gemma3-1b", "long_500k", "item 6b"),
+    ("gemma3-1b", "prefill_32k", None),
+    ("gemma3-1b", "decode_32k", None),
+    ("gemma3-1b", "long_500k", None),
     ("dlrm-mlperf", "train_batch", "item 6c"),
 ])
 def test_build_cell_refuses_what_is_not_ported(tmp_path, arch, shape, item):
+    """The LM serving cells build at SMOKE and at full size with JAX's
+    kind, global abstract shapes and meta; the SMOKE plan's step runs on
+    the CPU.  The recsys family still raises (item 6c)."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import init_process_group, make_mesh
@@ -190,8 +207,14 @@ def test_build_cell_refuses_what_is_not_ported(tmp_path, arch, shape, item):
     init_process_group("cpu", init_method=f"file://{tmp_path}/rendezvous")
     try:
         mesh = make_mesh((1, 1), ("data", "model"))
-        with pytest.raises(NotImplementedError, match=item):
-            build_cell(arch, shape, mesh, smoke=True)
+        if item is not None:
+            with pytest.raises(NotImplementedError, match=item):
+                build_cell(arch, shape, mesh, smoke=True)
+        else:
+            for smoke in (True, False):
+                _same_plan_as_jax(build_cell(arch, shape, mesh, smoke=smoke),
+                                  arch, shape, smoke)
+            _run_serving_plan(build_cell(arch, shape, mesh, smoke=True))
         plan = build_cell("gemma3-1b", "train_4k", mesh, smoke=True)
         assert plan.kind == "train"
         assert tuple(plan.abstract_args[4]["tokens"].shape) == (2, 32)
@@ -201,3 +224,43 @@ def test_build_cell_refuses_what_is_not_ported(tmp_path, arch, shape, item):
         assert tuple(full.abstract_args[4]["tokens"].shape) == (256, 4096)
     finally:
         dist.destroy_process_group()
+
+
+def _shapes(tree):
+    if isinstance(tree, dict):
+        return {k: _shapes(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_shapes(v) for v in tree]
+    return tuple(tree.shape)
+
+
+def _same_plan_as_jax(plan, arch, shape, smoke):
+    from repro.launch.mesh import make_mesh as jax_mesh
+    from repro.launch.steps import build_cell as jax_build
+
+    jplan = jax_build(arch, shape, jax_mesh((1, 1), ("data", "model")),
+                      smoke=smoke)
+    assert plan.kind == jplan.kind
+    assert plan.meta == jplan.meta
+    assert _shapes(plan.abstract_args) == _shapes(jplan.abstract_args)
+
+
+def _run_serving_plan(plan):
+    from repro_torch.models import transformer as T
+
+    cfg = get_arch("gemma3-1b").smoke_config
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    if plan.kind == "prefill":
+        toks = torch.zeros(plan.abstract_args[1].shape, dtype=torch.int32)
+        ids, cache = plan.fn(params, toks)
+        assert ids.shape == (toks.shape[0],)
+        assert tuple(cache["k"].shape)[2] == toks.shape[1]
+        return
+    cache = plan.abstract_args[2]
+    new = (lambda t: torch.zeros(t.shape, dtype=t.dtype))
+    cache = ([{k: new(v) for k, v in c.items()} for c in cache]
+             if isinstance(cache, list) else {k: new(v)
+                                              for k, v in cache.items()})
+    tok = torch.zeros(plan.abstract_args[1].shape, dtype=torch.int32)
+    ids, out = plan.fn(params, tok, cache, 3)
+    assert out is cache and ids.shape == tok.shape

@@ -1,7 +1,8 @@
 """The port's SPMD PS train step (``repro_torch.runtime.trainer``) against
 the JAX trainer and a one-process reference.
 
-Mirrors tests/scripts/grad_equivalence.py at tp = 1: gemma3-1b's SMOKE
+Mirrors tests/scripts/grad_equivalence.py's data-parallel half (its TP
+half, on a (2, 4) mesh, is tests/test_torch_tp_train.py): gemma3-1b's SMOKE
 config, the JAX package's weights (through ``repro_torch.interop``), a
 (2, 1) ("data", "model") mesh of 2 gloo ranks spawned once for the file
 (``tests/torch_spmd.py``), each rank holding its half of the global batch.

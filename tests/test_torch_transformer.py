@@ -1,9 +1,14 @@
-"""The port's transformer against the JAX package's, gemma3 SMOKE in f32.
+"""The port's transformer against the JAX package's, gemma3 SMOKE in f32
+with remat on and q-chunks of 8 in both packages.
 
 The JAX package's ``init_params`` output goes to the port through
 ``interop.params_from_numpy``; the same seeded batch goes through both.
 Tolerances: loss rtol 1e-5; every gradient leaf rtol 1e-4, atol 1e-5 (the
-matmul and reduction summation orders differ between XLA and torch)."""
+matmul and reduction summation orders differ between XLA and torch).
+Sequences of 16 and 32 run 2 and 4 attention blocks; 12, which 8 does not
+divide, one block.  Inside the port, remat on equals remat off bitwise
+under deterministic algorithms; the QKV-bias model (nonzero biases) holds
+to JAX's at the same tolerances."""
 import numpy as np
 import pytest
 
@@ -35,11 +40,32 @@ def _flat(tree, prefix=""):
     return {prefix: np.asarray(tree, np.float32)}
 
 
-@pytest.mark.parametrize("seq", [16, 32])
-def test_loss_and_grads_match_jax(seq):
-    jcfg = jax_get_arch("gemma3-1b").smoke_config
-    tcfg = get_arch("gemma3-1b").smoke_config
+def _bias_configs():
+    import dataclasses
+
+    return (dataclasses.replace(jax_get_arch("gemma3-1b").smoke_config,
+                                qkv_bias=True),
+            dataclasses.replace(get_arch("gemma3-1b").smoke_config,
+                                qkv_bias=True))
+
+
+@pytest.mark.parametrize("seq,bias", [(16, False), (32, False), (12, False),
+                                      (16, True)],
+                         ids=["16", "32", "12", "16-qkv_bias"])
+def test_loss_and_grads_match_jax(seq, bias):
+    if bias:
+        jcfg, tcfg = _bias_configs()
+    else:
+        jcfg = jax_get_arch("gemma3-1b").smoke_config
+        tcfg = get_arch("gemma3-1b").smoke_config
+    assert (tcfg.remat, tcfg.attn_chunk) == (jcfg.remat, jcfg.attn_chunk) \
+        == (True, 8)
     jparams = jax_init(jcfg, jax.random.PRNGKey(0), tp=1)
+    if bias:  # nonzero biases (the init draws zeros)
+        rng = np.random.default_rng(5)
+        for k in ("bq", "bk", "bv"):
+            jparams["layers"][k] = jnp.asarray(rng.standard_normal(
+                jparams["layers"][k].shape).astype(np.float32) * 0.1)
     tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
     batch = next(lm_batches(tcfg.vocab, 2, seq, seed=3))
     jloss, jgrads = jax.value_and_grad(
@@ -55,6 +81,28 @@ def test_loss_and_grads_match_jax(seq):
     for name in jflat:
         np.testing.assert_allclose(tflat[name], jflat[name], rtol=1e-4,
                                    atol=1e-5, err_msg=name)
+
+
+def test_remat_on_equals_off_bitwise():
+    import dataclasses
+
+    cfg = get_arch("gemma3-1b").smoke_config
+    params = tt.init_params(cfg, torch.Generator().manual_seed(1))
+    batch = next(lm_batches(cfg.vocab, 2, 32, seed=2))
+    toks, labs = (torch.from_numpy(batch[k]) for k in ("tokens", "labels"))
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        out = [tt.lm_loss_and_grad(params, toks, labs,
+                                   dataclasses.replace(cfg, remat=r))
+               for r in (True, False)]
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    (la, ga), (lb, gb) = out
+    assert torch.equal(la, lb)
+    fa, fb = _flat(ga), _flat(gb)
+    for k in fa:
+        assert np.array_equal(fa[k].view(np.uint32), fb[k].view(np.uint32)), k
 
 
 def test_rms_norm_and_rope_match_jax():

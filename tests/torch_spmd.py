@@ -399,7 +399,8 @@ def flat_keys(tree: dict, prefix: str = "") -> dict:
 def train_launch_ranks(rank, world, out_dir):
     """launch/train.main on a (2, 1) mesh: six steps with checkpoints at 3
     and 6; a crash after step 3 and a resume to 6; a resume of the JAX
-    driver's step-3 checkpoint to step 4."""
+    driver's step-3 checkpoint to step 4; then three steps at ``--mesh
+    1x2`` (the model over both ranks)."""
     import shutil
 
     import torch.distributed as dist
@@ -422,9 +423,203 @@ def train_launch_ranks(rank, world, out_dir):
     from_jax = main(base + ["--steps", "4", "--ckpt-dir",
                             f"{out_dir}/jax_resume", "--resume"],
                     device="cpu")
+    tp2 = main(["--arch", "gemma3-1b", "--mesh", "1x2", "--steps", "3",
+                "--log-every", "1"], device="cpu")
     for name, out in (("full", full), ("resumed", resumed),
-                      ("from_jax", from_jax)):
+                      ("from_jax", from_jax), ("tp2", tp2)):
         _save(out_dir, f"launch_{name}_r{rank}", pflat=_np(out["pflat"]),
               losses=np.asarray(out["losses"]), start=np.asarray(out["start"]),
               step=np.asarray(out["step"]),
               **{f"slot{i}": _np(s) for i, s in enumerate(out["slots"])})
+
+
+# -- rank bodies: tensor parallelism ---------------------------------------
+
+# tests/scripts/tp_equivalence.py's non-MoE cases (f32, attn_chunk 8)
+TP_CASES = {
+    "gqa_kvrep": dict(n_layers=2, d_model=64, n_heads=8, n_kv_heads=2,
+                      head_dim=16, d_ff=128, vocab=256),
+    "dup_R2": dict(n_layers=2, d_model=64, n_heads=2, n_kv_heads=1,
+                   head_dim=16, d_ff=128, vocab=256),
+    "kvshard_bias": dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
+                         head_dim=16, d_ff=128, vocab=256, qkv_bias=True),
+}
+TP = 4
+# tests/scripts/grad_equivalence.py's cases (remat off there)
+TP_TRAIN_CASES = {
+    "dense_gqa": dict(TP_CASES["gqa_kvrep"], qkv_bias=True, remat=False),
+    "dup_R2": dict(TP_CASES["dup_R2"], remat=False),
+}
+TP_TRAIN_STEPS = 2
+
+
+def tp_config(kw: dict):
+    """A case's port config: f32, q-chunks of 8."""
+    import torch
+
+    from repro_torch.models.transformer import TransformerConfig
+
+    return TransformerConfig("tp", dtype=torch.float32,
+                             param_dtype=torch.float32, attn_chunk=8, **kw)
+
+
+def psum_transpose_ranks(mesh, out_dir, rank):
+    """tests/scripts/psum_transpose.py: per rank y = psum(2 w_j), loss_j =
+    y c_j; each dw_j is 2 sum(c) = 200 when psum's transpose is psum."""
+    import torch
+
+    from repro_torch.models.common import Dist
+
+    dist = Dist("model", (), TP, mesh)
+    j = mesh.coords["model"]
+    w = torch.tensor(float(j + 1), requires_grad=True)
+    c = (10.0, 20.0, 30.0, 40.0)[j]
+    loss = dist.psum_model(2.0 * w) * c
+    (g,) = torch.autograd.grad(loss, w)
+    # and the other transposes: all_gather <-> psum_scatter
+    x = torch.arange(4.0, requires_grad=True) + 4 * j
+    ag = dist.all_gather_model(x[None], axis=1)  # (1, 16)
+    (gx,) = torch.autograd.grad((ag * torch.arange(16.0)).sum() * (j + 1), x)
+    y = torch.arange(16.0, requires_grad=True)
+    ps = dist.psum_scatter_model(y[None] * (j + 1), axis=1)  # (1, 4)
+    (gy,) = torch.autograd.grad((ps * torch.arange(4.0)).sum(), y)
+    _save(out_dir, f"psum_r{rank}", dw=_np(g), gx=_np(gx), gy=_np(gy),
+          j=np.asarray(j))
+
+
+def tp_ranks(rank, world, out_dir):
+    """The psum transpose, then every ``TP_CASES`` case at tp = 4 on a
+    (1, 4) mesh from the JAX package's tp = 4 weights: the loss, greedy
+    prefill and decode ids and this rank's cache shard; rank 0 also runs
+    the tp = 1 model on the JAX package's tp = 1 weights."""
+    import torch
+
+    from repro_torch.interop import params_from_numpy
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import Dist
+    from repro_torch.runtime.trainer import local_params
+
+    mesh = Mesh((TP,), ("model",))
+    psum_transpose_ranks(mesh, out_dir, rank)
+    mesh = Mesh((1, TP), ("data", "model"))
+    dist = Dist("model", ("data",), TP, mesh)
+    for name, kw in TP_CASES.items():
+        cfg = tp_config(kw)
+        wait_for(Path(out_dir, f"jax_tp_{name}.npz"))
+        jax_out = dict(np.load(Path(out_dir, f"jax_tp_{name}.npz")))
+        toks, labs = (torch.from_numpy(a) for a in lm_tokens(cfg.vocab, 4))
+        out = {}
+        for tp in ((TP, 1) if rank == 0 else (TP,)):
+            params = params_from_numpy(_unflat(
+                {k[len(f"p{tp}/"):]: v for k, v in jax_out.items()
+                 if k.startswith(f"p{tp}/")}), "cpu")
+            d = dist if tp > 1 else None
+            if tp > 1:
+                params = local_params(params, T.make_param_specs(cfg, tp),
+                                      mesh)
+            with torch.no_grad():
+                loss = T.lm_loss(params, toks, labs, cfg, d)[1]["ce"]
+                nxt, cache = T.prefill(params, toks, cfg, 32, dist=d)
+                nxt_b, cache = T.decode_step(params, nxt, cache, 16, cfg, d)
+                out.update({f"loss{tp}": _np(loss), f"nxt{tp}": _np(nxt),
+                            f"dec{tp}": _np(nxt_b),
+                            f"k{tp}": _np(cache["k"]),
+                            f"v{tp}": _np(cache["v"])})
+                if tp == 1:  # decode == prefill of the 17 tokens
+                    t17 = torch.cat([toks, nxt[:, None]], dim=1)
+                    out["pre17"] = _np(T.prefill(params, t17, cfg, 32)[0])
+        _save(out_dir, f"tp_{name}_r{rank}", **out)
+
+
+def tp_train_ranks(rank, world, out_dir):
+    """On a (2, 4) ("data", "model") mesh: every ``TP_TRAIN_CASES`` case
+    (pbox, SGD 0.1, ``TP_TRAIN_STEPS`` steps from the JAX package's tp = 4
+    weights, each data rank holding 2 of 4 rows) saves this rank's local
+    params; then ``launch/train.main`` at ``--mesh 2x4``: six steps with
+    checkpoints at 3 and 6, and a run stopped at 3 and resumed to 6."""
+    import torch
+
+    from repro_torch.core.exchange import ExchangeConfig, PSExchange
+    from repro_torch.interop import params_from_numpy
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import main
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import Dist
+    from repro_torch.optim.optimizers import sgd
+    from repro_torch.runtime.trainer import (
+        init_train_state,
+        local_state,
+        make_ps_train_step,
+        shard_batch,
+    )
+
+    mesh = make_mesh((2, TP), ("data", "model"))
+    dist = Dist("model", ("data",), TP, mesh)
+    for name, kw in TP_TRAIN_CASES.items():
+        cfg = tp_config(kw)
+        wait_for(Path(out_dir, f"jax_tp_train_{name}.npz"))
+        jax_out = dict(np.load(Path(out_dir, f"jax_tp_train_{name}.npz")))
+        params_np = _unflat({k[3:]: v for k, v in jax_out.items()
+                             if k.startswith("p4/")})
+        ex = PSExchange(sgd(1e-1), ExchangeConfig("pbox"), ("data",), None)
+        specs = T.make_param_specs(cfg, TP)
+        step, space, _, ng = make_ps_train_step(
+            mesh, loss_fn=lambda p, b, d, cfg=cfg: T.lm_loss(
+                p, b["tokens"], b["labels"], cfg, d),
+            param_specs=specs, sync_tags=T.grad_sync(cfg, TP),
+            global_param_template=T.abstract_params(cfg, TP), exchange=ex,
+            dist=dist, donate=False)
+        state = init_train_state(
+            mesh, init_params_fn=lambda tree: params_from_numpy(tree, "cpu"),
+            param_specs=specs, exchange=ex, space=space, n_groups=ng,
+            key=params_np, device="cpu")
+        pflat, slots, ef, stc = local_state(state, mesh, ex)
+        toks, labs = lm_tokens(cfg.vocab, 4)
+        batch = shard_batch({"tokens": torch.from_numpy(toks),
+                             "labels": torch.from_numpy(labs)}, mesh, ex)
+        for _ in range(TP_TRAIN_STEPS):
+            pflat, slots, ef, stc, met = step(pflat, slots, ef, stc, batch)
+        local = flat_keys(_tree(space.unflatten(pflat[0]), _np))
+        _save(out_dir, f"tp_train_{name}_r{rank}", pflat=_np(pflat),
+              model=np.asarray(mesh.coords["model"]), **{
+                  f"p/{k}": v for k, v in local.items()})
+    base = ["--arch", "gemma3-1b", "--mesh", "2x4", "--log-every", "3"]
+    full = main(base + ["--steps", "6", "--ckpt-dir", f"{out_dir}/full",
+                        "--ckpt-every", "3"], device="cpu")
+    main(base + ["--steps", "3", "--ckpt-dir", f"{out_dir}/crash",
+                 "--ckpt-every", "3"], device="cpu")
+    resumed = main(base + ["--steps", "6", "--ckpt-dir", f"{out_dir}/crash",
+                           "--resume"], device="cpu")
+    for label, out in (("full", full), ("resumed", resumed)):
+        _save(out_dir, f"tp_launch_{label}_r{rank}", pflat=_np(out["pflat"]),
+              losses=np.asarray(out["losses"]), start=np.asarray(out["start"]),
+              model=np.asarray(mesh.coords["model"]),
+              **{f"slot{i}": _np(s) for i, s in enumerate(out["slots"])})
+
+
+# -- rank bodies: the serve driver -----------------------------------------
+
+SERVE_MESH_ARGV = ["--arch", "gemma3-1b", "--mesh", "1x2", "--batch", "2",
+                   "--prompt-len", "8", "--tokens", "3", "--seed", "0"]
+SERVE_MESH_SOURCES = {
+    "model": ["--source", "model"],
+    "fabric": ["--source", "fabric", "--train-rounds", "2",
+               "--serve-shards", "2", "--serve-replication", "2"],
+    "checkpoint": ["--source", "checkpoint", "--train-rounds", "1",
+                   "--serve-shards", "2"],
+}
+
+
+def serve_launch_ranks(rank, world, out_dir):
+    """launch/serve.main at ``--mesh 1x2`` over both ranks, per source
+    (the checkpoint written by rank 0 under ``out_dir``)."""
+    from repro_torch.launch.serve import main
+
+    for name, extra in SERVE_MESH_SOURCES.items():
+        if name == "checkpoint":
+            extra = extra + ["--checkpoint", f"{out_dir}/ckpt"]
+        out = main(SERVE_MESH_ARGV + extra, device="cpu")
+        read = out["read"] or {}
+        _save(out_dir, f"serve_{name}_r{rank}", generated=out["generated"],
+              version=np.asarray(read.get("version", -1)))

@@ -14,13 +14,18 @@ saves what the port is compared with under ``out_dir``.  Groups:
              ``TRAINER_CASES`` case of ``make_ps_train_step`` on a (2, 1)
              mesh;
   launch     the JAX driver's pieces on a (2, 1) mesh: three steps, a
-             checkpoint at step 3 (``jax/``), then step 4.
+             checkpoint at step 3 (``jax/``), then step 4;
+  tp         every ``TP_CASES`` case's weights at tp = 1 and 4, then its
+             loss, prefill and decode at tp = 4 on a (1, 4) mesh;
+  tp_train   every ``TP_TRAIN_CASES`` case's tp = 4 weights, then
+             ``TP_TRAIN_STEPS`` SGD steps of ``make_ps_train_step`` on a
+             (2, 4) mesh (tests/scripts/grad_equivalence.py).
 """
 import os
 import sys
 from pathlib import Path
 
-DEVICES = {"exchange": 8, "trainer": 2, "launch": 2}
+DEVICES = {"exchange": 8, "trainer": 2, "launch": 2, "tp": 4, "tp_train": 8}
 
 
 def _np32(x):
@@ -209,11 +214,126 @@ def launch(out: Path):
     os.replace(out / "jax_launch.tmp.npz", out / "jax_launch.npz")
 
 
+def _jax_config(kw: dict):
+    import jax.numpy as jnp
+
+    from repro.models.transformer import TransformerConfig
+
+    return TransformerConfig("tp", dtype=jnp.float32, param_dtype=jnp.float32,
+                             attn_chunk=8, **kw)
+
+
+def _save_atomic(path: Path, **arrays) -> None:
+    import numpy as np
+
+    tmp = path.with_suffix(".tmp.npz")
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path)
+
+
+def tp(out: Path):
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from jax.sharding import PartitionSpec as P
+
+    from repro import compat
+    from repro.models import transformer as T
+    from repro.models.common import Dist
+    from torch_spmd import TP, TP_CASES, flat_keys, lm_tokens
+
+    mesh = compat.make_mesh((1, TP), ("data", "model"))
+    dist = Dist(model_axis="model", data_axes=("data",), tp=TP)
+    for name, kw in TP_CASES.items():
+        cfg = _jax_config(kw)
+        p1 = T.init_params(cfg, jax.random.PRNGKey(0), tp=1)
+        p4 = T.init_params(cfg, jax.random.PRNGKey(0), tp=TP)
+        if cfg.qkv_bias:  # nonzero biases, the same model at both layouts
+            rng = np.random.default_rng(4)
+            for k in ("bq", "bk", "bv"):
+                b = jnp.asarray(rng.standard_normal(
+                    p1["layers"][k].shape).astype(np.float32) * 0.1)
+                p1["layers"][k] = b
+                p4["layers"][k] = b if k != "bq" else jnp.tile(
+                    b, (1, cfg.attn_replicas(TP)))
+        toks, labs = (jnp.asarray(a) for a in lm_tokens(cfg.vocab, 4))
+        specs = T.make_param_specs(cfg, TP)
+        cache_spec = {"k": P(None, "data", "model"),
+                      "v": P(None, "data", "model")}
+
+        def body(p, t, lab):
+            ce = T.lm_loss(p, t, lab, cfg, dist, TP)[1]["ce"]
+            nxt, cache = T.prefill(p, t, cfg, dist, TP, 32)
+            nb, cache = T.decode_step(p, nxt, cache, jnp.int32(16), cfg, dist,
+                                      TP)
+            return ce, nxt, nb, cache
+
+        f = jax.jit(compat.shard_map(
+            body, mesh=mesh, in_specs=(specs, P("data"), P("data")),
+            out_specs=(P(), P("data"), P("data"), cache_spec),
+            check_vma=False))
+        ce, nxt, nb, cache = f(p4, toks, labs)
+        arrays = {f"p1/{k}": np.asarray(v) for k, v in flat_keys(p1).items()}
+        arrays.update({f"p4/{k}": np.asarray(v)
+                       for k, v in flat_keys(p4).items()})
+        _save_atomic(out / f"jax_tp_{name}.npz", **arrays, loss=np.asarray(ce),
+                     nxt=np.asarray(nxt), dec=np.asarray(nb),
+                     k=np.asarray(cache["k"]), v=np.asarray(cache["v"]))
+
+
+def tp_train(out: Path):
+    import jax
+    import numpy as np
+    from jax.sharding import PartitionSpec as P
+
+    from repro import compat
+    from repro.core.exchange import ExchangeConfig, PSExchange
+    from repro.models import transformer as T
+    from repro.models.common import Dist
+    from repro.optim.optimizers import sgd
+    from repro.runtime.trainer import init_train_state, make_ps_train_step
+    from torch_spmd import (TP, TP_TRAIN_CASES, TP_TRAIN_STEPS, flat_keys,
+                            lm_tokens)
+
+    mesh = compat.make_mesh((2, TP), ("data", "model"))
+    dist = Dist(model_axis="model", data_axes=("data",), tp=TP)
+    for name, kw in TP_TRAIN_CASES.items():
+        cfg = _jax_config(kw)
+        p4 = T.init_params(cfg, jax.random.PRNGKey(0), tp=TP)
+        arrays = {f"p4/{k}": np.asarray(v) for k, v in flat_keys(p4).items()}
+        p1 = T.init_params(cfg, jax.random.PRNGKey(0), tp=1)
+        arrays.update({f"p1/{k}": np.asarray(v)
+                       for k, v in flat_keys(p1).items()})
+        _save_atomic(out / f"jax_tp_train_{name}.npz", **arrays)
+        specs = T.make_param_specs(cfg, TP)
+        ex = PSExchange(sgd(1e-1), ExchangeConfig(strategy="pbox"),
+                        worker_axes=("data",), pod_axis=None)
+        gshape = jax.eval_shape(
+            lambda: T.init_params(cfg, jax.random.PRNGKey(0), tp=TP))
+        step, space, _, ng = make_ps_train_step(
+            mesh, loss_fn=lambda p, b, d: T.lm_loss(
+                p, b["tokens"], b["labels"], cfg, d, TP),
+            param_specs=specs, sync_tags=T.grad_sync(cfg, TP),
+            global_param_template=gshape, exchange=ex, dist=dist,
+            batch_spec={"tokens": P("data"), "labels": P("data")},
+            donate=False)
+        st = init_train_state(
+            mesh, init_params_fn=lambda k: p4, param_specs=specs,
+            exchange=ex, space=space, n_groups=ng, key=jax.random.PRNGKey(0))
+        toks, labs = lm_tokens(cfg.vocab, 4)
+        pflat, slots, ef, stc = st.pflat, st.slots, st.ef, st.step
+        for _ in range(TP_TRAIN_STEPS):
+            pflat, slots, ef, stc, _ = step(pflat, slots, ef, stc,
+                                            {"tokens": toks, "labels": labs})
+        np.savez(out / f"jax_tp_train_{name}_out.npz", pflat=_np32(pflat))
+
+
 if __name__ == "__main__":
     group, out_dir = sys.argv[1], Path(sys.argv[2])
     os.environ["XLA_FLAGS"] = (
         f"--xla_force_host_platform_device_count={DEVICES[group]}")
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     out_dir.mkdir(parents=True, exist_ok=True)
-    {"exchange": exchange, "trainer": trainer, "launch": launch}[group](out_dir)
+    {"exchange": exchange, "trainer": trainer, "launch": launch, "tp": tp,
+     "tp_train": tp_train}[group](out_dir)
     print("OK")
