@@ -261,7 +261,40 @@ raises on failure (the script then exits non-zero and prints no result):
    share of greedy ids that agree printed, the model-axis collectives'
    host ms a step; then the SMOKE config on 4 gloo ranks at tp = 4 (R =
    1, kv replicated) and tp = 2, loss at rtol 2e-5 / atol 1e-5 and greedy
-   ids equal to tp = 1 on the card.
+   ids equal to tp = 1 on the card;
+32. the recsys family on the SPMD path (phases 32-36 inside a world-1
+   NCCL group and deterministic algorithms): dlrm-mlperf ``train_batch``
+   by ``pbox_sparse`` (``launch/steps.build_recsys_train_sparse``) at its
+   published widths, tables capped at 10M rows (25.03 GiB), 65,536 rows,
+   4 steps: the MLPs through the exchange (counts: 1 fused_agg_opt a
+   step), the tables through ``runtime/sparse_push.sparse_table_update``;
+   step 2's table update booked on the card (ids, cotangents, lr, every
+   touched row before and after) and replayed on the CPU, bitwise; the
+   sparse wire bytes (B x F x (2D + 4)) and ``attach_telemetry``'s dense
+   bytes reported;
+33. tests/scripts/sparse_push_equivalence.py on the card: one dlrm-mlperf
+   ``train_batch`` step by pbox with the tables in the flat (rows capped
+   at RS_DENSE_CAP = 4M) and one by pbox_sparse from the same params and
+   batch: losses within 1e-6, MLPs at rtol 1e-5 / atol 1e-6, tables
+   within 5e-3 (the bf16 wire); a second step of each timed;
+34. dlrm-mlperf's ``serve_p99`` (512), ``serve_bulk`` (262,144) and
+   ``retrieval_cand`` (1,048,576 candidates) plans on phase 32's trained
+   params, each bitwise equal to a direct ``dlrm_score`` /
+   ``bulk_retrieval`` call; no kernel launch;
+35. AutoInt, DIEN and xDeepFM at their published configs: ``train_batch``
+   by pbox for 2 steps (the published 65,536 rows or the largest
+   power-of-two fraction a probe step's peak allows), ``serve_p99`` and
+   ``retrieval_cand`` bitwise equal to the direct calls;
+36. the 17 recsys SMOKE cases (4 archs x 4 cells, DLRM's pbox_sparse step)
+   card == CPU within rtol 1e-5 / atol 1e-6, launches equal to the CPU's
+   plain-version calls; then dlrm-mlperf SMOKE at tp = 2 over 2 gloo ranks
+   on cuda:0 (one dense and one sparse step: the lookup's psum_scatter,
+   the cotangents' all-gather) against tp = 1 on the card at the same
+   bound.  Phase 19 also times ``fused_agg_opt`` as the recsys steps run
+   it (SGD, K = 1, f32, the MLP flat) by CUDA-graph replay, beside
+   ``Tensor.add_(g, alpha=-lr)``, the one PyTorch call for that update.
+   The line before the kernel table gives the seconds of each group of
+   phases.
 
 The line before the last is the kernel table as JSON (each row with its
 launches on every path); the last line is ``{"ok": true, "device":
@@ -1095,15 +1128,15 @@ def replay_codec(run: dict) -> dict:
 
 
 # -- phases 6 and 7: the DLRM sparse path ------------------------------------
-def dlrm_capped_config():
+def dlrm_capped_config(cap: int = DLRM_ROW_CAP):
     """dlrm-mlperf at its published widths with every table capped at
-    DLRM_ROW_CAP rows (the only cut: 163,079,093 rows at the 40M cap need
+    ``cap`` rows (the only cut: 163,079,093 rows at the 40M cap need
     77.8 GiB in f32, twice that with the tier's dense view)."""
     from repro_torch.configs.registry import get_arch
 
     cfg = get_arch("dlrm-mlperf").config
     return dataclasses.replace(cfg, vocabs=tuple(
-        min(v, DLRM_ROW_CAP) for v in cfg.vocabs))
+        min(v, cap) for v in cfg.vocabs))
 
 
 def dlrm_setup(cfg, dev, num_shards: int, codec: str = "none",
@@ -5958,6 +5991,797 @@ def tp_path(dev, smoke: bool = False) -> dict:
     return full
 
 
+# -- phases 32 to 36: the recsys family on the SPMD path ---------------------
+# phase 32: dlrm-mlperf train_batch by pbox_sparse, RS_STEPS steps, the
+# table update of step RS_BOOK + 1 booked on the card and replayed on the
+# CPU (the steps after it are the steady ones)
+RS_STEPS, RS_BOOK = 4, 1
+# phase 33: the dense (pbox) step's row cap.  Its flat holds the tables, and
+# the step peaks at ~5.0x the flat (the params, the gradient, the scattered
+# slab and its x 1/nw product, the pulled flat): 35.86 GiB at a 2.5M cap
+# (a 7.15 GiB flat) on an H100 80GB HBM3, so a 4M cap (10.72 GiB) is
+# predicted at ~53.7 GiB and 5M (13.11 GiB) at ~65.7, too near the card
+RS_DENSE_CAP = 4_000_000
+# tests/scripts/sparse_push_equivalence.py's bounds: dense against sparse
+RS_LOSS_ATOL, RS_MLP_RTOL, RS_MLP_ATOL, RS_TABLE_ATOL = 1e-6, 1e-5, 1e-6, 5e-3
+# phase 36: card against the CPU, and tp = 2 against tp = 1 (the CPU tests'
+# bound: f32 matmuls and reductions sum in other orders)
+RS_CARD_RTOL, RS_CARD_ATOL = 1e-5, 1e-6
+# phase 35: the rows of the probe step whose peak sizes each train batch,
+# and the share of the card's memory a batch may take
+RS_PROBE, RS_MEM_SHARE = 2048, 0.75
+RS_ARCHS = ("dlrm-mlperf", "autoint", "dien", "xdeepfm")
+RS_CELLS = ("train_batch", "serve_p99", "serve_bulk", "retrieval_cand")
+
+
+def _rs_batches(arch_id: str, cfg, b: int, n: int, seed: int, dev,
+                labels: bool = True) -> list:
+    """``n`` batches of ``b`` rows of ``recsys_batches`` on ``dev``."""
+    import torch
+
+    from repro_torch.data.synthetic import recsys_batches
+
+    return [{k: torch.from_numpy(v).to(dev) for k, v in bb.items()
+             if labels or k != "labels"}
+            for bb in itertools.islice(recsys_batches(arch_id, cfg, b, seed),
+                                       n)]
+
+
+def _rs_retrieval_batch(arch_id: str, cfg, plan, dev, seed: int) -> dict:
+    """The plan's user rows and its candidates over table t0's rows."""
+    import torch
+
+    bt = plan.abstract_args[1]
+    batch = _rs_batches(arch_id, cfg, bt["sparse"].shape[0], 1, seed, dev,
+                        labels=False)[0]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batch["cand_ids"] = torch.randint(
+        0, cfg.vocabs[0], tuple(bt["cand_ids"].shape), generator=gen,
+        device=dev, dtype=torch.int32)
+    return batch
+
+
+def _dlrm_arch(cfg):
+    from repro_torch.configs.registry import get_arch
+
+    return dataclasses.replace(get_arch("dlrm-mlperf"), config=cfg)
+
+
+def _sparse_bytes(batch: dict, cfg) -> int:
+    """The sparse push's wire bytes a step: every id (int32) and its bf16
+    cotangent row, global batch x F x (2D + 4)."""
+    b, f = batch["sparse"].shape
+    return b * f * (2 * cfg.embed_dim + 4)
+
+
+def _rs_step_times(step, state: list, batches: list) -> tuple:
+    """Run ``step`` over the batches, threading ``state`` (its first
+    outputs); (host ms a step, losses, the final state)."""
+    ms, losses = [], []
+    n = len(state)
+    for b in batches:
+        res = {}
+        ms.append(timed(lambda: res.update(out=step(*state, b))))
+        state = list(res["out"][:n])
+        losses.append(res["out"][-1]["loss"])
+    return ms, finite_losses(losses), state
+
+
+def rs_sparse_path(dev, smoke: bool = False) -> dict:
+    """Phase 32: dlrm-mlperf ``train_batch`` by ``pbox_sparse`` at full
+    width (tables capped at DLRM_ROW_CAP rows), batch 65,536, world 1 over
+    NCCL, RS_STEPS steps.  The dense MLPs go through the exchange (one
+    fused_agg_opt a step), the tables through ``sparse_table_update``;
+    the update of step RS_BOOK + 1 is booked on the card (ids, cotangents,
+    lr, and every touched row before and after) and replayed on the CPU
+    through the same function, bitwise.  Returns the trained params for
+    phase 34.  ``smoke``: the SMOKE config and cell.  Call inside
+    ``world_one`` and ``deterministic``."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.fabric import ServerStats
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import build_recsys_train_sparse
+    from repro_torch.models.common import Dist
+    from repro_torch.models.recsys import models as RS
+    from repro_torch.runtime import sparse_push as SP
+    from repro_torch.runtime.trainer import attach_telemetry
+
+    cfg = get_arch("dlrm-mlperf").smoke_config if smoke else \
+        dlrm_capped_config()
+    arch = _dlrm_arch(cfg)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    plan = build_recsys_train_sparse(arch, arch.cell("train_batch"), mesh,
+                                     smoke=smoke)
+    space, ex = plan.meta["space"], plan.meta["exchange"]
+    b = plan.abstract_args[5]["sparse"].shape[0]
+    params = RS.dlrm_init(cfg, torch.Generator(device=dev).manual_seed(0))
+    tables = params.pop("tables")
+    table_bytes = sum(t.numel() * t.element_size() for t in tables.values())
+    pflat = space.flatten(params).reshape(1, -1)
+    del params
+    batches = _rs_batches("dlrm-mlperf", cfg, b, RS_STEPS, 0, dev)
+    stats = ServerStats()
+    step = attach_telemetry(plan.fn, ex, space, mesh, stats)
+    book = {"calls": 0}
+    real = SP.sparse_table_update
+
+    def booked(tabs, ids, cot_e, dist, wa, lr, wire_dtype=torch.bfloat16, *,
+               mesh=None):
+        call = book["calls"]
+        book["calls"] += 1
+        if call != RS_BOOK:
+            return real(tabs, ids, cot_e, dist, wa, lr, wire_dtype, mesh=mesh)
+        uniq = [torch.unique(ids[:, i].long()) for i in range(ids.shape[1])]
+        book["in"] = {"ids": ids.cpu(), "cot": cot_e.cpu(), "lr": lr,
+                      "uniq": [u.cpu() for u in uniq],
+                      "before": [tabs[f"t{i}"][u].cpu()
+                                 for i, u in enumerate(uniq)]}
+        out = real(tabs, ids, cot_e, dist, wa, lr, wire_dtype, mesh=mesh)
+        book["after"] = [out[f"t{i}"][u].cpu() for i, u in enumerate(uniq)]
+        return out
+
+    SP.sparse_table_update = booked
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_counts()
+        step_ms, losses, state = _rs_step_times(
+            step, [pflat, (), None, torch.zeros((), dtype=torch.int32,
+                                                device=dev), tables], batches)
+        launches = _counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+    finally:
+        SP.sparse_table_update = real
+    _check_counts("rs sparse", launches, {"fused_agg_opt": RS_STEPS})
+    pflat, tables = state[0], state[4]
+    # the CPU replay: the touched rows as compact tables, the ids remapped
+    i = book["in"]
+    compact = {f"t{k}": r.clone() for k, r in enumerate(i["before"])}
+    ids_c = torch.stack([torch.searchsorted(u, i["ids"][:, k].long())
+                         for k, u in enumerate(i["uniq"])], 1)
+    replay = real(compact, ids_c, i["cot"], Dist(), (), i["lr"])
+    rows, err = 0, 0.0
+    for k, after in enumerate(book["after"]):
+        got = replay[f"t{k}"]
+        rows += got.shape[0]
+        err = max(err, max_abs_err(got, after))
+        if not same_bits(got, after):
+            raise AssertionError(
+                f"rs sparse: table t{k}'s update on the card differs from "
+                f"its CPU replay, max |err| {max_abs_err(got, after)}")
+    moved = max(max_abs_err(a, bb) for a, bb in zip(book["after"],
+                                                    i["before"]))
+    if not moved > 0:
+        raise AssertionError("rs sparse: the booked step moved no row")
+    sparse_bytes = _sparse_bytes(batches[0], cfg)
+    out = {"step_ms": step_ms, "losses": losses, "peak_bytes": peak,
+           "launches": launches, "table_bytes": table_bytes,
+           "flat": space.flat_elems, "batch": b, "replay_rows": rows,
+           "replay_err": err, "sparse_bytes": sparse_bytes,
+           "dense_bytes_pushed": stats.bytes_pushed // RS_STEPS,
+           "dense_bytes_pulled": stats.bytes_pulled // RS_STEPS,
+           "dense_stream_bytes": 4 * space.flat_elems}
+    log(f"phase 32: dlrm-mlperf train_batch by pbox_sparse, {b} rows, "
+        f"tables {table_bytes / 2**30:.2f} GiB, dense flat {space.flat_elems}"
+        f": steps {[round(x, 1) for x in step_ms]} ms, losses {losses}, peak "
+        f"{peak / 2**30:.2f} GiB, launches {launches}; wire a step: sparse "
+        f"{sparse_bytes} bytes (ids + bf16 rows), dense telemetry push "
+        f"{out['dense_bytes_pushed']} / pull {out['dense_bytes_pulled']} at "
+        f"world 1 ({out['dense_stream_bytes']} bytes a worker stream); step "
+        f"{RS_BOOK + 1}'s update of {rows} touched rows == its CPU replay, "
+        "bitwise")
+    dense = space.unflatten(pflat[0])
+    out["params"] = {"tables": tables, "bot": dense["bot"],
+                     "top": dense["top"]}
+    out["cfg"] = cfg
+    return out
+
+
+def rs_serve_path(dev, params: dict, cfg, smoke: bool = False) -> dict:
+    """Phase 34: dlrm-mlperf's ``serve_p99`` (512), ``serve_bulk``
+    (262,144) and ``retrieval_cand`` (1,048,576 candidates) plans from
+    ``build_recsys_cell`` at full width on phase 32's trained params (world
+    1): each timed three times (host clock), its peak, and its output
+    bitwise equal to a direct ``dlrm_score`` / ``bulk_retrieval`` call on
+    the same tensors.  No kernel runs.  Call inside ``world_one``."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import build_recsys_cell
+    from repro_torch.models.recsys import models as RS
+
+    arch = _dlrm_arch(cfg)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    out = {}
+    _zero_counts()
+    for shape in ("serve_p99", "serve_bulk", "retrieval_cand"):
+        plan = build_recsys_cell(arch, arch.cell(shape), mesh, None, smoke)
+        if plan.kind == "serve":
+            n = plan.abstract_args[1]["sparse"].shape[0]
+            batch = _rs_batches("dlrm-mlperf", cfg, n, 1, 3, dev,
+                                labels=False)[0]
+            with torch.no_grad():
+                want = RS.dlrm_score(params, batch, cfg)
+        else:
+            batch = _rs_retrieval_batch("dlrm-mlperf", cfg, plan, dev, 4)
+            n = batch["cand_ids"].shape[0]
+            with torch.no_grad():
+                want = RS.bulk_retrieval(params, batch, RS.dlrm_user_tower,
+                                         "t0", cfg.embed_dim, cfg)
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms, res = [], {}
+        for _ in range(3):
+            ms.append(timed(lambda: res.update(y=plan.fn(params, batch))))
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        y = res["y"]
+        if tuple(y.shape) != (n,) or not torch.isfinite(y).all():
+            raise AssertionError(f"rs {shape}: scores {tuple(y.shape)}, "
+                                 "finite?")
+        if not same_bits(y, want):
+            raise AssertionError(f"rs {shape}: the plan's scores differ from "
+                                 f"the direct call, max |err| "
+                                 f"{max_abs_err(y, want)}")
+        out[shape] = {"ms": ms, "peak_bytes": peak, "rows": n}
+        log(f"phase 34: dlrm-mlperf {shape} ({n} {'rows' if plan.kind == 'serve' else 'candidates'}): "
+            f"{[round(x, 2) for x in ms]} ms, peak {peak / 2**30:.2f} GiB "
+            "above the params; == the direct call, bitwise")
+        del batch, want, res, y
+    _check_counts("rs serve cells", _counts(), {})
+    return out
+
+
+def rs_dense_sparse_path(dev, smoke: bool = False) -> dict:
+    """Phase 33: tests/scripts/sparse_push_equivalence.py on the card.
+    dlrm-mlperf ``train_batch`` (65,536 rows) by pbox with the tables in
+    the flat (rows capped at RS_DENSE_CAP), then by pbox_sparse from the
+    same params and batch: losses within RS_LOSS_ATOL, the MLPs at
+    RS_MLP_RTOL / RS_MLP_ATOL, the tables within RS_TABLE_ATOL (the bf16
+    wire).  Then a second step of each, timed.  Call inside ``world_one``
+    and ``deterministic``."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.fabric import ServerStats
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import (
+        build_recsys_cell,
+        build_recsys_train_sparse,
+        make_exchange,
+    )
+    from repro_torch.models.recsys import models as RS
+    from repro_torch.runtime.trainer import (
+        attach_telemetry,
+        init_train_state,
+        local_state,
+    )
+
+    cfg = get_arch("dlrm-mlperf").smoke_config if smoke else \
+        dlrm_capped_config(RS_DENSE_CAP)
+    arch = _dlrm_arch(cfg)
+    cell = arch.cell("train_batch")
+    mesh = make_mesh((1, 1), ("data", "model"))
+    ex = make_exchange(mesh, "recsys")
+    plan_d = build_recsys_cell(arch, cell, mesh, ex, smoke)
+    space_d = plan_d.meta["space"]
+    state = init_train_state(
+        mesh, init_params_fn=lambda g: RS.dlrm_init(cfg, g),
+        param_specs=RS.dlrm_specs(cfg, 1), exchange=ex, space=space_d,
+        n_groups=1, key=torch.Generator(device=dev).manual_seed(0),
+        device=dev)
+    pflat, slots, ef, stc = local_state(state, mesh, ex)
+    del state
+    p0 = space_d.unflatten(pflat[0])
+    tables = {k: v.clone() for k, v in p0["tables"].items()}
+    dense0 = {k: {kk: v.clone() for kk, v in p0[k].items()}
+              for k in ("bot", "top")}
+    del p0
+    b = plan_d.abstract_args[4]["sparse"].shape[0]
+    batches = _rs_batches("dlrm-mlperf", cfg, b, 2, 1, dev)
+    out = {"flat": space_d.flat_elems, "batch": b}
+
+    def run(label, step, state, batch):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_counts()
+        ms, losses, state = _rs_step_times(step, state, [batch])
+        launches = _counts()
+        _check_counts(f"rs {label}", launches, {"fused_agg_opt": 1})
+        rec = out.setdefault(label, {"ms": [], "peak_bytes": [], "losses": [],
+                                     "launches": dict.fromkeys(launches, 0)})
+        rec["ms"] += ms
+        rec["losses"] += losses
+        rec["peak_bytes"].append(torch.cuda.max_memory_allocated(dev))
+        rec["launches"] = {k: rec["launches"][k] + v
+                           for k, v in launches.items()}
+        return state
+
+    stats_d = ServerStats()
+    step_d = attach_telemetry(plan_d.fn, ex, space_d, mesh, stats_d)
+    sd = run("dense", step_d, [pflat, slots, ef, stc], batches[0])
+    del pflat
+    plan_s = build_recsys_train_sparse(arch, cell, mesh, smoke)
+    space_s = plan_s.meta["space"]
+    stats_s = ServerStats()
+    step_s = attach_telemetry(plan_s.fn, plan_s.meta["exchange"], space_s,
+                              mesh, stats_s)
+    pf0 = space_s.flatten(dense0).reshape(1, -1)
+    ss = run("sparse", step_s, [pf0, (), None, torch.zeros(
+        (), dtype=torch.int32, device=dev), tables], batches[0])
+    # the comparison, on the card
+    out_d = space_d.unflatten(sd[0][0])
+    out_s = space_s.unflatten(ss[0][0])
+    loss_err = abs(out["dense"]["losses"][0] - out["sparse"]["losses"][0])
+    mlp_err = 0.0
+    for k in ("bot", "top"):
+        for kk in out_d[k]:
+            a, w = out_s[k][kk], out_d[k][kk]
+            mlp_err = max(mlp_err, max_abs_err(a, w))
+            if not torch.allclose(a, w, rtol=RS_MLP_RTOL, atol=RS_MLP_ATOL):
+                raise AssertionError(f"rs dense vs sparse: {k}/{kk} differ, "
+                                     f"max |err| {max_abs_err(a, w)}")
+    table_err = max(max_abs_err(ss[4][name], out_d["tables"][name])
+                    for name in ss[4])
+    if loss_err > RS_LOSS_ATOL or table_err > RS_TABLE_ATOL:
+        raise AssertionError(f"rs dense vs sparse: loss |err| {loss_err} "
+                             f"(bound {RS_LOSS_ATOL}), tables {table_err} "
+                             f"(bound {RS_TABLE_ATOL})")
+    del out_d, out_s
+    # a second step of each, for the steady times
+    run("dense", step_d, sd, batches[1])
+    del sd
+    run("sparse", step_s, ss, batches[1])
+    del ss, tables
+    torch.cuda.empty_cache()
+    out.update(loss_err=loss_err, mlp_err=mlp_err, table_err=table_err,
+               dense_bytes=(stats_d.bytes_pushed + stats_d.bytes_pulled) // 2,
+               dense_stream_bytes=4 * space_d.flat_elems,
+               sparse_bytes=_sparse_bytes(batches[0], cfg),
+               sparse_dense_stream_bytes=4 * space_s.flat_elems)
+    log(f"phase 33: dlrm-mlperf train_batch {b} rows, rows capped at "
+        f"{max(cfg.vocabs)}: dense (pbox, flat {space_d.flat_elems}) steps "
+        f"{[round(x, 1) for x in out['dense']['ms']]} ms, peaks "
+        f"{[round(x / 2**30, 2) for x in out['dense']['peak_bytes']]} GiB, a "
+        f"worker stream {4 * space_d.flat_elems} bytes; sparse steps "
+        f"{[round(x, 1) for x in out['sparse']['ms']]} ms, peaks "
+        f"{[round(x / 2**30, 2) for x in out['sparse']['peak_bytes']]} GiB, "
+        f"{out['sparse_bytes']} sparse + {4 * space_s.flat_elems} dense bytes;"
+        f" losses {out['dense']['losses'][0]} / {out['sparse']['losses'][0]} "
+        f"(|err| {loss_err}), MLP max |err| {mlp_err}, tables {table_err} "
+        f"(bounds {RS_LOSS_ATOL}, {RS_MLP_RTOL} / {RS_MLP_ATOL}, "
+        f"{RS_TABLE_ATOL})")
+    return out
+
+
+def _rs_probe_batch(arch_id: str, cfg, params: dict, published: int,
+                    dev) -> tuple:
+    """The train batch that fits: the peak of one fwd+bwd at RS_PROBE
+    rows (above what is allocated), scaled linearly; the published batch,
+    or the largest power-of-two fraction of it whose scaled peak stays
+    under RS_MEM_SHARE of the card.  Returns (batch, probe peak bytes)."""
+    import torch
+
+    from repro_torch.launch.steps import _RS_FNS
+
+    loss_f = _RS_FNS[arch_id][3]
+    batch = _rs_batches(arch_id, cfg, RS_PROBE, 1, 7, dev)[0]
+    leaves = [x.requires_grad_(True) for x in _leaves(params)]
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    loss, _ = loss_f(params, batch, cfg)
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    probe = torch.cuda.max_memory_allocated(dev) - base
+    del loss, grads, batch
+    for x in leaves:
+        x.requires_grad_(False)
+    torch.cuda.empty_cache()
+    budget = (RS_MEM_SHARE * torch.cuda.get_device_properties(dev).total_memory
+              - torch.cuda.memory_allocated(dev))
+    b = published
+    while b > RS_PROBE and probe * b / RS_PROBE > budget:
+        b //= 2
+    return b, probe
+
+
+def rs_archs_path(dev, smoke: bool = False) -> dict:
+    """Phase 35: AutoInt, DIEN and xDeepFM at their published configs,
+    world 1: ``train_batch`` by pbox (SGD 0.01) for 2 steps at the
+    published 65,536 rows or the largest power-of-two fraction that fits
+    (``_rs_probe_batch``: xDeepFM's CIN keeps (B, 200, 39, 10) per
+    layer), then ``serve_p99`` and ``retrieval_cand`` on the trained
+    params, each bitwise equal to the direct call.  Counts: 2
+    fused_agg_opt for each arch's train cell, none for the serving cells.
+    Call inside ``world_one`` and ``deterministic``."""
+    import torch
+
+    from repro_torch.configs.registry import ShapeCell, get_arch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import (
+        _RS_FNS,
+        build_recsys_cell,
+        make_exchange,
+    )
+    from repro_torch.models.recsys import models as RS
+    from repro_torch.runtime.trainer import init_train_state, local_state
+
+    mesh = make_mesh((1, 1), ("data", "model"))
+    out = {}
+    for arch_id in RS_ARCHS[1:]:
+        arch = get_arch(arch_id)
+        cfg = arch.smoke_config if smoke else arch.config
+        init_f, specs_f, _, _, score_f, tower_f, _ = _RS_FNS[arch_id]
+        published = arch.cell("train_batch").params["batch"]
+        if smoke:
+            b, probe = 4, 0
+        else:
+            b, probe = _rs_probe_batch(arch_id, cfg, init_f(
+                cfg, torch.Generator(device=dev).manual_seed(0)), published,
+                dev)
+        cell = ShapeCell("train_batch", "train", {"batch": b})
+        ex = make_exchange(mesh, "recsys")
+        plan = build_recsys_cell(dataclasses.replace(arch, config=cfg), cell,
+                                 mesh, ex)
+        space = plan.meta["space"]
+        state = init_train_state(
+            mesh, init_params_fn=lambda g: init_f(cfg, g),
+            param_specs=specs_f(cfg, 1), exchange=ex, space=space,
+            n_groups=1, key=torch.Generator(device=dev).manual_seed(0),
+            device=dev)
+        st = list(local_state(state, mesh, ex))
+        del state
+        batches = _rs_batches(arch_id, cfg, b, 2, 0, dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_counts()
+        step_ms, losses, st = _rs_step_times(plan.fn, st, batches)
+        launches = _counts()
+        _check_counts(f"rs {arch_id} train", launches, {"fused_agg_opt": 2})
+        peak = torch.cuda.max_memory_allocated(dev)
+        del batches
+        params = space.unflatten(st[0][0])
+        res = {"train": {"batch": b, "published": published,
+                         "probe_peak_bytes": probe, "step_ms": step_ms,
+                         "losses": losses, "peak_bytes": peak,
+                         "launches": launches}}
+        _zero_counts()
+        for shape in ("serve_p99", "retrieval_cand"):
+            sp = build_recsys_cell(arch, arch.cell(shape), mesh, None, smoke)
+            if sp.kind == "serve":
+                n = sp.abstract_args[1]["sparse"].shape[0]
+                batch = _rs_batches(arch_id, cfg, n, 1, 3, dev,
+                                    labels=False)[0]
+                with torch.no_grad():
+                    want = score_f(params, batch, cfg)
+            else:
+                batch = _rs_retrieval_batch(arch_id, cfg, sp, dev, 4)
+                with torch.no_grad():
+                    want = RS.bulk_retrieval(params, batch, tower_f, "t0",
+                                             cfg.embed_dim, cfg)
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            ms, got = [], {}
+            for _ in range(3):
+                ms.append(timed(lambda: got.update(y=sp.fn(params, batch))))
+            if not torch.isfinite(got["y"]).all() or not same_bits(got["y"],
+                                                                  want):
+                raise AssertionError(
+                    f"rs {arch_id} {shape}: the plan's scores differ from the"
+                    f" direct call, max |err| {max_abs_err(got['y'], want)}")
+            res[shape] = {"ms": ms, "rows": int(got["y"].shape[0]),
+                          "peak_bytes": torch.cuda.max_memory_allocated(dev)}
+            del batch, want, got
+        _check_counts(f"rs {arch_id} serving", _counts(), {})
+        out[arch_id] = res
+        log(f"phase 35: {arch_id} train_batch {b} rows (published "
+            f"{published}; probe peak {probe / 2**30:.2f} GiB at {RS_PROBE}):"
+            f" steps {[round(x, 1) for x in step_ms]} ms, losses {losses}, "
+            f"peak {peak / 2**30:.2f} GiB; serve_p99 "
+            f"{[round(x, 2) for x in res['serve_p99']['ms']]} ms, "
+            f"retrieval_cand {[round(x, 2) for x in res['retrieval_cand']['ms']]}"
+            f" ms ({res['retrieval_cand']['rows']} candidates), == the direct"
+            " calls bitwise")
+        del st, params, plan
+        torch.cuda.empty_cache()
+    return out
+
+
+def _rs_close(label: str, a, b) -> float:
+    """max |a - b| after checking a against b at RS_CARD_RTOL /
+    RS_CARD_ATOL (on the host)."""
+    import torch
+
+    a, b = a.detach().cpu(), b.detach().cpu()
+    if a.shape != b.shape or not torch.allclose(a, b, rtol=RS_CARD_RTOL,
+                                                atol=RS_CARD_ATOL):
+        raise AssertionError(f"{label}: shapes {tuple(a.shape)} / "
+                             f"{tuple(b.shape)}, max |err| "
+                             f"{max_abs_err(a, b) if a.shape == b.shape else None}")
+    return max_abs_err(a, b)
+
+
+def _rs_smoke_cases():
+    for arch_id in RS_ARCHS:
+        for shape in RS_CELLS:
+            yield f"{arch_id}/{shape}", arch_id, shape, "pbox"
+    yield "dlrm-mlperf/train_batch/pbox_sparse", "dlrm-mlperf", \
+        "train_batch", "pbox_sparse"
+
+
+def _rs_smoke_run(arch_id, shape, strategy, mesh, params, dev) -> dict:
+    """One SMOKE case on ``mesh`` (the card's world-1 mesh, or a
+    ``LocalMesh`` for the CPU) from ``params`` (copied to ``dev``): a train
+    cell's 2 steps, or a serving cell's output."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.steps import build_cell
+
+    cfg = get_arch(arch_id).smoke_config
+    plan = build_cell(arch_id, shape, mesh, strategy=strategy, smoke=True)
+    p = _tree_to(params, dev)
+    if plan.kind == "train":
+        space = plan.meta["space"]
+        b = plan.abstract_args[-1]["sparse"].shape[0]
+        batches = _rs_batches(arch_id, cfg, b, 2, 0, dev)
+        stc = torch.zeros((), dtype=torch.int32, device=dev)
+        if strategy == "pbox_sparse":  # updated in place: copies
+            tables = {k: v.clone() for k, v in p.pop("tables").items()}
+            st = [space.flatten(p).reshape(1, -1), (), None, stc, tables]
+        else:
+            st = [space.flatten(p).reshape(1, -1), (), None, stc]
+        losses = []
+        for bb in batches:
+            res = plan.fn(*st, bb)
+            st = list(res[:len(st)])
+            losses.append(res[-1]["loss"])
+        out = {"pflat": st[0], "losses": torch.stack(losses)}
+        if strategy == "pbox_sparse":
+            out["tables"] = st[4]
+        return out
+    if plan.kind == "serve":
+        n = plan.abstract_args[1]["sparse"].shape[0]
+        batch = _rs_batches(arch_id, cfg, n, 1, 3, dev, labels=False)[0]
+    else:
+        batch = _rs_retrieval_batch(arch_id, cfg, plan, torch.device("cpu"),
+                                    4)
+        batch = {k: v.to(dev) for k, v in batch.items()}
+    return {"y": plan.fn(p, batch)}
+
+
+def rs_smoke_check(dev, only=None) -> dict:
+    """Phase 36: every recsys arch x cell at its SMOKE config and DLRM's
+    pbox_sparse step, world 1, the card against the CPU (a ``LocalMesh``,
+    the kernels' plain versions) from the same seeded params: params,
+    tables, losses and scores within RS_CARD_RTOL / RS_CARD_ATOL (the
+    card's f32 matmuls sum in other orders than the CPU's); the card's
+    launches equal to the CPU run's plain-version calls.  Call inside
+    ``world_one`` and ``deterministic``."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import _RS_FNS
+
+    mesh = make_mesh((1, 1), ("data", "model"))
+    cpu_mesh = LocalMesh(("data", "model"))
+    out = {}
+    for name, arch_id, shape, strategy in _rs_smoke_cases():
+        if only is not None and name not in only:
+            continue
+        cfg = get_arch(arch_id).smoke_config
+        params = _RS_FNS[arch_id][0](cfg, torch.Generator().manual_seed(0))
+        _zero_counts()
+        card = _rs_smoke_run(arch_id, shape, strategy, mesh, params, dev)
+        launches = _counts()
+        with PlainCalls() as plain:
+            cpu = _rs_smoke_run(arch_id, shape, strategy, cpu_mesh, params,
+                                torch.device("cpu"))
+        if launches != plain.counts:
+            raise AssertionError(f"rs smoke {name}: card launches {launches},"
+                                 f" CPU plain calls {plain.counts}")
+        err = 0.0
+        for key in card:
+            if key == "tables":
+                for t in card[key]:
+                    err = max(err, _rs_close(f"rs smoke {name} {t}",
+                                             card[key][t], cpu[key][t]))
+            else:
+                err = max(err, _rs_close(f"rs smoke {name} {key}", card[key],
+                                         cpu[key]))
+        out[name] = {"launches": launches, "max_abs_err": err}
+    log(f"phase 36: {len(out)} recsys SMOKE cases (4 archs x 4 cells, DLRM "
+        f"pbox_sparse) card == CPU within rtol {RS_CARD_RTOL} / atol "
+        f"{RS_CARD_ATOL}, max |err| {max(c['max_abs_err'] for c in out.values())}")
+    return out
+
+
+# phase 36's two ranks: dlrm-mlperf SMOKE on a (1, 2) mesh, gloo on cuda:0
+RS_GLOO_BATCH = 4
+
+
+def _rs_gloo_steps(mesh, dev, tp: int) -> dict:
+    """dlrm-mlperf SMOKE at ``tp`` (the mesh's model axis) on a
+    RS_GLOO_BATCH-row batch: one pbox step (tables in the flat) and one
+    pbox_sparse step from the same global draw; this rank's local
+    results on the host."""
+    import torch
+
+    from repro_torch.configs.registry import ShapeCell, get_arch
+    from repro_torch.launch.steps import (
+        build_recsys_cell,
+        build_recsys_train_sparse,
+        make_exchange,
+    )
+    from repro_torch.models.recsys import models as RS
+    from repro_torch.runtime.trainer import local_params, shard_batch
+
+    arch = get_arch("dlrm-mlperf")
+    cfg = arch.smoke_config
+    arch = dataclasses.replace(arch, config=cfg)
+    cell = ShapeCell("train_batch", "train", {"batch": RS_GLOO_BATCH})
+    params = RS.dlrm_init(cfg, torch.Generator().manual_seed(0), 2)
+    local = _tree_to(local_params(params, RS.dlrm_specs(cfg, tp), mesh), dev)
+    batch = _rs_batches("dlrm-mlperf", cfg, RS_GLOO_BATCH, 1, 0, "cpu")[0]
+    ex = make_exchange(mesh, "recsys")
+    mine = {k: v.to(dev) for k, v in shard_batch(batch, mesh, ex).items()}
+    stc = torch.zeros((), dtype=torch.int32, device=dev)
+    dense = build_recsys_cell(arch, cell, mesh, ex)
+    pf = dense.meta["space"].flatten(local).reshape(1, -1)
+    res = dense.fn(pf, (), None, stc, mine)
+    out = {"dense": _tree_to(dense.meta["space"].unflatten(res[0][0]), "cpu"),
+           "dense_loss": res[-1]["loss"].item()}
+    sparse = build_recsys_train_sparse(arch, cell, mesh)
+    tables = {k: v.clone() for k, v in local["tables"].items()}
+    d0 = {k: v for k, v in local.items() if k != "tables"}
+    res = sparse.fn(sparse.meta["space"].flatten(d0).reshape(1, -1), (), None,
+                    stc, tables, mine)
+    out["sparse"] = _tree_to(sparse.meta["space"].unflatten(res[0][0]), "cpu")
+    out["sparse"]["tables"] = _tree_to(res[4], "cpu")
+    out["sparse_loss"] = res[-1]["loss"].item()
+    return out
+
+
+def _rs_gloo_rank(rank, world, path, out_dir, device):
+    """One rank of phase 36's (1, 2) pass on ``device`` (cuda:0) over gloo."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import Mesh
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dist.init_process_group("gloo", init_method=f"file://{path}", rank=rank,
+                            world_size=world)
+    try:
+        mesh = Mesh((1, world), ("data", "model"))
+        out = _rs_gloo_steps(mesh, dev, world)
+        out["model"] = mesh.coords["model"]
+        torch.save(out, Path(out_dir) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def rs_gloo_check(dev) -> dict:
+    """Phase 36's tp = 2 pass: 2 gloo ranks on cuda:0, mesh (1, 2),
+    dlrm-mlperf SMOKE, one dense and one sparse step each (the lookup's
+    psum_scatter, the cotangents' all-gather, the MLPs' psum_model), held
+    to tp = 1 on the card (a ``LocalMesh``) at RS_CARD_RTOL / RS_CARD_ATOL:
+    each rank's MLPs, its rows of every table, and the losses (the tp = 2
+    metric is the loss over tp)."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_rs_gloo_")
+    t0 = time.perf_counter()
+    try:
+        ctx = mp.start_processes(_rs_gloo_rank, args=(2, f"{tmp}/rendezvous",
+                                                      tmp, str(dev)),
+                                 nprocs=2, join=False, start_method="spawn")
+        deadline = time.monotonic() + 300
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise AssertionError("recsys gloo ranks on cuda:0 timed out")
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt") for r in range(2)]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    with deterministic():
+        ref = _rs_gloo_steps(LocalMesh(("data", "model")), dev, 1)
+    err = 0.0
+    for r, got in enumerate(ranks):
+        g = got["model"]
+        for kind in ("dense", "sparse"):
+            if not math.isclose(got[f"{kind}_loss"] * 2, ref[f"{kind}_loss"],
+                                rel_tol=RS_CARD_RTOL, abs_tol=RS_CARD_ATOL):
+                raise AssertionError(
+                    f"rs gloo rank {r} {kind}: loss x tp "
+                    f"{got[f'{kind}_loss'] * 2} against tp = 1 "
+                    f"{ref[f'{kind}_loss']}")
+            for (name, a), (_, w) in zip(_named_leaves(got[kind]),
+                                         _named_leaves(ref[kind])):
+                if name.startswith("tables/"):
+                    n = a.shape[0]
+                    w = w[g * n:(g + 1) * n]
+                err = max(err, _rs_close(f"rs gloo rank {r} {kind} {name}",
+                                         a, w))
+    log(f"phase 36: dlrm-mlperf SMOKE at tp = 2 over 2 gloo ranks on cuda:0,"
+        f" one dense and one sparse step == tp = 1 on the card within rtol "
+        f"{RS_CARD_RTOL} / atol {RS_CARD_ATOL} (max |err| {err}) in "
+        f"{seconds:.1f} s")
+    return {"seconds": seconds, "max_abs_err": err}
+
+
+def time_fused_agg_opt_sgd(dev, n: int, sets: int = 3) -> dict:
+    """fused_agg_opt as the recsys steps run it: SGD(0.01), K = 1, no
+    averaging, f32, over the sparse step's dense flat of ``n`` elements;
+    ``sets`` input sets cycled (beyond the 50 MB L2), timed by CUDA-graph
+    replay (a ~10 us launch), beside its plain version and the one
+    PyTorch call that computes the same update, ``Tensor.add_(g,
+    alpha=-lr)`` (which the port never calls)."""
+    import torch
+
+    from repro_torch.kernels.fused_agg_opt import kernel as K
+    from repro_torch.kernels.fused_agg_opt.ops import scalar_packet
+    from repro_torch.optim.optimizers import sgd
+
+    spec = sgd(1e-2)
+    packet = scalar_packet(spec, 1, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    inputs = [(torch.randn((1, n), generator=gen, device=dev),
+               torch.randn(n, generator=gen, device=dev))
+              for _ in range(sets)]
+    g, p = inputs[0]
+    want_p, _ = K.fused_agg_opt_torch(g, p, (), packet, spec, average=False)
+    K.fused_agg_opt_cuda(g, p, (), packet, spec, average=False)  # in place
+    torch.cuda.synchronize()
+    err = max_abs_err(p, want_p)
+    if not same_bits(p, want_p):
+        raise AssertionError(f"fused_agg_opt (SGD, K = 1) differs at the "
+                             f"recsys shape, max |err| {err}")
+    kernel_ms, how = _graph_or_events(
+        [lambda x=x: K.fused_agg_opt_cuda(x[0], x[1], (), packet, spec,
+                                          average=False)
+         for x in inputs] * 4, "fused_agg_opt SGD")
+    events_ms = cuda_ms(lambda: K.fused_agg_opt_cuda(
+        g, p, (), packet, spec, average=False), reps=20)
+    plain_ms = cuda_ms(lambda: K.fused_agg_opt_torch(
+        g, p, (), packet, spec, average=False), reps=5)
+    # one PyTorch call computes the same update: p += -lr * g, in place
+    lib = torch.add(p, g[0], alpha=-spec.lr)
+    want_p, _ = K.fused_agg_opt_torch(g, p, (), packet, spec, average=False)
+    lib_same = same_bits(lib, want_p)
+    del lib, want_p
+    lib_ms, lib_how = _graph_or_events(
+        [lambda x=x: x[1].add_(x[0][0], alpha=-spec.lr) for x in inputs] * 4,
+        "Tensor.add_")
+    # gradient and param read, param written; lr * g and the subtract
+    b = bound(torch.cuda.get_device_name(dev), 12 * n, 2 * n)
+    log(f"timing fused_agg_opt (SGD, K=1, no averaging, f32, N={n}): kernel "
+        f"{kernel_ms:.4f} ms ({how}, {sets} input sets; CUDA events around "
+        f"one call, host launch included: {events_ms:.4f}), plain version "
+        f"{plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms = {b['bytes']} "
+        f"bytes; kernel reaches {b['bound_ms'] / kernel_ms:.1%} of the bound;"
+        f" library: Tensor.add_(g, alpha=-lr) {lib_ms:.4f} ms ({lib_how}), "
+        f"same bits: {lib_same}")
+    return {"ms": kernel_ms, "ms_events": events_ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "library_ms": lib_ms,
+            "library_same_bits": lib_same, "timed_by": how, **b}
+
+
 # -- phase 19: kernel timings ------------------------------------------------
 def time_fused_agg_opt(dev, n: int, k: int, average: bool = True,
                        dtype=None) -> dict:
@@ -6310,6 +7134,13 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60)
     log(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(smi.stdout.strip().splitlines()[0])
+    laps, t_lap = {}, [t_start]
+
+    def lap(label: str) -> None:
+        """Seconds since the previous lap, by group of phases."""
+        now = time.perf_counter()
+        laps[label] = round(now - t_lap[0], 1)
+        t_lap[0] = now
 
     secs = _build.build_all()
     log(f"build: {_build.sources()} in {secs:.1f} s")
@@ -6318,8 +7149,10 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {src}: {line.strip()}")
 
+    lap("1-2 build")
     sweep = {"fused_agg_opt": kernel_sweep(dev), **quant_sweep(dev),
              "wire_fused": wire_sweep(dev), **bag_sweep(dev)}
+    lap("3 sweeps")
     f32 = main_path(dev, "none")
     f32_err = replay_f32(dev, f32)
     f32.pop("captured")
@@ -6331,6 +7164,7 @@ def main() -> int:
     dlrm_err = replay_dlrm(dlrm)
     dlrm.pop("captured")
     dlrm_sharding_check(dev)
+    lap("4-7 main paths")
     rehearsal = fault_rehearsal()
     with deterministic():
         gw = GemmaWorkers(dev)
@@ -6346,15 +7180,19 @@ def main() -> int:
         tenancy = tenancy_path(dev)
     async_err = replay_wire(dev, asyn)
     asyn.pop("captured")
+    lap("8-10, 12-13, 15, 17, 23 full width")
     smoke = smoke_modes_check(dev)
     smoke_topo = smoke_topology_check(dev)
     smoke_fault = smoke_fault_check(dev)
     smoke_tenancy = smoke_tenancy_check(dev)
+    lap("11, 14, 16, 18 SMOKE")
     torch.cuda.empty_cache()
     serve = serve_path(dev)
     sparse_serve = sparse_serve_path(dev)
+    lap("20-21 serving")
     smoke_serve = smoke_serve_check(dev)
     smoke_auto = smoke_autoscale_check(dev)
+    lap("22, 24 SMOKE")
     torch.cuda.empty_cache()
     with world_one(dev), deterministic():
         spmd = spmd_path(dev)
@@ -6362,8 +7200,23 @@ def main() -> int:
         cli = cli_check(dev)
         remat = remat_path(dev)
         cells = serve_cells_path(dev)
+    lap("25-27, 29-30 SPMD")
     gloo = gloo_cuda_check(dev)
+    lap("28 gloo")
     tp = tp_path(dev)
+    lap("31 tp")
+    torch.cuda.empty_cache()
+    with world_one(dev), deterministic():
+        rs_sparse = rs_sparse_path(dev)
+        rs_serve = rs_serve_path(dev, rs_sparse.pop("params"),
+                                 rs_sparse.pop("cfg"))
+        torch.cuda.empty_cache()
+        rs_dense = rs_dense_sparse_path(dev)
+        rs_archs = rs_archs_path(dev)
+        rs_smoke = rs_smoke_check(dev)
+    lap("32-36 recsys")
+    rs_gloo = rs_gloo_check(dev)
+    lap("36 recsys gloo")
     torch.cuda.empty_cache()
     switch_math = switch_math_ms(dev, int8["flat"], int8["chunk"])
     d = dlrm_capped_config().embed_dim
@@ -6379,6 +7232,9 @@ def main() -> int:
                   dtype=torch.bfloat16),
               "wire_fused_k1": time_wire(dev, asyn["n"], 1, asyn["chunk"],
                                          average=False),
+              # the recsys steps' update: SGD, K = 1, f32, the dense MLPs
+              "fused_agg_opt_sgd": time_fused_agg_opt_sgd(dev,
+                                                          rs_sparse["flat"]),
               "embedding_bag": time_embedding_bag(
                   dev, DLRM_BATCH, 1, d, DLRM_ROW_CAP, "one-hot main path", 4),
               "segment_sum": time_segment_sum(dev, DLRM_BATCH, d, DLRM_ROW_CAP)}
@@ -6423,7 +7279,18 @@ def main() -> int:
                             for k in f32["launches"]},
              "train_4k": remat["train_4k"]["launches"],
              "tp2_ranks": tp["launches_tp2"],
-             "tp1_reference": tp["launches_tp1"]}
+             "tp1_reference": tp["launches_tp1"],
+             "recsys_sparse": rs_sparse["launches"],
+             "recsys_dense_vs_sparse": {
+                 k: rs_dense["dense"]["launches"][k]
+                 + rs_dense["sparse"]["launches"][k] for k in f32["launches"]},
+             **{f"recsys_{a}": r["train"]["launches"]
+                for a, r in rs_archs.items()},
+             "smoke_recsys": {k: sum(c["launches"][k] for c in
+                                     rs_smoke.values())
+                              for k in f32["launches"]}}
+    recsys_paths = [p for p in paths if p.startswith(("recsys_",
+                                                      "smoke_recsys"))]
     # K = 1 without averaging: the async pushes (f32 ones only at SMOKE)
     k1_launches = {"fused_agg_opt": smoke["async/none"]["fused_agg_opt"],
                    "wire_fused": asyn["launches"]["wire_fused"]
@@ -6494,6 +7361,13 @@ def main() -> int:
                     "ms", "plain_ms", "bound_ms", "bound_by",
                     "max_abs_err", "library_ms", "library")}}}
                if kname == "fused_agg_opt" else {}),
+            **({"recsys_sgd_k1_f32": {
+                "launches": sum(paths[p][kname] for p in recsys_paths),
+                **{key: timing["fused_agg_opt_sgd"][key] for key in (
+                    "ms", "ms_events", "plain_ms", "bound_ms", "bound_by",
+                    "max_abs_err", "library_ms", "library_same_bits",
+                    "timed_by")}}}
+               if kname == "fused_agg_opt" else {}),
         })
     log(f"main path peaks: f32 {f32['peak_bytes'] / 2**30:.2f} GiB, int8 "
         f"{int8['peak_bytes'] / 2**30:.2f} GiB, dlrm "
@@ -6557,9 +7431,24 @@ def main() -> int:
         f" a step; tp = 2 steady step {tp['step_ms_tp2'][-1]:.1f} ms "
         f"(collectives {tp['coll_ms'][-1]:.1f} ms) against tp = 1 "
         f"{tp['step_ms_tp1'][-1]:.1f} ms"
+        + f"; recsys: dlrm sparse steady step "
+        f"{statistics.median(rs_sparse['step_ms'][1:]):.1f} ms, peak "
+        f"{rs_sparse['peak_bytes'] / 2**30:.2f} GiB; dense step "
+        f"{rs_dense['dense']['ms'][-1]:.1f} ms / sparse "
+        f"{rs_dense['sparse']['ms'][-1]:.1f} ms at the "
+        f"{RS_DENSE_CAP}-row cap; serve_p99 "
+        f"{rs_serve['serve_p99']['ms'][-1]:.2f} ms, serve_bulk "
+        f"{rs_serve['serve_bulk']['ms'][-1]:.1f} ms, retrieval_cand "
+        f"{rs_serve['retrieval_cand']['ms'][-1]:.2f} ms; "
+        + ", ".join(f"{a} step {r['train']['step_ms'][-1]:.1f} ms at "
+                    f"{r['train']['batch']} rows"
+                    for a, r in rs_archs.items())
+        + f"; recsys gloo tp = 2 {rs_gloo['seconds']:.1f} s"
         + f"; switch integer math "
         f"{sum(v['ms'] for v in switch_math.values()):.3f} ms; whole run "
         f"{time.perf_counter() - t_start:.1f} s")
+    lap("19 timings")
+    log(f"phase seconds: {laps}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

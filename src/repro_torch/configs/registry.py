@@ -1,7 +1,8 @@
 """Architecture registry (torch counterpart of ``repro/configs/registry.py``).
 
 Each arch module exposes ``ARCH: ArchDef``.  The port registers the archs
-it can train so far: ``gemma3-1b`` and ``dlrm-mlperf``.
+it has ported so far: ``gemma3-1b`` and the four recsys archs
+(``dlrm-mlperf``, ``autoint``, ``dien``, ``xdeepfm``).
 """
 from __future__ import annotations
 
@@ -35,9 +36,10 @@ class ArchDef:
 
 
 def _build() -> dict:
-    from repro_torch.configs import dlrm_mlperf, gemma3_1b
+    from repro_torch.configs import autoint, dien, dlrm_mlperf, gemma3_1b, xdeepfm
 
-    return {m.ARCH.arch_id: m.ARCH for m in (gemma3_1b, dlrm_mlperf)}
+    return {m.ARCH.arch_id: m.ARCH
+            for m in (gemma3_1b, dlrm_mlperf, autoint, dien, xdeepfm)}
 
 
 def get_arch(arch_id: str) -> ArchDef:

@@ -5,11 +5,14 @@ Every builder returns a ``CellPlan`` whose ``fn`` is the per-rank step and
 whose ``abstract_args`` carry the global shapes and dtypes of its
 arguments as meta tensors (JAX's carry ``NamedSharding``s too, for its
 dry-run; the port has no dry-run).  The LM cells (train, prefill, decode,
-decode_long) build at any model-axis size; the recsys family raises
-``NotImplementedError`` naming the ROADMAP item that ports it.  A serving
-plan's ``fn`` takes the rank's local parameters (cut from the global tree
-by ``runtime.trainer.local_params``), its rows of the batch and its
-sequence shard of the cache, and runs without autograd.
+decode_long) and the recsys cells (train, serve, retrieval, and DLRM's
+sparse-push train step under ``strategy="pbox_sparse"``) build at any
+model-axis size.  A serving plan's ``fn`` takes the rank's local
+parameters (cut from the global tree by ``runtime.trainer.local_params``),
+its rows of the batch (and, for the LM cells, its sequence shard of the
+cache), and runs without autograd.  A recsys retrieval plan takes the
+``tp`` replicated user rows and this rank's slice of the candidates
+(sharded over every mesh axis, in rank order).
 """
 from __future__ import annotations
 
@@ -23,12 +26,9 @@ from repro_torch.core.exchange import ExchangeConfig, PSExchange
 from repro_torch.launch import mesh as meshlib
 from repro_torch.models import transformer as T
 from repro_torch.models.common import Dist
+from repro_torch.models.recsys import models as RS
 from repro_torch.optim.optimizers import OptimizerSpec, adamw, momentum, sgd
 from repro_torch.runtime.trainer import make_ps_train_step
-
-# what build_cell refuses among the registered archs' cells (the gnn and
-# vision archs are not registered yet: ROADMAP queue 1, item 7)
-NOT_PORTED = {"recsys": "ROADMAP queue 1, item 6c"}
 
 
 @dataclasses.dataclass
@@ -213,6 +213,218 @@ def build_lm_decode_long(arch: ArchDef, cell: ShapeCell, mesh,
 
 
 # ===========================================================================
+# recsys cells
+# ===========================================================================
+
+_RS_FNS = {
+    "dlrm-mlperf": (RS.dlrm_init, RS.dlrm_specs, RS.dlrm_grad_sync,
+                    RS.dlrm_loss, RS.dlrm_score, RS.dlrm_user_tower,
+                    RS.DLRMConfig),
+    "autoint": (RS.autoint_init, RS.autoint_specs, RS.autoint_grad_sync,
+                RS.autoint_loss, RS.autoint_score, RS.autoint_user_tower,
+                RS.AutoIntConfig),
+    "dien": (RS.dien_init, RS.dien_specs, RS.dien_grad_sync, RS.dien_loss,
+             RS.dien_score, RS.dien_user_tower, RS.DIENConfig),
+    "xdeepfm": (RS.xdeepfm_init, RS.xdeepfm_specs, RS.xdeepfm_grad_sync,
+                RS.xdeepfm_loss, RS.xdeepfm_score, RS.xdeepfm_user_tower,
+                RS.XDeepFMConfig),
+}
+
+
+def rs_abstract_params(arch_id: str, cfg, tp: int) -> dict:
+    """The recsys init's global tree for ``tp`` as meta tensors (the JAX
+    package's ``jax.eval_shape`` of the init)."""
+    return _RS_FNS[arch_id][0](cfg, None, tp, device="meta")
+
+
+def _rs_batch_template(arch_id, cfg, gb, mesh, wa, retrieval_n=None):
+    """(meta tensors, specs) for a recsys batch."""
+    tp = mesh.shape["model"]
+    if retrieval_n is not None:
+        b = tp  # replicated user rows, one per model shard
+        spec_b = (None,)
+    else:
+        b = gb
+        spec_b = (wa,)
+    batch, specs = {}, {}
+    if arch_id == "dlrm-mlperf":
+        batch["dense"] = _meta((b, cfg.n_dense), torch.float32)
+        specs["dense"] = spec_b
+    if arch_id == "dien":
+        batch["hist_items"] = _meta((b, cfg.seq_len), torch.int32)
+        batch["hist_cats"] = _meta((b, cfg.seq_len), torch.int32)
+        specs["hist_items"] = spec_b
+        specs["hist_cats"] = spec_b
+        nf = 2
+    else:
+        nf = len(cfg.vocabs)
+    batch["sparse"] = _meta((b, nf), torch.int32)
+    specs["sparse"] = spec_b
+    batch["labels"] = _meta((b,), torch.int32)
+    specs["labels"] = spec_b
+    if retrieval_n is not None:
+        all_ax = tuple(mesh.axis_names)
+        batch["cand_ids"] = _meta((retrieval_n,), torch.int32)
+        specs["cand_ids"] = (all_ax,)
+    return batch, specs
+
+
+def _rs_dist(mesh) -> Dist:
+    return Dist(model_axis="model", data_axes=meshlib.worker_axes(mesh),
+                tp=mesh.shape["model"], mesh=mesh)
+
+
+def build_recsys_cell(arch: ArchDef, cell: ShapeCell, mesh,
+                      exchange: PSExchange | None,
+                      smoke: bool = False) -> CellPlan:
+    cfg = arch.smoke_config if smoke else arch.config
+    _, specs_fn, sync_fn, loss_f, score_f, tower_f, _ = _RS_FNS[arch.arch_id]
+    tp = mesh.shape["model"]
+    wa = meshlib.worker_axes(mesh)
+    dist = _rs_dist(mesh)
+    specs = specs_fn(cfg, tp)
+    gshape = rs_abstract_params(arch.arch_id, cfg, tp)
+    nw = meshlib.num_workers(mesh)
+
+    if cell.kind == "train":
+        gb = cell.params["batch"] if not smoke else nw * tp * 2
+        exchange = exchange or make_exchange(mesh, "recsys")
+        batch_t, batch_spec = _rs_batch_template(arch.arch_id, cfg, gb, mesh,
+                                                 wa)
+        step, space, sspecs, ng = make_ps_train_step(
+            mesh, loss_fn=lambda p, b, d: loss_f(p, b, cfg, d),
+            param_specs=specs, sync_tags=sync_fn(cfg, tp),
+            global_param_template=gshape, exchange=exchange, dist=dist,
+            batch_spec=batch_spec, loss_div_tp=False,  # bce_loss divides
+        )
+        args = (
+            _meta((ng, space.flat_elems), torch.float32),
+            tuple(_meta((ng, space.flat_elems), torch.float32)
+                  for _ in sspecs["slots"]),
+            None, _meta((), torch.int32), batch_t,
+        )
+        return CellPlan(arch.arch_id, cell.name, "train", step, args, {
+            "space": space, "sspecs": sspecs, "n_groups": ng,
+            "exchange": exchange,  # the port's: the driver needs its axes
+            "model_flops": 6.0 * _rs_dense_flops(arch.arch_id, cfg) * gb,
+            "examples": gb})
+
+    if cell.kind == "serve":
+        gb = cell.params["batch"] if not smoke else nw * tp * 2
+        batch_t, _ = _rs_batch_template(arch.arch_id, cfg, gb, mesh, wa)
+        batch_t.pop("labels")
+
+        def fn(params, batch):
+            with torch.no_grad():
+                return score_f(params, batch, cfg, dist)
+
+        return CellPlan(arch.arch_id, cell.name, "serve", fn,
+                        (gshape, batch_t),
+                        {"model_flops": 2.0 * _rs_dense_flops(arch.arch_id, cfg)
+                         * gb, "examples": gb})
+
+    if cell.kind == "retrieval":
+        n = cell.params["n_candidates"] if not smoke else nw * tp * 8
+        batch_t, _ = _rs_batch_template(arch.arch_id, cfg, 1, mesh, wa,
+                                        retrieval_n=n)
+        batch_t.pop("labels")
+
+        def fn(params, batch):
+            with torch.no_grad():
+                return RS.bulk_retrieval(params, batch, tower_f, "t0",
+                                         cfg.embed_dim, cfg, dist)
+
+        return CellPlan(arch.arch_id, cell.name, "retrieval", fn,
+                        (gshape, batch_t),
+                        {"model_flops": 2.0 * n * cfg.embed_dim,
+                         "examples": n})
+    raise ValueError(cell.kind)
+
+
+def _rs_dense_flops(arch_id: str, cfg) -> float:
+    """Per-example dense-stage MAC count (embedding lookups are bytes, not
+    flops)."""
+    if arch_id == "dlrm-mlperf":
+        dims_b = (cfg.n_dense,) + cfg.bot_mlp
+        dims_t = (cfg.top_in,) + cfg.top_mlp
+        f = sum(a * b for a, b in zip(dims_b, dims_b[1:]))
+        f += sum(a * b for a, b in zip(dims_t, dims_t[1:]))
+        f += (cfg.n_sparse + 1) ** 2 * cfg.embed_dim / 2
+        return f
+    if arch_id == "autoint":
+        d_in, f = cfg.embed_dim, 0
+        for _ in range(cfg.n_attn_layers):
+            f += cfg.n_sparse * (4 * d_in * cfg.d_attn
+                                 + 2 * cfg.n_sparse * cfg.d_attn)
+            d_in = cfg.d_attn
+        return f
+    if arch_id == "dien":
+        g = 3 * (cfg.in_dim + cfg.gru_dim) * cfg.gru_dim
+        f = 2 * cfg.seq_len * g  # GRU + AUGRU
+        dims = (cfg.mlp_in,) + cfg.mlp
+        return f + sum(a * b for a, b in zip(dims, dims[1:]))
+    if arch_id == "xdeepfm":
+        f, h_prev = 0, cfg.n_sparse
+        for h in cfg.cin_layers:
+            f += h * h_prev * cfg.n_sparse * cfg.embed_dim
+            h_prev = h
+        dims = (cfg.n_sparse * cfg.embed_dim,) + cfg.mlp
+        return f + sum(a * b for a, b in zip(dims, dims[1:]))
+    raise ValueError(arch_id)
+
+
+def build_recsys_train_sparse(arch: ArchDef, cell: ShapeCell, mesh,
+                              smoke: bool = False) -> CellPlan:
+    """Recsys training with the dense params through the chunked PBox
+    exchange and the embedding tables by the sparse key-value push
+    (``runtime/sparse_push.py``).  Wired for dlrm-mlperf, as in the JAX
+    package.  ``fn(pflat, slots, ef, step, tables, batch)`` takes this
+    rank's table shards and updates them in place."""
+    from repro_torch.runtime.sparse_push import make_sparse_recsys_train_step
+
+    if arch.arch_id != "dlrm-mlperf":
+        raise NotImplementedError("sparse push is wired for dlrm-mlperf")
+    cfg = arch.smoke_config if smoke else arch.config
+    tp = mesh.shape["model"]
+    wa = meshlib.worker_axes(mesh)
+    nw = meshlib.num_workers(mesh)
+    dist = _rs_dist(mesh)
+    gb = cell.params["batch"] if not smoke else nw * tp * 2
+    exchange = make_exchange(mesh, "recsys", "pbox")
+
+    full_specs = RS.dlrm_specs(cfg, tp)
+    table_specs_ = full_specs["tables"]
+    dense_specs = {k: v for k, v in full_specs.items() if k != "tables"}
+    full_sync = RS.dlrm_grad_sync(cfg, tp)
+    dense_sync = {k: v for k, v in full_sync.items() if k != "tables"}
+    gshape = rs_abstract_params(arch.arch_id, cfg, tp)
+    dense_template = {k: v for k, v in gshape.items() if k != "tables"}
+    batch_t, batch_spec = _rs_batch_template(arch.arch_id, cfg, gb, mesh, wa)
+
+    step, space, sspecs = make_sparse_recsys_train_step(
+        mesh,
+        lookup_fn=lambda tables, b, d: RS.dlrm_lookup(tables, b, d),
+        loss_from_emb=lambda dp, e, b, d: RS.dlrm_loss_from_emb(dp, e, b, cfg,
+                                                               d),
+        dense_specs=dense_specs, dense_sync=dense_sync,
+        dense_template=dense_template, table_specs=table_specs_,
+        exchange=exchange, dist=dist, batch_spec=batch_spec,
+        table_lr=exchange.spec.lr,
+    )
+    args = (
+        _meta((tp, space.flat_elems), torch.float32),
+        tuple(_meta((tp, space.flat_elems), torch.float32)
+              for _ in sspecs["slots"]),
+        None, _meta((), torch.int32), gshape["tables"], batch_t,
+    )
+    return CellPlan(arch.arch_id, cell.name, "train", step, args, {
+        "space": space, "sspecs": sspecs, "n_groups": tp,
+        "exchange": exchange,
+        "model_flops": 6.0 * _rs_dense_flops(arch.arch_id, cfg) * gb,
+        "examples": gb, "variant": "sparse_push"})
+
+
+# ===========================================================================
 # dispatch
 # ===========================================================================
 
@@ -234,8 +446,10 @@ def build_cell(arch_id: str, shape: str, mesh, *, strategy: str = "pbox",
             return build_lm_decode(arch, cell, mesh, smoke)
         if cell.kind == "decode_long":
             return build_lm_decode_long(arch, cell, mesh, smoke)
-    if arch.family in NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch_id}/{shape} ({arch.family} {cell.kind}) is not ported "
-            f"yet: {NOT_PORTED[arch.family]}")
+    if arch.family == "recsys":
+        if cell.kind == "train" and strategy == "pbox_sparse":
+            return build_recsys_train_sparse(arch, cell, mesh, smoke)
+        ex = (make_exchange(mesh, "recsys", strategy, opt, exchange_cfg)
+              if cell.kind == "train" else None)
+        return build_recsys_cell(arch, cell, mesh, ex, smoke)
     raise ValueError(f"{arch_id}/{shape}")

@@ -13,8 +13,16 @@ checkpointing and crash-restart (``--resume``).
       --mesh 4x1
 
 ``--mesh DATAxMODEL`` must hold exactly the world's ranks; a model axis
-above one shards the model over its ranks (tensor parallelism, each model
-group with its own flat space).  ``main(argv, device=...)`` is the body: it runs on the card unless ``device`` says
+above one shards the model over its ranks (tensor parallelism for the LM
+archs, row-sharded embedding tables for the recsys archs; each model
+group with its own flat space).  The recsys archs (``--arch dlrm-mlperf``,
+``autoint``, ``dien``, ``xdeepfm``) train their ``train_batch`` cell on
+``recsys_batches``:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-mlperf \\
+      --steps 20 --mesh 1x1
+
+``main(argv, device=...)`` is the body: it runs on the card unless ``device`` says
 otherwise, joins a process group its caller already started, and returns
 the losses, the final step and this rank's final state.  ``--resume``
 skips the batches the restored steps consumed, so a restarted run goes on
@@ -56,9 +64,9 @@ def main(argv=None, *, device=None) -> dict:
     )
     from repro_torch.configs.registry import get_arch
     from repro_torch.data.pipeline import Prefetcher, to_device
-    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.data.synthetic import lm_batches, recsys_batches
     from repro_torch.launch.mesh import make_mesh, start_group
-    from repro_torch.launch.steps import build_cell
+    from repro_torch.launch.steps import _RS_FNS, build_cell
     from repro_torch.models import transformer as T
     from repro_torch.runtime.trainer import (
         TrainState,
@@ -87,8 +95,18 @@ def main(argv=None, *, device=None) -> dict:
         space, exchange = plan.meta["space"], plan.meta["exchange"]
 
         # ---- data: every rank draws the global batch, keeps its rows ----
-        gb, s = plan.abstract_args[4]["tokens"].shape
-        it = lm_batches(cfg.vocab, gb, s, args.seed)
+        bt = plan.abstract_args[4]
+        if arch.family == "lm":
+            gb, s = bt["tokens"].shape
+            it = lm_batches(cfg.vocab, gb, s, args.seed)
+            init_fn = lambda g: T.init_params(cfg, g, tp=m)  # noqa: E731
+            specs = T.make_param_specs(cfg, m)
+        else:  # recsys
+            it = recsys_batches(args.arch, cfg, bt["sparse"].shape[0],
+                                args.seed)
+            fi, fs = _RS_FNS[args.arch][:2]
+            init_fn = lambda g: fi(cfg, g, m)  # noqa: E731
+            specs = fs(cfg, m)
         data = Prefetcher(
             it, depth=2,
             transform=lambda b: to_device(shard_batch(b, mesh, exchange), dev))
@@ -107,8 +125,8 @@ def main(argv=None, *, device=None) -> dict:
         else:
             gen = torch.Generator(device=dev).manual_seed(args.seed)
             state = init_train_state(
-                mesh, init_params_fn=lambda g: T.init_params(cfg, g, tp=m),
-                param_specs=T.make_param_specs(cfg, m), exchange=exchange,
+                mesh, init_params_fn=init_fn, param_specs=specs,
+                exchange=exchange,
                 space=space, n_groups=plan.meta["n_groups"], key=gen,
                 ps_dtype=plan.abstract_args[0].dtype, device=dev)
 

@@ -11,9 +11,10 @@ backward is a ``psum``, ``psum_scatter``'s an ``all_gather`` and
 model stops the gradient before it).  So a rank's backward computes the
 gradient of the sum over ranks of the per-rank loss with respect to its
 local parameters, as JAX's does.  Initializers draw from an explicit
-``torch.Generator`` on the generator's device; they give other numbers
-than ``jax.random`` for the same seed, so parity tests load the JAX
-package's parameters through ``repro_torch.interop`` instead.
+``torch.Generator`` on the generator's device (a ``None`` generator gives
+meta tensors: shapes only); they give other numbers than ``jax.random``
+for the same seed, so parity tests load the JAX package's parameters
+through ``repro_torch.interop`` instead.
 """
 from __future__ import annotations
 
@@ -146,19 +147,28 @@ class Dist:
 # initializers (explicit generator threading)
 # ---------------------------------------------------------------------------
 
-def dense_init(generator: torch.Generator, shape, in_dim: int,
+def gen_device(generator: torch.Generator | None) -> torch.device:
+    """The device an initializer draws on: the generator's, or ``meta``
+    for ``None`` (shapes and dtypes only, as ``jax.eval_shape`` gives)."""
+    return torch.device("meta") if generator is None else generator.device
+
+
+def _normal(generator: torch.Generator | None, shape) -> torch.Tensor:
+    if generator is None:
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return torch.randn(shape, generator=generator, dtype=torch.float32,
+                       device=generator.device)
+
+
+def dense_init(generator: torch.Generator | None, shape, in_dim: int,
                dtype: torch.dtype = torch.float32, scale: float = 1.0):
     std = scale / math.sqrt(in_dim)
-    x = torch.randn(shape, generator=generator, dtype=torch.float32,
-                    device=generator.device)
-    return (x * std).to(dtype)
+    return (_normal(generator, shape) * std).to(dtype)
 
 
-def embed_init(generator: torch.Generator, shape,
+def embed_init(generator: torch.Generator | None, shape,
                dtype: torch.dtype = torch.float32, std: float = 0.02):
-    x = torch.randn(shape, generator=generator, dtype=torch.float32,
-                    device=generator.device)
-    return (x * std).to(dtype)
+    return (_normal(generator, shape) * std).to(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -490,3 +490,57 @@ def test_tensor_parallel_on_card_matches_tp1(cuda, monkeypatch):
     assert max(out["loss_rel"]) <= out["loss_bound"] < min(
         out["loss_moved"], max(out["control_loss_rel"]))
     assert out["ids_agree"] == 1.0
+
+
+@pytest.mark.gpu
+def test_recsys_sparse_dense_and_serving_on_card(cuda):
+    """chip_smoke.py's phases 32-34 at dlrm-mlperf's SMOKE config, world 1
+    over NCCL: the pbox_sparse step's table update equal to its CPU
+    replay bitwise, one fused_agg_opt a step; dense against sparse within
+    sparse_push_equivalence.py's bounds; the serve and retrieval plans
+    bitwise equal to the direct calls."""
+    cs = _chip_smoke()
+    with cs.world_one(cuda), cs.deterministic():
+        sparse = cs.rs_sparse_path(cuda, smoke=True)
+        serve = cs.rs_serve_path(cuda, sparse.pop("params"),
+                                 sparse.pop("cfg"), smoke=True)
+        dense = cs.rs_dense_sparse_path(cuda, smoke=True)
+    assert sparse["launches"]["fused_agg_opt"] == cs.RS_STEPS
+    assert sparse["replay_rows"] > 0
+    assert sorted(serve) == ["retrieval_cand", "serve_bulk", "serve_p99"]
+    assert dense["loss_err"] <= cs.RS_LOSS_ATOL
+    assert dense["table_err"] <= cs.RS_TABLE_ATOL
+
+
+@pytest.mark.gpu
+def test_recsys_archs_on_card(cuda):
+    """chip_smoke.py's phase 35 at the SMOKE configs of AutoInt, DIEN and
+    xDeepFM: two pbox train steps (one fused_agg_opt each), the serve and
+    retrieval plans bitwise equal to the direct calls."""
+    cs = _chip_smoke()
+    with cs.world_one(cuda), cs.deterministic():
+        out = cs.rs_archs_path(cuda, smoke=True)
+    assert sorted(out) == ["autoint", "dien", "xdeepfm"]
+    for res in out.values():
+        assert res["train"]["launches"]["fused_agg_opt"] == 2
+        assert len(res["train"]["losses"]) == 2
+
+
+@pytest.mark.gpu
+def test_recsys_smoke_card_matches_cpu_and_tp2(cuda, monkeypatch):
+    """chip_smoke.py's phase 36: the 17 recsys SMOKE cases card == CPU
+    within rtol 1e-5 / atol 1e-6 (launches == the CPU's plain calls), and
+    dlrm-mlperf at tp = 2 over 2 gloo ranks on the card against tp = 1."""
+    import sys
+
+    cs = _chip_smoke()
+    # the spawned ranks import chip_smoke by name
+    monkeypatch.setitem(sys.modules, "chip_smoke", cs)
+    monkeypatch.syspath_prepend(str(CHIP_SMOKE.parent))
+    with cs.world_one(cuda), cs.deterministic():
+        cases = cs.rs_smoke_check(cuda)
+    assert len(cases) == 17
+    assert cases["dlrm-mlperf/train_batch/pbox_sparse"]["launches"][
+        "fused_agg_opt"] == 2
+    gloo = cs.rs_gloo_check(cuda)  # raises past its bound
+    assert np.isfinite(gloo["max_abs_err"])

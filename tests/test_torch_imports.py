@@ -347,3 +347,59 @@ def test_tp_slice_imports_with_jax_blocked(module, names):
         timeout=180, cwd=ROOT,
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+RECSYS_SLICE = ("models/recsys/embedding.py", "models/recsys/models.py",
+                "models/recsys/__init__.py", "models/common.py",
+                "runtime/sparse_push.py", "launch/steps.py",
+                "launch/train.py", "configs/registry.py",
+                "configs/autoint.py", "configs/dien.py", "configs/xdeepfm.py",
+                "configs/dlrm_mlperf.py")
+
+
+@pytest.mark.parametrize("module", RECSYS_SLICE)
+def test_recsys_slice_modules_are_checked(module):
+    """The recsys SPMD slice's modules (the sharded lookups and specs, the
+    four models, the sparse push, the recsys cells and the driver's recsys
+    branch, the three new configs) are among the files checked above."""
+    assert ROOT / "src" / "repro_torch" / module in PORT_FILES
+
+
+@pytest.mark.parametrize("module,names", [
+    ("repro_torch.models.recsys.embedding",
+     ("table_specs", "table_grad_sync", "mlp_specs", "mlp_grad_sync",
+      "split_batch_model", "lookup_fields", "lookup_sequence", "bce_loss")),
+    ("repro_torch.models.recsys.models",
+     ("dlrm_specs", "dlrm_grad_sync", "dlrm_user_tower", "bulk_retrieval",
+      *(f"{a}_{f}" for a in ("autoint", "dien", "xdeepfm")
+        for f in ("init", "specs", "grad_sync", "score", "loss",
+                  "user_tower")),
+      "AutoIntConfig", "DIENConfig", "XDeepFMConfig")),
+    ("repro_torch.runtime.sparse_push",
+     ("coalesce_ids_rows", "sparse_table_update",
+      "make_sparse_recsys_train_step")),
+    ("repro_torch.launch.steps", ("build_recsys_cell",
+                                  "build_recsys_train_sparse", "_RS_FNS")),
+])
+def test_recsys_slice_imports_with_jax_blocked(module, names):
+    """The recsys slice's modules import with ``import jax`` and ``import
+    repro`` failing, pull in neither, and expose the JAX package's names;
+    the registry holds the four recsys archs."""
+    code = (
+        "import importlib, sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        f"mod = importlib.import_module({module!r})\n"
+        f"assert all(hasattr(mod, n) for n in {names!r})\n"
+        "from repro_torch.configs.registry import get_arch\n"
+        "for a in ('dlrm-mlperf', 'autoint', 'dien', 'xdeepfm'):\n"
+        "    assert get_arch(a).family == 'recsys'\n"
+        "assert not any(m.split('.')[0] in ('jax', 'jaxlib', 'repro')\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=180, cwd=ROOT,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

@@ -19,11 +19,15 @@ Mirrors tests/scripts/train_restart_elastic.py on a (2, 1) ("data",
     with the same bits.
 
 The same 2 ranks then run ``main`` at ``--mesh 1x2``: the model sharded
-over both (tensor parallelism), whose losses match the world-1 run's.
+over both (tensor parallelism), whose losses match the world-1 run's; and
+dlrm-mlperf SMOKE at ``--mesh 2x1`` (the batch over two workers) and
+``1x2`` (the tables row-sharded over two model ranks), whose losses agree
+at rtol 1e-5 (the 1x2 metric times tp).
 Beside them, in this process: ``main`` at ``--mesh 1x1`` starts and ends
 its own world-1 group, a mesh larger than the world raises, and
-``build_cell`` builds the LM serving cells as JAX's builder does and
-refuses the recsys family (item 6c).
+``build_cell`` builds the LM serving cells and the recsys cells of all
+four recsys archs as JAX's builder does, and refuses an arch the port has
+not registered.
 """
 import numpy as np
 import pytest
@@ -198,7 +202,9 @@ def test_main_refuses_a_model_axis_and_a_mismatched_world(runs):
 def test_build_cell_refuses_what_is_not_ported(tmp_path, arch, shape, item):
     """The LM serving cells build at SMOKE and at full size with JAX's
     kind, global abstract shapes and meta; the SMOKE plan's step runs on
-    the CPU.  The recsys family still raises (item 6c)."""
+    the CPU.  The recsys family (ported by ``item``) builds every cell of
+    its four archs, pbox_sparse for DLRM only, as JAX's builder does; an
+    arch the port has not registered raises."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import init_process_group, make_mesh
@@ -208,8 +214,9 @@ def test_build_cell_refuses_what_is_not_ported(tmp_path, arch, shape, item):
     try:
         mesh = make_mesh((1, 1), ("data", "model"))
         if item is not None:
-            with pytest.raises(NotImplementedError, match=item):
-                build_cell(arch, shape, mesh, smoke=True)
+            _recsys_plans_match_jax(mesh)
+            with pytest.raises(KeyError, match="not ported"):
+                build_cell("equiformer-v2", "molecule", mesh, smoke=True)
         else:
             for smoke in (True, False):
                 _same_plan_as_jax(build_cell(arch, shape, mesh, smoke=smoke),
@@ -226,12 +233,75 @@ def test_build_cell_refuses_what_is_not_ported(tmp_path, arch, shape, item):
         dist.destroy_process_group()
 
 
+RS_ARCHS = ("dlrm-mlperf", "autoint", "dien", "xdeepfm")
+RS_SHAPES = ("train_batch", "serve_p99", "serve_bulk", "retrieval_cand")
+
+
+def _recsys_plans_match_jax(mesh):
+    """Every recsys cell at SMOKE and full size: kind, global abstract
+    shapes, the scalar meta and the flat size against JAX's builder at
+    ``--mesh 1x1``; ``pbox_sparse`` for DLRM (other archs raise)."""
+    from repro.launch.mesh import make_mesh as jax_mesh
+    from repro.launch.steps import build_cell as jax_build
+
+    from repro_torch.launch.steps import build_cell
+
+    jm = jax_mesh((1, 1), ("data", "model"))
+    for arch in RS_ARCHS:
+        for shape in RS_SHAPES:
+            for smoke in (True, False):
+                plan = build_cell(arch, shape, mesh, smoke=smoke)
+                jplan = jax_build(arch, shape, jm, smoke=smoke)
+                _same_recsys_plan(plan, jplan)
+        for smoke in (True, False):
+            if arch != "dlrm-mlperf":
+                with pytest.raises(NotImplementedError, match="dlrm"):
+                    build_cell(arch, "train_batch", mesh,
+                               strategy="pbox_sparse", smoke=smoke)
+                continue
+            _same_recsys_plan(
+                build_cell(arch, "train_batch", mesh, strategy="pbox_sparse",
+                           smoke=smoke),
+                jax_build(arch, "train_batch", jm, strategy="pbox_sparse",
+                          smoke=smoke))
+
+
+def _same_recsys_plan(plan, jplan):
+    assert plan.kind == jplan.kind
+    scalars = {k: v for k, v in jplan.meta.items()
+               if k not in ("space", "sspecs")}
+    assert {k: plan.meta[k] for k in scalars} == scalars
+    if "space" in jplan.meta:
+        assert plan.meta["space"].flat_elems == jplan.meta["space"].flat_elems
+        assert plan.meta["n_groups"] == jplan.meta["n_groups"]
+    assert _shapes(plan.abstract_args) == _shapes(jplan.abstract_args)
+
+
 def _shapes(tree):
     if isinstance(tree, dict):
         return {k: _shapes(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return [_shapes(v) for v in tree]
-    return tuple(tree.shape)
+    return None if tree is None else tuple(tree.shape)
+
+
+def test_recsys_main_on_two_ranks(runs):
+    """dlrm-mlperf SMOKE through ``main`` at ``--mesh 2x1`` and ``1x2``:
+    both ranks agree, the two layouts agree (the same global batch of 4
+    and the same draw; the 1x2 metric is the loss over tp = 2), the loss
+    is finite and in (0, 2) (BCE near ln 2, test_models_smoke.py's
+    bound)."""
+    for mesh in ("2x1", "1x2"):
+        got = [_rank(runs, f"dlrm_{mesh}", r) for r in range(2)]
+        assert int(got[0]["step"]) == 3
+        losses = got[0]["losses"]
+        assert len(losses) == 3 and np.isfinite(losses).all()
+        assert ((0 < losses) & (losses < 2.0)).all(), losses  # BCE near ln 2
+        np.testing.assert_array_equal(got[1]["losses"], losses)
+    # the metric is the pmean of bce_loss's per-rank loss / tp, as in JAX
+    np.testing.assert_allclose(_rank(runs, "dlrm_1x2", 0)["losses"] * 2,
+                               _rank(runs, "dlrm_2x1", 0)["losses"],
+                               rtol=1e-5)
 
 
 def _same_plan_as_jax(plan, arch, shape, smoke):

@@ -82,6 +82,51 @@ TRAINER_CASES = {
 TRAINER_STEPS = 2
 
 
+# sparse_table_update over 3 workers: (name: lr, the ids' draw).  "exact"
+# starts from zero tables with unit cotangents, so each touched element
+# is -scale itself and lr / 3 as a division differs from a product with
+# 1/3 (at lr 0.01, by one f32 ulp); "dups" draws random tables and bf16
+# cotangents with every id repeated within and across the workers.
+SPARSE_PUSH_CASES = {"exact": (0.01, "unique"), "dups": (0.1, "dups")}
+SP_V, SP_D, SP_B, SP_F, SP_NW = 24, 8, 6, 2, 3
+
+
+def sparse_push_inputs(kind: str) -> dict:
+    """Tables {t0, t1} (SP_V, SP_D) and each worker's ids (SP_NW, SP_B,
+    SP_F) int32 and cotangents (SP_NW, SP_B, SP_F, SP_D) f32."""
+    rng = np.random.default_rng(5)
+    if kind == "unique":
+        tables = {f"t{i}": np.zeros((SP_V, SP_D), np.float32)
+                  for i in range(SP_F)}
+        ids = np.arange(SP_NW * SP_B * SP_F, dtype=np.int32).reshape(
+            SP_F, SP_NW, SP_B).transpose(1, 2, 0) % SP_V
+        cot = np.ones((SP_NW, SP_B, SP_F, SP_D), np.float32)
+    else:
+        tables = {f"t{i}": rng.standard_normal((SP_V, SP_D)).astype(np.float32)
+                  for i in range(SP_F)}
+        ids = rng.integers(0, 4, (SP_NW, SP_B, SP_F)).astype(np.int32)
+        cot = rng.standard_normal((SP_NW, SP_B, SP_F, SP_D)).astype(np.float32)
+    return {"tables": tables, "ids": ids, "cot": cot}
+
+
+# the recsys SPMD file: a (2, 4) ("data", "model") mesh, every arch's SMOKE
+# config, one step of each train cell, the serve and retrieval cells
+RS_ARCHS = ("dlrm-mlperf", "autoint", "dien", "xdeepfm")
+RS_MESH = (2, 4)
+
+
+def rs_batch(arch_id: str, cfg, batch: int, seed: int) -> dict:
+    from repro_torch.data.synthetic import recsys_batches
+
+    return next(recsys_batches(arch_id, cfg, batch, seed))
+
+
+def rs_candidates(cfg, n: int) -> np.ndarray:
+    """Candidate ids over table t0's rows and a few past its end."""
+    rng = np.random.default_rng(9)
+    return rng.integers(0, cfg.vocabs[0] + 8, n).astype(np.int32)
+
+
 # -- the harness -----------------------------------------------------------
 
 
@@ -400,7 +445,8 @@ def train_launch_ranks(rank, world, out_dir):
     """launch/train.main on a (2, 1) mesh: six steps with checkpoints at 3
     and 6; a crash after step 3 and a resume to 6; a resume of the JAX
     driver's step-3 checkpoint to step 4; then three steps at ``--mesh
-    1x2`` (the model over both ranks)."""
+    1x2`` (the model over both ranks); then dlrm-mlperf SMOKE for three
+    steps at ``--mesh 2x1`` and ``1x2``."""
     import shutil
 
     import torch.distributed as dist
@@ -425,8 +471,13 @@ def train_launch_ranks(rank, world, out_dir):
                     device="cpu")
     tp2 = main(["--arch", "gemma3-1b", "--mesh", "1x2", "--steps", "3",
                 "--log-every", "1"], device="cpu")
+    # dlrm-mlperf SMOKE: the workers' split, then the tables row-sharded
+    rs = {f"dlrm_{mesh}": main(["--arch", "dlrm-mlperf", "--mesh", mesh,
+                                "--steps", "3", "--log-every", "3"],
+                               device="cpu")
+          for mesh in ("2x1", "1x2")}
     for name, out in (("full", full), ("resumed", resumed),
-                      ("from_jax", from_jax), ("tp2", tp2)):
+                      ("from_jax", from_jax), ("tp2", tp2), *rs.items()):
         _save(out_dir, f"launch_{name}_r{rank}", pflat=_np(out["pflat"]),
               losses=np.asarray(out["losses"]), start=np.asarray(out["start"]),
               step=np.asarray(out["step"]),
@@ -623,3 +674,87 @@ def serve_launch_ranks(rank, world, out_dir):
         read = out["read"] or {}
         _save(out_dir, f"serve_{name}_r{rank}", generated=out["generated"],
               version=np.asarray(read.get("version", -1)))
+
+
+# -- rank bodies: the recsys cells -----------------------------------------
+
+
+def recsys_ranks(rank, world, out_dir):
+    """Every ``RS_ARCHS`` arch on the ``RS_MESH`` mesh from the JAX
+    package's tp = 4 SMOKE weights: one step of its ``train_batch`` cell
+    (pbox), its ``serve_p99`` cell on this worker's rows (and tp = 1 on
+    this rank's block of them, whole tables), its ``retrieval_cand`` cell
+    on this rank's slice of the candidates; for DLRM also the
+    ``pbox_sparse`` step.  Each rank saves its pieces."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.interop import params_from_numpy
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import _RS_FNS, build_cell
+    from repro_torch.runtime.trainer import (
+        init_train_state,
+        local_params,
+        local_state,
+        shard_batch,
+    )
+
+    mesh = make_mesh(RS_MESH, ("data", "model"))
+    tp = RS_MESH[1]
+    g = mesh.coords["model"]
+    for arch in RS_ARCHS:
+        cfg = get_arch(arch).smoke_config
+        specs_fn, score_f = _RS_FNS[arch][1], _RS_FNS[arch][4]
+        specs = specs_fn(cfg, tp)
+        wait_for(Path(out_dir, f"jax_rs_{arch}.npz"))
+        jax_out = dict(np.load(Path(out_dir, f"jax_rs_{arch}.npz")))
+        params_np = _unflat({k[2:]: v for k, v in jax_out.items()
+                             if k.startswith("p/")})
+        params = params_from_numpy(params_np, "cpu")
+        out = {"model": np.asarray(g)}
+
+        plan = build_cell(arch, "train_batch", mesh, smoke=True)
+        ex = plan.meta["exchange"]
+        state = init_train_state(
+            mesh, init_params_fn=lambda tree: params_from_numpy(tree, "cpu"),
+            param_specs=specs, exchange=ex, space=plan.meta["space"],
+            n_groups=plan.meta["n_groups"], key=params_np, device="cpu")
+        pflat, slots, ef, stc = local_state(state, mesh, ex)
+        gb = plan.abstract_args[4]["sparse"].shape[0]
+        batch = {k: torch.from_numpy(v) for k, v in
+                 rs_batch(arch, cfg, gb, 0).items()}
+        mine = shard_batch(batch, mesh, ex)
+        p1, _, _, _, met = plan.fn(pflat.clone(), slots, ef, stc, mine)
+        out.update(train_pflat=_np(p1), train_loss=_np(met["loss"]))
+
+        local = local_params(params, specs, mesh)
+        serve = build_cell(arch, "serve_p99", mesh, smoke=True)
+        sb = {k: v for k, v in mine.items() if k != "labels"}
+        out["serve"] = _np(serve.fn(local, sb))
+        b_loc = sb["sparse"].shape[0] // tp
+        block = {k: v[g * b_loc:(g + 1) * b_loc] for k, v in sb.items()}
+        with torch.no_grad():
+            out["serve_tp1"] = _np(score_f(params, block, cfg, None))
+
+        retr = build_cell(arch, "retrieval_cand", mesh, smoke=True)
+        n = retr.abstract_args[1]["cand_ids"].shape[0]
+        rb = {k: torch.from_numpy(v) for k, v in
+              rs_batch(arch, cfg, tp, 1).items() if k != "labels"}
+        cand = torch.from_numpy(rs_candidates(cfg, n))
+        per = n // world
+        rb["cand_ids"] = cand[mesh.rank * per:(mesh.rank + 1) * per]
+        out["retrieval"] = _np(retr.fn(local, rb))
+
+        if arch == "dlrm-mlperf":
+            sp = build_cell(arch, "train_batch", mesh, strategy="pbox_sparse",
+                            smoke=True)
+            dense = {k: v for k, v in local.items() if k != "tables"}
+            pf0 = sp.meta["space"].flatten(dense).reshape(1, -1)
+            tables = {k: v.clone() for k, v in local["tables"].items()}
+            p2, _, _, _, tables1, met2 = sp.fn(
+                pf0, (), None, torch.zeros((), dtype=torch.int32), tables,
+                mine)
+            out.update(sparse_pflat=_np(p2), sparse_loss=_np(met2["loss"]),
+                       **{f"sparse_tables/{k}": _np(v)
+                          for k, v in tables1.items()})
+        _save(out_dir, f"rs_{arch}_r{rank}", **out)

@@ -19,13 +19,20 @@ saves what the port is compared with under ``out_dir``.  Groups:
              loss, prefill and decode at tp = 4 on a (1, 4) mesh;
   tp_train   every ``TP_TRAIN_CASES`` case's tp = 4 weights, then
              ``TP_TRAIN_STEPS`` SGD steps of ``make_ps_train_step`` on a
-             (2, 4) mesh (tests/scripts/grad_equivalence.py).
+             (2, 4) mesh (tests/scripts/grad_equivalence.py);
+  sparse_push  ``sparse_table_update`` over 3 workers for every
+             ``SPARSE_PUSH_CASES`` case, inside a jitted ``shard_map``;
+  recsys     every ``RS_ARCHS`` arch's SMOKE weights at tp = 4, one step
+             of its ``train_batch`` cell (pbox), its ``serve_p99`` and
+             ``retrieval_cand`` cells on a (2, 4) mesh, and DLRM's
+             ``pbox_sparse`` step (tests/scripts/sparse_push_equivalence.py).
 """
 import os
 import sys
 from pathlib import Path
 
-DEVICES = {"exchange": 8, "trainer": 2, "launch": 2, "tp": 4, "tp_train": 8}
+DEVICES = {"exchange": 8, "trainer": 2, "launch": 2, "tp": 4, "tp_train": 8,
+           "sparse_push": 3, "recsys": 8}
 
 
 def _np32(x):
@@ -328,6 +335,91 @@ def tp_train(out: Path):
         np.savez(out / f"jax_tp_train_{name}_out.npz", pflat=_np32(pflat))
 
 
+def sparse_push(out: Path):
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from jax.sharding import PartitionSpec as P
+
+    from repro import compat
+    from repro.models.common import Dist
+    from repro.runtime.sparse_push import sparse_table_update
+    from torch_spmd import SP_NW, SPARSE_PUSH_CASES, sparse_push_inputs
+
+    mesh = jax.sharding.Mesh(np.asarray(jax.devices()[:SP_NW]), ("data",))
+    for name, (lr, kind) in SPARSE_PUSH_CASES.items():
+        inp = sparse_push_inputs(kind)
+        ids = jnp.asarray(np.concatenate(list(inp["ids"])))
+        cot = jnp.asarray(np.concatenate(list(inp["cot"])))
+
+        def body(tables, i, c, lr=lr):
+            return sparse_table_update(tables, i, c, Dist.none(), ("data",),
+                                       lr)
+
+        tables = {k: jnp.asarray(v) for k, v in inp["tables"].items()}
+        specs = {k: P() for k in tables}
+        f = jax.jit(compat.shard_map(
+            body, mesh=mesh, in_specs=(specs, P("data"), P("data")),
+            out_specs=specs, check_vma=False))
+        new = f(tables, ids, cot)
+        np.savez(out / f"jax_sp_{name}.npz",
+                 **{k: np.asarray(v) for k, v in new.items()})
+
+
+def recsys(out: Path):
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.configs.registry import get_arch
+    from repro.data.synthetic import recsys_batches
+    from repro.launch.mesh import make_mesh
+    from repro.launch.steps import _RS_FNS, build_cell, make_exchange
+    from repro.runtime.trainer import init_train_state
+    from torch_spmd import RS_ARCHS, RS_MESH, flat_keys, rs_candidates
+
+    mesh = make_mesh(RS_MESH, ("data", "model"))
+    tp = RS_MESH[1]
+    for arch in RS_ARCHS:
+        cfg = get_arch(arch).smoke_config
+        init_fn, specs_fn = _RS_FNS[arch][:2]
+        params = init_fn(cfg, jax.random.PRNGKey(0), tp)
+        arrays = {f"p/{k}": np.asarray(v) for k, v in flat_keys(params).items()}
+        plan = build_cell(arch, "train_batch", mesh, smoke=True)
+        st = init_train_state(
+            mesh, init_params_fn=lambda k: params,
+            param_specs=specs_fn(cfg, tp),
+            exchange=make_exchange(mesh, "recsys"),
+            space=plan.meta["space"], n_groups=plan.meta["n_groups"],
+            key=jax.random.PRNGKey(0))
+        gb = plan.abstract_args[4]["sparse"].shape[0]
+        batch = jax.tree.map(jnp.asarray,
+                             next(recsys_batches(arch, cfg, gb, 0)))
+        p1, _, _, _, met = plan.fn(st.pflat, st.slots, st.ef, st.step, batch)
+        arrays.update(train_pflat=_np32(p1), train_loss=np.asarray(met["loss"]))
+        serve = build_cell(arch, "serve_p99", mesh, smoke=True)
+        sb = {k: v for k, v in batch.items() if k != "labels"}
+        arrays["serve"] = np.asarray(serve.fn(params, sb))
+        retr = build_cell(arch, "retrieval_cand", mesh, smoke=True)
+        n = retr.abstract_args[1]["cand_ids"].shape[0]
+        rb = {k: jnp.asarray(v) for k, v in
+              next(recsys_batches(arch, cfg, tp, 1)).items() if k != "labels"}
+        rb["cand_ids"] = jnp.asarray(rs_candidates(cfg, n))
+        arrays["retrieval"] = np.asarray(retr.fn(params, rb))
+        if arch == "dlrm-mlperf":
+            sp = build_cell(arch, "train_batch", mesh, strategy="pbox_sparse",
+                            smoke=True)
+            dense = {k: v for k, v in params.items() if k != "tables"}
+            pflat0 = jnp.stack([sp.meta["space"].flatten(dense)] * tp)
+            p2, _, _, _, tables1, met2 = sp.fn(
+                pflat0, (), None, jnp.int32(0), params["tables"], batch)
+            arrays.update(sparse_pflat=_np32(p2),
+                          sparse_loss=np.asarray(met2["loss"]),
+                          **{f"sparse_tables/{k}": np.asarray(v)
+                             for k, v in tables1.items()})
+        _save_atomic(out / f"jax_rs_{arch}.npz", **arrays)
+
+
 if __name__ == "__main__":
     group, out_dir = sys.argv[1], Path(sys.argv[2])
     os.environ["XLA_FLAGS"] = (
@@ -335,5 +427,6 @@ if __name__ == "__main__":
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     out_dir.mkdir(parents=True, exist_ok=True)
     {"exchange": exchange, "trainer": trainer, "launch": launch, "tp": tp,
-     "tp_train": tp_train}[group](out_dir)
+     "tp_train": tp_train, "sparse_push": sparse_push,
+     "recsys": recsys}[group](out_dir)
     print("OK")
