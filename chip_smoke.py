@@ -12,7 +12,11 @@ raises on failure (the script then exits non-zero and prints no result):
 3. kernels against their plain PyTorch versions on the card, bitwise:
    ``fused_agg_opt`` over five optimizers x K in {1, 2, 3, 8} x four
    (grad, param) dtype pairs x N in {8192, 3*8192+77} x average on and off
-   (off: the async path), step 5, lr_scale 0.7;
+   (off: the async path), step 5, lr_scale 0.7; and its row interface
+   (rows in their own allocations, null rows, ``grad_scale``, a chunk-id
+   table over whole pushes, each pointer and then all of them one element
+   off 16-byte alignment; K up to 256, two 4M-element slabs, and K = 257
+   refused);
    ``quantize_chunks``/``dequantize_chunks`` over N in {8192,
    37*8192} x chunk in {128, 8192}, and N = 5*65536 at chunk 65536, with
    zero, NaN and inf chunks, each slab also one element off alignment;
@@ -85,9 +89,10 @@ raises on failure (the script then exits non-zero and prints no result):
    (starved, never engaged): counts 12 quantize, 12 dequantize, 12
    wire_fused, and params bitwise equal to the same topology fabric with
    no switch tier;
-14. every codec (none, bf16, int8) x mode (sync, quorum, SSP, async) x
-   switch (off, on, starved, a ToR pool or the core pool failed at round
-   2 and restored at round 3 by a ``FaultPlan``) at the SMOKE config over
+14. every codec (none, bf16, int8) x mode (sync, quorum, SSP, async), the
+   int8 wire also x switch (off, on, starved, a ToR pool or the core pool
+   failed at round 2 and restored at round 3 by a ``FaultPlan``; the pools
+   engage only there) at the SMOKE config over
    2 racks, the fabric on the card against the fabric on the CPU, bitwise
    in params, state, residuals, every stats field and ``fault_trace``;
 15. failover and reshard at full width (gemma3-1b, AdamW, 4 shards, under
@@ -132,7 +137,7 @@ raises on failure (the script then exits non-zero and prints no result):
 18. the tenancy tier at the SMOKE config, card == CPU bitwise in every
    tenant's params, state and residuals, every stats field, the fault
    traces and the box's utilization, shard occupancy, routes and
-   describe: 1, 2 and 3 tenants x shards (1, 4) x racks (1, 2) x codec
+   describe: 1 and 3 tenants x shards (1, 4) x racks (1, 2) x codec
    (none, bf16, int8); a sync / quorum / SSP mix; switch-slot grants (one
    granted, one refused, the grant returned at detach and handed on); a
    box-wide ``crash_shard`` (R = 1 raising ``ShardLost`` after the R = 2
@@ -224,7 +229,8 @@ raises on failure (the script then exits non-zero and prints no result):
    peak are reported;
 26. the SPMD step at gemma3-1b's SMOKE config, world 1, card == CPU
    bitwise: strategy x codec (none; bf16 and int8 under pbox_hier) x
-   optimizer x microbatches 1 / 2 / 3 x pull f32 / bf16, each
+   optimizer, each once with 1 microbatch and an f32 pull and once with
+   3 microbatches and a bf16 pull, each
    microbatch's gradient booked on the card and fed to the same step on
    the CPU through a loss whose gradient it is; launches equal to the CPU
    run's plain-version calls; the zero-compute step of each strategy
@@ -299,6 +305,11 @@ raises on failure (the script then exits non-zero and prints no result):
 The line before the last is the kernel table as JSON (each row with its
 launches on every path); the last line is ``{"ok": true, "device":
 {...}}``.
+
+``python3 chip_smoke.py --compare OTHER`` runs none of this: it times
+fused_agg_opt at the main path's shapes (and the kernels sharing its
+header) with this checkout's kernels and with another checkout's, in
+turns on one card (``compare``).
 """
 from __future__ import annotations
 
@@ -354,6 +365,23 @@ def bound(name: str, nbytes: int, ops: int) -> dict:
     return {"bound_ms": max(byte_ms, op_ms), "byte_ms": byte_ms,
             "op_ms": op_ms, "bytes": nbytes,
             "bound_by": "bytes" if byte_ms >= op_ms else "operations"}
+
+
+def ptxas_summary(text: str) -> str:
+    """One line from ``-Xptxas -v``'s report of a source with many kernel
+    instantiations: their count, registers a thread, spill bytes and
+    static shared memory (the dynamic ring is sized at launch)."""
+    import re
+
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", text)]
+    spills = [int(a) + int(b) for a, b in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", text)]
+    smem = [int(x) for x in re.findall(r"(\d+) bytes smem", text)]
+    if not regs:
+        return "no ptxas report"
+    return (f"{len(regs)} kernels, {min(regs)}-{max(regs)} registers a "
+            f"thread, spill bytes {max(spills, default=0)} at most, static "
+            f"shared memory {max(smem, default=0)} bytes at most")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -495,6 +523,113 @@ def kernel_sweep(dev) -> float:
         cases += 1
     log(f"kernel sweep: fused_agg_opt == fused_agg_opt_torch bitwise in "
         f"{cases} cases (average on and off)")
+    return worst
+
+
+ROWS_NULL = {1: (), 2: (1,), 3: (1,), 8: (1, 5), 65: (2, 64), 256: (0, 9)}
+
+
+def _rows_case(got_want, label: str) -> float:
+    """Bitwise check of one rows-form case: ``got_want`` is ((param,
+    state), (param, state)) of the kernel and the plain version."""
+    import torch
+
+    (got_p, got_s), (want_p, want_s) = got_want
+    torch.cuda.synchronize()
+    pairs = [(got_p, want_p), *zip(got_s, want_s)]
+    err = max(max_abs_err(a, b) for a, b in pairs)
+    if not all(same_bits(a, b) for a, b in pairs):
+        raise AssertionError(f"fused_agg_opt differs from its plain version "
+                             f"({label}), max |err| {err}")
+    return err
+
+
+def kernel_rows_sweep(dev) -> float:
+    """The row interface against the plain version, bitwise: rows in their
+    own allocations, null (zero) rows, ``grad_scale``, a chunk-id table
+    over whole pushes, and each pointer in turn (then all of them) one
+    element off 16-byte alignment, for 5 optimizers x K in {1, 2, 3, 8} x
+    the 4 dtype pairs; K = 65 and 256 (the larger row capacities); and
+    AdamW at 4M elements, where each block walks its ring many times."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.fused_agg_opt import kernel as K
+    from repro_torch.kernels.fused_agg_opt.ops import scalar_packet
+
+    dtypes = [(torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+              (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)]
+    chunk, push_chunks = 1024, 40
+    worst, cases = 0.0, 0
+
+    def run(rows, p, st, spec, packet, label, **kw):
+        nonlocal worst, cases
+        want = K.fused_agg_opt_torch(rows, p, st, packet, spec, **kw)
+        got = K.fused_agg_opt_cuda(rows, p.clone(),
+                                   tuple(s.clone() for s in st), packet,
+                                   spec, **kw)
+        worst = max(worst, _rows_case((got, want), label))
+        cases += 1
+
+    def case(spec, k, gdt, pdt, n, seed, big=False):
+        rng = np.random.default_rng(seed)
+        rows = [torch.from_numpy(rng.standard_normal(n, np.float32)).to(
+            dev, gdt) for _ in range(k)]
+        p = torch.from_numpy(rng.standard_normal(n, np.float32)).to(dev, pdt)
+        st = _state(rng, spec, n, dev)
+        packet = scalar_packet(spec, 5, 0.7, device=dev)
+        null = ROWS_NULL[k]
+        label = f"{spec.name} nesterov={spec.nesterov} k={k} n={n} {gdt}/{pdt}"
+        run(rows, p, st, spec, packet, f"rows, {label}")
+        nulled = [None if i in null else r for i, r in enumerate(rows)]
+        run(nulled, p, st, spec, packet, f"null rows {null}, grad_scale 1/3,"
+            f" {label}", grad_scale=1.0 / 3)
+        # whole pushes read at a shard's chunk ids (no run, both ways)
+        c = -(-n // chunk) if big else 24
+        ids = torch.from_numpy(rng.permutation(max(push_chunks, c))[:c]).to(dev)
+        pushes = [None if i in null else torch.from_numpy(rng.standard_normal(
+            (max(push_chunks, c), chunk), np.float32)).to(dev, gdt)
+            for i in range(k)]
+        pc = torch.from_numpy(rng.standard_normal(c * chunk, np.float32)).to(
+            dev, pdt)
+        stc = _state(rng, spec, c * chunk, dev)
+        run(pushes, pc, stc, spec, packet, f"chunk ids, {label}",
+            chunk_ids=ids, average=False)
+        # one pointer off alignment (the whole slab goes element by
+        # element), then all of them (a head, then the ring)
+        targets = ["row0", "param"] + [f"slot{i}" for i in range(len(st))]
+        first = next(i for i, r in enumerate(nulled) if r is not None)
+        for t in targets + ["all"]:
+            r2 = [r if r is None or not (t == "all" or t == "row0"
+                                         and i == first) else _shifted(r, 1)
+                  for i, r in enumerate(nulled)]
+            p2 = _shifted(p, 1) if t in ("param", "all") else p
+            s2 = tuple(_shifted(x, 1) if t in (f"slot{i}", "all") else x
+                       for i, x in enumerate(st))
+            run(r2, p2, s2, spec, packet, f"{t} off alignment, {label}")
+
+    for spec, k, (gdt, pdt) in itertools.product(_specs(), (1, 2, 3, 8),
+                                                 dtypes):
+        case(spec, k, gdt, pdt, 3 * 8192 + 77, seed=cases)
+    adamw = _specs()[-1]
+    for k in (65, 256):
+        case(adamw, k, torch.float32, torch.float32, 8192 + 77, seed=k)
+    case(adamw, 2, torch.float32, torch.float32, (1 << 22) + 77, seed=3,
+         big=True)
+    case(adamw, 1, torch.bfloat16, torch.bfloat16, (1 << 22) + 77, seed=4,
+         big=True)
+    try:
+        K.fused_agg_opt_cuda([torch.zeros(8, device=dev)] * (K.MAX_ROWS + 1),
+                             torch.zeros(8, device=dev), (),
+                             scalar_packet(_specs()[0], 1, device=dev),
+                             _specs()[0])
+    except ValueError:
+        pass
+    else:
+        raise AssertionError(f"fused_agg_opt took {K.MAX_ROWS + 1} rows")
+    log(f"kernel rows sweep: fused_agg_opt == fused_agg_opt_torch bitwise in "
+        f"{cases} cases (rows, null rows, grad_scale, chunk ids, pointers "
+        f"off alignment; K up to {K.MAX_ROWS}); {K.MAX_ROWS + 1} rows refused")
     return worst
 
 
@@ -793,6 +928,35 @@ class CaptureCall:
         setattr(self.module, self.attr, self.launch)
 
 
+class FabricStacks:
+    """Counts ``torch.stack`` calls made by ``core/fabric.py`` (its module's
+    ``torch`` swapped for a counting proxy, and restored): the inbox stacks
+    that the f32 path no longer makes."""
+
+    def __init__(self):
+        self.calls = 0
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.core import fabric
+
+        outer = self
+
+        class Proxy:
+            def __getattr__(self, name):
+                if name == "stack":
+                    outer.calls += 1
+                return getattr(torch, name)
+
+        self.fabric, self.torch = fabric, fabric.torch
+        fabric.torch = Proxy()
+        return self
+
+    def __exit__(self, *exc):
+        self.fabric.torch = self.torch
+
+
 class PathMemory:
     """The main path's device memory, allocated and peak, without the
     bytes its captures hold (kept apart with a peak reset at each one)
@@ -835,11 +999,19 @@ def capture_first_apply(shard, name: str, captured: dict) -> None:
 
     launch = getattr(shard, name)
 
+    def host_arg(a):
+        if torch.is_tensor(a):
+            return _host(a)
+        if isinstance(a, list):  # ``apply``'s whole pushes: the shard's rows
+            return [None if g is None else _host(
+                g.reshape(-1, shard.space.chunk_elems)[shard.rows])
+                for g in a]
+        return a
+
     def capture(*args, **kwargs):
         first = args[-1] == 1  # the step
         if first:
-            captured["in"] = (tuple(_host(a) if torch.is_tensor(a) else a
-                                    for a in args),
+            captured["in"] = (tuple(map(host_arg, args)),
                               _host(shard.params),
                               tuple(map(_host, shard.state)))
             captured["average"] = kwargs.get("average", True)
@@ -929,8 +1101,9 @@ def main_path(dev, codec: str) -> dict:
     codec_calls = ([CaptureCall(Q, "quantize_chunks_cuda", WORKERS, memory),
                     CaptureCall(Q, "dequantize_chunks_cuda", WORKERS, memory)]
                    if codec == "int8" else [])
+    stacks = FabricStacks()
     try:
-        with timer, contextlib.ExitStack() as stack:
+        with timer, stacks, contextlib.ExitStack() as stack:
             for call in codec_calls:
                 stack.enter_context(call)
             _zero_counts()  # every count of the port's kernels to 0 just before
@@ -970,6 +1143,13 @@ def main_path(dev, codec: str) -> dict:
         f"{name} {a / 2**30:.2f}/{m / 2**30:.2f}" for name, a, m in mem))
     breakdown = profile_summary(prof, round_ms[-2], timer.events[-SHARDS:],
                                 kernel_name)
+    cat_ms, cat_n = kernel_device_ms(prof, "CatArrayBatchedCopy")
+    log(f"  torch.stack calls in core/fabric.py over {ROUNDS} rounds: "
+        f"{stacks.calls}; stack/cat copy kernels in the profiled round (the "
+        f"workers' included): {cat_n} launches, {cat_ms:.2f} ms")
+    if codec == "none" and stacks.calls:
+        raise AssertionError(f"the f32 path stacked gradient rows "
+                             f"{stacks.calls} times")
     if not all(math.isfinite(x) for x in loss_vals):
         raise AssertionError(f"non-finite loss: {loss_vals}")
     if fab.stats.steps != ROUNDS:
@@ -998,7 +1178,8 @@ def main_path(dev, codec: str) -> dict:
             "main_path_ms": statistics.median(kernel_ms), "n": n0,
             "flat": space.flat_elems, "chunk": space.chunk_elems,
             "peak_bytes": peak, "round_ms": round_ms, "losses": loss_vals,
-            "captured": captured, "spec": spec, **breakdown}
+            "captured": captured, "spec": spec, "fabric_stacks": stacks.calls,
+            "cat_ms": cat_ms, **breakdown}
 
 
 def replay_f32(dev, run: dict) -> float:
@@ -1008,11 +1189,11 @@ def replay_f32(dev, run: dict) -> float:
     from repro_torch.kernels.fused_agg_opt import kernel as K
     from repro_torch.kernels.fused_agg_opt.ops import scalar_packet
 
-    (grads, step), p, st = run["captured"]["in"]
+    (rows, step), p, st = run["captured"]["in"]
     got_p, got_s = run["captured"]["out"]
     n0 = run["n"]
-    k = grads.shape[0]
-    grads = grads.reshape(k, n0)
+    k = len(rows)
+    rows = [r.reshape(n0) for r in rows]
     p, st = p.reshape(n0), tuple(s.reshape(n0) for s in st)
     got_p, got_s = got_p.reshape(n0), tuple(s.reshape(n0) for s in got_s)
     packet = scalar_packet(run["spec"], step, device=dev)
@@ -1021,7 +1202,7 @@ def replay_f32(dev, run: dict) -> float:
     for a in range(0, n0, piece):
         sl = slice(a, min(a + piece, n0))
         want_p, want_s = K.fused_agg_opt_torch(
-            grads[:, sl].to(dev), p[sl].to(dev),
+            [r[sl].to(dev) for r in rows], p[sl].to(dev),
             tuple(s[sl].to(dev) for s in st), packet, run["spec"],
             average=average)
         pairs = [(got_p[sl], want_p.cpu()),
@@ -1849,12 +2030,20 @@ def smoke_modes_check(dev) -> dict:
     init = space.flatten(params)
     cpu = torch.device("cpu")
 
+    memo: dict = {}  # (worker, step, params digest) -> the CPU gradient
+
     def grad(flat, w, s):
-        b = next(lm_batches(cfg.vocab, 4, 32, seed=1000 * (w + 1) + s))
-        _, g = lm_loss_and_grad(space.unflatten(flat.cpu()),
-                                torch.from_numpy(b["tokens"]),
-                                torch.from_numpy(b["labels"]), cfg)
-        return space.flatten(g).to(flat.device)
+        # the card's run pulls the CPU run's params when the two agree, so
+        # each gradient is computed once and served to both
+        host = flat.cpu()
+        key = (w, s, hashlib.sha1(host.numpy().tobytes()).hexdigest())
+        if key not in memo:
+            b = next(lm_batches(cfg.vocab, 4, 32, seed=1000 * (w + 1) + s))
+            _, g = lm_loss_and_grad(space.unflatten(host),
+                                    torch.from_numpy(b["tokens"]),
+                                    torch.from_numpy(b["labels"]), cfg)
+            memo[key] = space.flatten(g)
+        return memo[key].to(flat.device, copy=True)
 
     def drive(fab, speeds, rounds):
         if speeds is not None:
@@ -1900,6 +2089,7 @@ def smoke_modes_check(dev) -> dict:
                 _zero_counts()
                 got = run(dev, config, speeds, mode, tmp)
                 launches[f"{mode}/{codec}"] = _counts()
+            memo.clear()
             same = (all(same_bits(a, b) for a, b in zip(ref[0][0], got[0][0]))
                     and ref[0][1] == got[0][1] and ref[2] == got[2]
                     and all(same_bits(a, b) for a, b in zip(ref[1], got[1])))
@@ -2159,9 +2349,10 @@ SWITCH_VARIANTS = ("off", "on", "starved", "tor_fail", "core_fail")
 def smoke_topology_check(dev) -> dict:
     """Phase 14: the topology tier at gemma3-1b's SMOKE config, every codec
     (none, bf16, int8 with error feedback) x mode (sync, a 3-of-4 quorum,
-    SSP, async) x switch (off; pools of one slot per chunk; starved one
-    slot short; a ToR pool, or the core pool, failed at round 2 by a
-    FaultPlan and restored at round 3): 4 workers over 2 racks, 4 shards,
+    SSP, async), the int8 wire also x switch (off; pools of one slot per
+    chunk; starved one slot short; a ToR pool, or the core pool, failed at
+    round 2 by a FaultPlan and restored at round 3): 4 workers over 2
+    racks, 4 shards,
     3 rounds.  The fabric on ``dev`` against the fabric on the CPU,
     bitwise in params, state, every ServerStats / ShardStats / RackStats /
     SwitchStats field, the ToRs' and core pool's residuals and
@@ -2246,7 +2437,9 @@ def smoke_topology_check(dev) -> dict:
     c = space.num_chunks
     for codec in ("none", "bf16", "int8"):
         for mode, (fields, speeds) in TOPO_MODES.items():
-            for variant in SWITCH_VARIANTS:
+            # the pools engage only on the int8 wire; the other codecs run
+            # without a switch (their switch variants were cut for time)
+            for variant in SWITCH_VARIANTS if codec == "int8" else ("off",):
                 slots = c - (variant == "starved")
                 switch = (SwitchConfig() if variant == "off" else
                           SwitchConfig(enabled=True, tor_slots=slots,
@@ -2285,7 +2478,7 @@ def smoke_topology_check(dev) -> dict:
         raise AssertionError(f"switch offloads by case {offloads}")
     total = {k: sum(c[k] for c in launches.values())
              for k in next(iter(launches.values()))}
-    log(f"smoke topology: {len(launches)} cases (codec x mode x switch, 4 "
+    log(f"smoke topology: {len(launches)} cases (codec x mode, int8 x switch, 4 "
         f"workers over {RACKS} racks, {SHARDS} shards, {ROUNDS} rounds), "
         f"{dev} == cpu bitwise in params, state, residuals, every stats "
         f"field and fault_trace; launches on {dev.type} {total}; (ToR, core, "
@@ -3106,7 +3299,7 @@ def smoke_tenancy_check(dev) -> dict:
     params, state and residuals, every ServerStats / ShardStats /
     RackStats / SwitchStats field, the fault traces, and the box's
     ``utilization()``, ``shard_occupancy()``, routes, telemetry and
-    ``describe()``.  Cases: 1, 2 and 3 tenants (2 workers each; seeds,
+    ``describe()``.  Cases: 1 and 3 tenants (2 workers each; seeds,
     optimizers and priorities differ) x shards (1, 4) x racks (1, 2) x
     codec (none, bf16, int8); a sync, a 3-of-4 quorum and an SSP tenant
     (4 workers each, 4 shards, 2 racks); int8 tenants under switch pools
@@ -3338,8 +3531,9 @@ def smoke_tenancy_check(dev) -> dict:
         events.append([box.wire_scales(h.fabric) for h in handles])
         return [box], twins, events
 
+    # 1 and 3 tenants (2 was cut for the script's time)
     cases = [(f"{n}t/shards{s}/racks{r}/{codec}", sweep_case(n, s, r, codec))
-             for n in (1, 2, 3) for s in (1, SHARDS) for r in (1, RACKS)
+             for n in (1, 3) for s in (1, SHARDS) for r in (1, RACKS)
              for codec in ("none", "bf16", "int8")]
     cases += [("mix/sync+quorum+ssp", mix_case),
               ("switch/grant+refuse+return", grant_case),
@@ -3401,7 +3595,7 @@ def smoke_tenancy_check(dev) -> dict:
         raise AssertionError(f"SMOKE tenancy shares {shares}")
     total = {k: sum(c[k] for c in launches.values())
              for k in next(iter(launches.values()))}
-    log(f"smoke tenancy: {len(launches)} cases (1-3 tenants x shards x "
+    log(f"smoke tenancy: {len(launches)} cases (1 and 3 tenants x shards x "
         f"racks x codec; sync + quorum + SSP; switch grants; a box-wide "
         f"crash; an elastic re-attach; tenant shares), {dev} == cpu bitwise "
         f"in every tenant's bits, every stats field, the fault traces and "
@@ -5007,15 +5201,28 @@ def spmd_path(dev) -> dict:
     return runs
 
 
-def smoke_spmd_cases():
+def smoke_spmd_cases(only=None):
+    """(name, strategy, codec, optimizer, microbatches, pull dtype) of
+    phase 26: every strategy x codec x optimizer twice, one microbatch
+    with an f32 pull and three with a bf16 pull (the other pairings were
+    cut for the script's time; the CPU tests hold them against JAX).
+    ``only``: these names instead (any "strategy/codec/opt/mbN/pull_X";
+    names that are not a step case are skipped)."""
+    if only is not None:
+        for name in only:
+            parts = name.split("/")
+            if len(parts) == 5 and parts[3].startswith("mb"):
+                pull = parts[4].removeprefix("pull_")
+                yield (name, parts[0], parts[1], parts[2], int(parts[3][2:]),
+                       None if pull == "None" else pull)
+        return
     for strategy, codec in (("allreduce", "none"), ("pbox", "none"),
                             ("pbox_hier", "none"), ("pbox_hier", "bf16"),
                             ("pbox_hier", "int8")):
         for opt in ("sgd", "momentum", "adam", "adamw"):
-            for mb in (1, 2, 3):
-                for pull in (None, "bf16"):
-                    yield (f"{strategy}/{codec}/{opt}/mb{mb}/pull_{pull}",
-                           strategy, codec, opt, mb, pull)
+            for mb, pull in ((1, None), (3, "bf16")):
+                yield (f"{strategy}/{codec}/{opt}/mb{mb}/pull_{pull}",
+                       strategy, codec, opt, mb, pull)
 
 
 def _smoke_spmd_step(cfg, mesh, strategy, codec, opt, mb, pull, loss_fn):
@@ -5092,9 +5299,7 @@ def smoke_spmd_check(dev, only=None) -> dict:
         return loss, {"ce": loss.detach(), "aux": loss.detach() * 0}
 
     out, space_of = {}, [None]
-    for name, strategy, codec, opt, mb, pull in smoke_spmd_cases():
-        if only is not None and name not in only:
-            continue
+    for name, strategy, codec, opt, mb, pull in smoke_spmd_cases(only):
         mesh = meshes["pod" if strategy == "pbox_hier" else "dp"]
         step, space, ex = _smoke_spmd_step(cfg, mesh, strategy, codec, opt,
                                            mb, pull, model_loss)
@@ -5169,8 +5374,8 @@ def smoke_spmd_check(dev, only=None) -> dict:
         out[f"zero/{strategy}"] = launches
     zero = [k[5:] for k in out if k.startswith("zero/")]
     log(f"smoke spmd: {len(out) - len(zero)} cases card == CPU bitwise "
-        "(strategy x codec x optimizer x microbatches 1/2/3 x pull "
-        f"f32/bf16); zero-compute -0.1 under {', '.join(zero)}")
+        "(strategy x codec x optimizer, 1 microbatch with an f32 pull and "
+        f"3 with a bf16 pull); zero-compute -0.1 under {', '.join(zero)}")
     return out
 
 
@@ -6779,7 +6984,8 @@ def time_fused_agg_opt_sgd(dev, n: int, sets: int = 3) -> dict:
         f"same bits: {lib_same}")
     return {"ms": kernel_ms, "ms_events": events_ms, "plain_ms": plain_ms,
             "max_abs_err": err, "library_ms": lib_ms,
-            "library_same_bits": lib_same, "timed_by": how, **b}
+            "library_same_bits": lib_same, "timed_by": how,
+            "share": b["bound_ms"] / kernel_ms, **b}
 
 
 # -- phase 19: kernel timings ------------------------------------------------
@@ -6844,7 +7050,8 @@ def time_fused_agg_opt(dev, n: int, k: int, average: bool = True,
         f"{b['bound_ms'] / kernel_ms:.1%} of the bound; library: "
         f"{library or 'none'}")
     return {"ms": kernel_ms, "plain_ms": plain_ms, "max_abs_err": err,
-            "library_ms": library_ms, "library": library, **b}
+            "library_ms": library_ms, "library": library,
+            "share": b["bound_ms"] / kernel_ms, **b}
 
 
 def time_quant(dev, flat: int, chunk: int) -> dict:
@@ -7145,62 +7352,83 @@ def main() -> int:
     secs = _build.build_all()
     log(f"build: {_build.sources()} in {secs:.1f} s")
     for src in _build.sources():
+        if src == "fused_agg_opt":
+            log(f"  ptxas {src}: {ptxas_summary(_build.build_log(src))}")
+            continue
         for line in _build.build_log(src).splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {src}: {line.strip()}")
 
     lap("1-2 build")
-    sweep = {"fused_agg_opt": kernel_sweep(dev), **quant_sweep(dev),
+    sweep = {"fused_agg_opt": max(kernel_sweep(dev), kernel_rows_sweep(dev)),
+             **quant_sweep(dev),
              "wire_fused": wire_sweep(dev), **bag_sweep(dev)}
     lap("3 sweeps")
     f32 = main_path(dev, "none")
     f32_err = replay_f32(dev, f32)
     f32.pop("captured")
+    lap("4 f32")
     int8 = main_path(dev, "int8")
     int8_err = replay_wire(dev, int8)
     codec_err = replay_codec(int8)
     int8.pop("captured")
+    lap("5 int8")
     dlrm = dlrm_path(dev)
     dlrm_err = replay_dlrm(dlrm)
     dlrm.pop("captured")
     dlrm_sharding_check(dev)
-    lap("4-7 main paths")
+    lap("6-7 dlrm")
     rehearsal = fault_rehearsal()
     with deterministic():
         gw = GemmaWorkers(dev)
         quorum = quorum_path(dev, gw)
+        lap("8 quorum")
         asyn = async_path(dev, gw)
+        lap("9 async")
         snap = snapshot_path(dev, gw)
+        lap("10 snapshot")
         rack = rack_chain_path(dev, gw)
+        lap("12 rack chain")
         switch = switch_path(dev, gw)
+        lap("13 switch")
         fault = failover_path(dev, gw, rehearsal)
+        lap("15 failover")
         auto = autoscale_path(dev, gw, fault)
+        lap("23 autoscale")
         del gw
         torch.cuda.empty_cache()
         tenancy = tenancy_path(dev)
     async_err = replay_wire(dev, asyn)
     asyn.pop("captured")
-    lap("8-10, 12-13, 15, 17, 23 full width")
+    lap("17 tenancy")
     smoke = smoke_modes_check(dev)
+    lap("11 SMOKE modes")
     smoke_topo = smoke_topology_check(dev)
+    lap("14 SMOKE topology")
     smoke_fault = smoke_fault_check(dev)
+    lap("16 SMOKE faults")
     smoke_tenancy = smoke_tenancy_check(dev)
-    lap("11, 14, 16, 18 SMOKE")
+    lap("18 SMOKE tenancy")
     torch.cuda.empty_cache()
     serve = serve_path(dev)
+    lap("20 serve")
     sparse_serve = sparse_serve_path(dev)
-    lap("20-21 serving")
+    lap("21 sparse serve")
     smoke_serve = smoke_serve_check(dev)
     smoke_auto = smoke_autoscale_check(dev)
     lap("22, 24 SMOKE")
     torch.cuda.empty_cache()
     with world_one(dev), deterministic():
         spmd = spmd_path(dev)
+        lap("25 SPMD")
         smoke_spmd = smoke_spmd_check(dev)
+        lap("26 SMOKE SPMD")
         cli = cli_check(dev)
+        lap("27 CLI")
         remat = remat_path(dev)
+        lap("29 remat")
         cells = serve_cells_path(dev)
-    lap("25-27, 29-30 SPMD")
+    lap("30 serve cells")
     gloo = gloo_cuda_check(dev)
     lap("28 gloo")
     tp = tp_path(dev)
@@ -7341,13 +7569,14 @@ def main() -> int:
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
+            **({"share": t["share"]} if "share" in t else {}),
             "library_ms": t["library_ms"],
             "shape": shape,
             "launches_by_path": {p: c[kname] for p, c in paths.items()},
             **({"k1_no_average": {
                 "launches": k1_launches[kname],
                 **{key: timing[f"{kname}_k1"].get(key) for key in (
-                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "ms", "plain_ms", "bound_ms", "bound_by", "share",
                     "max_abs_err", "library_ms", "library")}}}
                if kname in k1_launches else {}),
             **({"spmd_k1_bf16": {
@@ -7358,14 +7587,14 @@ def main() -> int:
                 "replay_max_abs_err": max(run["replay_err"]
                                           for run in spmd.values()),
                 **{key: timing["fused_agg_opt_spmd"][key] for key in (
-                    "ms", "plain_ms", "bound_ms", "bound_by",
+                    "ms", "plain_ms", "bound_ms", "bound_by", "share",
                     "max_abs_err", "library_ms", "library")}}}
                if kname == "fused_agg_opt" else {}),
             **({"recsys_sgd_k1_f32": {
                 "launches": sum(paths[p][kname] for p in recsys_paths),
                 **{key: timing["fused_agg_opt_sgd"][key] for key in (
                     "ms", "ms_events", "plain_ms", "bound_ms", "bound_by",
-                    "max_abs_err", "library_ms", "library_same_bits",
+                    "share", "max_abs_err", "library_ms", "library_same_bits",
                     "timed_by")}}}
                if kname == "fused_agg_opt" else {}),
         })
@@ -7455,5 +7684,53 @@ def main() -> int:
     return 0
 
 
+# The timing calls of ``--compare``: run with the chip_smoke.py of the
+# checkout whose kernels are timed (``time_fused_agg_opt`` and its
+# siblings, which earlier versions of this file have too), at the main
+# path's shapes.
+_COMPARE_CODE = """
+import json, sys, torch
+sys.path.insert(0, sys.argv[1])
+import chip_smoke as cs
+from repro_torch.kernels import _build
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+_build.build_all()
+keys = ("ms", "plain_ms", "bound_ms", "library_ms")
+out = {
+    "adamw_k2_f32": cs.time_fused_agg_opt(dev, 325451776, 2),
+    "adamw_k1_f32": cs.time_fused_agg_opt(dev, 325451776, 1, average=False),
+    "adamw_k1_bf16": cs.time_fused_agg_opt(dev, 1301807104, 1, average=False,
+                                           dtype=torch.bfloat16),
+    "sgd_k1_f32": cs.time_fused_agg_opt_sgd(dev, 2375680),
+    "wire_fused": cs.time_wire(dev, 325451776, 2, 8192),
+    **cs.time_quant(dev, 1301807104, 8192)}
+print("COMPARE " + json.dumps({"root": sys.argv[1], **{
+    name: {k: r.get(k) for k in keys} for name, r in out.items()}}))
+"""
+
+
+def compare(other: str) -> int:
+    """``python3 chip_smoke.py --compare OTHER``: fused_agg_opt at the four
+    main-path shapes, and the kernels that share ``pbox_opt.cuh``, timed
+    with this checkout's kernels and with those of the checkout at OTHER
+    (e.g. the parent commit unpacked by ``git archive``), each side in its
+    own process with its own build, in turns on one card: OTHER, this,
+    this, OTHER.  Prints each side's phase-19 lines and a ``COMPARE`` JSON
+    line."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    other = str(Path(other).resolve())
+    for root in (other, str(ROOT), str(ROOT), other):
+        subprocess.run([sys.executable, "-c", _COMPARE_CODE, root], cwd=root,
+                       check=True, timeout=900)
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--compare":
+        sys.exit(compare(sys.argv[2]))
     sys.exit(main())

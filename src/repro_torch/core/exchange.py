@@ -27,7 +27,10 @@ Owner ``i`` of a slab is the rank whose row-major index over the owner axes
 is ``i``, as JAX's tiled ``psum_scatter`` assigns it, so each rank's slots
 sit at the same offsets of the global layout in both packages (the
 checkpoint's).  A division by the worker count is a product with its f32
-reciprocal, which is what XLA compiles the JAX ``slab / nw`` to.
+reciprocal, which is what XLA compiles the JAX ``slab / nw`` to; under
+``allreduce`` and ``pbox`` the kernel takes it as its ``grad_scale`` and
+multiplies in its own pass, rounding to the slab's dtype as the eager
+product does.
 
 ``fused_aggregate_update`` on a CUDA tensor launches the kernel, which
 updates the owned slab of ``pflat`` and the slots IN PLACE (the JAX
@@ -139,14 +142,15 @@ class PSExchange:
     # per-rank exchange
     # ------------------------------------------------------------------
     def _update_slab(self, slab, pflat, mesh, owner_axes, state, step,
-                     lr_scale):
-        """The owned slab's fused update, then the pull over ``owner_axes``."""
+                     lr_scale, grad_scale=None):
+        """The owned slab's fused update (``slab * grad_scale`` folded into
+        the kernel's pass when given), then the pull over ``owner_axes``."""
         widx = mesh.axis_index(owner_axes)
         n = slab.shape[0]
         pslab = pflat[widx * n:(widx + 1) * n]
         new_slab, new_slots = fused_aggregate_update(
-            slab[None], pslab, state["slots"], self.spec, step, lr_scale,
-            average=False)
+            [slab], pslab, state["slots"], self.spec, step, lr_scale,
+            average=False, grad_scale=grad_scale)
         pulled = new_slab
         if self.cfg.pull_dtype is not None:
             pulled = pulled.to(self.cfg.pull_dtype)
@@ -171,23 +175,28 @@ class PSExchange:
         inv_nw = 1.0 / mesh.axis_size(self.worker_axes)
 
         if cfg.strategy == "allreduce":
-            g = mesh.psum(gflat, self.worker_axes) * inv_nw
+            # the kernel multiplies the sum by inv_nw in its own pass,
+            # rounded to the gradient's dtype as the eager product is
+            g = mesh.psum(gflat, self.worker_axes)
             new_p, new_slots = fused_aggregate_update(
-                g[None], pflat, state["slots"], spec, step, lr_scale,
-                average=False)
+                [g], pflat, state["slots"], spec, step, lr_scale,
+                average=False, grad_scale=inv_nw)
             return new_p, {"slots": new_slots, "ef": state["ef"], "step": step}
 
         if cfg.strategy == "pbox":
             # push: one reduce-scatter over all worker axes, arriving
-            # already summed at the chunk owner
-            slab = mesh.psum_scatter(gflat, self.worker_axes) * inv_nw
+            # already summed at the chunk owner; x inv_nw inside the kernel
+            slab = mesh.psum_scatter(gflat, self.worker_axes)
             new_p, new_slots = self._update_slab(
-                slab, pflat, mesh, self.worker_axes, state, step, lr_scale)
+                slab, pflat, mesh, self.worker_axes, state, step, lr_scale,
+                grad_scale=inv_nw)
             return new_p, {"slots": new_slots, "ef": state["ef"], "step": step}
 
         if cfg.strategy == "pbox_hier":
             pod, data_axes = self.pod_axis, self.owner_axes
-            # stage 1: rack-local aggregation (reduce-scatter within pod)
+            # stage 1: rack-local aggregation (reduce-scatter within pod);
+            # the slab is summed or encoded again before the update, so the
+            # scale is its own pass here
             slab = mesh.psum_scatter(gflat, data_axes) * inv_nw
             # stage 2: one aggregated stream across pods, optionally coded
             ef = state["ef"]

@@ -282,20 +282,25 @@ class PBoxShard:
     def num_elems(self) -> int:
         return self.num_chunks * self.space.chunk_elems
 
-    def apply(self, grads: torch.Tensor, step: int, *, average: bool) -> None:
-        """grads: (K, n_owned, chunk_elems) worker gradient rows for this
-        shard's chunks, stacked in ascending worker order."""
+    def apply(self, pushes: list, step: int, *, average: bool) -> None:
+        """pushes: the K workers' whole (num_chunks, chunk_elems) gradient
+        slabs in ascending worker order, ``None`` for a zero row.  The
+        kernel reads this shard's chunks of each where they lie: a view of
+        the rows for a contiguous run of chunks, else through the chunk-id
+        table; nothing is stacked."""
         if self.num_chunks == 0:
             return
-        k = grads.shape[0]
         n = self.num_elems
+        table = isinstance(self.rows, torch.Tensor)
         new_p, new_s = fused_aggregate_update(
-            grads.reshape(k, n),
+            [None if g is None else g.contiguous() if table
+             else g.contiguous()[self.rows] for g in pushes],
             self.params.reshape(n),
             tuple(s.reshape(n) for s in self.state),
             self.spec,
             step,
             average=average,
+            chunk_ids=self.rows if table else None,
         )
         shape = (self.num_chunks, self.space.chunk_elems)
         self.params = new_p.reshape(shape)
@@ -408,8 +413,8 @@ class PBoxFabric:
     Workers push the whole flat gradient at once (``push``) or chunk group
     by chunk group (``push_chunks``); a push completes once every chunk of
     the flat space is staged.  When a round's pushes are in, each shard
-    stacks their rows for its chunks (ascending worker order) and runs the
-    fused aggregate+optimize kernel on them.
+    runs the fused aggregate+optimize kernel on them (ascending worker
+    order), which reads the shard's chunks of each push where they lie.
 
     Every push carries the params version (fabric step) the worker last
     pulled.  In sync mode with a backup quorum (``min_pushes`` below the
@@ -844,8 +849,7 @@ class PBoxFabric:
         else:
             for shard in self.shards:
                 if shard.num_chunks:
-                    shard.apply(gchunks[shard.rows][None], self.step,
-                                average=False)
+                    shard.apply([gchunks], self.step, average=False)
         self.stats.steps += 1
         self._simulate_round(streams=1 if self.topology else None)
         self._flat_cache = None
@@ -890,12 +894,9 @@ class PBoxFabric:
                     shard.apply_wire(pay, sc, codec, self.step, average=True)
                 self.stats.fused_wire_rounds += 1
             else:
+                pushes = [self._inbox[w] for w in workers]
                 for shard in self.shards:
-                    if not shard.num_chunks:
-                        continue
-                    grads = torch.stack(
-                        [self._inbox[w][shard.rows] for w in workers])
-                    shard.apply(grads, self.step, average=True)
+                    shard.apply(pushes, self.step, average=True)
         self._inbox.clear()
         self._deferred.clear()
         self.stats.steps += 1
@@ -1041,15 +1042,11 @@ class PBoxFabric:
                 del pay, sc
             self.stats.fused_wire_rounds += 1
             return shipped
+        # null rows stand in for the absorbed streams: the kernel folds each
+        # as + 0.0f, the zero row's exact add
+        pushes = streams + [None] * (k - len(streams))
         for shard in self.shards:
-            if not shard.num_chunks:
-                continue
-            grads = torch.zeros((k, shard.num_chunks, e), dtype=torch.float32,
-                                device=self.device)
-            for i, r in enumerate(streams):
-                grads[i] = r[shard.rows]
-            shard.apply(grads, self.step, average=True)
-            del grads
+            shard.apply(pushes, self.step, average=True)
         return shipped
 
     def _core_combine(self, racks: list[RackAggregator],

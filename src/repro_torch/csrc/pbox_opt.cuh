@@ -87,6 +87,45 @@ struct Access<__nv_bfloat16, 4> {
   }
 };
 
+// 8 elements: two 16-byte accesses of f32, one of bf16 (fused_agg_opt's
+// vector wherever an operand is bf16)
+template <>
+struct Access<float, 8> {
+  static __device__ __forceinline__ void load(const float* p, float* out) {
+    Access<float, 4>::load(p, out);
+    Access<float, 4>::load(p + 4, out + 4);
+  }
+  static __device__ __forceinline__ void store(float* p, const float* in) {
+    Access<float, 4>::store(p, in);
+    Access<float, 4>::store(p + 4, in + 4);
+  }
+};
+
+template <>
+struct Access<__nv_bfloat16, 8> {
+  static __device__ __forceinline__ void load(const __nv_bfloat16* p, float* out) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(p);
+    const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      __nv_bfloat162 pair;
+      memcpy(&pair, &w[i], sizeof(pair));
+      const float2 f = __bfloat1622float2(pair);
+      out[2 * i] = f.x;
+      out[2 * i + 1] = f.y;
+    }
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, const float* in) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const __nv_bfloat162 pair = __floats2bfloat162_rn(in[2 * i], in[2 * i + 1]);
+      memcpy(&w[i], &pair, sizeof(pair));
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+};
+
 template <>
 struct Access<int8_t, 1> {
   static __device__ __forceinline__ void load(const int8_t* p, float* out) {

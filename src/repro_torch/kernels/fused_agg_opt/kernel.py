@@ -17,7 +17,11 @@ with one contract:
                          tensors.
 
 Both take the (1, 4) f32 scalar packet ``[lr_t, bc1, bc2, tok]`` built by
-``ops.scalar_packet``.  The op order differs from the oracle
+``ops.scalar_packet``, and the K gradient rows as a (K, N) tensor or as a
+sequence of rows: ``None`` for a zero row, and with ``chunk_ids`` each row
+a worker's whole push read at the shard's chunks, so no caller stacks
+its inbox.  ``grad_scale`` multiplies the folded sum, rounded to the
+rows' dtype (an eager ``slab * grad_scale`` folded into the pass).  The op order differs from the oracle
 (``optim.apply_update``) in three places: ``acc * inv_k`` against
 ``sum / K``, ``m * bc1`` against ``m / (1 - beta1**t)``, and
 ``(1 - beta2) * (g * g)`` against ``(1 - beta2) * g * g``.
@@ -76,21 +80,54 @@ def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x.double()).float()
 
 
+def gradient_rows(grads) -> list:
+    """The K gradient rows of a (K, N) tensor (views) or of a sequence of
+    rows (``None`` for a zero row), as a list."""
+    if isinstance(grads, torch.Tensor):
+        return list(grads.unbind(0))
+    return list(grads)
+
+
+def _shard_row(row: torch.Tensor, n: int, chunk_ids) -> torch.Tensor:
+    """A row's N elements of the shard: the row itself, or, with a chunk-id
+    table, its chunks gathered from the worker's whole push."""
+    if chunk_ids is None:
+        return row.reshape(n)
+    return row.reshape(-1, n // len(chunk_ids))[chunk_ids].reshape(n)
+
+
 def fused_agg_opt_torch(
-    grads: torch.Tensor,  # (K, N)
+    grads,  # (K, N) tensor, or K rows: (N,) each, None for a zero row
     param: torch.Tensor,  # (N,)
     state: tuple,  # num_state_slots tensors of (N,) f32
     scalars: torch.Tensor,  # (1, 4) f32: [lr_t, bc1, bc2, tok]
     spec: OptimizerSpec,
     *,
     average: bool = True,
+    chunk_ids: torch.Tensor | None = None,
+    grad_scale: float | None = None,
 ) -> tuple[torch.Tensor, tuple]:
     """Plain PyTorch version of the kernel.  Returns (new_param, new_state)
-    as new tensors; the inputs are not modified."""
-    k = grads.shape[0]
-    acc = grads[0].float()
-    for i in range(1, k):
-        acc = acc + grads[i].float()
+    as new tensors; the inputs are not modified.
+
+    ``chunk_ids``: the shard's chunk ids; each row is then a worker's whole
+    (num_chunks, chunk_elems) push, read at those chunks.  ``grad_scale``
+    multiplies the folded sum, rounded to the gradients' dtype (an eager
+    ``slab * grad_scale``), before ``x 1/K``."""
+    rows = gradient_rows(grads)
+    n = param.numel()
+    acc = None
+    for row in rows:  # left fold, ascending worker order
+        if row is None:
+            acc = (torch.zeros(n, dtype=torch.float32, device=param.device)
+                   if acc is None else acc + 0.0)
+        else:
+            x = _shard_row(row, n, chunk_ids).float()
+            acc = x if acc is None else acc + x
+    if grad_scale is not None:
+        gdt = next(r.dtype for r in rows if r is not None)
+        acc = (acc * grad_scale).to(gdt).float()
+    k = len(rows)
     return optimizer_step(spec, scalars, acc * (1.0 / k if average else 1.0),
                           param, state)
 
@@ -131,6 +168,11 @@ def hyper_args(spec: OptimizerSpec, inv_k: float) -> tuple:
             spec.beta2, spec.eps, 1.0 - spec.beta1, 1.0 - spec.beta2, inv_k)
 
 
+# the most gradient rows a launch takes: the largest row-pointer capacity
+# of csrc/fused_agg_opt.cu (``kCaps``)
+MAX_ROWS = 256
+
+
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
     from repro_torch.kernels import _build
@@ -138,26 +180,68 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_agg_opt")
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.fused_agg_opt_launch.argtypes = [
-        ptr, ptr, ptr, ptr, ptr,  # grads, param, m, v, scalars
-        i64, i64, i32, i32,  # k, n, grad_bf16, param_bf16
+        ctypes.POINTER(ptr), i32, i32,  # present rows, their count, has_zero
+        ptr, i64,  # chunk_ids, chunk_elems
+        ptr, ptr, ptr, ptr,  # param, m, v, scalars
+        i64, i32, i32,  # n, grad_bf16, param_bf16
         *HYPER_ARGTYPES,
+        i32, ctypes.c_float,  # has_scale, grad_scale
         ptr,  # stream
     ]
     lib.fused_agg_opt_launch.restype = ctypes.c_int
     return lib
 
 
-def _check_cuda_args(grads, param, state, scalars, spec) -> None:
+def check_rows(rows: list, param: torch.Tensor,
+               chunk_ids: torch.Tensor | None) -> None:
+    """The gradient rows' contract on any device: 1 to ``MAX_ROWS`` rows,
+    at least one present; the present ones contiguous, of one dtype (f32 or
+    bf16), on ``param``'s device, each with the shard's N elements or, with
+    a chunk-id table, whole chunks of N / len(chunk_ids) elements."""
+    if not 1 <= len(rows) <= MAX_ROWS:
+        raise ValueError(
+            f"fused_agg_opt takes 1 to {MAX_ROWS} gradient rows, got {len(rows)}")
+    present = [r for r in rows if r is not None]
+    if not present:
+        raise ValueError("fused_agg_opt: every gradient row is None")
+    n, dev, dtype = param.numel(), param.device, present[0].dtype
+    if dtype not in _FLOAT_TYPES:
+        raise ValueError(f"fused_agg_opt: gradient rows must be f32 or bf16, "
+                         f"got {dtype}")
+    if chunk_ids is not None:
+        if (chunk_ids.dim() != 1 or chunk_ids.dtype != torch.int64
+                or chunk_ids.device != dev or not len(chunk_ids)
+                or n % len(chunk_ids)):
+            raise ValueError(
+                f"fused_agg_opt: chunk_ids must be a non-empty 1-D int64 "
+                f"table on {dev} that splits the shard's {n} elements")
+        chunk = n // len(chunk_ids)
+    for r in present:
+        if r.dtype != dtype:
+            raise ValueError(f"fused_agg_opt: gradient rows mix {dtype} and "
+                             f"{r.dtype}")
+        if r.device != dev:
+            raise ValueError(f"fused_agg_opt: a gradient row is on {r.device},"
+                             f" the param on {dev}")
+        if not r.is_contiguous():
+            raise ValueError("fused_agg_opt: gradient rows must be contiguous")
+        if (r.numel() != n if chunk_ids is None else r.numel() % chunk):
+            raise ValueError(
+                f"fused_agg_opt: a gradient row has {r.numel()} elements, "
+                + (f"the param {n}" if chunk_ids is None else
+                   f"not whole chunks of {chunk}"))
+
+
+def _check_cuda_args(param, state, scalars, spec) -> None:
     dev = param.device
-    tensors = [grads, param, scalars, *state]
+    tensors = [param, scalars, *state]
     if any(t.device != dev for t in tensors):
         raise ValueError("fused_agg_opt: every tensor must be on one device")
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError("fused_agg_opt: every tensor must be contiguous")
-    if grads.dtype not in _FLOAT_TYPES or param.dtype not in _FLOAT_TYPES:
+    if param.dtype not in _FLOAT_TYPES:
         raise ValueError(
-            f"fused_agg_opt: grads/param must be f32 or bf16, got "
-            f"{grads.dtype}/{param.dtype}")
+            f"fused_agg_opt: param must be f32 or bf16, got {param.dtype}")
     if scalars.dtype != torch.float32 or scalars.numel() != 4:
         raise ValueError("fused_agg_opt: scalars must be 4 f32 values")
     if spec.name not in _OPT_CODES:
@@ -165,29 +249,41 @@ def _check_cuda_args(grads, param, state, scalars, spec) -> None:
 
 
 def fused_agg_opt_cuda(
-    grads: torch.Tensor,  # (K, N) on the card
+    grads,  # (K, N) tensor, or K rows (None for a zero row), on the card
     param: torch.Tensor,  # (N,), updated in place
     state: tuple,  # num_state_slots (N,) f32 tensors, updated in place
     scalars: torch.Tensor,  # (1, 4) f32 on the card
     spec: OptimizerSpec,
     *,
     average: bool = True,
+    chunk_ids: torch.Tensor | None = None,
+    grad_scale: float | None = None,
 ) -> tuple[torch.Tensor, tuple]:
     """Launch the CUDA kernel on the current stream; returns (param, state),
-    the same tensors, updated in place.  Raises if the launch fails."""
+    the same tensors, updated in place.  The rows cross as pointers (a
+    (K, N) tensor as K pointers at stride N), read where they lie.  Raises
+    if the launch fails."""
     global launches
-    _check_cuda_args(grads, param, state, scalars, spec)
-    k, n = grads.shape
+    rows = gradient_rows(grads)
+    check_rows(rows, param, chunk_ids)
+    _check_cuda_args(param, state, scalars, spec)
+    present = [r for r in rows if r is not None]
+    row_ptrs = (ctypes.c_void_p * len(present))(*[r.data_ptr() for r in present])
+    k = len(rows)
     slots = list(state) + [None] * (2 - len(state))
     ptrs = [None if s is None else s.data_ptr() for s in slots]
     with torch.cuda.device(param.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = _lib().fused_agg_opt_launch(
-            grads.data_ptr(), param.data_ptr(), ptrs[0], ptrs[1],
-            scalars.data_ptr(),
-            k, n, int(grads.dtype == torch.bfloat16),
+            row_ptrs, len(present), int(len(present) < k),
+            None if chunk_ids is None else chunk_ids.data_ptr(),
+            0 if chunk_ids is None else param.numel() // len(chunk_ids),
+            param.data_ptr(), ptrs[0], ptrs[1], scalars.data_ptr(),
+            param.numel(), int(present[0].dtype == torch.bfloat16),
             int(param.dtype == torch.bfloat16),
             *hyper_args(spec, 1.0 / k if average else 1.0),
+            int(grad_scale is not None),
+            1.0 if grad_scale is None else grad_scale,
             stream,
         )
     if rc != 0:

@@ -1,8 +1,10 @@
 """Public entry point of the fused aggregate+optimize kernel (torch
 counterpart of ``repro/kernels/fused_agg_opt/ops.py``).
 
-``fused_aggregate_update`` validates its operands, builds the scalar packet
-on the operands' device, and dispatches:
+``fused_aggregate_update`` validates its operands (the K gradient rows as
+a (K, N) tensor or as a sequence of rows, ``None`` for a zero row,
+optionally read through a chunk-id table), builds the scalar packet on
+the operands' device, and dispatches:
 
   * CUDA tensors launch the CUDA kernel (``kernel.fused_agg_opt_cuda``),
     which updates ``param`` and the state slots in place — a failed build
@@ -51,16 +53,18 @@ def scalar_packet(spec: OptimizerSpec, step: int, lr_scale: float = 1.0, *,
     return torch.stack([lr_t, bc1, bc2, tok]).reshape(1, 4)
 
 
-def _validate(grads, param, state, spec: OptimizerSpec) -> None:
+def _validate(grads, param, state, spec: OptimizerSpec,
+              chunk_ids: torch.Tensor | None) -> None:
     if spec.name not in ("sgd", "momentum", "adam", "adamw"):
         raise ValueError(f"unknown optimizer {spec.name}")
-    if grads.dim() != 2 or grads.shape[0] < 1:
+    if isinstance(grads, torch.Tensor) and (grads.dim() != 2
+                                            or grads.shape[0] < 1):
         raise ValueError(
             f"grads must be (K, N) with K >= 1, got {tuple(grads.shape)}")
-    n = grads.shape[1]
-    if tuple(param.shape) != (n,):
-        raise ValueError(
-            f"param has shape {tuple(param.shape)}, grads rows have {n} elements")
+    if param.dim() != 1:
+        raise ValueError(f"param must be (N,), got {tuple(param.shape)}")
+    _kernel.check_rows(_kernel.gradient_rows(grads), param, chunk_ids)
+    n = param.shape[0]
     if len(state) != spec.num_state_slots:
         raise ValueError(
             f"{spec.name} takes {spec.num_state_slots} state slots, got "
@@ -72,7 +76,7 @@ def _validate(grads, param, state, spec: OptimizerSpec) -> None:
 
 
 def fused_aggregate_update(
-    grads: torch.Tensor,  # (K, N) worker slabs
+    grads,  # (K, N) worker slabs, or K rows (None for a zero row)
     param: torch.Tensor,  # (N,)
     state: tuple,  # opt state slots
     spec: OptimizerSpec,
@@ -80,21 +84,28 @@ def fused_aggregate_update(
     lr_scale: float | torch.Tensor = 1.0,
     *,
     average: bool = True,
+    chunk_ids: torch.Tensor | None = None,
+    grad_scale: float | None = None,
 ) -> tuple[torch.Tensor, tuple]:
     """Aggregate K worker gradient slabs and apply the server optimizer.
 
-    Sums ``grads`` in f32 in ascending worker order, averages by 1/K when
-    ``average``, then applies ``spec`` at ``step`` with ``lr_scale`` folded
-    into the rate.  Returns (new_param, new_state).  On the card the kernel
-    updates ``param`` and ``state`` in place and returns them; callers use
-    the returned tensors either way."""
-    _validate(grads, param, state, spec)
+    Sums the rows in f32 in ascending worker order (a ``None`` row is a
+    zero row), multiplies by ``grad_scale`` rounded to the rows' dtype when
+    one is given, averages by 1/K when ``average``, then applies ``spec``
+    at ``step`` with ``lr_scale`` folded into the rate.  With
+    ``chunk_ids`` each row is a worker's whole (num_chunks, chunk_elems)
+    push, read at the shard's chunks.  Returns (new_param, new_state).  On
+    the card the kernel reads the rows where they lie, updates ``param``
+    and ``state`` in place and returns them; callers use the returned
+    tensors either way."""
+    _validate(grads, param, state, spec, chunk_ids)
     scalars = scalar_packet(spec, step, lr_scale, device=param.device)
+    kw = dict(average=average, chunk_ids=chunk_ids, grad_scale=grad_scale)
     if param.device.type == "cuda":
         return _kernel.fused_agg_opt_cuda(grads, param, state, scalars, spec,
-                                          average=average)
+                                          **kw)
     if param.device.type == "cpu":
         return _kernel.fused_agg_opt_torch(grads, param, state, scalars, spec,
-                                           average=average)
+                                           **kw)
     raise ValueError(
         f"fused_aggregate_update runs on cuda or cpu, not {param.device.type}")

@@ -146,14 +146,12 @@ def unfused_wire_update(
     card it launches the dequantize kernel once per int8 stream, then
     ``fused_agg_opt`` (which updates ``param`` and ``state`` in place)."""
     if codec in ("none", "bf16"):
-        grads = payload.float()
+        grads = payload  # the kernel widens bf16 exactly, as .float() would
     elif codec == "int8":
         if scales is None:
             raise ValueError("int8 wire streams need per-chunk scales")
-        grads = torch.stack([
-            dequantize_chunks(payload[i], scales[i], chunk_elems)
-            for i in range(payload.shape[0])
-        ])
+        grads = [dequantize_chunks(payload[i], scales[i], chunk_elems)
+                 for i in range(payload.shape[0])]
     else:
         raise ValueError(f"unknown wire codec {codec!r}")
     return fused_aggregate_update(grads, param, state, spec, step, lr_scale,

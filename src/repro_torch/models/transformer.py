@@ -52,8 +52,16 @@ import math
 from typing import Any
 
 import torch
+import torch._dynamo  # noqa: F401  (see below)
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+# ``checkpoint`` is wrapped by ``torch._disable_dynamo``, which imports
+# ``torch._dynamo`` at its first call.  That import leaves frames chained
+# to the caller's stack alive until a cyclic collection, so the first
+# ``lm_loss_and_grad`` of a process kept its weight copy (2.6 GB at
+# gemma3-1b's width) past its last reference.  Imported here, it runs
+# with no weights on the stack.
 
 from repro_torch.device import resolve_device
 from repro_torch.models.common import (
