@@ -300,7 +300,46 @@ raises on failure (the script then exits non-zero and prints no result):
    it (SGD, K = 1, f32, the MLP flat) by CUDA-graph replay, beside
    ``Tensor.add_(g, alpha=-lr)``, the one PyTorch call for that update.
    The line before the kernel table gives the seconds of each group of
-   phases.
+   phases;
+37. ResNet-50 through the PHub fabric, the paper's setting (the model runs
+   its convolutions with cuDNN's TF32 off, ``resnet._conv2d``): the
+   published config (25,557,032 parameters), 2 workers x 32 images at
+   224^2, 4 shards,
+   momentum(0.1, 0.9), the f32 wire, 3 rounds; counts set to 0 just before
+   and read just after: 12 fused_agg_opt (K = 2); round 2 by host clock,
+   round 3 profiled (device busy, idle share, fused_agg_opt's device ms);
+   shard 0's first update replayed through the plain version, bitwise;
+   finite losses; the peak;
+38. ResNet-50's ``imagenet_train`` through ``launch/steps`` (world 1,
+   NCCL, deterministic algorithms), pbox, momentum, 3 steps at 224^2: the
+   published global batch of 256 if a 16-image probe step's peak allows
+   it, else the largest power-of-two fraction; 1 fused_agg_opt (K = 1) a
+   step; step 2's ``device_update`` booked and replayed on the CPU,
+   bitwise; step ms and the peak;
+39. granite-moe-1b-a400m at its published widths: ``train_4k`` at 4096
+   tokens with remat, the batch cut to 8 sequences in as many
+   microbatches as a 1 x 4096 step's peak allows (as phase 29), pbox
+   AdamW with bf16 operands, 3 steps (3 fused_agg_opt), each step's aux
+   loss and the share of assignments the capacity dropped; then
+   ``prefill_32k`` at 1 x 32768 twice (greedy ids equal) and
+   ``decode_32k`` at 16 sequences, 8 steps;
+40. qwen2-moe-a2.7b served at its published widths (14.3B parameters):
+   ``prefill_32k`` at 1 x 32768 once and ``decode_32k`` at the largest
+   batch whose cache fits beside the weights, 8 steps (no training: its
+   AdamW slots alone exceed the card);
+41. the SMOKE configs of resnet50 (2 fabric rounds on gradients booked
+   on the card, params bitwise; one SPMD step), granite, qwen2-moe,
+   internlm2 and qwen2-72b (one train step by SGD, a prefill, 4 decode
+   steps), card == CPU (resnet within RN_CARD_RTOL / RN_CARD_ATOL, which a
+   control run with cuDNN's TF32 convolutions must fail; the LM train
+   steps within rtol 1e-5 / atol 1e-6, their caches within 1e-5 of the
+   largest entry), launches equal to the CPU run's plain-version calls;
+   the MoE routing (``route_topk``'s
+   experts, ``dispatch_indices``' ``buf_pos`` / ``keep``) bitwise card ==
+   CPU on the same f32 logits.  Phase 19 also times fused_agg_opt at the
+   three new shapes (momentum K = 2 over a shard's slab and K = 1 over
+   the flat, the latter beside ``torch._fused_sgd_``; AdamW bf16 K = 1
+   over granite's flat).
 
 The line before the last is the kernel table as JSON (each row with its
 launches on every path); the last line is ``{"ok": true, "device":
@@ -3724,11 +3763,17 @@ def serve_path(dev) -> dict:
     gen = out["generated"]
     if gen.shape != (args.batch, args.tokens) or not ((gen >= 0) & (gen < cfg.vocab)).all():
         raise AssertionError(f"generated ids {gen.shape} out of range")
+    topo = fabric.topology
+    if topo is None or topo.num_racks != 2:
+        raise AssertionError(f"the serve fabric's topology is {topo}, not "
+                             "the CLI's 2 racks")
     n = fabric.space.flat_elems
     log(f"serve path: {cfg.name} full width, flat {n} (N params "
-        f"{cfg.param_count()}), {SHARDS} shards over 2 racks (1:4 core), "
+        f"{cfg.param_count()}), {SHARDS} shards over {topo.num_racks} racks "
+        f"(1:{topo.oversubscription:g} core), "
         f"R = 2, 1 CLI round in {cli_s:.1f} s (the numpy draws of "
-        f"{WORKERS} x {n} float64 normals included); launches {launches}; "
+        f"{fabric.num_workers} x {n} float64 normals included); launches "
+        f"{launches}; "
         f"CLI prefill {out['prefill_ms']:.1f} ms, decode "
         f"{out['decode_ms']:.1f} ms for {args.tokens - 1} steps (host "
         "clock)")
@@ -3737,9 +3782,9 @@ def serve_path(dev) -> dict:
     # round 2 with card-drawn gradients; the cached read must not move
     g = torch.Generator(device=dev).manual_seed(7)
     _zero_counts()
-    for w in range(WORKERS):
+    for w in range(fabric.num_workers):
         fabric.pull(w)
-    for w in range(WORKERS):
+    for w in range(fabric.num_workers):
         fabric.push(w, 1e-3 * torch.randn(n, generator=g, device=dev))
     torch.cuda.synchronize()
     _check_counts("serve round 2", _counts(), {"fused_agg_opt": SHARDS})
@@ -4984,6 +5029,7 @@ class LocalMesh:
     def __init__(self, axes):
         self.axis_names = tuple(axes)
         self.shape = {a: 1 for a in axes}
+        self.size = 1
 
     def axis_size(self, axes) -> int:
         return 1
@@ -5754,65 +5800,15 @@ def serve_cells_path(dev, smoke: bool = False) -> dict:
     cfg = arch.smoke_config if smoke else arch.config
     mesh = make_mesh((1, 1), ("data", "model"))
     params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
-    out = {}
-    _zero_counts()
-
-    plan = build_cell("gemma3-1b", "prefill_32k", mesh, smoke=smoke)
-    s = plan.abstract_args[1].shape[1]
-    gen = torch.Generator(device=dev).manual_seed(5)
-    toks = torch.randint(0, cfg.vocab, (PREFILL_BATCH, s), generator=gen,
-                         device=dev, dtype=torch.int32)
-    torch.cuda.empty_cache()
-    base = torch.cuda.memory_allocated(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    ids, ms = [], []
-    for _ in range(2):
-        res = {}
-        ms.append(timed(lambda: res.update(zip(("ids", "cache"),
-                                               plan.fn(params, toks)))))
-        ids.append(res["ids"].cpu())
-        del res
-    peak = torch.cuda.max_memory_allocated(dev) - base
-    if not torch.equal(ids[0], ids[1]):
-        raise AssertionError(f"prefill_32k: re-run ids {ids}")
+    out = _lm_serve("gemma3-1b", params, cfg, mesh, dev, smoke, DECODE_BATCH,
+                    "phase 30: gemma3-1b")
+    s = out["prefill_32k"]["seq"]
     unchunked = PREFILL_BATCH * cfg.n_heads * s * s * 4
-    out["prefill_32k"] = {"ms": ms, "peak_bytes": peak, "batch": PREFILL_BATCH,
-                          "seq": s, "unchunked_scores_bytes": unchunked,
-                          "ids": ids[0].tolist()}
-    log(f"phase 30: prefill_32k {PREFILL_BATCH} x {s}: {[round(x, 1) for x in ms]}"
-        f" ms, peak {peak / 2**30:.2f} GiB above the weights (an unchunked "
-        f"layer's f32 scores alone: {unchunked / 2**30:.2f} GiB); greedy ids "
-        f"{ids[0].tolist()} equal on the re-run")
-    torch.cuda.empty_cache()
-
-    plan = build_cell("gemma3-1b", "decode_32k", mesh, smoke=smoke)
-    L, _, s, hkv, hd = plan.abstract_args[2]["k"].shape
-    shape = (L, DECODE_BATCH, s, hkv, hd)
-    k, v = _random_cache([shape, shape], dev, 6, cfg.dtype)
-    cache = {"k": k.mul_(0.5), "v": v}
-    tok = torch.randint(0, cfg.vocab, (DECODE_BATCH,), generator=gen,
-                        device=dev, dtype=torch.int32)
-    torch.cuda.reset_peak_memory_stats(dev)
-    ms = []
-    for i in range(DECODE_STEPS):
-        res = {}
-        pos = s - DECODE_STEPS + i
-        ms.append(timed(lambda: res.update(zip(("ids", "cache"), plan.fn(
-            params, tok, cache, pos)))))
-        tok = res["ids"]
-        if res["cache"] is not cache:
-            raise AssertionError("decode_32k: the cache was not updated in "
-                                 "place")
-    if not ((tok >= 0) & (tok < cfg.vocab)).all():
-        raise AssertionError(f"decode_32k: ids {tok}")
-    peak = torch.cuda.max_memory_allocated(dev)
-    out["decode_32k"] = {"ms": ms, "peak_bytes": peak, "batch": DECODE_BATCH,
-                         "seq": s, "cache_bytes": 2 * k.numel() * k.element_size()}
-    log(f"phase 30: decode_32k {DECODE_BATCH} x {s} ({2 * k.numel() * k.element_size() / 2**30:.2f}"
-        f" GiB cache): steps {[round(x, 2) for x in ms]} ms, peak "
-        f"{peak / 2**30:.2f} GiB")
-    del cache, k, v
-    torch.cuda.empty_cache()
+    out["prefill_32k"]["unchunked_scores_bytes"] = unchunked
+    log(f"phase 30: an unchunked layer's f32 scores alone at {s} tokens: "
+        f"{unchunked / 2**30:.2f} GiB")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    _zero_counts()
 
     plan = build_cell("gemma3-1b", "long_500k", mesh, smoke=smoke)
     s = plan.abstract_args[2][cfg.global_every - 1]["k"].shape[1]
@@ -6695,14 +6691,14 @@ def rs_archs_path(dev, smoke: bool = False) -> dict:
     return out
 
 
-def _rs_close(label: str, a, b) -> float:
-    """max |a - b| after checking a against b at RS_CARD_RTOL /
-    RS_CARD_ATOL (on the host)."""
+def _rs_close(label: str, a, b, rtol: float = RS_CARD_RTOL,
+              atol: float = RS_CARD_ATOL) -> float:
+    """max |a - b| after checking a against b at ``rtol`` / ``atol``
+    (RS_CARD_RTOL / RS_CARD_ATOL unless given; on the host)."""
     import torch
 
     a, b = a.detach().cpu(), b.detach().cpu()
-    if a.shape != b.shape or not torch.allclose(a, b, rtol=RS_CARD_RTOL,
-                                                atol=RS_CARD_ATOL):
+    if a.shape != b.shape or not torch.allclose(a, b, rtol=rtol, atol=atol):
         raise AssertionError(f"{label}: shapes {tuple(a.shape)} / "
                              f"{tuple(b.shape)}, max |err| "
                              f"{max_abs_err(a, b) if a.shape == b.shape else None}")
@@ -6930,127 +6926,958 @@ def rs_gloo_check(dev) -> dict:
     return {"seconds": seconds, "max_abs_err": err}
 
 
-def time_fused_agg_opt_sgd(dev, n: int, sets: int = 3) -> dict:
-    """fused_agg_opt as the recsys steps run it: SGD(0.01), K = 1, no
-    averaging, f32, over the sparse step's dense flat of ``n`` elements;
-    ``sets`` input sets cycled (beyond the 50 MB L2), timed by CUDA-graph
-    replay (a ~10 us launch), beside its plain version and the one
-    PyTorch call that computes the same update, ``Tensor.add_(g,
-    alpha=-lr)`` (which the port never calls)."""
+# -- phases 37 to 41: ResNet-50 and the MoE transformer ------------------------
+# phase 37: the paper's setting, K = 2 workers x 32 images at 224^2 through a
+# 4-shard fabric; phase 38: imagenet_train's published global batch of 256,
+# or the largest power-of-two fraction a probe step's peak allows
+RN_WORKERS, RN_BATCH, RN_IMG, RN_ROUNDS = 2, 32, 224, 3
+RN_SPMD_STEPS, RN_PROBE, RN_MEM_SHARE = 3, 16, 0.75
+# phase 40: the decode batch is the largest that fits beside the weights,
+# leaving this much for the step's working memory
+QWEN_DECODE_MARGIN = 6 * 2**30
+# phase 41: the LM SMOKE prompts, decode steps, and the MoE routing sweep
+SMOKE_NEW_LM = ("granite-moe-1b-a400m", "qwen2-moe-a2.7b", "internlm2-1.8b",
+                "qwen2-72b")
+SMOKE_PROMPT, SMOKE_DECODE_STEPS = 16, 4
+# ResNet's SMOKE gradients card against CPU: 50 convolutions and their
+# GroupNorms deep, cuDNN and the CPU's convolutions sum in other orders;
+# the first card run (NVIDIA H100 80GB HBM3, 700.00 W) read 5.6e-6 on a
+# head gradient, past RS_CARD_RTOL / RS_CARD_ATOL.  This is
+# tests/test_torch_resnet.py's bound (the port against JAX on the CPU).
+RN_CARD_RTOL, RN_CARD_ATOL = 1e-4, 1e-5
+# the LM SMOKE caches (each layer's k / v after the layers below it, on
+# the card and on the CPU) within RS_CARD_RTOL of their largest entry:
+# elementwise, atol 1e-6 failed a near-zero entry of granite's by 2.0e-6
+# (values up to ~4; NVIDIA H100 80GB HBM3, 700.00 W), as phase 22 holds
+# logits to their largest
+LM_CACHE_KEYS = ("prefill_k", "cache_k", "cache_v")
+
+
+def _scaled_close(label: str, a, b, rtol: float = RS_CARD_RTOL) -> float:
+    """max |a - b| after checking it against ``rtol`` times max |b| (plus
+    RS_CARD_ATOL), on the host."""
+    a, b = a.detach().cpu(), b.detach().cpu()
+    err = max_abs_err(a, b) if a.shape == b.shape else float("inf")
+    scale = b.abs().max().item() if b.numel() else 0.0
+    if not err <= rtol * scale + RS_CARD_ATOL:
+        raise AssertionError(f"{label}: max |err| {err} against "
+                             f"{rtol} x {scale} + {RS_CARD_ATOL}")
+    return err
+ROUTING_CASES = ((4096, 32, 8), (4096, 60, 4), (257, 8, 2))  # T, E, k
+
+
+def _sorted_map(fn, tree):
+    """``fn`` of each leaf, the keys in ``_leaves``' (sorted) order."""
+    if isinstance(tree, dict):
+        return {k: _sorted_map(fn, tree[k]) for k in sorted(tree)}
+    return fn(tree)
+
+
+def _rn_loss_and_grad(params, batch, cfg):
+    """(loss, gradient tree) of ResNet's ``loss_fn`` at ``params``."""
     import torch
 
+    from repro_torch.models import resnet as RN
+
+    tracked = _sorted_map(lambda t: t.detach().requires_grad_(True), params)
+    loss, _ = RN.loss_fn(tracked, batch, cfg)
+    grads = iter(torch.autograd.grad(loss, _leaves(tracked)))
+    return loss.detach(), _sorted_map(lambda _: next(grads), tracked)
+
+
+def _rn_batches(cfg, batch: int, img: int, n: int, seed: int, dev) -> list:
+    """``n`` batches of ``image_batches`` on ``dev``, made before any timed
+    work."""
+    import torch
+
+    from repro_torch.data.synthetic import image_batches
+
+    return [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+            for b in itertools.islice(
+                image_batches(batch, img, cfg.n_classes, seed), n)]
+
+
+def resnet_fabric_path(dev, smoke: bool = False) -> dict:
+    """Phase 37: ResNet-50 at its published config through the PHub
+    fabric, the paper's setting: RN_WORKERS workers x RN_BATCH images at
+    RN_IMG^2, 4 shards, momentum(0.1, 0.9), the f32 wire, RN_ROUNDS
+    rounds.  Counts set to 0 just before the rounds and read just after;
+    the last round profiled; shard 0's first update captured for a replay
+    through the plain version (``replay_f32``).  ``smoke``: the SMOKE
+    config, 2 images at 32^2, 2 rounds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.chunking import ParamSpace
+    from repro_torch.core.config import FabricConfig
+    from repro_torch.core.fabric import PBoxFabric, WorkerHarness
     from repro_torch.kernels.fused_agg_opt import kernel as K
-    from repro_torch.kernels.fused_agg_opt.ops import scalar_packet
+    from repro_torch.models import resnet as RN
+    from repro_torch.optim.optimizers import momentum
+
+    arch = get_arch("resnet50")
+    cfg = arch.smoke_config if smoke else arch.config
+    batch, img = (2, 32) if smoke else (RN_BATCH, RN_IMG)
+    rounds = 2 if smoke else RN_ROUNDS
+    memory = PathMemory(dev)
+    params = RN.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    space = ParamSpace.build(params)
+    spec = momentum(0.1, 0.9)
+    fab = PBoxFabric(space, spec, space.flatten(params), device=dev,
+                     config=FabricConfig(num_shards=SHARDS,
+                                         num_workers=RN_WORKERS))
+    del params
+    streams = [iter(_rn_batches(cfg, batch, img, rounds, w, dev))
+               for w in range(RN_WORKERS)]
+    losses: list = []
+
+    def grad_fn(p, wstep):
+        with record_function("worker.fwd_bwd"):
+            loss, g = _rn_loss_and_grad(p, next(streams[wstep[0]]), cfg)
+        losses.append(loss)
+        return g
+
+    captured: dict = {}
+    shard0 = fab.shards[0]
+    capture_first_apply(shard0, "apply", captured)
+    timer = LaunchTimer(K, "fused_agg_opt_cuda")
+    h = WorkerHarness(fab, grad_fn, lambda w, s: (w, s))
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    round_ms = []
+    try:
+        with timer:
+            _zero_counts()
+            for r in range(1, rounds + 1):
+                if r == rounds:
+                    prof.start()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                h.run(r)
+                torch.cuda.synchronize()
+                round_ms.append((time.perf_counter() - t0) * 1e3)
+            prof.stop()
+            launches = _counts()
+    finally:
+        delattr(shard0, "apply")
+    _check_counts("resnet fabric", launches, {"fused_agg_opt": SHARDS * rounds})
+    peak = memory.now()[1]
+    loss_vals = finite_losses(losses)
+    kernel_ms = timer.ms()
+    flat = fab.params
+    if tuple(flat.shape) != (space.flat_elems,) or not torch.isfinite(
+            flat).all():
+        raise AssertionError("resnet fabric: params not finite or misshapen")
+    log(f"phase 37: resnet50 ({space.payload_elems} params, flat "
+        f"{space.flat_elems}) through the fabric: {RN_WORKERS} workers x "
+        f"{batch} x {img}^2, {SHARDS} shards, momentum(0.1, 0.9), {rounds} "
+        f"rounds; losses {loss_vals}; round wall ms "
+        f"{[round(x, 1) for x in round_ms]}; launches {launches}; "
+        f"fused_agg_opt ms per launch {statistics.median(kernel_ms):.4f} "
+        f"(median of {len(kernel_ms)}); peak {peak / 2**30:.2f} GiB")
+    breakdown = profile_summary(prof, round_ms[-2] if rounds > 1 else
+                                round_ms[-1], timer.events[-SHARDS:],
+                                "fused_agg_opt")
+    n0 = shard0.num_elems
+    del fab, h, flat, shard0, streams
+    torch.cuda.empty_cache()
+    return {"launches": launches, "n": n0, "flat": space.flat_elems,
+            "captured": captured, "spec": spec, "round_ms": round_ms,
+            "losses": loss_vals, "peak_bytes": peak,
+            "main_path_ms": statistics.median(kernel_ms), **breakdown}
+
+
+def _rn_probe_batch(cfg, params: dict, published: int, img: int,
+                    dev) -> tuple:
+    """The train batch that fits: the peak of one fwd+bwd at RN_PROBE
+    images (above what is allocated), scaled linearly; the published
+    batch, or the largest power-of-two fraction of it whose scaled peak
+    stays under RN_MEM_SHARE of the card.  Returns (batch, probe peak)."""
+    import torch
+
+    batch = _rn_batches(cfg, RN_PROBE, img, 1, 7, dev)[0]
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    loss, grads = _rn_loss_and_grad(params, batch, cfg)
+    torch.cuda.synchronize()
+    probe = torch.cuda.max_memory_allocated(dev) - base
+    del loss, grads, batch
+    torch.cuda.empty_cache()
+    budget = (RN_MEM_SHARE * torch.cuda.get_device_properties(dev).total_memory
+              - torch.cuda.memory_allocated(dev))
+    b = published
+    while b > RN_PROBE and probe * b / RN_PROBE > budget:
+        b //= 2
+    return b, probe
+
+
+def resnet_spmd_path(dev, smoke: bool = False) -> dict:
+    """Phase 38: ResNet-50's ``imagenet_train`` through
+    ``launch/steps.build_vision_train`` and the SPMD PS step, world 1,
+    pbox, momentum(0.1, 0.9), RN_SPMD_STEPS steps at 224^2, the published
+    global batch of 256 if a probe step's peak allows it (else the
+    largest power-of-two fraction).  Counts: 1 fused_agg_opt a step;
+    step 2's ``device_update`` booked over three windows and replayed on
+    the CPU, bitwise.  ``smoke``: the SMOKE cell (2 x 32^2).  Call inside
+    ``world_one`` and ``deterministic``."""
+    import torch
+
+    from repro_torch.configs.registry import ShapeCell, get_arch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import build_vision_train, make_exchange
+    from repro_torch.models import resnet as RN
+    from repro_torch.runtime.trainer import init_train_state, local_state
+
+    arch = get_arch("resnet50")
+    cfg = arch.smoke_config if smoke else arch.config
+    published = arch.cell("imagenet_train").params
+    mesh = make_mesh((1, 1), ("data", "model"))
+    params = RN.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    probe = None
+    if smoke:
+        gb = published["global_batch"]
+    else:
+        gb, probe = _rn_probe_batch(cfg, params, published["global_batch"],
+                                    published["img"], dev)
+    cell = ShapeCell("imagenet_train", "train",
+                     {"global_batch": gb, "img": published["img"]})
+    ex = make_exchange(mesh, "vision")
+    plan = build_vision_train(arch, cell, mesh, ex, smoke=smoke)
+    space = plan.meta["space"]
+    state = init_train_state(mesh, init_params_fn=lambda _: params,
+                             exchange=ex, space=space, n_groups=1, key=None,
+                             device=dev)
+    del params
+    bt = plan.abstract_args[4]["images"].shape
+    gb, img = bt[0], bt[1]
+    batches = _rn_batches(cfg, gb, img, RN_SPMD_STEPS, 0, dev)
+    book, events = {}, []
+    real = book_update(ex, book, events, SPMD_BOOK,
+                       ex.cfg.compression.chunk_elems)
+    pflat, slots, ef, stc = local_state(state, mesh, ex)
+    del state
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts()
+    losses, step_ms = [], []
+    for b in batches:
+        res = {}
+        step_ms.append(timed(lambda: res.update(zip(
+            ("p", "s", "e", "c", "m"), plan.fn(pflat, slots, ef, stc, b)))))
+        pflat, slots, ef, stc = res["p"], res["s"], res["e"], res["c"]
+        losses.append(res["m"]["loss"])
+    launches = _counts()
+    _check_counts("resnet spmd", launches, {"fused_agg_opt": RN_SPMD_STEPS})
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = finite_losses(losses)
+    update_ms = [s.elapsed_time(e) for s, e in events]
+    err = replay_book(real, book, mesh.axis_names)
+    ex.device_update = real
+    reduced = gb != published["global_batch"] and not smoke
+    log(f"phase 38: resnet50 imagenet_train {gb} x {img}^2"
+        + (f" (cut from {published['global_batch']}: a {RN_PROBE}-image "
+           f"probe step peaked at {probe / 2**30:.2f} GiB)" if reduced else
+           (f" (the published batch; a {RN_PROBE}-image probe step peaked "
+            f"at {probe / 2**30:.2f} GiB)" if probe else ""))
+        + f": losses {losses}, steps {[round(x, 1) for x in step_ms]} ms, "
+        f"device_update {[round(x, 3) for x in update_ms]} ms, peak "
+        f"{peak / 2**30:.2f} GiB, launches {launches}; step {SPMD_BOOK + 1}'s"
+        f" update replayed on the CPU over 3 windows bitwise")
+    del pflat, slots, ef, batches
+    torch.cuda.empty_cache()
+    return {"launches": launches, "losses": losses, "step_ms": step_ms,
+            "update_ms": update_ms, "peak_bytes": peak, "replay_err": err,
+            "flat": space.flat_elems, "batch": gb, "img": img,
+            "reduced": reduced, "probe_bytes": probe}
+
+
+class MoEDrops:
+    """Counts the MoE assignments dispatch keeps while the block runs
+    (``models/moe._dispatch`` swapped for a counting wrapper, and
+    restored), on the card without a host wait.  A remat recompute
+    dispatches the same tokens again, so the share is unchanged."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.real = moe, moe._dispatch
+        self.kept, self.total, self.capacity = [], 0, set()
+
+        def counted(experts, cfg, capacity):
+            out = self.real(experts, cfg, capacity)
+            self.kept.append(out[1].sum())
+            self.total += out[1].numel()
+            self.capacity.add(capacity)
+            return out
+
+        moe._dispatch = counted
+        return self
+
+    def share_dropped(self) -> float:
+        kept = sum(int(k.item()) for k in self.kept)
+        return 1.0 - kept / self.total if self.total else 0.0
+
+    def __exit__(self, *exc):
+        self.moe._dispatch = self.real
+
+
+def _lm_serve(arch_id: str, params, cfg, mesh, dev, smoke: bool,
+              decode_batch: int, label: str, prefills: int = 2) -> dict:
+    """``prefill_32k`` (``prefills`` times, the greedy ids equal) and
+    ``decode_32k`` (``decode_batch`` sequences from a seeded cache,
+    DECODE_STEPS steps ending at the last position) through
+    ``build_cell``'s plans; no kernel launch."""
+    import torch
+
+    from repro_torch.launch.steps import build_cell
+
+    out = {}
+    _zero_counts()
+    plan = build_cell(arch_id, "prefill_32k", mesh, smoke=smoke)
+    s = plan.abstract_args[1].shape[1]
+    gen = torch.Generator(device=dev).manual_seed(5)
+    toks = torch.randint(0, cfg.vocab, (PREFILL_BATCH, s), generator=gen,
+                         device=dev, dtype=torch.int32)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ids, ms = [], []
+    for _ in range(prefills):
+        res = {}
+        ms.append(timed(lambda: res.update(zip(("ids", "cache"),
+                                               plan.fn(params, toks)))))
+        ids.append(res["ids"].cpu())
+        del res
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    if not all(torch.equal(ids[0], x) for x in ids[1:]):
+        raise AssertionError(f"{label} prefill_32k: re-run ids {ids}")
+    if not ((ids[0] >= 0) & (ids[0] < cfg.vocab)).all():
+        raise AssertionError(f"{label} prefill_32k: ids {ids[0]}")
+    out["prefill_32k"] = {"ms": ms, "peak_bytes": peak, "seq": s,
+                          "batch": PREFILL_BATCH}
+    log(f"{label}: prefill_32k {PREFILL_BATCH} x {s}: "
+        f"{[round(x, 1) for x in ms]} ms, peak {peak / 2**30:.2f} GiB above "
+        f"the weights; greedy ids {ids[0].tolist()}"
+        + (" equal on the re-run" if prefills > 1 else ""))
+    torch.cuda.empty_cache()
+
+    plan = build_cell(arch_id, "decode_32k", mesh, smoke=smoke)
+    L, _, s, hkv, hd = plan.abstract_args[2]["k"].shape
+    shape = (L, decode_batch, s, hkv, hd)
+    k, v = _random_cache([shape, shape], dev, 6, cfg.dtype)
+    cache = {"k": k.mul_(0.5), "v": v}
+    tok = torch.randint(0, cfg.vocab, (decode_batch,), generator=gen,
+                        device=dev, dtype=torch.int32)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = []
+    for i in range(DECODE_STEPS):
+        res = {}
+        pos = s - DECODE_STEPS + i
+        ms.append(timed(lambda: res.update(zip(("ids", "cache"), plan.fn(
+            params, tok, cache, pos)))))
+        tok = res["ids"]
+        if res["cache"] is not cache:
+            raise AssertionError(f"{label} decode_32k: the cache was not "
+                                 "updated in place")
+    if not ((tok >= 0) & (tok < cfg.vocab)).all():
+        raise AssertionError(f"{label} decode_32k: ids {tok}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    cache_bytes = 2 * k.numel() * k.element_size()
+    out["decode_32k"] = {"ms": ms, "peak_bytes": peak, "batch": decode_batch,
+                         "seq": s, "cache_bytes": cache_bytes}
+    log(f"{label}: decode_32k {decode_batch} x {s} "
+        f"({cache_bytes / 2**30:.2f} GiB cache): steps "
+        f"{[round(x, 2) for x in ms]} ms, peak {peak / 2**30:.2f} GiB")
+    _check_counts(f"{label} serving cells", _counts(), {})
+    del cache, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def granite_path(dev, smoke: bool = False) -> dict:
+    """Phase 39: granite-moe-1b-a400m at its published widths (24 layers,
+    d 1024, 32 experts top-8 of width 512, vocab 49155, bf16), world 1.
+    ``train_4k`` at its 4096 tokens with remat, the global batch cut from
+    256 to TRAIN4K_BATCH sequences in as many microbatches as a 1 x 4096
+    remat step's peak allows (as phase 29 cuts gemma's), pbox AdamW,
+    TRAIN4K_STEPS steps (1 fused_agg_opt each, bf16 operands), each
+    step's aux loss and the share of assignments the capacity dropped;
+    then ``prefill_32k`` at 1 x 32768 twice and ``decode_32k`` at
+    DECODE_BATCH sequences, DECODE_STEPS steps.  ``smoke``: the SMOKE
+    config and cells.  Call inside ``world_one`` and ``deterministic``."""
+    import torch
+
+    from repro_torch.configs.registry import ShapeCell, get_arch
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import build_lm_train, make_exchange
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime.trainer import init_train_state, local_state
+
+    arch = get_arch("granite-moe-1b-a400m")
+    cfg = arch.smoke_config if smoke else arch.config
+    seq = 64 if smoke else REMAT_SEQ
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    b = next(lm_batches(cfg.vocab, 1, seq, 0))
+    toks, labs = (torch.from_numpy(b[k]).to(dev) for k in ("tokens", "labels"))
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    res = {}
+    probe_ms = timed(lambda: res.update(zip(
+        ("loss", "grads"), T.lm_loss_and_grad(params, toks, labs, cfg))))
+    probe = torch.cuda.max_memory_allocated(dev) - base
+    if not math.isfinite(res["loss"].item()):
+        raise AssertionError(f"granite: probe loss {res['loss']}")
+    del res, params
+    torch.cuda.empty_cache()
+
+    n = cfg.param_count()
+    state_bytes = n * (2 + 2 + 2 + 8) + 2 * n
+    free = 0.85 * torch.cuda.get_device_properties(dev).total_memory
+    rows = max(1, int((free - state_bytes) // probe))
+    rows = max(r for r in (1, 2, 4, 8) if r <= rows)
+    mb = TRAIN4K_BATCH // rows
+    mesh = make_mesh((1, 1), ("data", "model"))
+    cell = ShapeCell("train_4k", "train", {"seq_len": REMAT_SEQ,
+                                           "global_batch": TRAIN4K_BATCH})
+    ex = make_exchange(mesh, "lm")
+    plan = build_lm_train(
+        dataclasses.replace(arch, microbatches={"train_4k": mb}), cell, mesh,
+        ex, smoke=smoke)
+    if smoke:
+        mb = rows = plan.meta["microbatches"]
+    state = init_train_state(
+        mesh, init_params_fn=lambda g: T.init_params(cfg, g),
+        param_specs=T.make_param_specs(cfg, 1), exchange=ex,
+        space=plan.meta["space"], n_groups=1,
+        key=torch.Generator(device=dev).manual_seed(0),
+        ps_dtype=cfg.param_dtype, device=dev)
+    pflat, slots, ef, stc = local_state(state, mesh, ex)
+    del state
+    gb, s = plan.abstract_args[4]["tokens"].shape
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in bb.items()}
+               for bb in itertools.islice(lm_batches(
+                   cfg.vocab, gb, s, 0), TRAIN4K_STEPS)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts()
+    losses, auxes, dropped, step_ms, capacity = [], [], [], [], set()
+    for bb in batches:
+        res = {}
+        with MoEDrops() as drops:
+            step_ms.append(timed(lambda: res.update(
+                zip(("p", "s", "e", "c", "m"), plan.fn(pflat, slots, ef, stc,
+                                                        bb)))))
+        pflat, slots, ef, stc = res["p"], res["s"], res["e"], res["c"]
+        losses.append(res["m"]["loss"])
+        auxes.append(res["m"]["aux"].item())
+        dropped.append(drops.share_dropped())
+        capacity |= drops.capacity
+    launches = _counts()
+    _check_counts("granite train_4k", launches,
+                  {"fused_agg_opt": TRAIN4K_STEPS})
+    peak = torch.cuda.max_memory_allocated(dev)
+    losses = finite_losses(losses)
+    if not all(math.isfinite(a) and a > 0 for a in auxes):
+        raise AssertionError(f"granite: aux losses {auxes}")
+    log(f"phase 39: granite train_4k {gb} x {s} in {mb} microbatches of "
+        f"{rows} (a 1 x {seq} remat step: {probe_ms:.1f} ms, peak "
+        f"{probe / 2**30:.2f} GiB above the weights): steps "
+        f"{[round(x, 1) for x in step_ms]} ms, losses {losses}, aux "
+        f"{auxes}, assignments dropped by the capacity "
+        f"{[round(x, 5) for x in dropped]} (capacity {sorted(capacity)} "
+        f"slots an expert), peak {peak / 2**30:.2f} GiB, launches {launches}")
+    del pflat, slots, ef, batches
+    torch.cuda.empty_cache()
+    out = {"train_4k": {"step_ms": step_ms, "losses": losses, "aux": auxes,
+                        "dropped": dropped, "capacity": sorted(capacity),
+                        "peak_bytes": peak, "launches": launches,
+                        "microbatches": mb, "rows": rows,
+                        "probe_bytes": probe, "probe_ms": probe_ms},
+           "flat": plan.meta["space"].flat_elems}
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    out.update(_lm_serve("granite-moe-1b-a400m", params, cfg, mesh, dev,
+                         smoke, DECODE_BATCH, "phase 39: granite"))
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def qwen2_moe_serve_path(dev, smoke: bool = False) -> dict:
+    """Phase 40: qwen2-moe-a2.7b served at its published widths (24
+    layers, d 2048, 60 experts top-4 of width 1408 and a shared expert of
+    5632, vocab 151936; 14.3B parameters, 28.6 GB in bf16), world 1:
+    ``prefill_32k`` at 1 x 32768 once and ``decode_32k`` at the largest
+    batch whose cache fits beside the weights (QWEN_DECODE_MARGIN left
+    over), DECODE_STEPS steps.  No training: AdamW's f32 slots alone (~115
+    GB) exceed the card.  ``smoke``: the SMOKE config and cells.  Call
+    inside ``world_one``."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import transformer as T
+
+    arch = get_arch("qwen2-moe-a2.7b")
+    cfg = arch.smoke_config if smoke else arch.config
+    mesh = make_mesh((1, 1), ("data", "model"))
+    torch.cuda.empty_cache()
+    params = T.init_params(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.empty_cache()
+    weights = torch.cuda.memory_allocated(dev)
+    cache_shape = build_cell("qwen2-moe-a2.7b", "decode_32k", mesh,
+                             smoke=smoke).abstract_args[2]["k"].shape
+    per_seq = 2 * math.prod(cache_shape) // cache_shape[1] * (
+        2 if cfg.dtype == torch.bfloat16 else 4)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    batch = int((total - weights - QWEN_DECODE_MARGIN) // per_seq)
+    batch = max(1, min(batch, cache_shape[1], DECODE_BATCH))
+    log(f"phase 40: qwen2-moe-a2.7b, {cfg.param_count()} parameters, "
+        f"{weights / 2**30:.2f} GiB of weights on the card; a sequence's "
+        f"decode_32k cache {per_seq / 2**30:.2f} GiB: batch {batch} (from "
+        f"{arch.cell('decode_32k').params['global_batch']})")
+    out = _lm_serve("qwen2-moe-a2.7b", params, cfg, mesh, dev, smoke, batch,
+                    "phase 40: qwen2-moe", prefills=1)
+    out["weights_bytes"] = weights
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_routing_check(dev) -> dict:
+    """Phase 41's routing: ``route_topk``'s experts and
+    ``dispatch_indices``' ``buf_pos`` / ``keep`` on the card bitwise equal
+    to the CPU's on the same f32 logits (seeded normal rows, a row of
+    all-equal logits and rows with three-way ties at the top), for
+    granite's and qwen2-moe's expert counts and a small case; capacity at
+    the configs' factor 1.25 and at 0.25 (most assignments dropped)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.moe import MoEConfig, dispatch_indices, route_topk
+
+    out = {}
+    for t, e, k in ROUTING_CASES:
+        rng = np.random.default_rng(t + e + k)
+        logits = rng.standard_normal((t, e)).astype(np.float32)
+        logits[0] = 0.0
+        logits[1:4, :3] = 4.0
+        for cf in (1.25, 0.25):
+            cfg = MoEConfig(n_experts=e, top_k=k, d_ff_expert=8,
+                            capacity_factor=cf)
+            got, want = [], []
+            for device, sink in ((dev, got), (torch.device("cpu"), want)):
+                x = torch.from_numpy(logits).to(device)
+                w, idx, aux = route_topk(x, cfg)
+                pos, keep = dispatch_indices(idx, cfg, cfg.capacity(t))
+                sink.extend(z.cpu() for z in (idx, pos, keep, w, aux))
+            for name, a, b in zip(("experts", "buf_pos", "keep"), got, want):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"routing T={t} E={e} k={k} cf={cf}:"
+                                         f" {name} differs card vs CPU")
+            err = max(_rs_close(f"routing T={t} E={e} {n}", a, b)
+                      for n, a, b in zip(("weights", "aux"), got[3:], want[3:]))
+            out[f"{t}x{e}/k{k}/cf{cf}"] = {
+                "dropped": 1.0 - want[2].float().mean().item(), "err": err}
+    log(f"phase 41: MoE routing card == CPU bitwise (experts, buf_pos, keep) "
+        f"over {len(out)} cases; " + ", ".join(
+            f"{name} dropped {c['dropped']:.4f}" for name, c in out.items()))
+    return out
+
+
+def _rn_smoke_fabric(dev, cfg, params, rounds: int, booked: dict | None):
+    """Phase 41's ResNet SMOKE fabric (2 workers x 2 images at 32^2, 4
+    shards, momentum) on ``dev``.  ``booked`` None: record every gradient
+    (on the host) by (worker, step); else compare each gradient computed
+    here against the booked one and feed the fabric the booked one.
+    Returns (fabric params after each round, the gradients, max |err|)."""
+    import torch
+
+    from repro_torch.core.chunking import ParamSpace
+    from repro_torch.core.config import FabricConfig
+    from repro_torch.core.fabric import PBoxFabric, WorkerHarness
+    from repro_torch.optim.optimizers import momentum
+
+    p = _tree_to(params, dev)
+    space = ParamSpace.build(p)
+    fab = PBoxFabric(space, momentum(0.1, 0.9), space.flatten(p), device=dev,
+                     config=FabricConfig(num_shards=SHARDS,
+                                         num_workers=RN_WORKERS))
+    streams = [iter(_rn_batches(cfg, 2, 32, rounds, w, dev))
+               for w in range(RN_WORKERS)]
+    grads, err = {}, [0.0]
+
+    def grad_fn(pulled, wstep):
+        _, g = _rn_loss_and_grad(pulled, next(streams[wstep[0]]), cfg)
+        if booked is None:
+            grads[wstep] = _tree_to(g, "cpu")
+            return g
+        want = booked[wstep]
+        for a, b in zip(_leaves(g), _leaves(want)):
+            err[0] = max(err[0], _rs_close(f"resnet SMOKE gradient {wstep}",
+                                           a, b, RN_CARD_RTOL, RN_CARD_ATOL))
+        return _tree_to(want, dev)
+
+    h = WorkerHarness(fab, grad_fn, lambda w, s: (w, s))
+    flats = []
+    for r in range(1, rounds + 1):
+        h.run(r)
+        flats.append(fab.params.cpu())
+    return flats, grads, err[0]
+
+
+def _atol_reading(a, b, rtol: float) -> float:
+    """The least atol under which ``torch.allclose(a, b, rtol, atol)``
+    holds: max(|a - b| - rtol |b|), in f64 on the host."""
+    a, b = a.detach().cpu().double(), b.detach().cpu().double()
+    return ((a - b).abs() - rtol * b.abs()).max().item()
+
+
+def _rn_tf32_control(dev, cfg, params) -> dict:
+    """Phase 41's control for RN_CARD_RTOL / RN_CARD_ATOL: ResNet's SMOKE
+    loss and gradients (2 images at 32^2) on the card against the CPU's,
+    once through the model (``resnet._conv2d``: cuDNN's TF32 off) and once
+    with its convolutions as plain ``F.conv2d`` under cuDNN's TF32
+    (torch's default).  Each reading is the least atol under which every
+    leaf passes at RN_CARD_RTOL (``_atol_reading``); the model's must lie
+    under RN_CARD_ATOL and the control's above it."""
+    from unittest import mock
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.models import resnet as RN
+
+    batch = _rn_batches(cfg, 2, 32, 1, 9, dev)[0]
+    want = _rn_loss_and_grad(params, {k: v.cpu() for k, v in batch.items()},
+                             cfg)
+    p = _tree_to(params, dev)
+
+    def reading():
+        loss, g = _rn_loss_and_grad(p, batch, cfg)
+        return max(_atol_reading(a, b, RN_CARD_RTOL) for a, b in zip(
+            [loss, *_leaves(g)], [want[0], *_leaves(want[1])]))
+
+    sound = reading()
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with mock.patch.object(RN, "_conv2d", lambda x, w, stride, padding:
+                               F.conv2d(x, w, stride=stride, padding=padding)):
+            tf32 = reading()
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    log(f"phase 41: resnet SMOKE loss and gradients card vs CPU at rtol "
+        f"{RN_CARD_RTOL}: the least passing atol is {sound:.3g} through the "
+        f"model (TF32 off), {tf32:.3g} with cuDNN's TF32 convolutions "
+        f"(control); RN_CARD_ATOL {RN_CARD_ATOL}")
+    if not sound <= RN_CARD_ATOL < tf32:
+        raise AssertionError(
+            f"resnet SMOKE: RN_CARD_ATOL {RN_CARD_ATOL} does not separate the "
+            f"model's reading {sound} from the TF32 control's {tf32}")
+    return {"sound": sound, "tf32": tf32}
+
+
+def _rn_smoke_spmd(mesh, params, dev) -> dict:
+    """One ``imagenet_train`` SMOKE step (momentum) on ``mesh`` from
+    ``params`` copied to ``dev``."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.steps import build_cell
+
+    cfg = get_arch("resnet50").smoke_config
+    plan = build_cell("resnet50", "imagenet_train", mesh, smoke=True)
+    space = plan.meta["space"]
+    p = _tree_to(params, dev)
+    bt = plan.abstract_args[4]["images"].shape
+    b = _rn_batches(cfg, bt[0], bt[1], 1, 0, dev)[0]
+    slots = tuple(torch.zeros((1, space.flat_elems), device=dev)
+                  for _ in plan.meta["sspecs"]["slots"])
+    stc = torch.zeros((), dtype=torch.int32, device=dev)
+    pf, sl, _, _, met = plan.fn(space.flatten(p).reshape(1, -1), slots, None,
+                                stc, b)
+    return {"pflat": pf, "momentum": sl[0], "loss": met["loss"]}
+
+
+def _lm_smoke_run(arch_id: str, mesh, params, dev) -> dict:
+    """One ``train_4k`` SMOKE step by pbox with SGD(0.1) on ``mesh``, then
+    a prefill of 2 x SMOKE_PROMPT tokens and SMOKE_DECODE_STEPS greedy
+    decode steps, from ``params`` copied to ``dev``."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import transformer as T
     from repro_torch.optim.optimizers import sgd
 
-    spec = sgd(1e-2)
-    packet = scalar_packet(spec, 1, device=dev)
-    gen = torch.Generator(device=dev).manual_seed(3)
-    inputs = [(torch.randn((1, n), generator=gen, device=dev),
-               torch.randn(n, generator=gen, device=dev))
-              for _ in range(sets)]
-    g, p = inputs[0]
-    want_p, _ = K.fused_agg_opt_torch(g, p, (), packet, spec, average=False)
-    K.fused_agg_opt_cuda(g, p, (), packet, spec, average=False)  # in place
-    torch.cuda.synchronize()
-    err = max_abs_err(p, want_p)
-    if not same_bits(p, want_p):
-        raise AssertionError(f"fused_agg_opt (SGD, K = 1) differs at the "
-                             f"recsys shape, max |err| {err}")
-    kernel_ms, how = _graph_or_events(
-        [lambda x=x: K.fused_agg_opt_cuda(x[0], x[1], (), packet, spec,
-                                          average=False)
-         for x in inputs] * 4, "fused_agg_opt SGD")
-    events_ms = cuda_ms(lambda: K.fused_agg_opt_cuda(
-        g, p, (), packet, spec, average=False), reps=20)
-    plain_ms = cuda_ms(lambda: K.fused_agg_opt_torch(
-        g, p, (), packet, spec, average=False), reps=5)
-    # one PyTorch call computes the same update: p += -lr * g, in place
-    lib = torch.add(p, g[0], alpha=-spec.lr)
-    want_p, _ = K.fused_agg_opt_torch(g, p, (), packet, spec, average=False)
-    lib_same = same_bits(lib, want_p)
-    del lib, want_p
-    lib_ms, lib_how = _graph_or_events(
-        [lambda x=x: x[1].add_(x[0][0], alpha=-spec.lr) for x in inputs] * 4,
-        "Tensor.add_")
-    # gradient and param read, param written; lr * g and the subtract
-    b = bound(torch.cuda.get_device_name(dev), 12 * n, 2 * n)
-    log(f"timing fused_agg_opt (SGD, K=1, no averaging, f32, N={n}): kernel "
-        f"{kernel_ms:.4f} ms ({how}, {sets} input sets; CUDA events around "
-        f"one call, host launch included: {events_ms:.4f}), plain version "
-        f"{plain_ms:.4f} ms; bound {b['bound_ms']:.4f} ms = {b['bytes']} "
-        f"bytes; kernel reaches {b['bound_ms'] / kernel_ms:.1%} of the bound;"
-        f" library: Tensor.add_(g, alpha=-lr) {lib_ms:.4f} ms ({lib_how}), "
-        f"same bits: {lib_same}")
-    return {"ms": kernel_ms, "ms_events": events_ms, "plain_ms": plain_ms,
-            "max_abs_err": err, "library_ms": lib_ms,
-            "library_same_bits": lib_same, "timed_by": how,
-            "share": b["bound_ms"] / kernel_ms, **b}
+    cfg = get_arch(arch_id).smoke_config
+    plan = build_cell(arch_id, "train_4k", mesh, smoke=True, opt=sgd(0.1))
+    space = plan.meta["space"]
+    p = _tree_to(params, dev)
+    gb, s = plan.abstract_args[4]["tokens"].shape
+    b = {k: torch.from_numpy(v).to(dev)
+         for k, v in next(lm_batches(cfg.vocab, gb, s, 0)).items()}
+    stc = torch.zeros((), dtype=torch.int32, device=dev)
+    pf, _, _, _, met = plan.fn(space.flatten(p, cfg.param_dtype).reshape(1, -1),
+                               (), None, stc, b)
+    out = {"pflat": pf, "loss": met["loss"], "aux": met["aux"]}
+    toks = b["tokens"][:, :SMOKE_PROMPT]
+    with torch.no_grad():
+        ids, cache = T.prefill(p, toks, cfg, SMOKE_PROMPT + SMOKE_DECODE_STEPS)
+        out["prefill_ids"] = ids
+        out["prefill_k"] = cache["k"].clone()
+        seq = []
+        for i in range(SMOKE_DECODE_STEPS):
+            ids, cache = T.decode_step(p, ids, cache, SMOKE_PROMPT + i, cfg)
+            seq.append(ids)
+    out["decode_ids"] = torch.stack(seq)
+    out["cache_k"], out["cache_v"] = cache["k"], cache["v"]
+    return out
+
+
+def new_archs_smoke_check(dev) -> dict:
+    """Phase 41: the new archs at their SMOKE configs, the card against
+    the CPU (a ``LocalMesh``, the kernels' plain versions) from the same
+    seeded params: resnet50's 2 fabric rounds (each gradient booked on the
+    card and fed to the CPU fabric after it is compared with the CPU's
+    own, so the fabrics' params stay bitwise equal) and one SPMD step
+    (loss, params, momentum), within RN_CARD_RTOL / RN_CARD_ATOL; within
+    RS_CARD_RTOL / RS_CARD_ATOL, granite,
+    qwen2-moe, internlm2 and qwen2-72b each one ``train_4k`` step (SGD:
+    AdamW's first step is lr times the gradient's sign, which a gradient
+    within rounding of 0 flips), a prefill and SMOKE_DECODE_STEPS decode
+    steps (greedy ids equal; the train step within RS_CARD_RTOL /
+    RS_CARD_ATOL, the caches within RS_CARD_RTOL of their largest entry,
+    ``_scaled_close``); the MoE routing
+    bitwise (``moe_routing_check``); resnet's bound against a TF32 control
+    (``_rn_tf32_control``).  Each case's launches equal the CPU
+    run's plain-version calls.  Call inside ``world_one``,
+    ``deterministic``."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import resnet as RN
+    from repro_torch.models import transformer as T
+
+    cpu = torch.device("cpu")
+    mesh = make_mesh((1, 1), ("data", "model"))
+    cpu_mesh = LocalMesh(("data", "model"))
+    out = {}
+
+    cfg = get_arch("resnet50").smoke_config
+    params = RN.init_params(cfg, torch.Generator().manual_seed(0))
+    _zero_counts()
+    card_flats, booked, _ = _rn_smoke_fabric(dev, cfg, params, 2, None)
+    launches = _counts()
+    with PlainCalls() as plain:
+        cpu_flats, _, gerr = _rn_smoke_fabric(cpu, cfg, params, 2, booked)
+    if launches != plain.counts:
+        raise AssertionError(f"resnet SMOKE fabric: card launches {launches},"
+                             f" CPU plain calls {plain.counts}")
+    if not all(same_bits(a, b) for a, b in zip(card_flats, cpu_flats)):
+        raise AssertionError("resnet SMOKE fabric: params differ card vs CPU "
+                             "on the same gradients")
+    out["resnet50/fabric"] = {"launches": launches, "max_abs_err": gerr}
+    _zero_counts()
+    card = _rn_smoke_spmd(mesh, params, dev)
+    launches = _counts()
+    with PlainCalls() as plain:
+        ref = _rn_smoke_spmd(cpu_mesh, params, cpu)
+    if launches != plain.counts:
+        raise AssertionError(f"resnet SMOKE spmd: card launches {launches},"
+                             f" CPU plain calls {plain.counts}")
+    out["resnet50/spmd"] = {"launches": launches, "max_abs_err": max(
+        _rs_close(f"resnet SMOKE spmd {k}", card[k], ref[k], RN_CARD_RTOL,
+                  RN_CARD_ATOL) for k in card)}
+    out["resnet50/tf32_control"] = _rn_tf32_control(dev, cfg, params)
+
+    for arch_id in SMOKE_NEW_LM:
+        cfg = get_arch(arch_id).smoke_config
+        params = T.init_params(cfg, torch.Generator().manual_seed(0))
+        _zero_counts()
+        card = _lm_smoke_run(arch_id, mesh, params, dev)
+        launches = _counts()
+        with PlainCalls() as plain:
+            ref = _lm_smoke_run(arch_id, cpu_mesh, params, cpu)
+        if launches != plain.counts:
+            raise AssertionError(f"{arch_id} SMOKE: card launches {launches},"
+                                 f" CPU plain calls {plain.counts}")
+        for key in ("prefill_ids", "decode_ids"):
+            if not torch.equal(card[key].cpu(), ref[key]):
+                raise AssertionError(f"{arch_id} SMOKE {key}: card "
+                                     f"{card[key].tolist()} CPU "
+                                     f"{ref[key].tolist()}")
+        errs, bad = {}, []
+        for k in card:
+            if k.endswith("_ids"):
+                continue
+            check = _scaled_close if k in LM_CACHE_KEYS else _rs_close
+            try:
+                errs[k] = check(f"{arch_id} SMOKE {k}", card[k], ref[k])
+            except AssertionError as e:
+                bad.append(str(e))
+        if bad:
+            raise AssertionError("; ".join(bad))
+        out[arch_id] = {"launches": launches,
+                        "max_abs_err": max(errs.values()), "errs": errs}
+    out["routing"] = moe_routing_check(dev)
+    log(f"phase 41: resnet50 (2 fabric rounds on booked gradients, params "
+        f"bitwise; one SPMD step) and {', '.join(SMOKE_NEW_LM)} (a train "
+        f"step, a prefill, {SMOKE_DECODE_STEPS} decode steps) at SMOKE, card "
+        f"== CPU within rtol {RN_CARD_RTOL} / atol {RN_CARD_ATOL} (resnet) and"
+        f" rtol {RS_CARD_RTOL} / atol {RS_CARD_ATOL} (the LMs' train steps; "
+        f"their caches within {RS_CARD_RTOL} of the largest entry): "
+        + ", ".join(
+            f"{name} max |err| {c['max_abs_err']:.3g}" + (
+                f" ({', '.join(f'{k} {v:.3g}' for k, v in c['errs'].items())})"
+                if "errs" in c else "")
+            for name, c in out.items() if "max_abs_err" in c))
+    return out
 
 
 # -- phase 19: kernel timings ------------------------------------------------
-def time_fused_agg_opt(dev, n: int, k: int, average: bool = True,
-                       dtype=None) -> dict:
-    """AdamW over K gradient rows of N elements, grads and param in
-    ``dtype`` (f32 unless given; the SPMD path's are bf16)."""
+# fused_agg_opt's optimizers as the paths run them: the spec, its state
+# slots, the step the packet carries, the seed of the inputs, and the f32
+# operations an element of the update takes from K rows (K - 1 adds, the
+# 1/K scale where averaging, then the update itself)
+AGG_OPTS = {
+    "adamw": (lambda O: O.adamw(3e-3), 2, 1, 1,
+              lambda k, average: adamw_ops(k)),
+    "momentum": (lambda O: O.momentum(0.1, 0.9), 1, 2, 4,
+                 lambda k, average: (k - 1) + int(average) + 4),
+    "sgd": (lambda O: O.sgd(1e-2), 0, 1, 3,
+            lambda k, average: (k - 1) + int(average) + 2),
+}
+# the library call's bits are compared on this many leading elements (the
+# update is elementwise), so a full-width check needs no second copy
+LIBRARY_BITS_ELEMS = 1 << 24
+
+
+def _agg_opt_library(opt: str, spec, dev):
+    """(name, fn(grads, param, slots)): the one PyTorch call that computes
+    a K = 1 update without averaging in place, which the port never
+    calls: what ``torch.optim.AdamW(fused=True)`` and ``SGD(fused=True)``
+    call, and ``Tensor.add_`` for plain SGD."""
     import torch
 
-    dtype = dtype or torch.float32
+    if opt == "adamw":
+        step = [torch.ones((), device=dev)]
+        return "torch._fused_adamw_", lambda g, p, s: torch._fused_adamw_(
+            [p], [g[0]], [s[0]], [s[1]], [], step, lr=spec.lr,
+            beta1=spec.beta1, beta2=spec.beta2,
+            weight_decay=spec.weight_decay, eps=spec.eps, amsgrad=False,
+            maximize=False)
+    if opt == "momentum":
+        return "torch._fused_sgd_", lambda g, p, s: torch._fused_sgd_(
+            [p], [g[0]], [s[0]], weight_decay=0.0, momentum=spec.momentum,
+            lr=spec.lr, dampening=0.0, nesterov=False, maximize=False,
+            is_first_step=False)
+    return "Tensor.add_(g, alpha=-lr)", lambda g, p, s: p.add_(
+        g[0], alpha=-spec.lr)
+
+
+def time_fused_agg_opt(dev, n: int, k: int, average: bool = True,
+                       dtype=None, opt: str = "adamw", sets: int = 1) -> dict:
+    """fused_agg_opt with ``opt`` (AGG_OPTS: AdamW on the LM paths,
+    momentum on ResNet's, SGD on the recsys steps) over K gradient rows of
+    N elements, grads and param in ``dtype`` (f32 unless given; the SPMD
+    path's are bf16), state slots in f32.  Checked bitwise against its
+    plain version, then timed: one input set by CUDA events around each
+    call (median of 20); ``sets`` > 1 sets cycled (beyond the 50 MB L2)
+    by CUDA-graph replay, for launches near or under 50 us.  At K = 1
+    without averaging, beside the library call (``_agg_opt_library``; not
+    the same bits)."""
+    import torch
 
     from repro_torch.kernels.fused_agg_opt import kernel as K
     from repro_torch.kernels.fused_agg_opt.ops import scalar_packet
-    from repro_torch.optim.optimizers import adamw
+    from repro_torch.optim import optimizers as O
 
-    spec = adamw(3e-3)
-    gen = torch.Generator(device=dev).manual_seed(1)
-    grads = torch.randn((k, n), generator=gen, device=dev).to(dtype)
-    p = torch.randn(n, generator=gen, device=dev).to(dtype)
-    m = torch.randn(n, generator=gen, device=dev) * 0.1
-    v = (torch.randn(n, generator=gen, device=dev) * 0.1).abs()
-    packet = scalar_packet(spec, 1, device=dev)
-    want_p, want_s = K.fused_agg_opt_torch(grads, p, (m, v), packet, spec,
-                                           average=average)
-    K.fused_agg_opt_cuda(grads, p, (m, v), packet, spec,
-                         average=average)  # in place
+    dtype = dtype or torch.float32
+    make_spec, n_slots, step, seed, ops = AGG_OPTS[opt]
+    spec = make_spec(O)
+    packet = scalar_packet(spec, step, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    inputs = []
+    for _ in range(sets):
+        g = torch.randn((k, n), generator=gen, device=dev).to(dtype)
+        p = torch.randn(n, generator=gen, device=dev).to(dtype)
+        slots = [torch.randn(n, generator=gen, device=dev) * 0.1
+                 for _ in range(n_slots)]
+        if n_slots == 2:  # AdamW's second moment
+            slots[1] = slots[1].abs()
+        inputs.append((g, p, slots))
+    g, p, slots = inputs[0]
+    head = min(n, LIBRARY_BITS_ELEMS)
+    head_in = (g[:, :head], p[:head].clone(), [s[:head].clone()
+                                               for s in slots])
+
+    def kernel(x):
+        K.fused_agg_opt_cuda(x[0], x[1], tuple(x[2]), packet, spec,
+                             average=average)  # in place
+
+    def plain(x):
+        return K.fused_agg_opt_torch(x[0], x[1], tuple(x[2]), packet, spec,
+                                     average=average)
+
+    want_p, want_s = plain(inputs[0])
+    kernel(inputs[0])
     torch.cuda.synchronize()
-    err = max(max_abs_err(p, want_p), *[max_abs_err(a, b) for a, b in
-                                        zip((m, v), want_s)])
-    if not (torch.equal(p, want_p) and torch.equal(m, want_s[0])
-            and torch.equal(v, want_s[1])):
-        raise AssertionError(f"kernel differs at the main shape, max |err| {err}")
+    err = max([max_abs_err(p, want_p),
+               *[max_abs_err(a, b) for a, b in zip(slots, want_s)]])
+    if not (same_bits(p, want_p)
+            and all(same_bits(a, b) for a, b in zip(slots, want_s))):
+        raise AssertionError(f"fused_agg_opt ({opt}, K = {k}, {dtype}) "
+                             f"differs at N = {n}, max |err| {err}")
     del want_p, want_s
-    kernel_ms = cuda_ms(lambda: K.fused_agg_opt_cuda(
-        grads, p, (m, v), packet, spec, average=average), reps=20)
-    plain_ms = cuda_ms(lambda: K.fused_agg_opt_torch(
-        grads, p, (m, v), packet, spec, average=average), reps=5)
-    library_ms = library = None
+
+    def timed(fn, label):
+        if sets == 1:
+            return cuda_ms(lambda: fn(inputs[0]), reps=20), "events"
+        return _graph_or_events([lambda x=x: fn(x) for x in inputs] * 4,
+                                label)
+
+    kernel_ms, how = timed(kernel, f"fused_agg_opt {opt} K={k}")
+    events_ms = (kernel_ms if sets == 1 else
+                 cuda_ms(lambda: kernel(inputs[0]), reps=20))
+    plain_ms = cuda_ms(lambda: plain(inputs[0]), reps=5)
+    library_ms = library = lib_same = None
     if k == 1 and not average:
-        # one AdamW update with no averaging: torch._fused_adamw_ (what
-        # torch.optim.AdamW(fused=True) calls) computes the same function
-        # in one call, in place (not the same bits)
-        st = [torch.ones((), dtype=torch.float32, device=dev)]
+        lib_name, lib = _agg_opt_library(opt, spec, dev)
         try:
-            library_ms = cuda_ms(lambda: torch._fused_adamw_(
-                [p], [grads[0]], [m], [v], [], st, lr=spec.lr,
-                beta1=spec.beta1, beta2=spec.beta2,
-                weight_decay=spec.weight_decay, eps=spec.eps, amsgrad=False,
-                maximize=False), reps=20)
-            library = f"torch._fused_adamw_ {library_ms:.4f} ms"
+            want_p, want_s = plain(head_in)
+            lib(*head_in)
+            lib_same = (same_bits(head_in[1], want_p) and all(
+                same_bits(a, b) for a, b in zip(head_in[2], want_s)))
+            del want_p, want_s
+            library_ms, lib_how = timed(lambda x: lib(*x), lib_name)
+            library = (f"{lib_name} {library_ms:.4f} ms ({lib_how}), same "
+                       f"bits: {lib_same}")
         except RuntimeError as e:
-            library = f"torch._fused_adamw_ refuses: {str(e).splitlines()[0]}"
+            library = f"{lib_name} refuses: {str(e).splitlines()[0]}"
+    del head_in
     w = p.element_size()
+    # K gradient rows read; param and each f32 slot read and written
     b = bound(torch.cuda.get_device_name(dev),
-              (k * w + 2 * w + 2 * 2 * 4) * n,  # grads in; param, m, v in+out
-              adamw_ops(k) * n)
-    log(f"timing fused_agg_opt (AdamW, K={k}, average={average}, N={n}, "
-        f"{dtype}): kernel "
-        f"{kernel_ms:.4f} ms (median of 20), plain version {plain_ms:.4f} ms "
-        f"(median of 5); bound {b['bound_ms']:.4f} ms = {b['bytes']} bytes "
-        f"(operations: {b['op_ms']:.4f} ms); kernel reaches "
+              (k * w + 2 * w + 2 * 4 * n_slots) * n, ops(k, average) * n)
+    log(f"timing fused_agg_opt ({opt}, K={k}, average={average}, N={n}, "
+        f"{dtype}): kernel {kernel_ms:.4f} ms ({how}"
+        + (f", {sets} input sets; CUDA events around one call, host launch "
+           f"included: {events_ms:.4f}" if sets > 1 else ", median of 20")
+        + f"), plain version {plain_ms:.4f} ms (median of 5); bound "
+        f"{b['bound_ms']:.4f} ms = {b['bytes']} bytes (operations: "
+        f"{b['op_ms']:.4f} ms); kernel reaches "
         f"{b['bound_ms'] / kernel_ms:.1%} of the bound; library: "
         f"{library or 'none'}")
-    return {"ms": kernel_ms, "plain_ms": plain_ms, "max_abs_err": err,
-            "library_ms": library_ms, "library": library,
+    return {"ms": kernel_ms, "ms_events": events_ms, "plain_ms": plain_ms,
+            "max_abs_err": err, "library_ms": library_ms, "library": library,
+            "library_same_bits": lib_same, "timed_by": how,
             "share": b["bound_ms"] / kernel_ms, **b}
 
 
@@ -7446,6 +8273,20 @@ def main() -> int:
     rs_gloo = rs_gloo_check(dev)
     lap("36 recsys gloo")
     torch.cuda.empty_cache()
+    rn_fabric = resnet_fabric_path(dev)
+    rn_fabric_err = replay_f32(dev, rn_fabric)
+    rn_fabric.pop("captured")
+    lap("37 resnet fabric")
+    with world_one(dev), deterministic():
+        rn_spmd = resnet_spmd_path(dev)
+        lap("38 resnet spmd")
+        granite = granite_path(dev)
+        lap("39 granite")
+        qwen = qwen2_moe_serve_path(dev)
+        lap("40 qwen2-moe")
+        smoke_new = new_archs_smoke_check(dev)
+        lap("41 SMOKE new archs")
+    torch.cuda.empty_cache()
     switch_math = switch_math_ms(dev, int8["flat"], int8["chunk"])
     d = dlrm_capped_config().embed_dim
     timing = {"fused_agg_opt": time_fused_agg_opt(dev, f32["n"], WORKERS),
@@ -7461,15 +8302,29 @@ def main() -> int:
               "wire_fused_k1": time_wire(dev, asyn["n"], 1, asyn["chunk"],
                                          average=False),
               # the recsys steps' update: SGD, K = 1, f32, the dense MLPs
-              "fused_agg_opt_sgd": time_fused_agg_opt_sgd(dev,
-                                                          rs_sparse["flat"]),
+              "fused_agg_opt_sgd": time_fused_agg_opt(
+                  dev, rs_sparse["flat"], 1, average=False, opt="sgd",
+                  sets=3),
+              # the ResNet paths' momentum updates (f32): the fabric's K = 2
+              # over a shard's slab, the SPMD step's K = 1 over the flat
+              "fused_agg_opt_rn_fabric": time_fused_agg_opt(
+                  dev, rn_fabric["n"], RN_WORKERS, opt="momentum", sets=2),
+              "fused_agg_opt_rn_spmd": time_fused_agg_opt(
+                  dev, rn_spmd["flat"], 1, average=False, opt="momentum",
+                  sets=2),
+              # granite's SPMD AdamW: K = 1, bf16 param and gradient
+              "fused_agg_opt_granite": time_fused_agg_opt(
+                  dev, granite["flat"], 1, average=False,
+                  dtype=torch.bfloat16),
               "embedding_bag": time_embedding_bag(
                   dev, DLRM_BATCH, 1, d, DLRM_ROW_CAP, "one-hot main path", 4),
               "segment_sum": time_segment_sum(dev, DLRM_BATCH, d, DLRM_ROW_CAP)}
     multi_hot = time_embedding_bag(dev, DLRM_BATCH, 20, d, DLRM_ROW_CAP,
                                    "multi-hot", 2)
-    replayed = {"fused_agg_opt": max(f32_err, *(run["replay_err"]
-                                                for run in spmd.values())),
+    replayed = {"fused_agg_opt": max(f32_err, rn_fabric_err,
+                                     rn_spmd["replay_err"],
+                                     *(run["replay_err"]
+                                       for run in spmd.values())),
                 "wire_fused": max(int8_err, async_err), **codec_err,
                 **dlrm_err}
     # every path's launches, by kernel; the SMOKE cases summed
@@ -7516,7 +8371,13 @@ def main() -> int:
                 for a, r in rs_archs.items()},
              "smoke_recsys": {k: sum(c["launches"][k] for c in
                                      rs_smoke.values())
-                              for k in f32["launches"]}}
+                              for k in f32["launches"]},
+             "resnet_fabric": rn_fabric["launches"],
+             "resnet_spmd": rn_spmd["launches"],
+             "granite_train_4k": granite["train_4k"]["launches"],
+             "smoke_new_archs": {k: sum(c["launches"][k] for n, c in
+                                        smoke_new.items() if "launches" in c)
+                                 for k in f32["launches"]}}
     recsys_paths = [p for p in paths if p.startswith(("recsys_",
                                                       "smoke_recsys"))]
     # K = 1 without averaging: the async pushes (f32 ones only at SMOKE)
@@ -7589,6 +8450,26 @@ def main() -> int:
                 **{key: timing["fused_agg_opt_spmd"][key] for key in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "share",
                     "max_abs_err", "library_ms", "library")}}}
+               if kname == "fused_agg_opt" else {}),
+            **({label: {
+                "launches": paths[path][kname], **extra,
+                **{key: timing[tkey].get(key) for key in (
+                    "ms", "ms_events", "plain_ms", "bound_ms", "bound_by",
+                    "share", "max_abs_err", "library_ms", "library",
+                    "library_same_bits", "timed_by")}}
+                for label, path, tkey, extra in (
+                    ("resnet_fabric_k2_momentum_f32", "resnet_fabric",
+                     "fused_agg_opt_rn_fabric",
+                     {"n": rn_fabric["n"], "replay_max_abs_err":
+                      rn_fabric_err,
+                      "main_path_ms": rn_fabric["main_path_ms"]}),
+                    ("resnet_spmd_k1_momentum_f32", "resnet_spmd",
+                     "fused_agg_opt_rn_spmd",
+                     {"n": rn_spmd["flat"], "replay_max_abs_err":
+                      rn_spmd["replay_err"], "device_update_ms":
+                      statistics.median(rn_spmd["update_ms"][1:])}),
+                    ("granite_spmd_k1_adamw_bf16", "granite_train_4k",
+                     "fused_agg_opt_granite", {"n": granite["flat"]}))}
                if kname == "fused_agg_opt" else {}),
             **({"recsys_sgd_k1_f32": {
                 "launches": sum(paths[p][kname] for p in recsys_paths),
@@ -7673,6 +8554,21 @@ def main() -> int:
                     f"{r['train']['batch']} rows"
                     for a, r in rs_archs.items())
         + f"; recsys gloo tp = 2 {rs_gloo['seconds']:.1f} s"
+        + f"; resnet50 fabric steady round "
+        f"{rn_fabric['round_ms'][-2]:.1f} ms (device busy "
+        f"{rn_fabric['device_busy_ms'] or 0:.1f} ms profiled), peak "
+        f"{rn_fabric['peak_bytes'] / 2**30:.2f} GiB; resnet50 SPMD "
+        f"{rn_spmd['batch']} x {rn_spmd['img']}^2 steady step "
+        f"{statistics.median(rn_spmd['step_ms'][1:]):.1f} ms, peak "
+        f"{rn_spmd['peak_bytes'] / 2**30:.2f} GiB; granite train_4k "
+        f"{TRAIN4K_BATCH} x {REMAT_SEQ} steady step "
+        f"{statistics.median(granite['train_4k']['step_ms'][1:]):.1f} ms, "
+        f"peak {granite['train_4k']['peak_bytes'] / 2**30:.2f} GiB, "
+        f"prefill_32k {granite['prefill_32k']['ms'][1]:.1f} ms, decode_32k "
+        f"{statistics.median(granite['decode_32k']['ms'][1:]):.2f} ms a "
+        f"step; qwen2-moe prefill_32k {qwen['prefill_32k']['ms'][0]:.1f} ms, "
+        f"decode_32k at {qwen['decode_32k']['batch']} "
+        f"{statistics.median(qwen['decode_32k']['ms'][1:]):.2f} ms a step"
         + f"; switch integer math "
         f"{sum(v['ms'] for v in switch_math.values()):.3f} ms; whole run "
         f"{time.perf_counter() - t_start:.1f} s")
@@ -7685,9 +8581,10 @@ def main() -> int:
 
 
 # The timing calls of ``--compare``: run with the chip_smoke.py of the
-# checkout whose kernels are timed (``time_fused_agg_opt`` and its
-# siblings, which earlier versions of this file have too), at the main
-# path's shapes.
+# checkout whose kernels are timed, at the main path's shapes
+# (``time_fused_agg_opt``, ``time_wire`` and ``time_quant``, which earlier
+# versions of this file have too; there, SGD had its own
+# ``time_fused_agg_opt_sgd``).
 _COMPARE_CODE = """
 import json, sys, torch
 sys.path.insert(0, sys.argv[1])
@@ -7702,7 +8599,10 @@ out = {
     "adamw_k1_f32": cs.time_fused_agg_opt(dev, 325451776, 1, average=False),
     "adamw_k1_bf16": cs.time_fused_agg_opt(dev, 1301807104, 1, average=False,
                                            dtype=torch.bfloat16),
-    "sgd_k1_f32": cs.time_fused_agg_opt_sgd(dev, 2375680),
+    "sgd_k1_f32": (cs.time_fused_agg_opt_sgd(dev, 2375680)
+                   if hasattr(cs, "time_fused_agg_opt_sgd") else
+                   cs.time_fused_agg_opt(dev, 2375680, 1, average=False,
+                                         opt="sgd", sets=3)),
     "wire_fused": cs.time_wire(dev, 325451776, 2, 8192),
     **cs.time_quant(dev, 1301807104, 8192)}
 print("COMPARE " + json.dumps({"root": sys.argv[1], **{

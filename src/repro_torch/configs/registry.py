@@ -1,8 +1,9 @@
 """Architecture registry (torch counterpart of ``repro/configs/registry.py``).
 
-Each arch module exposes ``ARCH: ArchDef``.  The port registers the archs
-it has ported so far: ``gemma3-1b`` and the four recsys archs
-(``dlrm-mlperf``, ``autoint``, ``dien``, ``xdeepfm``).
+Each arch module exposes ``ARCH: ArchDef``.  The port registers the JAX
+package's archs in its order, all but ``equiformer-v2`` (the GNN family is
+not ported yet): the five LMs, the four recsys archs and the paper's
+ResNet-50.
 """
 from __future__ import annotations
 
@@ -36,16 +37,54 @@ class ArchDef:
 
 
 def _build() -> dict:
-    from repro_torch.configs import autoint, dien, dlrm_mlperf, gemma3_1b, xdeepfm
+    from repro_torch.configs import (
+        autoint,
+        dien,
+        dlrm_mlperf,
+        gemma3_1b,
+        granite_moe_1b,
+        internlm2_1_8b,
+        qwen2_72b,
+        qwen2_moe_a2_7b,
+        resnet50,
+        xdeepfm,
+    )
 
-    return {m.ARCH.arch_id: m.ARCH
-            for m in (gemma3_1b, dlrm_mlperf, autoint, dien, xdeepfm)}
+    mods = [
+        gemma3_1b, internlm2_1_8b, qwen2_72b, granite_moe_1b, qwen2_moe_a2_7b,
+        dlrm_mlperf, autoint, dien, xdeepfm, resnet50,
+    ]
+    return {m.ARCH.arch_id: m.ARCH for m in mods}
+
+
+ARCHS: dict | None = None
+
+
+def _archs() -> dict:
+    global ARCHS
+    if ARCHS is None:
+        ARCHS = _build()
+    return ARCHS
 
 
 def get_arch(arch_id: str) -> ArchDef:
-    archs = _build()
+    archs = _archs()
     if arch_id not in archs:
         raise KeyError(
             f"{arch_id!r} is not ported yet; the port has {sorted(archs)}")
     return archs[arch_id]
 
+
+def list_archs() -> list:
+    return list(_archs())
+
+
+def list_cells(assigned_only: bool = True) -> list:
+    """All (arch, shape) cells of the assigned matrix (excludes resnet50)."""
+    out = []
+    for a in list_archs():
+        if assigned_only and a == "resnet50":
+            continue
+        for c in get_arch(a).cells:
+            out.append((a, c.name))
+    return out

@@ -1,5 +1,5 @@
-"""Synthetic data generators (deterministic, seeded): copies of the LM and
-recsys streams of ``repro/data/synthetic.py``.  They are numpy, so both
+"""Synthetic data generators (deterministic, seeded): copies of the LM,
+recsys and image streams of ``repro/data/synthetic.py``.  They are numpy, so both
 packages see the same batches for the same seed."""
 from __future__ import annotations
 
@@ -56,3 +56,15 @@ def recsys_batches(arch_id: str, cfg, batch: int, seed: int = 0):
         p = 1.0 / (1.0 + np.exp(-(sig - sig.mean())))
         b["labels"] = (rng.random(batch) < p).astype(np.int32)
         yield b
+
+
+def image_batches(batch: int, img: int, n_classes: int, seed: int = 0):
+    """Infinite stream of NHWC f32 images (B, img, img, 3) with a planted
+    class-dependent mean, and int32 labels (B,)."""
+    rng = np.random.default_rng(seed)
+    while True:
+        labels = rng.integers(0, n_classes, batch)
+        imgs = rng.normal(size=(batch, img, img, 3)).astype(np.float32)
+        # plant class-dependent mean so training can learn
+        imgs += (labels / n_classes)[:, None, None, None].astype(np.float32)
+        yield {"images": imgs, "labels": labels.astype(np.int32)}

@@ -7,7 +7,8 @@ arguments as meta tensors (JAX's carry ``NamedSharding``s too, for its
 dry-run; the port has no dry-run).  The LM cells (train, prefill, decode,
 decode_long) and the recsys cells (train, serve, retrieval, and DLRM's
 sparse-push train step under ``strategy="pbox_sparse"``) build at any
-model-axis size.  A serving plan's ``fn`` takes the rank's local
+model-axis size; ResNet-50's ``imagenet_train`` is pure data parallelism
+over every mesh axis.  A serving plan's ``fn`` takes the rank's local
 parameters (cut from the global tree by ``runtime.trainer.local_params``),
 its rows of the batch (and, for the LM cells, its sequence shard of the
 cache), and runs without autograd.  A recsys retrieval plan takes the
@@ -24,6 +25,7 @@ import torch
 from repro_torch.configs.registry import ArchDef, ShapeCell, get_arch
 from repro_torch.core.exchange import ExchangeConfig, PSExchange
 from repro_torch.launch import mesh as meshlib
+from repro_torch.models import resnet as RN
 from repro_torch.models import transformer as T
 from repro_torch.models.common import Dist
 from repro_torch.models.recsys import models as RS
@@ -425,6 +427,42 @@ def build_recsys_train_sparse(arch: ArchDef, cell: ShapeCell, mesh,
 
 
 # ===========================================================================
+# vision (resnet50, the paper's workload)
+# ===========================================================================
+
+def build_vision_train(arch: ArchDef, cell: ShapeCell, mesh,
+                       exchange: PSExchange | None,
+                       smoke: bool = False) -> CellPlan:
+    """Pure data parallelism over every mesh axis: whole parameters on
+    every rank, each rank its rows of the global image batch."""
+    cfg = arch.smoke_config if smoke else arch.config
+    wa = tuple(mesh.axis_names)
+    dist = Dist(model_axis=None, data_axes=wa, tp=1)
+    gb = cell.params["global_batch"] if not smoke else mesh.size * 2
+    img = cell.params.get("img", 224) if not smoke else 32
+    exchange = exchange or make_exchange(mesh, "vision")
+    gshape = RN.init_params(cfg, None, device="meta")
+    step, space, sspecs, ng = make_ps_train_step(
+        mesh, loss_fn=lambda p, b, d: RN.loss_fn(p, b, cfg, d),
+        global_param_template=gshape, exchange=exchange, dist=dist,
+        batch_spec={"images": (wa,), "labels": (wa,)}, loss_div_tp=False,
+    )
+    args = (
+        _meta((ng, space.flat_elems), torch.float32),
+        tuple(_meta((ng, space.flat_elems), torch.float32)
+              for _ in sspecs["slots"]),
+        None, _meta((), torch.int32),
+        {"images": _meta((gb, img, img, 3), torch.float32),
+         "labels": _meta((gb,), torch.int32)},
+    )
+    return CellPlan(arch.arch_id, cell.name, "train", step, args, {
+        "space": space, "sspecs": sspecs, "n_groups": ng,
+        "exchange": exchange,  # the port's: the driver needs its axes
+        "model_flops": 3 * 2 * 4.1e9 * gb,  # ~4.1 GMACs/img fwd
+        "examples": gb})
+
+
+# ===========================================================================
 # dispatch
 # ===========================================================================
 
@@ -452,4 +490,7 @@ def build_cell(arch_id: str, shape: str, mesh, *, strategy: str = "pbox",
         ex = (make_exchange(mesh, "recsys", strategy, opt, exchange_cfg)
               if cell.kind == "train" else None)
         return build_recsys_cell(arch, cell, mesh, ex, smoke)
+    if arch.family == "vision":
+        ex = make_exchange(mesh, "vision", strategy, opt, exchange_cfg)
+        return build_vision_train(arch, cell, mesh, ex, smoke)
     raise ValueError(f"{arch_id}/{shape}")

@@ -22,6 +22,13 @@ group with its own flat space).  The recsys archs (``--arch dlrm-mlperf``,
   PYTHONPATH=src python -m repro_torch.launch.train --arch dlrm-mlperf \\
       --steps 20 --mesh 1x1
 
+ResNet-50 (``--arch resnet50``, the paper's ImageNet workload) trains its
+``imagenet_train`` cell on ``image_batches`` with momentum SGD, pure data
+parallelism over every mesh axis:
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch resnet50 \\
+      --steps 20 --mesh 1x1
+
 ``main(argv, device=...)`` is the body: it runs on the card unless ``device`` says
 otherwise, joins a process group its caller already started, and returns
 the losses, the final step and this rank's final state.  ``--resume``
@@ -64,9 +71,14 @@ def main(argv=None, *, device=None) -> dict:
     )
     from repro_torch.configs.registry import get_arch
     from repro_torch.data.pipeline import Prefetcher, to_device
-    from repro_torch.data.synthetic import lm_batches, recsys_batches
+    from repro_torch.data.synthetic import (
+        image_batches,
+        lm_batches,
+        recsys_batches,
+    )
     from repro_torch.launch.mesh import make_mesh, start_group
     from repro_torch.launch.steps import _RS_FNS, build_cell
+    from repro_torch.models import resnet as RN
     from repro_torch.models import transformer as T
     from repro_torch.runtime.trainer import (
         TrainState,
@@ -101,6 +113,11 @@ def main(argv=None, *, device=None) -> dict:
             it = lm_batches(cfg.vocab, gb, s, args.seed)
             init_fn = lambda g: T.init_params(cfg, g, tp=m)  # noqa: E731
             specs = T.make_param_specs(cfg, m)
+        elif arch.family == "vision":
+            it = image_batches(bt["images"].shape[0], bt["images"].shape[1],
+                               cfg.n_classes, args.seed)
+            init_fn = lambda g: RN.init_params(cfg, g)  # noqa: E731
+            specs = None  # replicated: whole tensors on every rank
         else:  # recsys
             it = recsys_batches(args.arch, cfg, bt["sparse"].shape[0],
                                 args.seed)

@@ -23,6 +23,7 @@ import math
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 
@@ -182,6 +183,39 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6):
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * (1.0 + weight.float())
     return out.to(dt)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5):
+    """LayerNorm over the last dim in f32 (biased variance), cast back."""
+    dt = x.dtype
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, unbiased=False, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * weight.float() + bias.float()).to(dt)
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")
+
+
+_ACTS = {"relu": F.relu, "gelu": _gelu_tanh, "silu": F.silu,
+         "tanh": torch.tanh, "sigmoid": torch.sigmoid}
+
+
+def act_fn(name: str):
+    """The activation JAX's ``act_fn`` names.  ``"gelu"`` is
+    ``jax.nn.gelu``, whose default is the tanh approximation (torch's
+    default is the erf form)."""
+    return _ACTS[name]
+
+
+def count_params(tree) -> int:
+    """Elements in a tree (nested dicts) of tensors."""
+    if isinstance(tree, dict):
+        return sum(count_params(v) for v in tree.values())
+    return tree.numel()
 
 
 def rope_freqs(head_dim: int, theta: float = 1e4, device=None):

@@ -4,11 +4,14 @@ parallel training and serving paths, per rank.
 
 Covers GQA (kv heads replicated when ``n_kv_heads < tp``), optional QKV
 biases, gemma3's sliding-window/global layer interleaving and its
-``sqrt(d)`` embedding scale.  Parameters are a nested
+``sqrt(d)`` embedding scale, SiLU or (tanh-approximated) GELU gates, and
+MoE FFNs (granite, qwen2-moe; ``models/moe.py``) whose load-balance aux
+losses are summed over the layers into the loss.  Parameters are a nested
 ``dict[str, Tensor]`` with the JAX package's keys and shapes, stacked over
 layers (``params["layers"]["wq"]`` is ``(L, d, H*hd)`` globally), so the
-two packages' trees flatten to the same chunk space.  Activations other
-than SiLU, MoE FFNs and sequence parallelism are not ported yet.
+two packages' trees flatten to the same chunk space; the MoE router is an
+f32 leaf even in a bf16 model, as in JAX.  Sequence parallelism is not
+ported yet.
 
 Tensor-parallel layout over the ``model`` axis (size ``tp``), as JAX's:
 q/o heads sharded ``tp_attn = min(tp, n_heads)`` ways and duplicated
@@ -16,7 +19,7 @@ q/o heads sharded ``tp_attn = min(tp, n_heads)`` ways and duplicated
 summed over the model axis and divided by R; ``grad_sync`` rescales the
 duplicates' gradients by R); k/v sharded when ``n_kv_heads >= tp``, else
 replicated (their gradients summed over the model axis); the FFN hidden
-dim sharded; embeddings and head vocab-sharded, the loss a distributed
+dim sharded, each expert's too, the router replicated; embeddings and head vocab-sharded, the loss a distributed
 softmax cross-entropy; the decode cache sequence-sharded with every kv
 head resident, decode attention a log-sum-exp combine across shards.
 Every function takes the rank's local pieces and a ``Dist`` whose
@@ -53,7 +56,6 @@ from typing import Any
 
 import torch
 import torch._dynamo  # noqa: F401  (see below)
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 # ``checkpoint`` is wrapped by ``torch._disable_dynamo``, which imports
@@ -66,11 +68,13 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.models.common import (
     Dist,
+    act_fn,
     apply_rope,
     dense_init,
     embed_init,
     rms_norm,
 )
+from repro_torch.models.moe import MoEConfig, moe_ffn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,8 +91,8 @@ class TransformerConfig:
     rope_theta: float = 1e6
     sliding_window: int | None = None  # window for local layers
     global_every: int = 0  # 0 = all layers global; k = layers k-1, 2k-1,... global
-    moe: Any | None = None  # MoE FFN: not ported yet
-    act: str = "silu"  # the only activation ported so far
+    moe: MoEConfig | None = None
+    act: str = "silu"  # "silu", else GELU (tanh approximation)
     dtype: torch.dtype = torch.bfloat16  # compute dtype
     param_dtype: torch.dtype = torch.bfloat16
     remat: bool = True
@@ -126,27 +130,36 @@ class TransformerConfig:
         return self.n_heads // self.n_kv_heads
 
     def param_count(self) -> int:
-        """Exact parameter count (excluding vocab padding), dense FFN."""
+        """Exact parameter count (excluding vocab padding)."""
         d, hd = self.d_model, self.head_dim
         attn = d * self.n_heads * hd + 2 * d * self.n_kv_heads * hd + self.n_heads * hd * d
         if self.qkv_bias:
             attn += self.n_heads * hd + 2 * self.n_kv_heads * hd
-        ffn = 3 * d * self.d_ff
+        if self.moe is not None:
+            m = self.moe
+            ffn = d * m.n_experts + 3 * d * m.d_ff_expert * m.n_experts
+            if m.shared_d_ff:
+                ffn += 3 * d * m.shared_d_ff
+        else:
+            ffn = 3 * d * self.d_ff
         per_layer = attn + ffn + 2 * d
         return self.n_layers * per_layer + 2 * self.vocab * d + d
 
     def active_param_count(self) -> int:
-        """Per-token active params: all of them while MoE is unported."""
-        return self.param_count()
+        """Per-token active params (MoE: the router, the top_k experts and
+        the shared expert)."""
+        if self.moe is None:
+            return self.param_count()
+        d, m = self.d_model, self.moe
+        full_ffn = d * m.n_experts + 3 * d * m.d_ff_expert * m.n_experts
+        act_ffn = d * m.n_experts + 3 * d * (m.d_ff_expert * m.top_k
+                                             + m.shared_d_ff)
+        return self.param_count() - self.n_layers * (full_ffn - act_ffn)
 
 
 def _check_supported(cfg: TransformerConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError("MoE FFNs are not ported yet")
     if cfg.seq_parallel:
         raise NotImplementedError("sequence parallelism is not ported yet")
-    if cfg.act != "silu":
-        raise NotImplementedError(f"activation {cfg.act!r} is not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -192,9 +205,21 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator | None = None
         layers["bq"] = tile_r(zeros(L, qdim))
         layers["bk"] = zeros(L, kvdim)
         layers["bv"] = zeros(L, kvdim)
-    layers["w1"] = dense_init(generator, (L, d, cfg.d_ff), d, pdt)
-    layers["w3"] = dense_init(generator, (L, d, cfg.d_ff), d, pdt)
-    layers["w2"] = dense_init(generator, (L, cfg.d_ff, d), cfg.d_ff, pdt)
+    if cfg.moe is None:
+        layers["w1"] = dense_init(generator, (L, d, cfg.d_ff), d, pdt)
+        layers["w3"] = dense_init(generator, (L, d, cfg.d_ff), d, pdt)
+        layers["w2"] = dense_init(generator, (L, cfg.d_ff, d), cfg.d_ff, pdt)
+    else:
+        m = cfg.moe
+        E, fe, fs = m.n_experts, m.d_ff_expert, m.shared_d_ff
+        layers["router"] = dense_init(generator, (L, d, E), d, torch.float32)
+        layers["we1"] = dense_init(generator, (L, E, d, fe), d, pdt)
+        layers["we3"] = dense_init(generator, (L, E, d, fe), d, pdt)
+        layers["we2"] = dense_init(generator, (L, E, fe, d), fe, pdt)
+        if fs:
+            layers["ws1"] = dense_init(generator, (L, d, fs), d, pdt)
+            layers["ws3"] = dense_init(generator, (L, d, fs), d, pdt)
+            layers["ws2"] = dense_init(generator, (L, fs, d), fs, pdt)
     vp1, vp = cfg.vocab_padded(1), cfg.vocab_padded(tp)
 
     def vocab_init():
@@ -220,15 +245,24 @@ def abstract_params(cfg: TransformerConfig, tp: int = 1) -> dict:
     R = cfg.attn_replicas(tp)
     qdim, kvdim, vp = R * cfg.n_heads * hd, cfg.n_kv_heads * hd, cfg.vocab_padded(tp)
 
-    def meta(*shape):
-        return torch.empty(shape, dtype=cfg.param_dtype, device="meta")
+    def meta(*shape, dtype=cfg.param_dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
 
     layers = {"ln1": meta(L, d), "ln2": meta(L, d), "wq": meta(L, d, qdim),
               "wk": meta(L, d, kvdim), "wv": meta(L, d, kvdim),
               "wo": meta(L, qdim, d)}
     if cfg.qkv_bias:
         layers.update(bq=meta(L, qdim), bk=meta(L, kvdim), bv=meta(L, kvdim))
-    layers.update(w1=meta(L, d, ff), w3=meta(L, d, ff), w2=meta(L, ff, d))
+    if cfg.moe is None:
+        layers.update(w1=meta(L, d, ff), w3=meta(L, d, ff), w2=meta(L, ff, d))
+    else:
+        E, fe, fs = cfg.moe.n_experts, cfg.moe.d_ff_expert, cfg.moe.shared_d_ff
+        layers.update(router=meta(L, d, E, dtype=torch.float32),
+                      we1=meta(L, E, d, fe), we3=meta(L, E, d, fe),
+                      we2=meta(L, E, fe, d))
+        if fs:
+            layers.update(ws1=meta(L, d, fs), ws3=meta(L, d, fs),
+                          ws2=meta(L, fs, d))
     return {"embed": meta(vp, d), "layers": layers, "ln_f": meta(d),
             "head": meta(vp, d)}
 
@@ -247,7 +281,15 @@ def make_param_specs(cfg: TransformerConfig, tp: int) -> dict:
     }
     if cfg.qkv_bias:
         layers.update(bq=(None, M), bk=kvb, bv=kvb)
-    layers.update(w1=(None, None, M), w3=(None, None, M), w2=(None, M, None))
+    if cfg.moe is None:
+        layers.update(w1=(None, None, M), w3=(None, None, M),
+                      w2=(None, M, None))
+    else:
+        layers.update(router=(), we1=(None, None, None, M),
+                      we3=(None, None, None, M), we2=(None, None, M, None))
+        if cfg.moe.shared_d_ff:
+            layers.update(ws1=(None, None, M), ws3=(None, None, M),
+                          ws2=(None, M, None))
     return {"embed": (M, None), "layers": layers, "ln_f": (), "head": (M, None)}
 
 
@@ -255,7 +297,8 @@ def grad_sync(cfg: TransformerConfig, tp: int) -> dict:
     """Per-tensor gradient correction before the PS exchange (the JAX
     function's tags): ``psum_model`` for replicated copies whose per-rank
     gradient covers only the local heads or vocab rows (kv when
-    replicated, the norms), ``scale_R`` for the duplicated q/o layout."""
+    replicated, the norms, the router), ``scale_R`` for the duplicated q/o
+    layout."""
     R = cfg.attn_replicas(tp)
     rep = "psum_model" if tp > 1 else "none"
     qsync = f"scale_{R}" if R > 1 else "none"
@@ -264,7 +307,12 @@ def grad_sync(cfg: TransformerConfig, tp: int) -> dict:
                               "wk": kvsync, "wv": kvsync, "wo": qsync}
     if cfg.qkv_bias:
         layers.update(bq=qsync, bk=kvsync, bv=kvsync)
-    layers.update(w1="none", w3="none", w2="none")
+    if cfg.moe is None:
+        layers.update(w1="none", w3="none", w2="none")
+    else:
+        layers.update(router=rep, we1="none", we3="none", we2="none")
+        if cfg.moe.shared_d_ff:
+            layers.update(ws1="none", ws3="none", ws2="none")
     return {"embed": "none", "layers": layers, "ln_f": rep, "head": "none"}
 
 
@@ -377,26 +425,41 @@ def _attn_block(x, lp, cfg: TransformerConfig, dist: Dist,
     return out.to(x.dtype), k, v
 
 
+_MOE_KEYS = ("router", "we1", "we3", "we2", "ws1", "ws3", "ws2")
+
+
 def _ffn_block(x, lp, cfg: TransformerConfig, dist: Dist):
-    h = F.silu(x @ lp["w1"]) * (x @ lp["w3"])
-    return dist.psum_model(h @ lp["w2"]).to(x.dtype)
+    """Dense or MoE FFN of (B, S, d); returns (out, the f32 aux loss)."""
+    b, s, d = x.shape
+    if cfg.moe is None:
+        a = act_fn("silu" if cfg.act == "silu" else "gelu")
+        h = a(x @ lp["w1"]) * (x @ lp["w3"])
+        return (dist.psum_model(h @ lp["w2"]).to(x.dtype),
+                torch.zeros((), dtype=torch.float32, device=x.device))
+    weights = {k: lp[k] for k in _MOE_KEYS if k in lp}
+    out, aux = moe_ffn(x.reshape(b * s, d), weights, cfg.moe, dist, cfg.act)
+    # routing is replicated, so every model shard has the same aux loss
+    return dist.psum_model(out.reshape(b, s, d)).to(x.dtype), aux
 
 
 def _layer(x, lp, is_global: bool, cfg: TransformerConfig, dist: Dist,
            positions):
-    """One decoder layer: the new hidden states and the layer's k / v."""
+    """One decoder layer: the new hidden states, the layer's k / v and its
+    aux loss."""
     h = rms_norm(x, lp["ln1"], cfg.eps)
     out, k, v = _attn_block(h, lp, cfg, dist, is_global, positions)
     x = x + out
     h = rms_norm(x, lp["ln2"], cfg.eps)
-    return x + _ffn_block(h, lp, cfg, dist), k, v
+    f, aux = _ffn_block(h, lp, cfg, dist)
+    return x + f, k, v, aux
 
 
 def _layer_hidden(x, names, is_global, cfg, dist, positions, *weights):
-    """``_layer``'s hidden states, with the layer's weights as arguments
-    (what ``checkpoint`` recomputes)."""
-    return _layer(x, dict(zip(names, weights)), is_global, cfg, dist,
-                  positions)[0]
+    """``_layer``'s hidden states and aux loss, with the layer's weights
+    as arguments (what ``checkpoint`` recomputes)."""
+    x, _, _, aux = _layer(x, dict(zip(names, weights)), is_global, cfg, dist,
+                          positions)
+    return x, aux
 
 
 def _per_layer(params) -> dict:
@@ -407,8 +470,8 @@ def _per_layer(params) -> dict:
 
 
 def forward(params, tokens, cfg: TransformerConfig, dist: Dist | None = None):
-    """tokens (B, S) -> hidden (B, S, d) and the aux loss (0 for a dense
-    FFN).  With ``remat`` (and autograd on) each layer is recomputed in
+    """tokens (B, S) -> hidden (B, S, d) and the aux loss summed over the
+    layers (0 for a dense FFN).  With ``remat`` (and autograd on) each layer is recomputed in
     the backward: only its input is kept."""
     _check_supported(cfg)
     dist = Dist.none() if dist is None else dist
@@ -418,16 +481,17 @@ def forward(params, tokens, cfg: TransformerConfig, dist: Dist | None = None):
     per_layer = _per_layer(params)
     names = tuple(per_layer)
     remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for li in range(cfg.n_layers):
         ws = [per_layer[n][li] for n in names]
         args = (x, names, cfg.is_global_layer(li), cfg, dist, positions,
                 *ws)
         if remat:
-            x = checkpoint(_layer_hidden, *args, use_reentrant=False,
-                           preserve_rng_state=False)
+            x, a = checkpoint(_layer_hidden, *args, use_reentrant=False,
+                              preserve_rng_state=False)
         else:
-            x = _layer_hidden(*args)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a = _layer_hidden(*args)
+        aux = aux + a
     return x, aux
 
 
@@ -533,8 +597,8 @@ def _prefill_hidden(params, tokens, cfg: TransformerConfig, max_seq: int,
     per_layer = _per_layer(params)
     for li in range(cfg.n_layers):
         lp = {name: ws[li] for name, ws in per_layer.items()}
-        x, k, v = _layer(x, lp, cfg.is_global_layer(li), cfg, dist,
-                         positions)
+        x, k, v, _ = _layer(x, lp, cfg.is_global_layer(li), cfg, dist,
+                            positions)
         k, v = _full_kv(k, v, cfg, dist)
         cache["k"][li, :, :n] = k[:, lo:lo + n]
         cache["v"][li, :, :n] = v[:, lo:lo + n]
@@ -637,7 +701,7 @@ def _decode_layer_out(x, lp, cfg: TransformerConfig, dist: Dist,
     out = _combine(attn(h).reshape(b, -1) @ lp["wo"], cfg, dist)
     x = x + out.to(x.dtype)
     h = rms_norm(x, lp["ln2"], cfg.eps)
-    return x + _ffn_block(h[:, None], lp, cfg, dist)[:, 0]
+    return x + _ffn_block(h[:, None], lp, cfg, dist)[0][:, 0]
 
 
 def _decode_qkv(h, lp, cfg: TransformerConfig, dist: Dist, pos: int):

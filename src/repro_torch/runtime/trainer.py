@@ -411,10 +411,14 @@ def init_train_state(
                       step=torch.zeros((), dtype=torch.int32, device=dev))
 
 
-def _group(mesh) -> tuple[int, int]:
-    """(this rank's model group, the number of groups)."""
+def _group(mesh, exchange: PSExchange) -> tuple[int, int]:
+    """(this rank's model group, the number of groups).  An exchange whose
+    workers span the model axis (the vision family's pure data
+    parallelism) has one group."""
     tp = mesh.shape.get("model", 1)
-    return (mesh.coords["model"] if tp > 1 else 0), tp
+    if tp == 1 or "model" in exchange.worker_axes:
+        return 0, 1
+    return mesh.coords["model"], tp
 
 
 def local_state(state: TrainState, mesh, exchange: PSExchange) -> tuple:
@@ -423,7 +427,7 @@ def local_state(state: TrainState, mesh, exchange: PSExchange) -> tuple:
     residual (views, which the step then consumes)."""
     n_owner = mesh.axis_size(exchange.owner_axes)
     o = mesh.axis_index(exchange.owner_axes)
-    g, _ = _group(mesh)
+    g, _ = _group(mesh, exchange)
 
     def mine(x):
         n = x.shape[-1] // n_owner
@@ -438,7 +442,7 @@ def global_state(mesh, exchange: PSExchange, pflat, slots, ef,
     """The global ``TrainState`` from every rank's pieces: each owner's slab
     gathered at its linear index, each model group's row at its
     coordinate (a collective: every rank calls it)."""
-    _, tp = _group(mesh)
+    _, tp = _group(mesh, exchange)
 
     def groups(x):
         x = x.reshape(1, -1)

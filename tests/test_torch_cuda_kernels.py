@@ -554,3 +554,52 @@ def test_recsys_smoke_card_matches_cpu_and_tp2(cuda, monkeypatch):
         "fused_agg_opt"] == 2
     gloo = cs.rs_gloo_check(cuda)  # raises past its bound
     assert np.isfinite(gloo["max_abs_err"])
+
+
+@pytest.mark.gpu
+def test_moe_routing_on_card_matches_cpu(cuda):
+    """chip_smoke.py's phase 41 routing check: ``route_topk``'s experts and
+    ``dispatch_indices``' ``buf_pos`` / ``keep`` on the card bitwise equal
+    to the CPU's on the same f32 logits (tied rows included)."""
+    cs = _chip_smoke()
+    out = cs.moe_routing_check(cuda)
+    assert len(out) == 2 * len(cs.ROUTING_CASES)
+    assert all(c["dropped"] > 0.5 for name, c in out.items()
+               if name.endswith("cf0.25"))
+
+
+@pytest.mark.gpu
+def test_new_archs_smoke_on_card_match_cpu(cuda):
+    """chip_smoke.py's phase 41: resnet50's SMOKE fabric (params bitwise on
+    booked gradients) and SPMD step card == CPU within RN_CARD_RTOL /
+    RN_CARD_ATOL, a bound that the TF32 control run fails; the four new
+    LM archs' SMOKE train step within rtol 1e-5 / atol 1e-6, their caches
+    within 1e-5 of the largest entry, prefill and decode ids equal;
+    launches equal to the CPU's plain-version calls."""
+    cs = _chip_smoke()
+    with cs.world_one(cuda), cs.deterministic():
+        out = cs.new_archs_smoke_check(cuda)
+    assert out["resnet50/fabric"]["launches"]["fused_agg_opt"] == 8
+    control = out["resnet50/tf32_control"]
+    assert control["sound"] <= cs.RN_CARD_ATOL < control["tf32"]
+    for arch in cs.SMOKE_NEW_LM:
+        assert out[arch]["launches"]["fused_agg_opt"] == 1
+
+
+@pytest.mark.gpu
+def test_resnet_and_moe_paths_on_card_at_smoke(cuda):
+    """Phases 37-40 at the SMOKE configs: the ResNet fabric (its first
+    update replayed bitwise) and SPMD step, granite's train, prefill and
+    decode, qwen2-moe's serving cells."""
+    cs = _chip_smoke()
+    fab = cs.resnet_fabric_path(cuda, smoke=True)
+    assert cs.replay_f32(cuda, fab) == 0.0
+    with cs.world_one(cuda), cs.deterministic():
+        spmd = cs.resnet_spmd_path(cuda, smoke=True)
+        granite = cs.granite_path(cuda, smoke=True)
+        qwen = cs.qwen2_moe_serve_path(cuda, smoke=True)
+    assert fab["launches"]["fused_agg_opt"] == 2 * cs.SHARDS
+    assert spmd["launches"]["fused_agg_opt"] == cs.RN_SPMD_STEPS
+    assert granite["train_4k"]["launches"]["fused_agg_opt"] == \
+        cs.TRAIN4K_STEPS
+    assert len(qwen["decode_32k"]["ms"]) == cs.DECODE_STEPS

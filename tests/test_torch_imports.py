@@ -403,3 +403,44 @@ def test_recsys_slice_imports_with_jax_blocked(module, names):
         timeout=180, cwd=ROOT,
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+MODELS_SLICE = ("models/resnet.py", "models/moe.py", "models/common.py",
+                "models/transformer.py", "configs/resnet50.py",
+                "configs/granite_moe_1b.py", "configs/qwen2_moe_a2_7b.py",
+                "configs/internlm2_1_8b.py", "configs/qwen2_72b.py",
+                "configs/registry.py", "data/synthetic.py",
+                "launch/steps.py", "launch/train.py")
+
+
+@pytest.mark.parametrize("module", MODELS_SLICE)
+def test_models_slice_modules_are_checked(module):
+    """ResNet-50, the MoE FFN, the four LM configs, the full registry and
+    the vision cell's builder and driver are among the files checked
+    above."""
+    assert ROOT / "src" / "repro_torch" / module in PORT_FILES
+
+
+def test_registry_builds_every_arch_with_jax_blocked():
+    """Every registered arch's module imports, and its SMOKE config builds
+    an init, in a process where ``import jax`` and ``import repro`` fail."""
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        "import torch\n"
+        "from repro_torch.configs.registry import get_arch, list_archs\n"
+        "from repro_torch.models import resnet, transformer\n"
+        "assert len(list_archs()) == 10\n"
+        "for a in ('resnet50', 'granite-moe-1b-a400m', 'qwen2-moe-a2.7b',\n"
+        "          'internlm2-1.8b', 'qwen2-72b'):\n"
+        "    arch = get_arch(a)\n"
+        "    mod = resnet if arch.family == 'vision' else transformer\n"
+        "    mod.init_params(arch.smoke_config, torch.Generator())\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=180, cwd=ROOT,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

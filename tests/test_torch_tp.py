@@ -15,10 +15,14 @@ JAX side (``tests/torch_spmd_jax.py tp``) on 4 host devices beside them:
     at tp = 4 matches tp = 1 and JAX's tp = 4 at rtol 2e-5 / atol 1e-5,
     greedy prefill and decode ids are equal, the tp = 1 decode equals the
     prefill of the longer sequence, and each rank's cache shard matches
-    JAX's at rtol 1e-5 / atol 1e-5.
+    JAX's at rtol 1e-5 / atol 1e-5;
+  * its MoE case (8 experts top-2 and a shared expert, sharded over
+    d_ff_expert, the router replicated) at tp = 2 on a (2, 2) mesh, each
+    data group on the whole batch, against tp = 1 and JAX's tp = 2 in the
+    same way.
 
 In this process: ``make_param_specs`` and ``grad_sync`` equal JAX's for tp
-in {1, 2, 4, 8} on gemma3-1b and the three cases; ``init_params(tp=N)``
+in {1, 2, 4, 8} on gemma3-1b and the four cases; ``init_params(tp=N)``
 has JAX's tree, shapes and dtypes, duplicates q/o R times, zero-pads the
 vocab and draws the tp = 1 model; ``local_params`` cuts JAX's global tree
 as JAX's ``init_train_state`` does."""
@@ -98,10 +102,38 @@ def test_tp4_matches_jax(runs, name):
                 got[f"{key}4"], j[key][:, :, r * n:(r + 1) * n], **CACHE_TOL)
 
 
+@pytest.mark.parametrize("name", list(S.TP_MOE_CASES))
+def test_moe_tp2_matches_tp1_and_jax(runs, name):
+    ref = _rank(runs, f"tp_{name}", 0)
+    j = dict(np.load(runs / f"jax_tp_{name}.npz"))
+    tp = S.TP_MOE
+    for r in range(S.TP):
+        got = _rank(runs, f"tp_{name}", r)
+        for want in (ref["loss1"], j["loss"]):
+            np.testing.assert_allclose(got[f"loss{tp}"], want, **TOL)
+        for key in ("nxt", "dec"):
+            np.testing.assert_array_equal(got[f"{key}{tp}"], ref[f"{key}1"])
+            np.testing.assert_array_equal(got[f"{key}{tp}"], j[key])
+        # the model coordinate's half of the sequence, every kv head
+        m = r % tp
+        n = got[f"k{tp}"].shape[2]
+        for key in ("k", "v"):
+            np.testing.assert_allclose(got[f"{key}{tp}"],
+                                       j[key][:, :, m * n:(m + 1) * n],
+                                       **CACHE_TOL)
+            np.testing.assert_allclose(got[f"{key}{tp}"],
+                                       ref[f"{key}1"][:, :, m * n:(m + 1) * n],
+                                       **CACHE_TOL)
+    np.testing.assert_array_equal(ref["dec1"], ref["pre17"])
+
+
+ALL_CASES = {**S.TP_CASES, **S.TP_MOE_CASES}
+
+
 def _configs():
     out = {"gemma3-1b": (get_arch("gemma3-1b").config,
                          jax_config("gemma3-1b"))}
-    for name, kw in S.TP_CASES.items():
+    for name, kw in ALL_CASES.items():
         out[name] = (S.tp_config(kw), jax_config(name))
     return out
 
@@ -110,16 +142,19 @@ def jax_config(name):
     import jax.numpy as jnp
 
     from repro.configs.registry import get_arch as jax_get_arch
+    from repro.models.moe import MoEConfig
 
     if name == "gemma3-1b":
         return jax_get_arch("gemma3-1b").config
+    kw = ALL_CASES[name]
+    if "moe" in kw:
+        kw = dict(kw, moe=MoEConfig(**kw["moe"]))
     return jT.TransformerConfig("tp", dtype=jnp.float32,
-                                param_dtype=jnp.float32, attn_chunk=8,
-                                **S.TP_CASES[name])
+                                param_dtype=jnp.float32, attn_chunk=8, **kw)
 
 
 @pytest.mark.parametrize("tp", [1, 2, 4, 8])
-@pytest.mark.parametrize("name", ["gemma3-1b", *S.TP_CASES])
+@pytest.mark.parametrize("name", ["gemma3-1b", *ALL_CASES])
 def test_param_specs_and_grad_sync_match_jax(name, tp):
     tcfg, jcfg = _configs()[name]
     jspecs = jT.make_param_specs(jcfg, tp)
@@ -144,7 +179,7 @@ def test_param_specs_and_grad_sync_match_jax(name, tp):
 
 
 @pytest.mark.parametrize("tp", [2, 4, 8])
-@pytest.mark.parametrize("name", list(S.TP_CASES))
+@pytest.mark.parametrize("name", list(ALL_CASES))
 def test_init_params_layout_matches_jax(name, tp):
     """The port's tp = N tree: JAX's leaves and shapes, q/o duplicated R
     times, the vocab padding zero, and the same model as tp = 1; JAX's own
@@ -174,7 +209,7 @@ def test_init_params_layout_matches_jax(name, tp):
         k: tuple(v.shape) for k, v in S.flat_keys(jn).items()}
 
 
-@pytest.mark.parametrize("name", list(S.TP_CASES))
+@pytest.mark.parametrize("name", list(ALL_CASES))
 def test_local_params_cut_the_jax_tree(name):
     import types
 

@@ -27,7 +27,14 @@ Beside them, in this process: ``main`` at ``--mesh 1x1`` starts and ends
 its own world-1 group, a mesh larger than the world raises, and
 ``build_cell`` builds the LM serving cells and the recsys cells of all
 four recsys archs as JAX's builder does, and refuses an arch the port has
-not registered.
+not registered.  The new archs: ``main --arch resnet50`` (momentum SGD on
+``image_batches``) and ``--arch granite-moe-1b-a400m`` (AdamW, the MoE
+aux loss in the loss) resume from a step-0 checkpoint of JAX's initial
+state and take three steps as JAX's driver pieces do; ``build_cell``
+builds every cell of internlm2, qwen2-72b, granite-moe, qwen2-moe and
+resnet50 as JAX's builder does (resnet50 through its ``build_vision_train``
+with a data-axis exchange: JAX's own spans "model" too, which the
+installed JAX refuses).
 """
 import numpy as np
 import pytest
@@ -334,3 +341,153 @@ def _run_serving_plan(plan):
     tok = torch.zeros(plan.abstract_args[1].shape, dtype=torch.int32)
     ids, out = plan.fn(params, tok, cache, 3)
     assert out is cache and ids.shape == tok.shape
+
+
+def _jax_plan(arch_id, shape, mesh, smoke):
+    """(plan, exchange): JAX's ``build_cell`` and ``make_exchange``; for
+    resnet50, its ``build_vision_train`` given
+    an exchange over the data axis alone.  JAX's own vision exchange spans
+    every mesh axis, "model" included, and its state specs then name
+    "model" twice (``P("model", ("data", "model"))``), which this JAX
+    refuses on any mesh; on a 1 x 1 mesh the data axis alone is the same
+    computation."""
+    from repro.configs.registry import get_arch as jax_get_arch
+    from repro.core.exchange import ExchangeConfig, PSExchange
+    from repro.launch.steps import build_cell as jax_build
+    from repro.launch.steps import (
+        build_vision_train,
+        default_optimizer,
+        make_exchange,
+    )
+
+    arch = jax_get_arch(arch_id)
+    if arch.family != "vision":
+        return (jax_build(arch_id, shape, mesh, smoke=smoke),
+                make_exchange(mesh, arch.family))
+    ex = PSExchange(default_optimizer("vision"), ExchangeConfig("pbox"),
+                    ("data",), None)
+    return build_vision_train(arch, arch.cell(shape), mesh, ex, smoke), ex
+
+
+def _jax_steps_from_init(arch_id, ckpt_dir, steps):
+    """JAX's train driver, step by step at ``--mesh 1x1``: its SMOKE plan,
+    its initial state (seed 0) checkpointed at step 0, then ``steps`` steps
+    on the driver's stream (seed 0).  Returns (losses, final pflat)."""
+    import jax.numpy as jnp
+
+    from repro.checkpoint.checkpointer import train_state_to_flat
+    from repro.configs.registry import get_arch as jax_get_arch
+    from repro.data.synthetic import image_batches, lm_batches
+    from repro.launch.mesh import make_mesh as jax_mesh
+    from repro.models import resnet as jR
+    from repro.models import transformer as jT
+    from repro.runtime.trainer import init_train_state
+
+    arch = jax_get_arch(arch_id)
+    cfg = arch.smoke_config
+    mesh = jax_mesh((1, 1), ("data", "model"))
+    shape = "imagenet_train" if arch.family == "vision" else "train_4k"
+    plan, exchange = _jax_plan(arch_id, shape, mesh, True)
+    bt = plan.abstract_args[4]
+    if arch.family == "vision":
+        init_fn = lambda k: jR.init_params(cfg, k)  # noqa: E731
+        specs = jax.tree.map(
+            lambda _: jax.sharding.PartitionSpec(),
+            jax.eval_shape(lambda: jR.init_params(cfg, jax.random.PRNGKey(0))),
+            is_leaf=lambda x: isinstance(x, jax.ShapeDtypeStruct))
+        data = image_batches(bt["images"].shape[0], bt["images"].shape[1],
+                             cfg.n_classes, 0)
+    else:
+        init_fn = lambda k: jT.init_params(cfg, k, tp=1)  # noqa: E731
+        specs = jT.make_param_specs(cfg, 1)
+        data = lm_batches(cfg.vocab, *bt["tokens"].shape, 0)
+    st = init_train_state(
+        mesh, init_params_fn=init_fn, param_specs=specs, exchange=exchange,
+        space=plan.meta["space"], n_groups=plan.meta["n_groups"],
+        key=jax.random.PRNGKey(0), ps_dtype=plan.abstract_args[0].dtype)
+    JaxCheckpointer(ckpt_dir).save(0, train_state_to_flat(st))
+    pflat, slots, ef, stc = st.pflat, st.slots, st.ef, st.step
+    losses = []
+    for _ in range(steps):
+        b = jax.tree.map(jnp.asarray, next(data))
+        pflat, slots, ef, stc, met = plan.fn(pflat, slots, ef, stc, b)
+        losses.append(float(met["loss"]))
+    return np.asarray(losses), np.asarray(pflat, np.float32)
+
+
+def test_resnet_main_is_data_parallel_over_every_axis(runs):
+    """resnet50 SMOKE through ``main`` at ``--mesh 2x1`` and ``1x2``: the
+    workers span both axes, so the two layouts are the same run (one
+    model group, each rank its rows of the batch and its half of the
+    momentum), bitwise, on both ranks."""
+    got = {mesh: [_rank(runs, f"resnet_{mesh}", r) for r in range(2)]
+           for mesh in ("2x1", "1x2")}
+    ref = got["2x1"][0]
+    assert int(ref["step"]) == 2 and np.isfinite(ref["losses"]).all()
+    assert ref["pflat"].shape[0] == 1  # one model group
+    for r in range(2):
+        for out in (got["2x1"][r], got["1x2"][r]):
+            for key in ("losses", "pflat"):
+                np.testing.assert_array_equal(out[key], ref[key], err_msg=key)
+        # each rank owns its half of the momentum, the same in both layouts
+        np.testing.assert_array_equal(got["1x2"][r]["slot0"],
+                                      got["2x1"][r]["slot0"])
+
+
+@pytest.mark.parametrize("arch", ["resnet50", "granite-moe-1b-a400m"])
+def test_main_trains_the_new_archs_as_jax_does(tmp_path, arch):
+    """``main(["--arch", arch, "--resume"])`` at ``--mesh 1x1`` from JAX's
+    initial state (a step-0 checkpoint JAX's checkpointer wrote): resnet50
+    by momentum(0.1, 0.9) on ``image_batches``, granite-moe by AdamW on
+    ``lm_batches`` (its aux loss in the logged loss).  Three steps: the
+    losses at rtol 1e-4 and the final flat at rtol 1e-4 / atol 1e-4 against
+    JAX's driver pieces, step for step (the test_torch_resnet.py fabric
+    bound; AdamW's normalised steps keep granite's parameters within it
+    over three steps)."""
+    from repro_torch.launch.train import main
+
+    steps = 3
+    jlosses, jpflat = _jax_steps_from_init(arch, tmp_path / "ck", steps)
+    out = main(["--arch", arch, "--steps", str(steps), "--log-every", "1",
+                "--ckpt-dir", str(tmp_path / "ck"), "--resume"], device="cpu")
+    assert out["start"] == 0 and out["step"] == steps
+    np.testing.assert_allclose(out["losses"], jlosses, rtol=1e-4)
+    np.testing.assert_allclose(out["pflat"].float().numpy(), jpflat,
+                               rtol=1e-4, atol=1e-4)
+
+
+NEW_LM = ("internlm2-1.8b", "qwen2-72b", "granite-moe-1b-a400m",
+          "qwen2-moe-a2.7b")
+
+
+@pytest.mark.parametrize("arch", NEW_LM + ("resnet50",))
+def test_build_cell_builds_the_new_archs_as_jax_does(tmp_path, arch):
+    """Every cell of the four new LM archs and resnet50's
+    ``imagenet_train``, at SMOKE and at full size, against JAX's builder:
+    the kind, the scalar meta, the flat size, the groups and the global
+    abstract shapes; a cell JAX skips at full size raises in both."""
+    import torch.distributed as dist
+
+    from repro.configs.registry import get_arch as jax_get_arch
+    from repro.launch.mesh import make_mesh as jax_mesh
+
+    from repro_torch.launch.mesh import init_process_group, make_mesh
+    from repro_torch.launch.steps import build_cell
+
+    init_process_group("cpu", init_method=f"file://{tmp_path}/rendezvous")
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        jm = jax_mesh((1, 1), ("data", "model"))
+        for cell in jax_get_arch(arch).cells:
+            for smoke in (True, False):
+                if cell.skip_reason and not smoke:
+                    with pytest.raises(ValueError, match="skipped"):
+                        build_cell(arch, cell.name, mesh, smoke=smoke)
+                    with pytest.raises(ValueError, match="skipped"):
+                        _jax_plan(arch, cell.name, jm, smoke)
+                    continue
+                plan = build_cell(arch, cell.name, mesh, smoke=smoke)
+                _same_recsys_plan(plan, _jax_plan(arch, cell.name, jm,
+                                                  smoke)[0])
+    finally:
+        dist.destroy_process_group()

@@ -8,7 +8,9 @@ matmul and reduction summation orders differ between XLA and torch).
 Sequences of 16 and 32 run 2 and 4 attention blocks; 12, which 8 does not
 divide, one block.  Inside the port, remat on equals remat off bitwise
 under deterministic algorithms; the QKV-bias model (nonzero biases) holds
-to JAX's at the same tolerances."""
+to JAX's at the same tolerances, and so do the MoE archs (granite,
+qwen2-moe; the summed aux loss too), GELU FFNs and qwen2-72b's SMOKE
+model; a bf16 MoE routes in f32 through a bf16 flat."""
 import numpy as np
 import pytest
 
@@ -154,12 +156,115 @@ def test_unported_model_options_raise():
     import dataclasses
 
     cfg = get_arch("gemma3-1b").smoke_config
-    for bad in (dict(moe=object()), dict(seq_parallel=True), dict(act="gelu")):
-        with pytest.raises(NotImplementedError):
-            tt.init_params(dataclasses.replace(cfg, **bad),
-                           torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="sequence parallelism"):
+        tt.init_params(dataclasses.replace(cfg, seq_parallel=True),
+                       torch.Generator().manual_seed(0))
     with pytest.raises(KeyError, match="not ported"):
-        get_arch("qwen2-72b")
+        get_arch("equiformer-v2")
+
+
+def _jax_and_port_loss(arch, seq, act=None):
+    import dataclasses
+
+    jcfg = jax_get_arch(arch).smoke_config
+    tcfg = get_arch(arch).smoke_config
+    if act is not None:
+        jcfg = dataclasses.replace(jcfg, act=act)
+        tcfg = dataclasses.replace(tcfg, act=act)
+    jparams = jax_init(jcfg, jax.random.PRNGKey(0), tp=1)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    batch = next(lm_batches(tcfg.vocab, 2, seq, seed=3))
+    (jloss, jmet), jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jax_lm_loss(p, jnp.asarray(batch["tokens"]),
+                              jnp.asarray(batch["labels"]), jcfg,
+                              Dist.none(), 1), has_aux=True))(jparams)
+    toks, labs = (torch.from_numpy(batch[k]) for k in ("tokens", "labels"))
+    _, tmet = tt.lm_loss(tparams, toks, labs, tcfg)
+    tloss, tgrads = tt.lm_loss_and_grad(tparams, toks, labs, tcfg)
+    return (jloss, jmet, jgrads), (tloss, tmet, tgrads)
+
+
+@pytest.mark.parametrize("arch,act", [
+    ("granite-moe-1b-a400m", None), ("qwen2-moe-a2.7b", None),
+    ("granite-moe-1b-a400m", "gelu"), ("internlm2-1.8b", "gelu"),
+    ("qwen2-72b", None)])
+def test_moe_and_gelu_loss_aux_and_grads_match_jax(arch, act):
+    """The MoE archs' SMOKE configs (granite: 8 experts top-2; qwen2-moe: 6
+    top-2 and a shared expert, capacity factor 2), a GELU MoE and a GELU
+    dense FFN, and qwen2-72b's dense QKV-bias model: the loss at rtol 1e-5,
+    the summed aux loss at rtol 1e-5, every gradient leaf (the f32 router
+    included) at rtol 1e-4 / atol 1e-5, as the dense cases above."""
+    (jloss, jmet, jgrads), (tloss, tmet, tgrads) = _jax_and_port_loss(
+        arch, 16, act)
+    np.testing.assert_allclose(tloss.item(), float(jloss), rtol=1e-5)
+    np.testing.assert_allclose(tmet["aux"].item(), float(jmet["aux"]),
+                               rtol=1e-5)
+    np.testing.assert_allclose(tmet["ce"].item(), float(jmet["ce"]),
+                               rtol=1e-5)
+    assert (float(jmet["aux"]) > 0) == ("moe" in arch)
+    jflat, tflat = _flat(jgrads), _flat(tgrads)
+    assert jflat.keys() == tflat.keys()
+    for name in jflat:
+        np.testing.assert_allclose(tflat[name], jflat[name], rtol=1e-4,
+                                   atol=1e-5, err_msg=name)
+
+
+def test_bf16_moe_routes_in_f32_through_a_bf16_flat():
+    """granite SMOKE in bf16: the router is an f32 leaf, which a bf16 flat
+    (the SPMD step's ``ps_dtype``) carries rounded to bf16, and which
+    ``trainer.tracked_params`` hands back as f32 with the bits JAX's
+    ``ParamSpace.unflatten`` gives.  The loss through the flat then agrees
+    with JAX's at rtol 2e-3, and so does aux (both packages compute in
+    bf16, with other summation orders and roundings: 2e-4 apart here),
+    and the flat gradient (bf16) points the same way (cosine above
+    0.99)."""
+    import dataclasses
+
+    from repro.core.chunking import ParamSpace as JaxSpace
+    from repro_torch.core.chunking import ParamSpace
+    from repro_torch.runtime.trainer import tracked_params
+
+    bf = dict(dtype=torch.bfloat16, param_dtype=torch.bfloat16)
+    jcfg = dataclasses.replace(jax_get_arch("granite-moe-1b-a400m")
+                               .smoke_config, dtype=jnp.bfloat16,
+                               param_dtype=jnp.bfloat16)
+    tcfg = dataclasses.replace(get_arch("granite-moe-1b-a400m").smoke_config,
+                               **bf)
+    jparams = jax_init(jcfg, jax.random.PRNGKey(0), tp=1)
+    assert jparams["layers"]["router"].dtype == jnp.float32
+    jspace = JaxSpace.build(jparams)
+    jflat = jspace.flatten(jparams, jnp.bfloat16)
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    assert tt.abstract_params(tcfg)["layers"]["router"].dtype == torch.float32
+    space = ParamSpace.build(tparams)
+    tflat = space.flatten(tparams, torch.bfloat16)
+    assert np.array_equal(tflat.view(torch.int16).numpy(),
+                          np.asarray(jflat).view(np.int16))
+    batch = next(lm_batches(tcfg.vocab, 2, 16, seed=3))
+    toks, labs = (torch.from_numpy(batch[k]) for k in ("tokens", "labels"))
+
+    def jax_loss(flat):
+        return jax_lm_loss(jspace.unflatten(flat), jnp.asarray(toks.numpy()),
+                           jnp.asarray(labs.numpy()), jcfg, Dist.none(), 1)
+
+    (jloss, jmet), jg = jax.value_and_grad(jax_loss, has_aux=True)(jflat)
+    leaf = tflat.clone().requires_grad_(True)
+    tree = tracked_params(space, leaf)
+    router = tree["layers"]["router"]
+    assert router.dtype == torch.float32
+    np.testing.assert_array_equal(
+        router.detach().numpy(),
+        np.asarray(jspace.unflatten(jflat)["layers"]["router"]))
+    tloss, tmet = tt.lm_loss(tree, toks, labs, tcfg)
+    (tg,) = torch.autograd.grad(tloss, leaf)
+    np.testing.assert_allclose(tloss.item(), float(jloss), rtol=2e-3)
+    np.testing.assert_allclose(tmet["aux"].item(), float(jmet["aux"]),
+                               rtol=2e-3)
+    a = tg.float().numpy()
+    b = np.asarray(jg).astype(np.float32)
+    cos = float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+    assert cos > 0.99, cos
+    assert np.isfinite(a).all()
 
 
 def test_full_config_is_gemma3_1b():

@@ -446,7 +446,9 @@ def train_launch_ranks(rank, world, out_dir):
     and 6; a crash after step 3 and a resume to 6; a resume of the JAX
     driver's step-3 checkpoint to step 4; then three steps at ``--mesh
     1x2`` (the model over both ranks); then dlrm-mlperf SMOKE for three
-    steps at ``--mesh 2x1`` and ``1x2``."""
+    steps at ``--mesh 2x1`` and ``1x2``; then resnet50 SMOKE for two steps
+    at ``--mesh 2x1`` and ``1x2`` (pure data parallelism over both
+    axes)."""
     import shutil
 
     import torch.distributed as dist
@@ -476,6 +478,10 @@ def train_launch_ranks(rank, world, out_dir):
                                 "--steps", "3", "--log-every", "3"],
                                device="cpu")
           for mesh in ("2x1", "1x2")}
+    rs.update({f"resnet_{mesh}": main(["--arch", "resnet50", "--mesh", mesh,
+                                       "--steps", "2", "--log-every", "2"],
+                                      device="cpu")
+               for mesh in ("2x1", "1x2")})
     for name, out in (("full", full), ("resumed", resumed),
                       ("from_jax", from_jax), ("tp2", tp2), *rs.items()):
         _save(out_dir, f"launch_{name}_r{rank}", pflat=_np(out["pflat"]),
@@ -496,6 +502,15 @@ TP_CASES = {
                          head_dim=16, d_ff=128, vocab=256, qkv_bias=True),
 }
 TP = 4
+# tests/scripts/tp_equivalence.py's MoE case, at tp = 2: experts sharded
+# over d_ff_expert, the router replicated (capacity factor 4 drops nothing)
+TP_MOE_CASES = {
+    "moe": dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=4, head_dim=16,
+                d_ff=0, vocab=256,
+                moe=dict(n_experts=8, top_k=2, d_ff_expert=32, shared_d_ff=64,
+                         capacity_factor=4.0)),
+}
+TP_MOE = 2
 # tests/scripts/grad_equivalence.py's cases (remat off there)
 TP_TRAIN_CASES = {
     "dense_gqa": dict(TP_CASES["gqa_kvrep"], qkv_bias=True, remat=False),
@@ -505,11 +520,15 @@ TP_TRAIN_STEPS = 2
 
 
 def tp_config(kw: dict):
-    """A case's port config: f32, q-chunks of 8."""
+    """A case's port config: f32, q-chunks of 8 (a ``moe`` dict becomes the
+    ``MoEConfig``)."""
     import torch
 
+    from repro_torch.models.moe import MoEConfig
     from repro_torch.models.transformer import TransformerConfig
 
+    if "moe" in kw:
+        kw = dict(kw, moe=MoEConfig(**kw["moe"]))
     return TransformerConfig("tp", dtype=torch.float32,
                              param_dtype=torch.float32, attn_chunk=8, **kw)
 
@@ -542,7 +561,9 @@ def tp_ranks(rank, world, out_dir):
     """The psum transpose, then every ``TP_CASES`` case at tp = 4 on a
     (1, 4) mesh from the JAX package's tp = 4 weights: the loss, greedy
     prefill and decode ids and this rank's cache shard; rank 0 also runs
-    the tp = 1 model on the JAX package's tp = 1 weights."""
+    the tp = 1 model on the JAX package's tp = 1 weights.  Then every
+    ``TP_MOE_CASES`` case at tp = 2 on a (2, 2) mesh, each data group on
+    the whole batch, the same way."""
     import torch
 
     from repro_torch.interop import params_from_numpy
@@ -553,15 +574,18 @@ def tp_ranks(rank, world, out_dir):
 
     mesh = Mesh((TP,), ("model",))
     psum_transpose_ranks(mesh, out_dir, rank)
-    mesh = Mesh((1, TP), ("data", "model"))
-    dist = Dist("model", ("data",), TP, mesh)
-    for name, kw in TP_CASES.items():
+    mesh4 = Mesh((1, TP), ("data", "model"))
+    mesh2 = Mesh((TP // TP_MOE, TP_MOE), ("data", "model"))
+    cases = [(name, kw, TP, mesh4) for name, kw in TP_CASES.items()]
+    cases += [(name, kw, TP_MOE, mesh2) for name, kw in TP_MOE_CASES.items()]
+    for name, kw, TPN, mesh in cases:
+        dist = Dist("model", ("data",), TPN, mesh)
         cfg = tp_config(kw)
         wait_for(Path(out_dir, f"jax_tp_{name}.npz"))
         jax_out = dict(np.load(Path(out_dir, f"jax_tp_{name}.npz")))
         toks, labs = (torch.from_numpy(a) for a in lm_tokens(cfg.vocab, 4))
         out = {}
-        for tp in ((TP, 1) if rank == 0 else (TP,)):
+        for tp in ((TPN, 1) if rank == 0 else (TPN,)):
             params = params_from_numpy(_unflat(
                 {k[len(f"p{tp}/"):]: v for k, v in jax_out.items()
                  if k.startswith(f"p{tp}/")}), "cpu")

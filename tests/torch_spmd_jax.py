@@ -224,8 +224,11 @@ def launch(out: Path):
 def _jax_config(kw: dict):
     import jax.numpy as jnp
 
+    from repro.models.moe import MoEConfig
     from repro.models.transformer import TransformerConfig
 
+    if "moe" in kw:
+        kw = dict(kw, moe=MoEConfig(**kw["moe"]))
     return TransformerConfig("tp", dtype=jnp.float32, param_dtype=jnp.float32,
                              attn_chunk=8, **kw)
 
@@ -247,11 +250,14 @@ def tp(out: Path):
     from repro import compat
     from repro.models import transformer as T
     from repro.models.common import Dist
-    from torch_spmd import TP, TP_CASES, flat_keys, lm_tokens
+    from torch_spmd import (TP, TP_CASES, TP_MOE, TP_MOE_CASES, flat_keys,
+                            lm_tokens)
 
-    mesh = compat.make_mesh((1, TP), ("data", "model"))
-    dist = Dist(model_axis="model", data_axes=("data",), tp=TP)
-    for name, kw in TP_CASES.items():
+    cases = [(name, kw, TP) for name, kw in TP_CASES.items()]
+    cases += [(name, kw, TP_MOE) for name, kw in TP_MOE_CASES.items()]
+    for name, kw, TP in cases:
+        mesh = compat.make_mesh((1, TP), ("data", "model"))
+        dist = Dist(model_axis="model", data_axes=("data",), tp=TP)
         cfg = _jax_config(kw)
         p1 = T.init_params(cfg, jax.random.PRNGKey(0), tp=1)
         p4 = T.init_params(cfg, jax.random.PRNGKey(0), tp=TP)
@@ -281,7 +287,7 @@ def tp(out: Path):
             check_vma=False))
         ce, nxt, nb, cache = f(p4, toks, labs)
         arrays = {f"p1/{k}": np.asarray(v) for k, v in flat_keys(p1).items()}
-        arrays.update({f"p4/{k}": np.asarray(v)
+        arrays.update({f"p{TP}/{k}": np.asarray(v)
                        for k, v in flat_keys(p4).items()})
         _save_atomic(out / f"jax_tp_{name}.npz", **arrays, loss=np.asarray(ce),
                      nxt=np.asarray(nxt), dec=np.asarray(nb),
