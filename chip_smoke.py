@@ -153,7 +153,8 @@ raises on failure (the script then exits non-zero and prints no result):
    switch pool's plain-torch integer math (shared scale, int8 encode,
    residual, int32 slot sum, dequantize) at full width;
 20. the serving path at full width (run after phase 18): gemma3-1b served
-   through ``launch/serve.py``'s body, ``serve(arch.config, args)``, with
+   through ``launch/serve.py``'s body, ``serve(arch.config, args)`` (its
+   gradients drawn block by block: the one-shot draw's bits), with
    the CLI's arguments (``--source fabric --train-rounds 1``, 4 shards, 2
    racks at 1:4, R = 2, 2 workers, batch 4, a 1024-token prompt, 32
    tokens, ``--max-staleness 1``).  Counts set to 0 just before the call
@@ -267,7 +268,9 @@ raises on failure (the script then exits non-zero and prints no result):
    share of greedy ids that agree printed, the model-axis collectives'
    host ms a step; then the SMOKE config on 4 gloo ranks at tp = 4 (R =
    1, kv replicated) and tp = 2, loss at rtol 2e-5 / atol 1e-5 and greedy
-   ids equal to tp = 1 on the card;
+   ids equal to tp = 1 on the card.  The 2 ranks then run phase 36's
+   recsys tp = 2 pass and the 4 ranks phase 43's GNN channel TP and
+   edge parallelism (one spawn each serves them all);
 32. the recsys family on the SPMD path (phases 32-36 inside a world-1
    NCCL group and deterministic algorithms): dlrm-mlperf ``train_batch``
    by ``pbox_sparse`` (``launch/steps.build_recsys_train_sparse``) at its
@@ -295,8 +298,8 @@ raises on failure (the script then exits non-zero and prints no result):
    card == CPU within rtol 1e-5 / atol 1e-6, launches equal to the CPU's
    plain-version calls; then dlrm-mlperf SMOKE at tp = 2 over 2 gloo ranks
    on cuda:0 (one dense and one sparse step: the lookup's psum_scatter,
-   the cotangents' all-gather) against tp = 1 on the card at the same
-   bound.  Phase 19 also times ``fused_agg_opt`` as the recsys steps run
+   the cotangents' all-gather; run by phase 31's 2 ranks) against tp = 1
+   on the card at the same bound.  Phase 19 also times ``fused_agg_opt`` as the recsys steps run
    it (SGD, K = 1, f32, the MLP flat) by CUDA-graph replay, beside
    ``Tensor.add_(g, alpha=-lr)``, the one PyTorch call for that update.
    The line before the kernel table gives the seconds of each group of
@@ -339,7 +342,26 @@ raises on failure (the script then exits non-zero and prints no result):
    CPU on the same f32 logits.  Phase 19 also times fused_agg_opt at the
    three new shapes (momentum K = 2 over a shard's slab and K = 1 over
    the flat, the latter beside ``torch._fused_sgd_``; AdamW bf16 K = 1
-   over granite's flat).
+   over granite's flat);
+42. EquiformerV2 at its published widths (12 layers, C = 128, l_max 6,
+   m_max 2, 8 heads; world 1, NCCL, deterministic algorithms), pbox
+   AdamW(1e-3), 3 steps each of ``molecule`` (128 molecules x 30 atoms,
+   64 edges each, graph regression; through ``launch/train.main
+   --full``, flat 35,086,336) and ``full_graph_sm`` (cora's 2,708 nodes,
+   10,556 edges, 1,433 features; through ``build_cell``'s plan on one
+   seeded graph, flat 35,274,752): counts set to 0 just before and read
+   just after, 1 fused_agg_opt (K = 1, f32) a step; step 1's
+   ``device_update`` booked and replayed on the CPU through the plain
+   version, bitwise; finite losses; step 2's ms, the peak, step 3
+   profiled (device busy, idle share, the top device ops);
+43. the four graph cells at SMOKE (molecule also edge-parallel), one
+   SGD(0.1) step card == CPU (f32 within rtol 1e-5 / atol 1e-6, the bf16
+   ``ogb_products`` within GNN_BF16_RTOL of the largest entry), launches
+   equal to the CPU run's plain-version calls; channel TP and edge
+   parallelism run on phase 31's 4 gloo ranks (``full_graph_sm`` at
+   SMOKE on a (2, 2) mesh against tp = 1 on the card).  Phase 19 also
+   times fused_agg_opt at the GNN's shape (AdamW, K = 1, f32, N =
+   35,086,336) beside ``torch._fused_adamw_``.
 
 The line before the last is the kernel table as JSON (each row with its
 launches on every path); the last line is ``{"ok": true, "device":
@@ -3654,7 +3676,8 @@ def profile_summary(prof, steady_round_ms: float, last_launches,
     holds ``kernel_key``."""
     from torch.autograd import DeviceType
 
-    for e in prof.key_averages():
+    averages = prof.key_averages()  # builds the event tree: once
+    for e in averages:
         if e.is_user_annotation and e.device_type == DeviceType.CPU:
             log(f"    host   {e.cpu_time_total / 1e3:9.2f} ms  x{e.count:<5d} "
                 f"{e.key} (wall time inside the range, profiler on)")
@@ -3666,8 +3689,9 @@ def profile_summary(prof, steady_round_ms: float, last_launches,
         reach = max(reach, end)
     if busy_us <= 0:
         log("  profiler: no device time recorded (not measured)")
-        return {"device_busy_ms": None}
-    kernel_us = (kernel_device_ms(prof, kernel_key)[0] * 1e3
+        return {"device_busy_ms": None, "top_ops": []}
+    kernel_us = (sum(e.self_device_time_total for e in averages
+                     if _on_device(e) and kernel_key in e.key)
                  if last_launches is None else
                  sum(s.elapsed_time(e) for s, e in last_launches) * 1e3)
     log(f"  profiled round: device busy {busy_us / 1e3:.1f} ms = "
@@ -3675,12 +3699,14 @@ def profile_summary(prof, steady_round_ms: float, last_launches,
         f"({steady_round_ms:.1f} ms), idle "
         f"{1 - busy_us / 1e3 / steady_round_ms:.1%}; {kernel_name} "
         f"{kernel_us / 1e3:.1f} ms = {kernel_us / busy_us:.1%} of device time")
-    kernels = [e for e in prof.key_averages() if _on_device(e)]
-    for e in sorted(kernels, key=lambda e: e.self_device_time_total,
-                    reverse=True)[:20]:
+    kernels = sorted((e for e in averages if _on_device(e)),
+                     key=lambda e: e.self_device_time_total, reverse=True)
+    for e in kernels[:20]:
         log(f"    device {e.self_device_time_total / 1e3:9.2f} ms  "
             f"x{e.count:<5d} {e.key[:100]}")
-    return {"device_busy_ms": busy_us / 1e3}
+    return {"device_busy_ms": busy_us / 1e3,
+            "top_ops": [(e.key[:80], round(e.self_device_time_total / 1e3, 3),
+                         e.count) for e in kernels[:5]]}
 
 
 # -- phases 20 to 22: the serving path -----------------------------------------
@@ -5988,7 +6014,8 @@ def _tp_rank(rank, world, path, out_dir, device, smoke):
     """One rank of phase 31 on ``device`` (cuda:0) over gloo: at world 2,
     gemma3-1b at full width on a (1, 2) mesh (``_tp_train_and_serve``); at
     world 4, the SMOKE config on (1, 4) and (2, 2) meshes
-    (``_smoke_tp_run``)."""
+    (``_smoke_tp_run``) and EquiformerV2's SMOKE ``full_graph_sm`` on a
+    (2, 2) mesh (``_gnn_tp_steps``)."""
     import torch
     import torch.distributed as dist
 
@@ -6011,9 +6038,19 @@ def _tp_rank(rank, world, path, out_dir, device, smoke):
             torch.cuda.empty_cache()
             out["control"] = _tp_train_and_serve(cfg, mesh, dev,
                                                  grad_sync=False)
+            # phase 36's tp = 2 pass on the same 2 ranks (saves a spawn)
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            out["rs"] = _rs_gloo_steps(mesh, dev, world)
+            out["rs"].update(model=mesh.coords["model"],
+                             seconds=time.perf_counter() - t0)
         else:
             out = {f"tp{m}": _smoke_tp_run(arch.smoke_config, Mesh(
                 (world // m, m), ("data", "model")), dev) for m in (4, 2)}
+            # and the GNN's channel TP and edge parallelism (phase 43)
+            mesh = Mesh((2, 2), ("data", "model"))
+            out["gnn"] = _gnn_tp_steps(mesh, dev)
+            out["model"] = mesh.coords["model"]
         torch.save(out, Path(out_dir) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
@@ -6170,7 +6207,8 @@ def tp_path(dev, smoke: bool = False) -> dict:
             "serve_ms_tp2": ranks[0]["serve_ms"], "serve_ms_tp1": ref["serve_ms"],
             "seconds": seconds, "launches_tp1": ref["launches"],
             "launches_tp2": {k: sum(r["launches"][k] for r in ranks)
-                             for k in ref["launches"]}}
+                             for k in ref["launches"]},
+            "rs_ranks": [r["rs"] for r in ranks]}
     del g1, ranks, ref
     torch.cuda.empty_cache()
 
@@ -6178,6 +6216,8 @@ def tp_path(dev, smoke: bool = False) -> dict:
     one = _smoke_tp_run(arch.smoke_config, None, dev)
     for r, got in enumerate(ranks):
         for key, run in got.items():
+            if not key.startswith("tp"):
+                continue
             if not math.isclose(run["loss"], one["loss"], rel_tol=2e-5,
                                 abs_tol=1e-5) or not torch.equal(
                                     run["ids"], one["ids"]):
@@ -6189,6 +6229,7 @@ def tp_path(dev, smoke: bool = False) -> dict:
         f"tp = 1 (loss {one['loss']:.6f} at rtol 2e-5 / atol 1e-5, prefill "
         f"and 6 decode ids equal) in {seconds:.1f} s")
     full["smoke_seconds"] = seconds
+    full["gnn"] = gnn_tp_check(ranks, dev)
     return full
 
 
@@ -6869,13 +6910,15 @@ def _rs_gloo_rank(rank, world, path, out_dir, device):
         dist.destroy_process_group()
 
 
-def rs_gloo_check(dev) -> dict:
+def rs_gloo_check(dev, ranks: list | None = None) -> dict:
     """Phase 36's tp = 2 pass: 2 gloo ranks on cuda:0, mesh (1, 2),
     dlrm-mlperf SMOKE, one dense and one sparse step each (the lookup's
     psum_scatter, the cotangents' all-gather, the MLPs' psum_model), held
     to tp = 1 on the card (a ``LocalMesh``) at RS_CARD_RTOL / RS_CARD_ATOL:
     each rank's MLPs, its rows of every table, and the losses (the tp = 2
-    metric is the loss over tp)."""
+    metric is the loss over tp).  ``ranks``: the ranks' results when they
+    ran already (phase 31's 2 ranks run ``_rs_gloo_steps`` after their own
+    work, which saves a spawn); else 2 ranks are spawned here."""
     import shutil
     import tempfile
 
@@ -6884,6 +6927,9 @@ def rs_gloo_check(dev) -> dict:
 
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
+    if ranks is not None:
+        return _rs_gloo_compare(dev, ranks,
+                                max(r["seconds"] for r in ranks))
     tmp = tempfile.mkdtemp(prefix="chip_smoke_rs_gloo_")
     t0 = time.perf_counter()
     try:
@@ -6899,7 +6945,10 @@ def rs_gloo_check(dev) -> dict:
         ranks = [torch.load(Path(tmp) / f"rank{r}.pt") for r in range(2)]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    seconds = time.perf_counter() - t0
+    return _rs_gloo_compare(dev, ranks, time.perf_counter() - t0)
+
+
+def _rs_gloo_compare(dev, ranks: list, seconds: float) -> dict:
     with deterministic():
         ref = _rs_gloo_steps(LocalMesh(("data", "model")), dev, 1)
     err = 0.0
@@ -7741,6 +7790,308 @@ def new_archs_smoke_check(dev) -> dict:
     return out
 
 
+# -- phases 42 and 43: EquiformerV2 ------------------------------------------
+# phase 42: the two graph cells one card holds at full width (molecule
+# through launch/train.main, full_graph_sm through build_cell's plan),
+# GNN_STEPS AdamW steps each; step GNN_BOOK + 1's update booked and
+# replayed on the CPU, the last step profiled
+GNN_STEPS, GNN_BOOK = 3, 0
+GNN_FULL = ("molecule", "full_graph_sm")
+# phase 43: every graph cell at SMOKE (molecule also under variant "ep"),
+# one SGD(0.1) step card against CPU (AdamW's first step is lr times the
+# gradient's sign, which a gradient within rounding of 0 flips).  The f32
+# cells within RS_CARD_RTOL / RS_CARD_ATOL; ogb_products carries its nodes
+# in bf16 (as JAX's graph_full_large does), where the card's and the
+# CPU's f32 sums round to different bf16 values here and there: its loss
+# and params within GNN_BF16_RTOL of the largest entry.  The first card
+# run (NVIDIA H100 80GB HBM3, 700.00 W) read 1.88e-5 on the params and
+# 2.05e-5 on a loss of 2.32 (the f32 cells at most 3.1e-6); the bound is
+# 50x that, far under one bf16 ulp at 1 (7.8e-3)
+GNN_SMOKE_CASES = (("full_graph_sm", None), ("minibatch_lg", None),
+                   ("ogb_products", None), ("molecule", None),
+                   ("molecule", "ep"))
+GNN_BF16_RTOL = 1e-3
+# phase 31's 4 gloo ranks also run full_graph_sm at SMOKE on a (2, 2)
+# mesh, channel TP and variant "ep" (one SGD(0.1) step each), against
+# tp = 1 on the card at rtol 2e-5 / atol 1e-5 (the LM SMOKE bound there)
+GNN_TP_RTOL, GNN_TP_ATOL = 2e-5, 1e-5
+
+
+def _gnn_batch(plan, seed: int, workers: int = 1) -> dict:
+    """``data/graphs.cell_batch`` for a GNN plan (numpy)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.graphs import cell_batch
+
+    cfg = plan.meta["config"]
+    kind = get_arch(plan.arch_id).cell(plan.shape).kind
+    return cell_batch(kind, plan.abstract_args[4], cfg.l_max, cfg.n_rbf,
+                      seed=seed, workers=workers)
+
+
+def gnn_path(dev, smoke: bool = False) -> dict:
+    """Phase 42: EquiformerV2 at its published widths (12 layers, C = 128,
+    l_max 6, m_max 2, 8 heads), world 1, pbox AdamW(1e-3), GNN_STEPS steps
+    of each GNN_FULL cell: ``molecule`` (128 molecules of 30 atoms and 64
+    edges, graph regression) through ``launch/train.main --full``, and
+    ``full_graph_sm`` (cora's 2,708 nodes, 10,556 edges, 1,433 features,
+    7 classes) through ``build_cell``'s plan on one seeded graph.  Counts
+    set to 0 just before and read just after: 1 fused_agg_opt a step (K =
+    1, f32); step 1's ``device_update`` booked over three windows and
+    replayed on the CPU through the plain version, bitwise; finite losses;
+    step 2's ms (host clock), the peak, and the last step profiled (device
+    busy, idle share, the top device ops).  ``smoke``: the SMOKE cells.
+    Call inside ``world_one`` and ``deterministic``."""
+    from unittest import mock
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import steps as ST
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.train import main
+    from repro_torch.models.gnn import equiformer_v2 as EQ
+    from repro_torch.runtime.trainer import init_train_state, local_state
+
+    out = {}
+    for shape in GNN_FULL:
+        t_shape = time.perf_counter()
+        book, events, step_ms, keep = {}, [], [], {}
+        # device activity only: the step's ~10,000 host ops would make
+        # the event tree ~20 s to build, and no host range is read here
+        prof = profile(activities=[ProfilerActivity.CUDA])
+
+        def instrument(plan):
+            ex = plan.meta["exchange"]
+            keep.update(plan=plan, ex=ex, real=book_update(
+                ex, book, events, GNN_BOOK, ex.cfg.compression.chunk_elems))
+            fn = plan.fn
+
+            def step(*args):
+                res = {}
+                last = len(step_ms) == GNN_STEPS - 1
+                if last:
+                    prof.start()
+                step_ms.append(timed(lambda: res.update(out=fn(*args))))
+                if last:
+                    prof.stop()
+                return res["out"]
+
+            plan.fn = step
+            return plan
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        if shape == "molecule":
+            build = ST.build_cell
+            argv = ["--arch", "equiformer-v2", "--steps", str(GNN_STEPS),
+                    "--log-every", str(GNN_STEPS)] + ([] if smoke else
+                                                      ["--full"])
+            with mock.patch.object(ST, "build_cell",
+                                   lambda *a, **k: instrument(build(*a, **k))):
+                _zero_counts()  # every count to 0 just before the path...
+                res = main(argv, device=dev)
+                launches = _counts()  # ...and read just after
+            losses = [float(x) for x in res["losses"]]
+            if not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"gnn molecule: losses {losses}")
+            pflat = res["pflat"]
+            del res
+        else:
+            mesh = make_mesh((1, 1), ("data", "model"))
+            plan = instrument(ST.build_cell("equiformer-v2", shape, mesh,
+                                            smoke=smoke))
+            cfg, ex = plan.meta["config"], plan.meta["exchange"]
+            state = init_train_state(
+                mesh, init_params_fn=lambda g: EQ.init_params(cfg, g),
+                param_specs=EQ.make_param_specs(cfg, 1), exchange=ex,
+                space=plan.meta["space"], n_groups=1,
+                key=torch.Generator(device=dev).manual_seed(0), device=dev)
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in _gnn_batch(plan, 0).items()}
+            pflat, slots, ef, stc = local_state(state, mesh, ex)
+            del state
+            loss_t = []
+            _zero_counts()
+            for _ in range(GNN_STEPS):
+                pflat, slots, ef, stc, met = plan.fn(pflat, slots, ef, stc,
+                                                     batch)
+                loss_t.append(met["loss"])
+            launches = _counts()
+            losses = finite_losses(loss_t)
+            del slots, ef, batch
+        _check_counts(f"gnn {shape}", launches, {"fused_agg_opt": GNN_STEPS})
+        peak = torch.cuda.max_memory_allocated(dev)
+        plan, ex = keep["plan"], keep["ex"]
+        if not torch.isfinite(pflat).all():
+            raise AssertionError(f"gnn {shape}: params not finite")
+        update_ms = [a.elapsed_time(b) for a, b in events]
+        run_s = time.perf_counter() - t_shape
+        err = replay_book(keep["real"], book, ("data", "model"))
+        ex.device_update = keep["real"]
+        cfg = plan.meta["config"]
+        log(f"phase 42: equiformer-v2 {shape} ({plan.meta['nodes']} nodes, "
+            f"{plan.meta['edges']} edges, d_in {cfg.d_in}, {cfg.task}, flat "
+            f"{plan.meta['space'].flat_elems}, {plan.meta['model_flops']:.4g}"
+            f" model FLOPs a step): losses {losses}, steps "
+            f"{[round(x, 1) for x in step_ms]} ms (host clock; the last "
+            f"profiled), device_update {[round(x, 3) for x in update_ms]} "
+            f"ms, peak {peak / 2**30:.2f} GiB, launches {launches}; step "
+            f"{GNN_BOOK + 1}'s update replayed on the CPU over 3 windows "
+            f"bitwise; {run_s:.1f} s to the last step (set-up, host graph "
+            f"featurization and the steps), "
+            f"{time.perf_counter() - t_shape - run_s:.1f} s replaying")
+        t_prof = time.perf_counter()
+        breakdown = profile_summary(prof, step_ms[1], None, "fused_agg_opt",
+                                    "fused_agg_opt_kernel")
+        out[shape] = {
+            "launches": launches, "losses": losses, "step_ms": step_ms,
+            "update_ms": update_ms, "peak_bytes": peak, "replay_err": err,
+            "flat": plan.meta["space"].flat_elems,
+            "nodes": plan.meta["nodes"], "edges": plan.meta["edges"],
+            "model_flops": plan.meta["model_flops"], **breakdown,
+            "seconds": time.perf_counter() - t_shape,
+            "profile_s": time.perf_counter() - t_prof}
+        del pflat, plan, ex, keep, prof, book
+        torch.cuda.empty_cache()
+    return out
+
+
+def _gnn_smoke_step(plan, params, batch: dict, dev) -> dict:
+    """One step of a SMOKE GNN plan on ``dev`` from ``params``: the new
+    flat and the loss."""
+    import torch
+
+    space = plan.meta["space"]
+    b = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    stc = torch.zeros((), dtype=torch.int32, device=dev)
+    pf, _, _, _, met = plan.fn(space.flatten(_tree_to(params, dev))
+                               .reshape(1, -1), (), None, stc, b)
+    return {"pflat": pf, "loss": met["loss"]}
+
+
+def gnn_smoke_check(dev) -> dict:
+    """Phase 43: every GNN_SMOKE_CASES case, one SGD(0.1) step of its
+    SMOKE plan on the card (world 1) and on the CPU (a ``LocalMesh``, the
+    kernels' plain versions) from the same seeded params and batch: the
+    loss and the new flat within RS_CARD_RTOL / RS_CARD_ATOL (the bf16
+    cell within GNN_BF16_RTOL of the largest entry); each case's launches
+    equal the CPU run's plain-version calls.  Call inside ``world_one``
+    and ``deterministic``."""
+    import torch
+
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models.gnn import equiformer_v2 as EQ
+    from repro_torch.optim.optimizers import sgd
+
+    cpu = torch.device("cpu")
+    mesh = make_mesh((1, 1), ("data", "model"))
+    cpu_mesh = LocalMesh(("data", "model"))
+    out = {}
+    for shape, variant in GNN_SMOKE_CASES:
+        name = shape + (f"/{variant}" if variant else "")
+        plans = [build_cell("equiformer-v2", shape, m, smoke=True,
+                            variant=variant, opt=sgd(0.1))
+                 for m in (mesh, cpu_mesh)]
+        cfg = plans[0].meta["config"]
+        params = EQ.init_params(cfg, torch.Generator().manual_seed(0))
+        batch = _gnn_batch(plans[0], 1)
+        _zero_counts()
+        card = _gnn_smoke_step(plans[0], params, batch, dev)
+        launches = _counts()
+        with PlainCalls() as plain:
+            ref = _gnn_smoke_step(plans[1], params, batch, cpu)
+        if launches != plain.counts or launches["fused_agg_opt"] != 1:
+            raise AssertionError(f"gnn SMOKE {name}: card launches "
+                                 f"{launches}, CPU plain calls {plain.counts}")
+        if cfg.dtype == torch.bfloat16:
+            errs = {k: _scaled_close(f"gnn SMOKE {name} {k}",
+                                     card[k].reshape(-1), ref[k].reshape(-1),
+                                     GNN_BF16_RTOL) for k in card}
+        else:
+            errs = {k: _rs_close(f"gnn SMOKE {name} {k}", card[k], ref[k])
+                    for k in card}
+        out[name] = {"launches": launches, "errs": errs,
+                     "loss": card["loss"].item()}
+    log(f"phase 43: equiformer-v2 SMOKE, one SGD step card == CPU (f32 "
+        f"within rtol {RS_CARD_RTOL} / atol {RS_CARD_ATOL}, bf16 within "
+        f"{GNN_BF16_RTOL} of the largest entry): "
+        + ", ".join(f"{n} loss {c['loss']:.6f} max |err| "
+                    f"{', '.join(f'{k} {v:.3g}' for k, v in c['errs'].items())}"
+                    for n, c in out.items()))
+    return out
+
+
+def _gnn_tp_steps(mesh, dev) -> dict:
+    """full_graph_sm at SMOKE on ``mesh``: one SGD(0.1) step under channel
+    TP and one under variant "ep", each from the seeded tp = 1 params cut
+    to this rank's pieces; the loss (the step's metric, loss / tp) and
+    this rank's params after the step, on the host."""
+    import torch
+
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models.gnn import equiformer_v2 as EQ
+    from repro_torch.optim.optimizers import sgd
+    from repro_torch.runtime.trainer import local_params, shard_batch
+
+    tp = mesh.shape["model"]
+    nw = mesh.shape["data"]
+    out = {}
+    for variant in (None, "ep"):
+        plan = build_cell("equiformer-v2", "full_graph_sm", mesh, smoke=True,
+                          variant=variant, opt=sgd(0.1))
+        cfg, space = plan.meta["config"], plan.meta["space"]
+        params = EQ.init_params(cfg, torch.Generator().manual_seed(0))
+        local = local_params(params, EQ.make_param_specs(cfg, tp), mesh)
+        batch = _gnn_batch(plan, 2, nw)
+        mine = {k: torch.from_numpy(v).to(dev) for k, v in shard_batch(
+            batch, mesh, plan.meta["exchange"],
+            plan.meta["batch_spec"]).items()}
+        stc = torch.zeros((), dtype=torch.int32, device=dev)
+        pf, _, _, _, met = plan.fn(space.flatten(_tree_to(local, dev))
+                                   .reshape(1, -1), (), None, stc, mine)
+        out[variant or "channel_tp"] = {
+            "params": _tree_to(space.unflatten(pf[0]), "cpu"),
+            "loss": met["loss"].item()}
+    return out
+
+
+def gnn_tp_check(ranks: list, dev) -> dict:
+    """Phase 31's 4 ranks' ``_gnn_tp_steps`` on a (2, 2) mesh against tp = 1
+    on the card (a ``LocalMesh``): each rank's loss x tp and its pieces of
+    every parameter within GNN_TP_RTOL / GNN_TP_ATOL (channel TP: the
+    rank's slice of tp = 1's; ep: the whole)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.gnn import equiformer_v2 as EQ
+    from repro_torch.runtime.trainer import take_local
+
+    with deterministic():
+        ref = _gnn_tp_steps(LocalMesh(("data", "model")), dev)
+    specs = EQ.make_param_specs(get_arch("equiformer-v2").smoke_config, 2)
+    err = 0.0
+    for r, got in enumerate(ranks):
+        j = got["model"]
+        for variant, run in got["gnn"].items():
+            want = ref[variant]
+            if not math.isclose(run["loss"] * 2, want["loss"],
+                                rel_tol=GNN_TP_RTOL, abs_tol=GNN_TP_ATOL):
+                raise AssertionError(
+                    f"gnn {variant} rank {r}: loss x tp {run['loss'] * 2} "
+                    f"against tp = 1 {want['loss']}")
+            flat_specs = dict(_named_leaves(specs))
+            for (name, a), (_, w) in zip(_named_leaves(run["params"]),
+                                         _named_leaves(want["params"])):
+                if variant == "channel_tp":
+                    w = take_local(w, flat_specs[name], j, 2)
+                err = max(err, _rs_close(f"gnn {variant} rank {r} {name}", a,
+                                         w, GNN_TP_RTOL, GNN_TP_ATOL))
+    log(f"phase 31: equiformer-v2 SMOKE full_graph_sm on a (2, 2) mesh over "
+        f"the 4 gloo ranks, channel TP and edge-parallel, one SGD step each"
+        f" == tp = 1 on the card within rtol {GNN_TP_RTOL} / atol "
+        f"{GNN_TP_ATOL} (max |err| {err})")
+    return {"max_abs_err": err}
+
+
 # -- phase 19: kernel timings ------------------------------------------------
 # fused_agg_opt's optimizers as the paths run them: the spec, its state
 # slots, the step the packet carries, the seed of the inputs, and the f32
@@ -8270,7 +8621,7 @@ def main() -> int:
         rs_archs = rs_archs_path(dev)
         rs_smoke = rs_smoke_check(dev)
     lap("32-36 recsys")
-    rs_gloo = rs_gloo_check(dev)
+    rs_gloo = rs_gloo_check(dev, tp.pop("rs_ranks"))
     lap("36 recsys gloo")
     torch.cuda.empty_cache()
     rn_fabric = resnet_fabric_path(dev)
@@ -8286,6 +8637,10 @@ def main() -> int:
         lap("40 qwen2-moe")
         smoke_new = new_archs_smoke_check(dev)
         lap("41 SMOKE new archs")
+        gnn = gnn_path(dev)
+        lap("42 gnn")
+        smoke_gnn = gnn_smoke_check(dev)
+        lap("43 SMOKE gnn")
     torch.cuda.empty_cache()
     switch_math = switch_math_ms(dev, int8["flat"], int8["chunk"])
     d = dlrm_capped_config().embed_dim
@@ -8316,6 +8671,9 @@ def main() -> int:
               "fused_agg_opt_granite": time_fused_agg_opt(
                   dev, granite["flat"], 1, average=False,
                   dtype=torch.bfloat16),
+              # EquiformerV2's SPMD AdamW: K = 1, f32, the molecule flat
+              "fused_agg_opt_gnn": time_fused_agg_opt(
+                  dev, gnn["molecule"]["flat"], 1, average=False, sets=2),
               "embedding_bag": time_embedding_bag(
                   dev, DLRM_BATCH, 1, d, DLRM_ROW_CAP, "one-hot main path", 4),
               "segment_sum": time_segment_sum(dev, DLRM_BATCH, d, DLRM_ROW_CAP)}
@@ -8323,6 +8681,8 @@ def main() -> int:
                                    "multi-hot", 2)
     replayed = {"fused_agg_opt": max(f32_err, rn_fabric_err,
                                      rn_spmd["replay_err"],
+                                     *(run["replay_err"]
+                                       for run in gnn.values()),
                                      *(run["replay_err"]
                                        for run in spmd.values())),
                 "wire_fused": max(int8_err, async_err), **codec_err,
@@ -8377,7 +8737,12 @@ def main() -> int:
              "granite_train_4k": granite["train_4k"]["launches"],
              "smoke_new_archs": {k: sum(c["launches"][k] for n, c in
                                         smoke_new.items() if "launches" in c)
-                                 for k in f32["launches"]}}
+                                 for k in f32["launches"]},
+             **{f"gnn_{shape}": run["launches"] for shape, run in
+                gnn.items()},
+             "smoke_gnn": {k: sum(c["launches"][k] for c in
+                                  smoke_gnn.values())
+                           for k in f32["launches"]}}
     recsys_paths = [p for p in paths if p.startswith(("recsys_",
                                                       "smoke_recsys"))]
     # K = 1 without averaging: the async pushes (f32 ones only at SMOKE)
@@ -8469,7 +8834,17 @@ def main() -> int:
                       rn_spmd["replay_err"], "device_update_ms":
                       statistics.median(rn_spmd["update_ms"][1:])}),
                     ("granite_spmd_k1_adamw_bf16", "granite_train_4k",
-                     "fused_agg_opt_granite", {"n": granite["flat"]}))}
+                     "fused_agg_opt_granite", {"n": granite["flat"]}),
+                    ("gnn_spmd_k1_adamw_f32", "gnn_molecule",
+                     "fused_agg_opt_gnn",
+                     {"n": gnn["molecule"]["flat"],
+                      "launches_full_graph_sm":
+                      paths["gnn_full_graph_sm"][kname],
+                      "replay_max_abs_err": max(
+                          run["replay_err"] for run in gnn.values()),
+                      "device_update_ms": {
+                          shape: statistics.median(run["update_ms"][1:])
+                          for shape, run in gnn.items()}}))}
                if kname == "fused_agg_opt" else {}),
             **({"recsys_sgd_k1_f32": {
                 "launches": sum(paths[p][kname] for p in recsys_paths),
@@ -8569,6 +8944,12 @@ def main() -> int:
         f"step; qwen2-moe prefill_32k {qwen['prefill_32k']['ms'][0]:.1f} ms, "
         f"decode_32k at {qwen['decode_32k']['batch']} "
         f"{statistics.median(qwen['decode_32k']['ms'][1:]):.2f} ms a step"
+        + "; equiformer-v2 " + ", ".join(
+            f"{shape} steady step {run['step_ms'][1]:.1f} ms, peak "
+            f"{run['peak_bytes'] / 2**30:.2f} GiB, device busy "
+            f"{run['device_busy_ms'] or 0:.1f} ms profiled, "
+            f"{run['seconds']:.1f} s (profile {run['profile_s']:.1f} s)"
+            for shape, run in gnn.items())
         + f"; switch integer math "
         f"{sum(v['ms'] for v in switch_math.values()):.3f} ms; whole run "
         f"{time.perf_counter() - t_start:.1f} s")
@@ -8603,6 +8984,8 @@ out = {
                    if hasattr(cs, "time_fused_agg_opt_sgd") else
                    cs.time_fused_agg_opt(dev, 2375680, 1, average=False,
                                          opt="sgd", sets=3)),
+    "adamw_k1_f32_gnn": cs.time_fused_agg_opt(dev, 35086336, 1,
+                                              average=False, sets=2),
     "wire_fused": cs.time_wire(dev, 325451776, 2, 8192),
     **cs.time_quant(dev, 1301807104, 8192)}
 print("COMPARE " + json.dumps({"root": sys.argv[1], **{
@@ -8612,7 +8995,9 @@ print("COMPARE " + json.dumps({"root": sys.argv[1], **{
 
 def compare(other: str) -> int:
     """``python3 chip_smoke.py --compare OTHER``: fused_agg_opt at the four
-    main-path shapes, and the kernels that share ``pbox_opt.cuh``, timed
+    main-path shapes and the GNN's (AdamW f32 K = 1 over 35,086,336, each
+    beside its library call where one exists), and the kernels that share
+    ``pbox_opt.cuh``, timed
     with this checkout's kernels and with those of the checkout at OTHER
     (e.g. the parent commit unpacked by ``git archive``), each side in its
     own process with its own build, in turns on one card: OTHER, this,

@@ -1,9 +1,8 @@
 """Architecture registry (torch counterpart of ``repro/configs/registry.py``).
 
-Each arch module exposes ``ARCH: ArchDef``.  The port registers the JAX
-package's archs in its order, all but ``equiformer-v2`` (the GNN family is
-not ported yet): the five LMs, the four recsys archs and the paper's
-ResNet-50.
+Each arch module exposes ``ARCH: ArchDef``.  The port registers every
+arch of the JAX package, in its order: the five LMs, the GNN
+(``equiformer-v2``), the four recsys archs and the paper's ResNet-50.
 """
 from __future__ import annotations
 
@@ -41,6 +40,7 @@ def _build() -> dict:
         autoint,
         dien,
         dlrm_mlperf,
+        equiformer_v2,
         gemma3_1b,
         granite_moe_1b,
         internlm2_1_8b,
@@ -52,7 +52,7 @@ def _build() -> dict:
 
     mods = [
         gemma3_1b, internlm2_1_8b, qwen2_72b, granite_moe_1b, qwen2_moe_a2_7b,
-        dlrm_mlperf, autoint, dien, xdeepfm, resnet50,
+        equiformer_v2, dlrm_mlperf, autoint, dien, xdeepfm, resnet50,
     ]
     return {m.ARCH.arch_id: m.ARCH for m in mods}
 
@@ -71,7 +71,7 @@ def get_arch(arch_id: str) -> ArchDef:
     archs = _archs()
     if arch_id not in archs:
         raise KeyError(
-            f"{arch_id!r} is not ported yet; the port has {sorted(archs)}")
+            f"unknown arch {arch_id!r}; the registry has {sorted(archs)}")
     return archs[arch_id]
 
 

@@ -100,21 +100,38 @@ def _train_rounds(args, fabric, space) -> None:
     to f32, as the JAX driver draws it, so the two drivers serve the same
     bits."""
     import numpy as np
-    import torch
 
     rng = np.random.default_rng(args.seed + 1)
     for _ in range(args.train_rounds):
-        grads = [
-            torch.from_numpy(
-                (1e-3 * rng.standard_normal(space.flat_elems))
-                .astype(np.float32)).to(fabric.device)
-            for _ in range(fabric.num_workers)
-        ]
+        grads = [_draw_grad(rng, space.flat_elems, fabric.device)
+                 for _ in range(fabric.num_workers)]
         for w in range(fabric.num_workers):
             fabric.pull(w)
         for w in range(fabric.num_workers):
             fabric.push(w, grads[w])
         del grads
+
+
+_DRAW_CHUNK = 1 << 22  # float64 normals a block: 32 MiB, cache-sized
+
+
+def _draw_grad(rng, n: int, device):
+    """``(1e-3 * rng.standard_normal(n)).astype(np.float32)`` on ``device``,
+    drawn block by block into one reused float64 buffer: the generator
+    yields the same stream whatever the block size, and the scale and the
+    rounding are elementwise, so the bits equal the one-shot draw's
+    without its two full-length float64 temporaries."""
+    import numpy as np
+    import torch
+
+    out = np.empty(n, np.float32)
+    buf = np.empty(min(n, _DRAW_CHUNK))
+    for lo in range(0, n, _DRAW_CHUNK):
+        b = buf[:min(n, lo + _DRAW_CHUNK) - lo]
+        rng.standard_normal(out=b)
+        b *= 1e-3
+        out[lo:lo + b.shape[0]] = b
+    return torch.from_numpy(out).to(device)
 
 
 def _serve_params(args, params, space, device):

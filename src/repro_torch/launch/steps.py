@@ -8,7 +8,9 @@ dry-run; the port has no dry-run).  The LM cells (train, prefill, decode,
 decode_long) and the recsys cells (train, serve, retrieval, and DLRM's
 sparse-push train step under ``strategy="pbox_sparse"``) build at any
 model-axis size; ResNet-50's ``imagenet_train`` is pure data parallelism
-over every mesh axis.  A serving plan's ``fn`` takes the rank's local
+over every mesh axis; EquiformerV2's four graph cells build with channel
+tensor parallelism over the model axis, or edge parallelism under
+``variant="ep"``.  A serving plan's ``fn`` takes the rank's local
 parameters (cut from the global tree by ``runtime.trainer.local_params``),
 its rows of the batch (and, for the LM cells, its sequence shard of the
 cache), and runs without autograd.  A recsys retrieval plan takes the
@@ -26,6 +28,8 @@ from repro_torch.configs.registry import ArchDef, ShapeCell, get_arch
 from repro_torch.core.exchange import ExchangeConfig, PSExchange
 from repro_torch.launch import mesh as meshlib
 from repro_torch.models import resnet as RN
+from repro_torch.models.gnn import equiformer_v2 as EQ
+from repro_torch.models.gnn.spherical import packed_wigner_size
 from repro_torch.models import transformer as T
 from repro_torch.models.common import Dist
 from repro_torch.models.recsys import models as RS
@@ -427,6 +431,150 @@ def build_recsys_train_sparse(arch: ArchDef, cell: ShapeCell, mesh,
 
 
 # ===========================================================================
+# GNN cells
+# ===========================================================================
+
+def _gnn_graph_template(mesh, cell: ShapeCell, cfg: EQ.EquiformerConfig,
+                        wa, smoke: bool):
+    """(graph meta tensors, specs, effective cfg, dist_nodes) for each
+    graph regime."""
+    nw = meshlib.num_workers(mesh)
+    pw = packed_wigner_size(cfg.l_max)
+    kind = cell.kind
+    p = cell.params
+
+    def node_edge(n, e, d_in, spec):
+        g = {
+            "node_feat": ((n, d_in), torch.float32),
+            "edge_src": ((e,), torch.int32),
+            "edge_dst": ((e,), torch.int32),
+            "edge_mask": ((e,), torch.float32),
+            "node_mask": ((n,), torch.float32),
+            "wigner": ((e, pw), torch.float32),
+            "rbf": ((e, cfg.n_rbf), torch.float32),
+        }
+        return ({k: _meta(s, dt) for k, (s, dt) in g.items()},
+                {k: spec for k in g})
+
+    if kind == "graph_full":
+        n, e = (p["n_nodes"], p["n_edges"]) if not smoke else (64, 256)
+        cfg = dataclasses.replace(
+            cfg, d_in=p["d_feat"] if not smoke else cfg.d_in,
+            n_out=p["n_classes"] if not smoke else cfg.n_out)
+        meta, specs = node_edge(n, e, cfg.d_in, ())  # replicated full graph
+        meta["labels"] = _meta((n,), torch.int32)
+        specs["labels"] = ()
+        return meta, specs, cfg, False
+    if kind == "graph_minibatch":
+        pn = p["pad_nodes"] if not smoke else 64
+        pe = p["pad_edges"] if not smoke else 256
+        cfg = dataclasses.replace(
+            cfg, d_in=p["d_feat"] if not smoke else cfg.d_in,
+            n_out=p["n_classes"] if not smoke else cfg.n_out)
+        meta, specs = node_edge(nw * pn, nw * pe, cfg.d_in, (wa,))
+        meta["labels"] = _meta((nw * pn,), torch.int32)
+        specs["labels"] = (wa,)
+        return meta, specs, cfg, False
+    if kind == "graph_full_large":
+        n = p["n_nodes"] if not smoke else 64 * nw
+        e = p["n_edges"] if not smoke else 256 * nw
+        n = -(-n // nw) * nw
+        e = -(-e // nw) * nw
+        cfg = dataclasses.replace(
+            cfg, d_in=p["d_feat"] if not smoke else cfg.d_in,
+            n_out=p["n_classes"] if not smoke else cfg.n_out,
+            dtype=torch.bfloat16)
+        meta, specs = node_edge(n, e, cfg.d_in, (wa,))
+        meta["labels"] = _meta((n,), torch.int32)
+        specs["labels"] = (wa,)
+        return meta, specs, cfg, True  # dist_nodes
+    if kind == "graph_molecule":
+        b = p["batch"] if not smoke else nw * 2
+        npg, epg = (p["n_nodes"], p["n_edges"]) if not smoke else (8, 16)
+        cfg = dataclasses.replace(
+            cfg, d_in=p["n_species"] if not smoke else cfg.d_in, n_out=1,
+            task="graph_reg")
+        n, e = b * npg, b * epg
+        meta, specs = node_edge(n, e, cfg.d_in, (wa,))
+        meta["graph_ids"] = _meta((n,), torch.int32)
+        meta["targets"] = _meta((b,), torch.float32)
+        meta["graph_mask"] = _meta((b,), torch.float32)
+        specs.update(graph_ids=(wa,), targets=(wa,), graph_mask=(wa,))
+        return meta, specs, cfg, False
+    raise ValueError(kind)
+
+
+def build_gnn_cell(arch: ArchDef, cell: ShapeCell, mesh,
+                   exchange: PSExchange | None, smoke: bool = False,
+                   variant: str | None = None) -> CellPlan:
+    """EquiformerV2's train step on one graph regime.  ``meta`` adds to
+    JAX's the exchange, the batch spec (``runtime.trainer.shard_batch``
+    cuts a global graph batch by it), the effective config and
+    ``dist_nodes``."""
+    base = arch.smoke_config if smoke else arch.config
+    if variant == "ep":
+        # edge-parallel model axis (tests/scripts/edge_parallel_equivalence.py)
+        base = dataclasses.replace(base, edge_parallel=True)
+    tp = mesh.shape["model"]
+    wa = meshlib.worker_axes(mesh)
+    # the model axis stays named at tp = 1, as in JAX: the model's branches
+    # on it go JAX's way, and its collectives are the identity there
+    dist = Dist(model_axis="model", data_axes=wa, tp=tp, mesh=mesh)
+    meta, bspecs, cfg, dist_nodes = _gnn_graph_template(mesh, cell, base, wa,
+                                                        smoke)
+    if cfg.edge_parallel and tp > 1:
+        # edge arrays shard over (workers x model); node arrays over workers
+        ea = wa + ("model",)
+        nw = meshlib.num_workers(mesh)
+        for k in ("edge_src", "edge_dst", "edge_mask", "wigner", "rbf"):
+            sp = (ea,) if bspecs[k] != () else ("model",)
+            div = nw * tp if sp == (ea,) else tp
+            shape = list(meta[k].shape)
+            shape[0] = -(-shape[0] // div) * div  # pad edges to shard evenly
+            bspecs[k] = sp
+            meta[k] = _meta(tuple(shape), meta[k].dtype)
+    exchange = exchange or make_exchange(mesh, "gnn")
+
+    step, space, sspecs, ng = make_ps_train_step(
+        mesh,
+        loss_fn=lambda p, b, d: EQ.loss_fn(p, b, cfg, d, dist_nodes),
+        param_specs=EQ.make_param_specs(cfg, tp),
+        sync_tags=EQ.grad_sync(cfg, tp),
+        global_param_template=EQ.init_params(cfg, None, tp, device="meta"),
+        exchange=exchange, dist=dist, batch_spec=bspecs,
+        loss_div_tp=False,  # EQ.loss_fn divides by tp itself
+    )
+    args = (
+        _meta((ng, space.flat_elems), torch.float32),
+        tuple(_meta((ng, space.flat_elems), torch.float32)
+              for _ in sspecs["slots"]),
+        None, _meta((), torch.int32), meta,
+    )
+    n_edges = meta["edge_src"].shape[0]
+    n_nodes = meta["node_feat"].shape[0]
+    return CellPlan(arch.arch_id, cell.name, "train", step, args, {
+        "space": space, "sspecs": sspecs, "n_groups": ng,
+        "model_flops": _gnn_flops(cfg, n_nodes, n_edges) * 3.0,  # fwd+bwd
+        "nodes": n_nodes, "edges": n_edges,
+        # the port's: the driver needs the exchange's axes, the batch's
+        # cut and the config the cell trains
+        "exchange": exchange, "batch_spec": bspecs, "config": cfg,
+        "dist_nodes": dist_nodes})
+
+
+def _gnn_flops(cfg: EQ.EquiformerConfig, n: int, e: int) -> float:
+    c, k = cfg.channels, cfg.num_coef
+    n0 = cfg.l_max + 1
+    so2 = 2.0 * n0 * n0 * c * c  # m=0 block MACs
+    for m in range(1, cfg.m_max + 1):
+        nl = cfg.l_max + 1 - m
+        so2 += 4 * 2.0 * nl * nl * c * c
+    rot = 2.0 * sum((2 * l + 1) ** 2 for l in range(cfg.l_max + 1)) * c * 2
+    mix = 2.0 * k * c * c * (1 + 2 + 2)  # w_upd + f1 + f2
+    return cfg.n_layers * (e * (so2 + rot) + n * mix) * 2.0
+
+
+# ===========================================================================
 # vision (resnet50, the paper's workload)
 # ===========================================================================
 
@@ -490,6 +638,9 @@ def build_cell(arch_id: str, shape: str, mesh, *, strategy: str = "pbox",
         ex = (make_exchange(mesh, "recsys", strategy, opt, exchange_cfg)
               if cell.kind == "train" else None)
         return build_recsys_cell(arch, cell, mesh, ex, smoke)
+    if arch.family == "gnn":
+        ex = make_exchange(mesh, "gnn", strategy, opt, exchange_cfg)
+        return build_gnn_cell(arch, cell, mesh, ex, smoke, variant)
     if arch.family == "vision":
         ex = make_exchange(mesh, "vision", strategy, opt, exchange_cfg)
         return build_vision_train(arch, cell, mesh, ex, smoke)

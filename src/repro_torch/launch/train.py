@@ -29,6 +29,17 @@ parallelism over every mesh axis:
   PYTHONPATH=src python -m repro_torch.launch.train --arch resnet50 \\
       --steps 20 --mesh 1x1
 
+EquiformerV2 (``--arch equiformer-v2``) trains its ``molecule`` cell (graph
+regression over batched molecules, AdamW) on ``random_molecule_batch``,
+with as many atoms a graph and input features as the plan has (8 and 12 at
+SMOKE, 30 and 16 at ``--full``); the other graph cells have no stream here
+and raise.  Over several workers each worker's node, edge and graph ids
+are rebased to its own block of the batch (a molecule's edges never leave
+its graph):
+
+  PYTHONPATH=src python -m repro_torch.launch.train --arch equiformer-v2 \\
+      --steps 20 --mesh 1x1
+
 ``main(argv, device=...)`` is the body: it runs on the card unless ``device`` says
 otherwise, joins a process group its caller already started, and returns
 the losses, the final step and this rank's final state.  ``--resume``
@@ -80,6 +91,7 @@ def main(argv=None, *, device=None) -> dict:
     from repro_torch.launch.steps import _RS_FNS, build_cell
     from repro_torch.models import resnet as RN
     from repro_torch.models import transformer as T
+    from repro_torch.models.gnn import equiformer_v2 as EQ
     from repro_torch.runtime.trainer import (
         TrainState,
         global_state,
@@ -108,6 +120,7 @@ def main(argv=None, *, device=None) -> dict:
 
         # ---- data: every rank draws the global batch, keeps its rows ----
         bt = plan.abstract_args[4]
+        rebase = None
         if arch.family == "lm":
             gb, s = bt["tokens"].shape
             it = lm_batches(cfg.vocab, gb, s, args.seed)
@@ -118,6 +131,14 @@ def main(argv=None, *, device=None) -> dict:
                                cfg.n_classes, args.seed)
             init_fn = lambda g: RN.init_params(cfg, g)  # noqa: E731
             specs = None  # replicated: whole tensors on every rank
+        elif arch.family == "gnn":
+            it = _molecule_stream(plan, arch.arch_id, args.seed)
+            gcfg = plan.meta["config"]
+            init_fn = lambda g: EQ.init_params(gcfg, g, m)  # noqa: E731
+            specs = EQ.make_param_specs(gcfg, m)
+            # each worker's ids index its own block of nodes and graphs
+            rebase = {"edge_src": "node_feat", "edge_dst": "node_feat",
+                      "graph_ids": "targets"}
         else:  # recsys
             it = recsys_batches(args.arch, cfg, bt["sparse"].shape[0],
                                 args.seed)
@@ -126,7 +147,8 @@ def main(argv=None, *, device=None) -> dict:
             specs = fs(cfg, m)
         data = Prefetcher(
             it, depth=2,
-            transform=lambda b: to_device(shard_batch(b, mesh, exchange), dev))
+            transform=lambda b: to_device(shard_batch(
+                b, mesh, exchange, plan.meta.get("batch_spec"), rebase), dev))
 
         # ---- state (fresh or restored) ----
         ckpt = Checkpointer(args.ckpt_dir) if args.ckpt_dir else None
@@ -179,6 +201,30 @@ def main(argv=None, *, device=None) -> dict:
     finally:
         if cleanup is not None:
             cleanup()
+
+
+def _molecule_stream(plan, arch_id: str, seed: int):
+    """The GNN driver's stream: ``random_molecule_batch`` at the plan's
+    graphs, atoms and edges a graph and input width, seeded ``seed + i``
+    for batch ``i``, as the JAX driver draws it."""
+    from repro_torch.data.graphs import random_molecule_batch
+
+    bt, cfg = plan.abstract_args[4], plan.meta["config"]
+    if "targets" not in bt:
+        raise ValueError(
+            f"{arch_id}/{plan.shape}: the GNN driver trains the molecule "
+            "cell only (its stream is batched molecules)")
+    b = bt["targets"].shape[0]
+    npg, epg = bt["node_feat"].shape[0] // b, bt["edge_src"].shape[0] // b
+
+    def gen():
+        i = 0
+        while True:
+            yield random_molecule_batch(b, npg, epg, cfg.d_in, cfg.l_max,
+                                        cfg.n_rbf, seed=seed + i)
+            i += 1
+
+    return gen()
 
 
 if __name__ == "__main__":

@@ -133,9 +133,12 @@ class Dist:
         return _AllGather.apply(x, self.mesh, self.model_axis, axis % x.dim())
 
     def all_gather_data(self, x, axis: int):
-        if not self.data_axes:
+        """Every data rank's block along ``axis``, differentiable (the
+        backward psum-scatters the cotangents); the identity over one rank."""
+        if not self.data_axes or self.mesh is None or self.mesh.axis_size(
+                self.data_axes) == 1:
             return x
-        return self.mesh.all_gather(x, self.data_axes, axis=axis)
+        return _AllGather.apply(x, self.mesh, self.data_axes, axis % x.dim())
 
     def model_index(self) -> int:
         """This rank's coordinate on the model axis (0 without one)."""

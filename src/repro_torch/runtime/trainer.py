@@ -456,11 +456,29 @@ def global_state(mesh, exchange: PSExchange, pflat, slots, ef,
                       ef=gather(ef) if ef is not None else None, step=step)
 
 
-def shard_batch(batch: dict, mesh, exchange: PSExchange) -> dict:
-    """This rank's rows of a global batch: worker ``w`` (the linear index
-    over the worker axes) takes rows ``[w*b, (w+1)*b)``, whatever its
-    model coordinate."""
-    nw = mesh.axis_size(exchange.worker_axes)
-    w = mesh.axis_index(exchange.worker_axes)
-    return {k: v[w * (v.shape[0] // nw):(w + 1) * (v.shape[0] // nw)]
-            for k, v in batch.items()}
+def shard_batch(batch: dict, mesh, exchange: PSExchange,
+                spec: dict | None = None, rebase: dict | None = None) -> dict:
+    """This rank's rows of a global batch.  With no ``spec``, worker ``w``
+    (the linear index over the worker axes) takes rows ``[w*b, (w+1)*b)``,
+    whatever its model coordinate.  A ``spec`` (the plan's batch spec, one
+    JAX ``PartitionSpec`` tuple a key) cuts dim 0 of each key by the linear
+    index over the axes its first entry names: ``()`` keeps the key whole,
+    ``(("data", "model"),)`` cuts by workers then the model coordinate.
+    ``rebase`` maps an id key to the key whose rows it indexes (``{"edge_src":
+    "node_feat"}``): this rank's ids are shifted down by the offset of its
+    block of those rows, so ids that never leave their block become local."""
+    def cut(v, axes):
+        n, i = mesh.axis_size(axes), mesh.axis_index(axes)
+        b = v.shape[0] // n
+        return v[i * b:(i + 1) * b], i * b
+
+    def axes_of(k):
+        if spec is None:
+            return exchange.worker_axes
+        s = spec[k]
+        return _spec_axes(s[0]) if len(s) else ()
+
+    out = {k: cut(v, axes_of(k))[0] for k, v in batch.items()}
+    for k, ref in (rebase or {}).items():
+        out[k] = out[k] - cut(batch[ref], axes_of(ref))[1]
+    return out

@@ -500,6 +500,8 @@ def test_tensor_parallel_on_card_matches_tp1(cuda, monkeypatch):
     assert max(out["loss_rel"]) <= out["loss_bound"] < min(
         out["loss_moved"], max(out["control_loss_rel"]))
     assert out["ids_agree"] == 1.0
+    # EquiformerV2's channel TP and edge parallelism on the 4 ranks
+    assert out["gnn"]["max_abs_err"] <= cs.GNN_TP_ATOL
 
 
 @pytest.mark.gpu
@@ -603,3 +605,23 @@ def test_resnet_and_moe_paths_on_card_at_smoke(cuda):
     assert granite["train_4k"]["launches"]["fused_agg_opt"] == \
         cs.TRAIN4K_STEPS
     assert len(qwen["decode_32k"]["ms"]) == cs.DECODE_STEPS
+
+
+@pytest.mark.gpu
+def test_gnn_paths_and_smoke_cells_on_card(cuda):
+    """chip_smoke.py's phases 42-43 at the SMOKE config, world 1 over
+    NCCL: ``molecule`` through the train driver and ``full_graph_sm``
+    through its plan, 3 steps each with one fused_agg_opt a step and the
+    first update replayed on the CPU bitwise; then every graph cell's
+    SMOKE step (molecule also edge-parallel) card == CPU, launches equal
+    to the CPU's plain-version calls."""
+    cs = _chip_smoke()
+    with cs.world_one(cuda), cs.deterministic():
+        paths = cs.gnn_path(cuda, smoke=True)
+        cells = cs.gnn_smoke_check(cuda)
+    for shape in cs.GNN_FULL:
+        assert paths[shape]["launches"]["fused_agg_opt"] == cs.GNN_STEPS
+        assert paths[shape]["replay_err"] == 0.0
+        assert len(paths[shape]["losses"]) == cs.GNN_STEPS
+    assert len(cells) == len(cs.GNN_SMOKE_CASES)
+    assert all(c["launches"]["fused_agg_opt"] == 1 for c in cells.values())

@@ -431,12 +431,69 @@ def test_registry_builds_every_arch_with_jax_blocked():
         "import torch\n"
         "from repro_torch.configs.registry import get_arch, list_archs\n"
         "from repro_torch.models import resnet, transformer\n"
-        "assert len(list_archs()) == 10\n"
+        "from repro_torch.models.gnn import equiformer_v2\n"
+        "assert len(list_archs()) == 11\n"
         "for a in ('resnet50', 'granite-moe-1b-a400m', 'qwen2-moe-a2.7b',\n"
-        "          'internlm2-1.8b', 'qwen2-72b'):\n"
+        "          'internlm2-1.8b', 'qwen2-72b', 'equiformer-v2'):\n"
         "    arch = get_arch(a)\n"
-        "    mod = resnet if arch.family == 'vision' else transformer\n"
+        "    mod = {'vision': resnet, 'gnn': equiformer_v2}.get(\n"
+        "        arch.family, transformer)\n"
         "    mod.init_params(arch.smoke_config, torch.Generator())\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=180, cwd=ROOT,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+GNN_SLICE = ("models/gnn/__init__.py", "models/gnn/equiformer_v2.py",
+             "models/gnn/spherical.py", "data/graphs.py",
+             "configs/equiformer_v2.py", "configs/registry.py",
+             "launch/steps.py", "launch/train.py", "runtime/trainer.py",
+             "models/common.py")
+
+
+@pytest.mark.parametrize("module", GNN_SLICE)
+def test_gnn_slice_modules_are_checked(module):
+    """The GNN family's modules (EquiformerV2, the spherical harmonics, the
+    graph featurization, its config, the graph cells and the driver's GNN
+    branch, the spec-following ``shard_batch``) are among the files
+    checked above."""
+    assert ROOT / "src" / "repro_torch" / module in PORT_FILES
+
+
+@pytest.mark.parametrize("module,names", [
+    ("repro_torch.models.gnn.equiformer_v2",
+     ("EquiformerConfig", "init_params", "make_param_specs", "grad_sync",
+      "forward", "loss_fn", "_segment_softmax", "_so2_conv", "_layer")),
+    ("repro_torch.models.gnn.spherical",
+     ("real_sph_harm", "rotation_to_z", "wigner_blocks", "pack_wigner",
+      "wigner_layout", "packed_wigner_size")),
+    ("repro_torch.data.graphs",
+     ("radial_basis", "edge_geometry", "random_graph",
+      "random_molecule_batch", "CSRGraph", "random_csr_graph",
+      "fanout_sample", "cell_batch")),
+    ("repro_torch.configs.equiformer_v2", ("CONFIG", "SMOKE", "CELLS",
+                                           "ARCH")),
+    ("repro_torch.launch.steps", ("build_gnn_cell", "_gnn_graph_template",
+                                  "_gnn_flops")),
+])
+def test_gnn_slice_imports_with_jax_blocked(module, names):
+    """The GNN slice's modules import with ``import jax`` and ``import
+    repro`` failing, pull in neither, and expose the JAX package's names;
+    the registry then holds every arch of the JAX package."""
+    code = (
+        "import importlib, sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        f"mod = importlib.import_module({module!r})\n"
+        f"assert all(hasattr(mod, n) for n in {names!r})\n"
+        "from repro_torch.configs.registry import get_arch\n"
+        "assert get_arch('equiformer-v2').family == 'gnn'\n"
+        "assert not any(m.split('.')[0] in ('jax', 'jaxlib', 'repro')\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
         "print('ok')\n"
     )
     out = subprocess.run(

@@ -1,13 +1,13 @@
 """Per-arch smoke tests of the port (mirroring tests/test_models_smoke.py):
-the reduced configs of the five LM archs and ResNet-50, one forward and
-backward on the CPU, finite values of the expected shapes; the LMs also
-check decode == prefill (the greedy id after a decode step equals the one
-a prefill of the longer prompt gives).
+the reduced configs of the five LM archs, ResNet-50 and EquiformerV2, one
+forward and backward on the CPU, finite values of the expected shapes;
+the LMs also check decode == prefill (the greedy id after a decode step
+equals the one a prefill of the longer prompt gives).
 
 Against the JAX package: every full config's parameter count (and active
-count) exactly, and the registry's ``list_archs`` / ``list_cells`` (with
-every cell's kind, params and skip reason) equal to JAX's less
-``equiformer-v2``, the GNN family the port has not registered yet.
+count) exactly, every config field, and the registry's ``list_archs`` /
+``list_cells`` (with every cell's kind, params and skip reason) equal to
+JAX's, every arch included.
 """
 import numpy as np
 import pytest
@@ -21,7 +21,7 @@ from repro_torch.configs.registry import get_arch  # noqa: E402
 
 LM_ARCHS = ["gemma3-1b", "internlm2-1.8b", "qwen2-72b", "granite-moe-1b-a400m",
             "qwen2-moe-a2.7b"]
-UNPORTED = ("equiformer-v2",)
+UNPORTED = ()  # every arch of the JAX registry is ported
 
 
 def _leaves(tree):
@@ -92,6 +92,38 @@ def test_resnet_smoke():
     assert np.isfinite(loss.item()) and 0.0 <= met["acc"].item() <= 1.0
 
 
+def test_gnn_smoke():
+    """tests/test_models_smoke.py's GNN case on the port: the SMOKE config
+    on a random graph, a finite loss and finite, nonzero gradients, the
+    hidden state's shape; and the molecule regime's graph regression."""
+    from repro_torch.data.graphs import random_graph, random_molecule_batch
+    from repro_torch.models.gnn import equiformer_v2 as EQ
+
+    cfg = get_arch("equiformer-v2").smoke_config
+    params = EQ.init_params(cfg, torch.Generator().manual_seed(0))
+    g = {k: torch.from_numpy(v) for k, v in random_graph(
+        24, 80, cfg.d_in, cfg.n_out, cfg.l_max, cfg.n_rbf, seed=3).items()}
+    x = EQ.forward(params, g, cfg)
+    assert x.shape == (24, cfg.num_coef, cfg.channels)
+    leaves = _leaves(params)
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    loss, met = EQ.loss_fn(params, g, cfg)
+    assert np.isfinite(loss.item()) and 0.0 <= met["acc"].item() <= 1.0
+    grads = torch.autograd.grad(loss, leaves)
+    gn = sum(float(torch.sum(x ** 2)) for x in grads)
+    assert np.isfinite(gn) and gn > 0
+    import dataclasses
+
+    rcfg = dataclasses.replace(cfg, n_out=1, task="graph_reg")
+    m = {k: torch.from_numpy(v) for k, v in random_molecule_batch(
+        4, 8, 16, cfg.d_in, cfg.l_max, cfg.n_rbf, seed=0).items()}
+    with torch.no_grad():
+        loss, met = EQ.loss_fn(EQ.init_params(rcfg, torch.Generator()
+                                              .manual_seed(0)), m, rcfg)
+    assert np.isfinite(loss.item()) and loss.item() == met["mse"].item()
+
+
 @pytest.mark.parametrize("arch_id", LM_ARCHS + ["resnet50"])
 def test_full_configs_param_counts(arch_id):
     """Exact parameter counts of the full configs against JAX's, inside
@@ -129,7 +161,7 @@ def _cfg_fields(cfg):
     return out
 
 
-@pytest.mark.parametrize("arch_id", LM_ARCHS + ["resnet50"])
+@pytest.mark.parametrize("arch_id", LM_ARCHS + ["resnet50", "equiformer-v2"])
 def test_configs_match_jax(arch_id):
     """Every field of the full and SMOKE configs (dtypes by name) and the
     arch's family, cells and microbatches."""
@@ -151,6 +183,8 @@ def test_registry_lists_match_jax_less_the_gnn():
         assert registry.list_cells(assigned) == jcells
     assert ("resnet50", "imagenet_train") not in registry.list_cells()
     assert ("resnet50", "imagenet_train") in registry.list_cells(False)
-    for arch in UNPORTED:
-        with pytest.raises(KeyError, match="not ported"):
-            get_arch(arch)
+    assert registry.list_archs() == jax_registry.list_archs()
+    assert get_arch("equiformer-v2").family == "gnn"
+    assert ("equiformer-v2", "molecule") in registry.list_cells()
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_arch("no-such-arch")

@@ -26,15 +26,20 @@ at rtol 1e-5 (the 1x2 metric times tp).
 Beside them, in this process: ``main`` at ``--mesh 1x1`` starts and ends
 its own world-1 group, a mesh larger than the world raises, and
 ``build_cell`` builds the LM serving cells and the recsys cells of all
-four recsys archs as JAX's builder does, and refuses an arch the port has
-not registered.  The new archs: ``main --arch resnet50`` (momentum SGD on
-``image_batches``) and ``--arch granite-moe-1b-a400m`` (AdamW, the MoE
+four recsys archs as JAX's builder does, and builds the GNN.  The new
+archs: ``main --arch resnet50`` (momentum SGD on ``image_batches``) and ``--arch granite-moe-1b-a400m`` (AdamW, the MoE
 aux loss in the loss) resume from a step-0 checkpoint of JAX's initial
 state and take three steps as JAX's driver pieces do; ``build_cell``
 builds every cell of internlm2, qwen2-72b, granite-moe, qwen2-moe and
 resnet50 as JAX's builder does (resnet50 through its ``build_vision_train``
 with a data-axis exchange: JAX's own spans "model" too, which the
-installed JAX refuses).
+installed JAX refuses).  EquiformerV2: ``build_cell`` builds its four
+graph cells (and ``variant="ep"``) at SMOKE and full size with JAX's
+shapes, dtypes, flat sizes and FLOPs; ``main --arch equiformer-v2`` at
+``--mesh 1x1`` resumes from JAX's initial state and takes three steps as
+JAX's driver does; at ``--mesh 2x1`` (each worker's molecule ids rebased
+to its block) it equals a one-process run of the same global batch, and
+at ``1x2`` (channel TP) the world-1 run.
 """
 import numpy as np
 import pytest
@@ -210,8 +215,8 @@ def test_build_cell_refuses_what_is_not_ported(tmp_path, arch, shape, item):
     """The LM serving cells build at SMOKE and at full size with JAX's
     kind, global abstract shapes and meta; the SMOKE plan's step runs on
     the CPU.  The recsys family (ported by ``item``) builds every cell of
-    its four archs, pbox_sparse for DLRM only, as JAX's builder does; an
-    arch the port has not registered raises."""
+    its four archs, pbox_sparse for DLRM only, as JAX's builder does; the
+    GNN family builds."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import init_process_group, make_mesh
@@ -222,8 +227,10 @@ def test_build_cell_refuses_what_is_not_ported(tmp_path, arch, shape, item):
         mesh = make_mesh((1, 1), ("data", "model"))
         if item is not None:
             _recsys_plans_match_jax(mesh)
-            with pytest.raises(KeyError, match="not ported"):
-                build_cell("equiformer-v2", "molecule", mesh, smoke=True)
+            # the GNN family builds (its plans against JAX's: below)
+            gnn = build_cell("equiformer-v2", "molecule", mesh, smoke=True)
+            assert gnn.kind == "train" and gnn.meta["config"].task == \
+                "graph_reg"
         else:
             for smoke in (True, False):
                 _same_plan_as_jax(build_cell(arch, shape, mesh, smoke=smoke),
@@ -386,10 +393,25 @@ def _jax_steps_from_init(arch_id, ckpt_dir, steps):
     arch = jax_get_arch(arch_id)
     cfg = arch.smoke_config
     mesh = jax_mesh((1, 1), ("data", "model"))
-    shape = "imagenet_train" if arch.family == "vision" else "train_4k"
+    shape = {"vision": "imagenet_train", "gnn": "molecule"}.get(arch.family,
+                                                               "train_4k")
     plan, exchange = _jax_plan(arch_id, shape, mesh, True)
     bt = plan.abstract_args[4]
-    if arch.family == "vision":
+    if arch.family == "gnn":
+        import dataclasses
+
+        from repro.data.graphs import random_molecule_batch
+        from repro.models.gnn import equiformer_v2 as jEQ
+
+        # the JAX driver's SMOKE branch: its config, 8 atoms a molecule
+        gcfg = dataclasses.replace(cfg, n_out=1, task="graph_reg")
+        init_fn = lambda k: jEQ.init_params(gcfg, k, 1)  # noqa: E731
+        specs = jEQ.make_param_specs(gcfg, 1)
+        n_mol = bt["targets"].shape[0]
+        data = iter([random_molecule_batch(
+            n_mol, 8, bt["edge_src"].shape[0] // n_mol, cfg.d_in, cfg.l_max,
+            cfg.n_rbf, seed=i) for i in range(steps)])
+    elif arch.family == "vision":
         init_fn = lambda k: jR.init_params(cfg, k)  # noqa: E731
         specs = jax.tree.map(
             lambda _: jax.sharding.PartitionSpec(),
@@ -434,12 +456,15 @@ def test_resnet_main_is_data_parallel_over_every_axis(runs):
                                       got["2x1"][r]["slot0"])
 
 
-@pytest.mark.parametrize("arch", ["resnet50", "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch", ["resnet50", "granite-moe-1b-a400m",
+                                  "equiformer-v2"])
 def test_main_trains_the_new_archs_as_jax_does(tmp_path, arch):
     """``main(["--arch", arch, "--resume"])`` at ``--mesh 1x1`` from JAX's
     initial state (a step-0 checkpoint JAX's checkpointer wrote): resnet50
     by momentum(0.1, 0.9) on ``image_batches``, granite-moe by AdamW on
-    ``lm_batches`` (its aux loss in the logged loss).  Three steps: the
+    ``lm_batches`` (its aux loss in the logged loss), equiformer-v2 by
+    AdamW(1e-3) on ``random_molecule_batch`` (8 atoms and 12 features a
+    node at SMOKE, as JAX's driver draws them).  Three steps: the
     losses at rtol 1e-4 and the final flat at rtol 1e-4 / atol 1e-4 against
     JAX's driver pieces, step for step (the test_torch_resnet.py fabric
     bound; AdamW's normalised steps keep granite's parameters within it
@@ -491,3 +516,143 @@ def test_build_cell_builds_the_new_archs_as_jax_does(tmp_path, arch):
                                                   smoke)[0])
     finally:
         dist.destroy_process_group()
+
+
+GNN_SHAPES = ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule")
+
+
+def _same_gnn_plan(plan, jplan):
+    """JAX's kind, scalar meta, flat size and groups, and the batch's
+    global shapes and dtypes (dtype names compared)."""
+    _same_recsys_plan(plan, jplan)
+    for k, v in jplan.abstract_args[4].items():
+        assert str(plan.abstract_args[4][k].dtype).split(".")[-1] == \
+            str(v.dtype), k
+    assert sorted(plan.abstract_args[4]) == sorted(jplan.abstract_args[4])
+    assert plan.meta["space"].payload_elems == \
+        jplan.meta["space"].payload_elems
+
+
+@pytest.mark.parametrize("shape", GNN_SHAPES)
+def test_build_cell_builds_the_gnn_cells_as_jax_does(tmp_path, shape):
+    """Each graph cell at SMOKE and at full size, channel TP and
+    ``variant="ep"``, on a 1 x 1 mesh against JAX's builder: the kind,
+    the scalar meta (``model_flops``, ``nodes``, ``edges``), the flat and
+    payload sizes, the groups, and the graph batch's global shapes and
+    dtypes; the effective config's ``d_in``, ``n_out``, task and compute
+    dtype equal the one JAX's template derives (full_graph_sm's flat is
+    35,274,752, molecule's 35,086,336)."""
+    import torch.distributed as dist
+
+    from repro.configs.registry import get_arch as jax_get_arch
+    from repro.launch import steps as jST
+    from repro.launch.mesh import make_mesh as jax_mesh
+
+    from repro_torch.launch.mesh import init_process_group, make_mesh
+    from repro_torch.launch.steps import build_cell
+
+    init_process_group("cpu", init_method=f"file://{tmp_path}/rendezvous")
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        jm = jax_mesh((1, 1), ("data", "model"))
+        jarch = jax_get_arch("equiformer-v2")
+        for smoke in (True, False):
+            for variant in (None, "ep"):
+                plan = build_cell("equiformer-v2", shape, mesh, smoke=smoke,
+                                  variant=variant)
+                jplan = jST.build_cell("equiformer-v2", shape, jm,
+                                       smoke=smoke, variant=variant)
+                _same_gnn_plan(plan, jplan)
+                base = jarch.smoke_config if smoke else jarch.config
+                jcfg = jST._gnn_graph_template(jm, jarch.cell(shape), base,
+                                               ("data",), smoke)[2]
+                cfg = plan.meta["config"]
+                assert (cfg.d_in, cfg.n_out, cfg.task) == (
+                    jcfg.d_in, jcfg.n_out, jcfg.task)
+                assert str(cfg.dtype).split(".")[-1] == str(
+                    np.dtype(jcfg.dtype))
+                assert cfg.edge_parallel == (variant == "ep")
+                assert plan.meta["dist_nodes"] == (shape == "ogb_products")
+        flat = {"full_graph_sm": 35_274_752, "molecule": 35_086_336}
+        if shape in flat:
+            full = build_cell("equiformer-v2", shape, mesh)
+            assert full.meta["space"].flat_elems == flat[shape]
+    finally:
+        dist.destroy_process_group()
+
+
+def test_gnn_driver_refuses_a_cell_without_a_stream(tmp_path):
+    """The GNN driver trains ``molecule`` only, as JAX's draws molecules
+    only: another graph cell raises before any step."""
+    from repro_torch.launch.train import main
+
+    with pytest.raises(ValueError, match="molecule cell only"):
+        main(["--arch", "equiformer-v2", "--shape", "full_graph_sm",
+              "--steps", "1"], device="cpu")
+
+
+def test_gnn_main_on_two_ranks(runs):
+    """equiformer-v2 SMOKE through ``main`` on the 2 ranks.  ``--mesh
+    2x1``: both ranks agree, and the run equals a one-process run of the
+    same 4-molecule global batches (the driver's seeds 0-2) from the same
+    seeded init, its step over the whole batch: each loss at rtol 1e-5
+    (the mean of the workers' 2-molecule MSEs is the 4-molecule MSE) and
+    the final flat at rtol 1e-5 / atol 1e-6.  Without the rebase worker
+    1's node ids would index past its block and the step would raise.
+    ``--mesh 1x2``: channel TP, the losses times tp equal to the world-1
+    run's at rtol 1e-4."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import ShapeCell
+    from repro_torch.data.graphs import random_molecule_batch
+    from repro_torch.launch.mesh import init_process_group, make_mesh
+    from repro_torch.launch.steps import build_gnn_cell, make_exchange
+    from repro_torch.launch.train import main
+    from repro_torch.models.gnn import equiformer_v2 as EQ
+    from repro_torch.runtime.trainer import init_train_state, local_state
+
+    got = [_rank(runs, "gnn_2x1", r) for r in range(2)]
+    assert int(got[0]["step"]) == 3 and np.isfinite(got[0]["losses"]).all()
+    for key in ("losses", "pflat"):
+        np.testing.assert_array_equal(got[0][key], got[1][key])
+    arch = get_arch("equiformer-v2")
+    smoke = arch.smoke_config
+    arch = dataclasses.replace(arch, config=smoke)
+    cell = ShapeCell("molecule", "graph_molecule",
+                     {"n_nodes": 8, "n_edges": 16, "batch": 4,
+                      "n_species": smoke.d_in})
+    tmp = runs / "gnn_one"
+    tmp.mkdir(exist_ok=True)
+    init_process_group("cpu", init_method=f"file://{tmp}/rendezvous")
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        ex = make_exchange(mesh, "gnn")
+        plan = build_gnn_cell(arch, cell, mesh, ex)
+        cfg = plan.meta["config"]
+        st = init_train_state(
+            mesh, init_params_fn=lambda g: EQ.init_params(cfg, g),
+            param_specs=EQ.make_param_specs(cfg, 1), exchange=ex,
+            space=plan.meta["space"], n_groups=1,
+            key=torch.Generator().manual_seed(0), device="cpu")
+        pflat, slots, ef, stc = local_state(st, mesh, ex)
+        losses = []
+        for i in range(3):
+            b = random_molecule_batch(4, 8, 16, cfg.d_in, cfg.l_max,
+                                      cfg.n_rbf, seed=i)
+            pflat, slots, ef, stc, met = plan.fn(
+                pflat, slots, ef, stc,
+                {k: torch.from_numpy(v) for k, v in b.items()})
+            losses.append(met["loss"].item())
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_allclose(got[0]["losses"], losses, rtol=1e-5)
+    np.testing.assert_allclose(got[0]["pflat"], pflat.numpy(), rtol=1e-5,
+                               atol=1e-6)
+    one = main(["--arch", "equiformer-v2", "--mesh", "1x1", "--steps", "3",
+                "--log-every", "3"], device="cpu")
+    for r in range(2):
+        tp2 = _rank(runs, "gnn_1x2", r)
+        np.testing.assert_allclose(tp2["losses"] * 2, one["losses"],
+                                   rtol=1e-4)

@@ -448,7 +448,8 @@ def train_launch_ranks(rank, world, out_dir):
     1x2`` (the model over both ranks); then dlrm-mlperf SMOKE for three
     steps at ``--mesh 2x1`` and ``1x2``; then resnet50 SMOKE for two steps
     at ``--mesh 2x1`` and ``1x2`` (pure data parallelism over both
-    axes)."""
+    axes); then equiformer-v2 SMOKE for three steps at ``--mesh 2x1`` and
+    ``1x2``."""
     import shutil
 
     import torch.distributed as dist
@@ -481,6 +482,12 @@ def train_launch_ranks(rank, world, out_dir):
     rs.update({f"resnet_{mesh}": main(["--arch", "resnet50", "--mesh", mesh,
                                        "--steps", "2", "--log-every", "2"],
                                       device="cpu")
+               for mesh in ("2x1", "1x2")})
+    # equiformer-v2 SMOKE (molecule): the batch over two workers, each
+    # worker's ids rebased to its block; then channel TP over two ranks
+    rs.update({f"gnn_{mesh}": main(["--arch", "equiformer-v2", "--mesh",
+                                    mesh, "--steps", "3", "--log-every",
+                                    "3"], device="cpu")
                for mesh in ("2x1", "1x2")})
     for name, out in (("full", full), ("resumed", resumed),
                       ("from_jax", from_jax), ("tp2", tp2), *rs.items()):
@@ -782,3 +789,146 @@ def recsys_ranks(rank, world, out_dir):
                        **{f"sparse_tables/{k}": _np(v)
                           for k, v in tables1.items()})
         _save(out_dir, f"rs_{arch}_r{rank}", **out)
+
+
+# -- rank bodies: EquiformerV2 -----------------------------------------------
+
+# the GNN SPMD file: 4 gloo ranks on a (2, 2) mesh, then two worlds of 2
+# (ranks 0-1 and 2-3).  name: (cell, mesh, variant); every case at SMOKE
+GNN_CASES = {
+    "tp_1x2": ("full_graph_sm", (1, 2), None),  # channel TP, graph whole
+    "tp_2x2": ("minibatch_lg", (2, 2), None),  # + each worker's subgraph
+    "ep_2x2": ("full_graph_sm", (2, 2), "ep"),  # edges over the model axis
+    "ep_2x2_mol": ("molecule", (2, 2), "ep"),  # edges over (data, model)
+    "nodes_2x1": ("ogb_products", (2, 1), None),  # node-sharded, bf16
+}
+GNN_SHAPES = ("full_graph_sm", "minibatch_lg", "ogb_products", "molecule")
+GNN_MOL_REBASE = {"edge_src": "node_feat", "edge_dst": "node_feat",
+                  "graph_ids": "targets"}
+
+
+def gnn_batch(shape: str, template: dict, l_max: int, n_rbf: int,
+              workers: int) -> dict:
+    """The case's global batch (numpy, both sides): ``cell_batch`` for the
+    cell's regime, seed 4."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.graphs import cell_batch
+
+    kind = get_arch("equiformer-v2").cell(shape).kind
+    return cell_batch(kind, template, l_max, n_rbf, seed=4, workers=workers)
+
+
+def gnn_rebased(batch: dict, workers: int) -> dict:
+    """A molecule batch with each worker's block of ids shifted to start at
+    0, as ``shard_batch(rebase=GNN_MOL_REBASE)`` hands them to the ranks
+    (for the JAX side, which cuts the global arrays as they are)."""
+    out = dict(batch)
+    for k, ref in GNN_MOL_REBASE.items():
+        v = batch[k].copy()
+        per, rows = v.shape[0] // workers, batch[ref].shape[0] // workers
+        for w in range(workers):
+            v[w * per:(w + 1) * per] -= w * rows
+        out[k] = v
+    return out
+
+
+def _gnn_case(name: str, mesh, out_dir, rank: int) -> None:
+    """One ``GNN_CASES`` case on this rank: JAX's SMOKE weights cut to the
+    rank's pieces, its rows of the global batch (``shard_batch`` by the
+    plan's batch spec; molecule ids rebased), the loss of
+    ``EQ.loss_fn`` and the gradients after ``grad_sync``."""
+    import torch
+
+    from repro_torch.interop import params_from_numpy
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models.gnn import equiformer_v2 as EQ
+    from repro_torch.runtime.trainer import (
+        _tree_map,
+        apply_grad_sync,
+        local_params,
+        shard_batch,
+    )
+
+    shape, _, variant = GNN_CASES[name]
+    plan = build_cell("equiformer-v2", shape, mesh, smoke=True,
+                      variant=variant)
+    cfg, tp = plan.meta["config"], mesh.shape["model"]
+    wait_for(Path(out_dir, f"jax_gnn_{name}.npz"))
+    jax_out = dict(np.load(Path(out_dir, f"jax_gnn_{name}.npz")))
+    params = params_from_numpy(_unflat(
+        {k[2:]: v for k, v in jax_out.items() if k.startswith("p/")}), "cpu")
+    local = local_params(params, EQ.make_param_specs(cfg, tp), mesh)
+    local = _tree_map(lambda t: t.clone().requires_grad_(True), local)
+    batch = gnn_batch(shape, plan.abstract_args[4], cfg.l_max, cfg.n_rbf,
+                      mesh.shape["data"])
+    mine = {k: torch.from_numpy(v) for k, v in shard_batch(
+        batch, mesh, None, plan.meta["batch_spec"],
+        GNN_MOL_REBASE if shape == "molecule" else None).items()}
+    dist = EQ.Dist("model", ("data",), tp, mesh)
+    loss, _ = EQ.loss_fn(local, mine, cfg, dist, plan.meta["dist_nodes"])
+    keys = sorted(flat_keys(local))
+    leaves = [flat_keys(local)[k] for k in keys]
+    grads = dict(zip(keys, torch.autograd.grad(loss, leaves)))
+    synced = flat_keys(apply_grad_sync(_unflat(grads),
+                                       EQ.grad_sync(cfg, tp), dist))
+    _save(out_dir, f"gnn_{name}_r{rank}", loss=_np(loss),
+          model=np.asarray(mesh.coords["model"]),
+          data=np.asarray(mesh.coords["data"]),
+          **{f"g/{k}": _np(v) for k, v in synced.items()})
+
+
+def _gnn_ep_plans(mesh, out_dir, rank: int) -> None:
+    """Every graph cell's ``variant="ep"`` plan at SMOKE and full size on
+    this (1, 2) mesh: flat, groups, scalar meta and the batch's global
+    shapes, dtypes and specs."""
+    import json
+
+    from repro_torch.launch.steps import build_cell
+
+    out = {}
+    for shape in GNN_SHAPES:
+        for smoke in (True, False):
+            plan = build_cell("equiformer-v2", shape, mesh, smoke=smoke,
+                              variant="ep")
+            out[f"{shape}/{int(smoke)}"] = {
+                "flat": plan.meta["space"].flat_elems,
+                "n_groups": plan.meta["n_groups"],
+                **{k: plan.meta[k] for k in ("model_flops", "nodes",
+                                             "edges")},
+                "args": {k: [list(v.shape), str(v.dtype).split(".")[-1],
+                             gnn_spec(plan.meta["batch_spec"][k])]
+                         for k, v in plan.abstract_args[4].items()}}
+    Path(out_dir, f"gnn_plans_r{rank}.json").write_text(json.dumps(out))
+
+
+def gnn_spec(spec) -> list:
+    """A batch spec (the port's tuples, or a JAX ``PartitionSpec``) as a
+    JSON list: each entry an axis name, a list of two or more names, or
+    None (a one-axis tuple is its axis, as JAX's shardings write it)."""
+    return [(s[0] if len(s) == 1 else list(s)) if isinstance(s, tuple)
+            else s for s in spec]
+
+
+def gnn_ranks(rank, world, out_dir):
+    """4 ranks: the (2, 2) cases; then ranks 0-1 and 2-3 each close the
+    group and open a world of 2: ranks 0-1 the (1, 2) case and the ep
+    plans, ranks 2-3 the (2, 1) node-sharded case."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_process_group, make_mesh
+
+    mesh = make_mesh((2, 2), ("data", "model"))
+    for name, (_, shape, _) in GNN_CASES.items():
+        if shape == (2, 2):
+            _gnn_case(name, mesh, out_dir, rank)
+    dist.destroy_process_group()
+    half = rank // 2
+    init_process_group("cpu", init_method=f"file://{out_dir}/rendezvous_{half}",
+                       rank=rank % 2, world_size=2)
+    shape = (1, 2) if half == 0 else (2, 1)
+    mesh = make_mesh(shape, ("data", "model"))
+    for name, (_, s, _) in GNN_CASES.items():
+        if s == shape:
+            _gnn_case(name, mesh, out_dir, rank)
+    if half == 0:
+        _gnn_ep_plans(mesh, out_dir, rank)

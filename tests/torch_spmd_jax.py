@@ -25,14 +25,20 @@ saves what the port is compared with under ``out_dir``.  Groups:
   recsys     every ``RS_ARCHS`` arch's SMOKE weights at tp = 4, one step
              of its ``train_batch`` cell (pbox), its ``serve_p99`` and
              ``retrieval_cand`` cells on a (2, 4) mesh, and DLRM's
-             ``pbox_sparse`` step (tests/scripts/sparse_push_equivalence.py).
+             ``pbox_sparse`` step (tests/scripts/sparse_push_equivalence.py);
+  gnn        every ``GNN_CASES`` case: EquiformerV2's SMOKE weights, the
+             loss and the gradients after ``grad_sync`` inside a jitted
+             ``shard_map`` on the case's mesh (tests/scripts/
+             edge_parallel_equivalence.py), the single-device loss and
+             gradients beside them; and every graph cell's
+             ``variant="ep"`` plan on a (1, 2) mesh.
 """
 import os
 import sys
 from pathlib import Path
 
 DEVICES = {"exchange": 8, "trainer": 2, "launch": 2, "tp": 4, "tp_train": 8,
-           "sparse_push": 3, "recsys": 8}
+           "sparse_push": 3, "recsys": 8, "gnn": 4}
 
 
 def _np32(x):
@@ -426,6 +432,93 @@ def recsys(out: Path):
         _save_atomic(out / f"jax_rs_{arch}.npz", **arrays)
 
 
+def gnn(out: Path):
+    import dataclasses
+    import json
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from jax.sharding import Mesh
+    from jax.sharding import PartitionSpec as P
+
+    from repro import compat
+    from repro.configs.registry import get_arch
+    from repro.launch import steps as jST
+    from repro.models.common import Dist
+    from repro.models.gnn import equiformer_v2 as EQ
+    from repro.runtime.trainer import apply_grad_sync
+    from torch_spmd import (GNN_CASES, GNN_SHAPES, flat_keys, gnn_batch,
+                            gnn_rebased, gnn_spec)
+
+    arch = get_arch("equiformer-v2")
+
+    def mesh_of(shape):
+        n = shape[0] * shape[1]
+        return Mesh(np.asarray(jax.devices()[:n]).reshape(shape),
+                    ("data", "model"))
+
+    for name, (shape, mshape, variant) in GNN_CASES.items():
+        mesh = mesh_of(mshape)
+        dp, tp = mshape
+        plan = jST.build_cell("equiformer-v2", shape, mesh, smoke=True,
+                              variant=variant)
+        cfg = jST._gnn_graph_template(mesh, arch.cell(shape),
+                                      arch.smoke_config, ("data",), True)[2]
+        cfg = dataclasses.replace(cfg, edge_parallel=variant == "ep")
+        dist_nodes = arch.cell(shape).kind == "graph_full_large"
+        bt = plan.abstract_args[4]
+        bspec = {k: v.sharding.spec for k, v in bt.items()}
+        raw = gnn_batch(shape, bt, cfg.l_max, cfg.n_rbf, dp)
+        batch = gnn_rebased(raw, dp) if shape == "molecule" else raw
+        params = EQ.init_params(cfg, jax.random.PRNGKey(0), tp)
+        specs = EQ.make_param_specs(cfg, tp)
+        tags = EQ.grad_sync(cfg, tp)
+        dist = Dist(model_axis="model", data_axes=("data",), tp=tp)
+
+        def body(p, b):
+            loss, grads = jax.value_and_grad(
+                lambda q: EQ.loss_fn(q, b, cfg, dist, dist_nodes)[0])(p)
+            grads = apply_grad_sync(grads, tags, dist)
+            # each worker's own: stacked over the data axis
+            return loss[None], jax.tree.map(lambda g: g[None], grads)
+
+        by_worker = jax.tree.map(lambda sp: P("data", *sp), specs,
+                                 is_leaf=lambda x: isinstance(x, P))
+        f = jax.jit(compat.shard_map(
+            body, mesh=mesh, in_specs=(specs, bspec),
+            out_specs=(P("data"), by_worker), check_vma=False))
+        loss, grads = f(params, jax.tree.map(jnp.asarray, batch))
+        # the single-device reference on the global batch (global ids)
+        one = dataclasses.replace(cfg, edge_parallel=False)
+        gr = jax.tree.map(jnp.asarray, raw)
+        l1, g1 = jax.value_and_grad(
+            lambda q: EQ.loss_fn(q, gr, one, Dist.none())[0])(params)
+        arrays = {f"p/{k}": np.asarray(v) for k, v in flat_keys(params).items()}
+        arrays.update({f"g/{k}": _np32(v) for k, v in flat_keys(grads).items()})
+        arrays.update({f"g1/{k}": _np32(v) for k, v in flat_keys(g1).items()})
+        _save_atomic(out / f"jax_gnn_{name}.npz", **arrays,
+                     loss=np.asarray(loss, np.float32),
+                     loss1=np.asarray(l1, np.float32))
+
+    mesh = mesh_of((1, 2))
+    plans = {}
+    for shape in GNN_SHAPES:
+        for smoke in (True, False):
+            plan = jST.build_cell("equiformer-v2", shape, mesh, smoke=smoke,
+                                  variant="ep")
+            plans[f"{shape}/{int(smoke)}"] = {
+                "flat": plan.meta["space"].flat_elems,
+                "n_groups": plan.meta["n_groups"],
+                **{k: plan.meta[k] for k in ("model_flops", "nodes",
+                                             "edges")},
+                "args": {k: [list(v.shape), str(v.dtype),
+                             gnn_spec(v.sharding.spec)]
+                         for k, v in plan.abstract_args[4].items()}}
+    (out / "jax_gnn_plans.tmp").write_text(json.dumps(plans))
+    os.replace(out / "jax_gnn_plans.tmp", out / "jax_gnn_plans.json")
+
+
 if __name__ == "__main__":
     group, out_dir = sys.argv[1], Path(sys.argv[2])
     os.environ["XLA_FLAGS"] = (
@@ -434,5 +527,5 @@ if __name__ == "__main__":
     out_dir.mkdir(parents=True, exist_ok=True)
     {"exchange": exchange, "trainer": trainer, "launch": launch, "tp": tp,
      "tp_train": tp_train, "sparse_push": sparse_push,
-     "recsys": recsys}[group](out_dir)
+     "recsys": recsys, "gnn": gnn}[group](out_dir)
     print("OK")
