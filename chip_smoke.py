@@ -694,6 +694,89 @@ def kernel_rows_sweep(dev) -> float:
     return worst
 
 
+# phase 3's two-stream check: STREAM_LAUNCHES chained AdamW (K = 2, f32)
+# launches of STREAM_N elements on each of two streams, issued in turns
+STREAM_N, STREAM_LAUNCHES = 1 << 24, 4
+
+
+def stream_check(dev) -> float:
+    """fused_agg_opt on two streams at once against the same launches run
+    one after the other, bitwise: two independent runs of STREAM_LAUNCHES
+    launches (each reads the state the last one wrote), issued in turns
+    on two side streams so they overlap, which the streams' CUDA events
+    show.  Then a launch on the current stream after one on a side stream,
+    against the plain version.  Each stream claims tiles from its own
+    counter (``kernel.claim_counter``); with one counter a device, the
+    overlapping launches would share claims.  Returns the worst |err|
+    against the plain version."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.fused_agg_opt import kernel as K
+    from repro_torch.kernels.fused_agg_opt.ops import scalar_packet
+    from repro_torch.optim.optimizers import adamw
+
+    spec = adamw(1e-3, weight_decay=0.1)
+    packets = [scalar_packet(spec, t + 1, device=dev)
+               for t in range(STREAM_LAUNCHES)]
+
+    def inputs(seed):
+        rng = np.random.default_rng(seed)
+        g = torch.from_numpy(rng.standard_normal((2, STREAM_N), np.float32))
+        p = torch.from_numpy(rng.standard_normal(STREAM_N, np.float32))
+        return g.to(dev), p.to(dev), _state(rng, spec, STREAM_N, dev)
+
+    def copy(run):
+        g, p, st = run
+        return g, p.clone(), tuple(s.clone() for s in st)
+
+    runs = [inputs(101), inputs(202)]
+    serial, both = [copy(r) for r in runs], [copy(r) for r in runs]
+    for g, p, st in serial:
+        for t in range(STREAM_LAUNCHES):
+            K.fused_agg_opt_cuda(g, p, st, packets[t], spec)
+    streams = [torch.cuda.Stream(dev), torch.cuda.Stream(dev)]
+    torch.cuda.synchronize()
+    origin = torch.cuda.Event(enable_timing=True)
+    origin.record()
+    marks = []
+    for s in streams:
+        s.wait_event(origin)
+        marks.append([torch.cuda.Event(enable_timing=True) for _ in (0, 1)])
+        marks[-1][0].record(s)
+    for t in range(STREAM_LAUNCHES):
+        for (g, p, st), s in zip(both, streams):
+            with torch.cuda.stream(s):
+                K.fused_agg_opt_cuda(g, p, st, packets[t], spec)
+    for s, m in zip(streams, marks):
+        m[1].record(s)
+    torch.cuda.synchronize()
+    spans = [(origin.elapsed_time(a), origin.elapsed_time(b))
+             for a, b in marks]
+    overlap = min(spans[0][1], spans[1][1]) - max(spans[0][0], spans[1][0])
+    for (_, p1, s1), (_, p2, s2) in zip(both, serial):
+        if not all(same_bits(a, b) for a, b in zip((p1, *s1), (p2, *s2))):
+            raise AssertionError("fused_agg_opt on two streams at once "
+                                 "differs from the same launches in turn")
+    if overlap <= 0:
+        raise AssertionError(f"the two streams did not overlap: {spans} ms")
+    # a launch on the current stream right after one on a side stream
+    g, p, st = inputs(303)
+    want = K.fused_agg_opt_torch(g, p, st, packets[0], spec)
+    with torch.cuda.stream(streams[0]):
+        K.fused_agg_opt_cuda(*copy(runs[0]), packets[0], spec)
+    torch.cuda.current_stream(dev).wait_stream(streams[0])
+    got = K.fused_agg_opt_cuda(g, p.clone(), tuple(s.clone() for s in st),
+                               packets[0], spec)
+    err = _rows_case((got, want), "after a launch on another stream")
+    log(f"stream check: {STREAM_LAUNCHES} chained launches of {STREAM_N} "
+        f"elements on each of 2 streams at once == in turn, bitwise (the "
+        f"streams' spans {[tuple(round(x, 3) for x in sp) for sp in spans]}"
+        f" ms overlap by {overlap:.3f} ms); the next launch on another "
+        f"stream == fused_agg_opt_torch bitwise")
+    return err
+
+
 def _shifted(t, offset: int):
     """A copy of flat ``t`` that starts ``offset`` elements into a fresh
     buffer (offset 1 is off every vector alignment)."""
@@ -3743,7 +3826,8 @@ def _digest(t) -> str:
 def serve_path(dev) -> dict:
     """Phase 20: gemma3-1b served at full width through ``launch/serve.py``'s
     body (``serve(arch.config, args)``): one round of the CLI's synthetic
-    training (the float64 numpy draws, rounded to f32), a ``max_staleness=1``
+    training (each gradient drawn on the card from the CLI's seeded
+    stream, in place of its host float64 numpy draw), a ``max_staleness=1``
     read from the R = 2 chain tails, a prefill of 4 x 1024 tokens and 31
     greedy decode steps (32 tokens).  Counts set to 0 just before the call
     and read just after: 4 fused_agg_opt, no codec launch.  Then a round of
@@ -3755,6 +3839,7 @@ def serve_path(dev) -> dict:
     step are timed.  Then ``--source checkpoint`` (no training round:
     saved at round 0 and served back through a SnapshotSource)."""
     import shutil
+    from unittest import mock
 
     import numpy as np
     import torch
@@ -3768,10 +3853,19 @@ def serve_path(dev) -> dict:
     cfg = get_arch("gemma3-1b").config
     args = S.build_argparser().parse_args(SERVE_ARGV)
     memory = PathMemory(dev)
+
+    def card_draw(rng, n: int, device):
+        # the CLI round's gradient drawn on the card from the CLI's seeded
+        # stream (its host float64 draws took ~60 s of the phase)
+        gen = torch.Generator(device=device).manual_seed(
+            int(rng.integers(2**62)))
+        return 1e-3 * torch.randn(n, generator=gen, device=device)
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     _zero_counts()  # every count to 0 just before the path...
-    out = S.serve(cfg, args, device=dev)
+    with mock.patch.object(S, "_draw_grad", card_draw):
+        out = S.serve(cfg, args, device=dev)
     torch.cuda.synchronize()
     launches = _counts()  # ...and read just after
     cli_s = time.perf_counter() - t0
@@ -3797,8 +3891,8 @@ def serve_path(dev) -> dict:
     log(f"serve path: {cfg.name} full width, flat {n} (N params "
         f"{cfg.param_count()}), {SHARDS} shards over {topo.num_racks} racks "
         f"(1:{topo.oversubscription:g} core), "
-        f"R = 2, 1 CLI round in {cli_s:.1f} s (the numpy draws of "
-        f"{fabric.num_workers} x {n} float64 normals included); launches "
+        f"R = 2, 1 CLI round in {cli_s:.1f} s ({fabric.num_workers} x {n}"
+        " normals drawn on the card); launches "
         f"{launches}; "
         f"CLI prefill {out['prefill_ms']:.1f} ms, decode "
         f"{out['decode_ms']:.1f} ms for {args.tokens - 1} steps (host "
@@ -5275,9 +5369,10 @@ def spmd_path(dev) -> dict:
 
 def smoke_spmd_cases(only=None):
     """(name, strategy, codec, optimizer, microbatches, pull dtype) of
-    phase 26: every strategy x codec x optimizer twice, one microbatch
-    with an f32 pull and three with a bf16 pull (the other pairings were
-    cut for the script's time; the CPU tests hold them against JAX).
+    phase 26: every strategy x codec x optimizer once, in turns with one
+    microbatch and an f32 pull or three and a bf16 pull (the other
+    pairings were cut for the script's time; the CPU tests hold them
+    against JAX).
     ``only``: these names instead (any "strategy/codec/opt/mbN/pull_X";
     names that are not a step case are skipped)."""
     if only is not None:
@@ -5288,13 +5383,13 @@ def smoke_spmd_cases(only=None):
                 yield (name, parts[0], parts[1], parts[2], int(parts[3][2:]),
                        None if pull == "None" else pull)
         return
-    for strategy, codec in (("allreduce", "none"), ("pbox", "none"),
-                            ("pbox_hier", "none"), ("pbox_hier", "bf16"),
-                            ("pbox_hier", "int8")):
-        for opt in ("sgd", "momentum", "adam", "adamw"):
-            for mb, pull in ((1, None), (3, "bf16")):
-                yield (f"{strategy}/{codec}/{opt}/mb{mb}/pull_{pull}",
-                       strategy, codec, opt, mb, pull)
+    for i, (strategy, codec) in enumerate((
+            ("allreduce", "none"), ("pbox", "none"), ("pbox_hier", "none"),
+            ("pbox_hier", "bf16"), ("pbox_hier", "int8"))):
+        for j, opt in enumerate(("sgd", "momentum", "adam", "adamw")):
+            mb, pull = ((1, None), (3, "bf16"))[(i + j) % 2]
+            yield (f"{strategy}/{codec}/{opt}/mb{mb}/pull_{pull}",
+                   strategy, codec, opt, mb, pull)
 
 
 def _smoke_spmd_step(cfg, mesh, strategy, codec, opt, mb, pull, loss_fn):
@@ -5903,12 +5998,15 @@ def _tp_batches(cfg, batch: int, seq: int, steps: int, seed: int):
 
 
 def _tp_train_and_serve(cfg, mesh, dev, clock=None,
-                        grad_sync: bool = True) -> dict:
+                        grad_sync: bool = True,
+                        variant: str | None = None) -> dict:
     """TP_STEPS pbox AdamW steps of one 1 x TP_SEQ batch through
     ``build_lm_train`` on ``mesh``, then a 1 x TP_SEQ prefill and
     TP_DECODE greedy steps with the trained local params; the rank's
-    losses, local params (on the host) and ids.  ``grad_sync=False`` is
-    the control: every sync tag "none" and no serving."""
+    losses, step ms, peak, local params (on the host) and ids.
+    ``grad_sync=False`` is the control: every sync tag "none" and no
+    serving.  ``variant="sp"``: sequence parallelism, no serving (prefill
+    and decode ignore it)."""
     from unittest import mock
 
     import torch
@@ -5932,7 +6030,7 @@ def _tp_train_and_serve(cfg, mesh, dev, clock=None,
     with (contextlib.nullcontext() if grad_sync else mock.patch.object(
             T, "grad_sync", lambda *_: _tree_map(lambda _: "none", tags))):
         plan = build_lm_train(dataclasses.replace(arch, config=cfg), cell,
-                              mesh, ex)
+                              mesh, ex, variant=variant)
     state = init_train_state(
         mesh, init_params_fn=lambda g: T.init_params(cfg, g, tp=tp),
         param_specs=T.make_param_specs(cfg, tp), exchange=ex,
@@ -5944,6 +6042,7 @@ def _tp_train_and_serve(cfg, mesh, dev, clock=None,
     pflat, slots = pflat.clone(), tuple(s.clone() for s in slots)
     del state
     torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
     losses, step_ms, coll_ms, coll_calls = [], [], [], []
     _zero_counts()
     for b in _tp_batches(cfg, 1, TP_SEQ, 1, 0) * TP_STEPS:
@@ -5959,9 +6058,13 @@ def _tp_train_and_serve(cfg, mesh, dev, clock=None,
         losses.append(res["m"]["loss"].item())
     launches = _counts()
     _check_counts(f"tp = {tp}", launches, {"fused_agg_opt": TP_STEPS})
+    peak = torch.cuda.max_memory_allocated(dev)
     params = plan.meta["space"].unflatten(pflat[0])
-    if not grad_sync:
-        return {"losses": losses, "params": _tree_to(params, "cpu")}
+    if not grad_sync or variant is not None:
+        return {"losses": losses, "params": _tree_to(params, "cpu"),
+                "step_ms": step_ms, "coll_ms": coll_ms,
+                "coll_calls": coll_calls, "peak_bytes": peak,
+                "launches": launches}
     dist = Dist("model", ("data",), tp, mesh) if tp > 1 else None
     prompt = _tp_batches(cfg, 1, TP_SEQ, 1, 9)[0]["tokens"].to(dev)
     max_seq = TP_SEQ + TP_DECODE
@@ -5977,7 +6080,7 @@ def _tp_train_and_serve(cfg, mesh, dev, clock=None,
         torch.cuda.synchronize()
         serve_ms = (time.perf_counter() - t0) * 1e3
     return {"losses": losses, "step_ms": step_ms, "coll_ms": coll_ms,
-            "coll_calls": coll_calls,
+            "coll_calls": coll_calls, "peak_bytes": peak,
             "params": _tree_to(params, "cpu"),
             "ids": torch.stack(ids, 1).cpu(),
             "serve_ms": serve_ms, "launches": launches}
@@ -6012,7 +6115,8 @@ def _smoke_tp_run(cfg, mesh, dev) -> dict:
 
 def _tp_rank(rank, world, path, out_dir, device, smoke):
     """One rank of phase 31 on ``device`` (cuda:0) over gloo: at world 2,
-    gemma3-1b at full width on a (1, 2) mesh (``_tp_train_and_serve``); at
+    gemma3-1b at full width on a (1, 2) mesh (``_tp_train_and_serve``:
+    without and with sequence parallelism, each beside its control); at
     world 4, the SMOKE config on (1, 4) and (2, 2) meshes
     (``_smoke_tp_run``) and EquiformerV2's SMOKE ``full_graph_sm`` on a
     (2, 2) mesh (``_gnn_tp_steps``)."""
@@ -6038,6 +6142,11 @@ def _tp_rank(rank, world, path, out_dir, device, smoke):
             torch.cuda.empty_cache()
             out["control"] = _tp_train_and_serve(cfg, mesh, dev,
                                                  grad_sync=False)
+            # the same steps with sequence parallelism, and their control
+            for key, sync in (("sp", True), ("sp_control", False)):
+                torch.cuda.empty_cache()
+                out[key] = _tp_train_and_serve(cfg, mesh, dev, clock, sync,
+                                               variant="sp")
             # phase 36's tp = 2 pass on the same 2 ranks (saves a spawn)
             torch.cuda.empty_cache()
             t0 = time.perf_counter()
@@ -6135,7 +6244,10 @@ def tp_path(dev, smoke: bool = False) -> dict:
     step's loss within TP_LOSS_RTOL, the update of every leaf within
     TP_UPDATE_RTOL, which the control run (grad_sync off, whose step-2
     loss must also miss) and a no-op step (reading 1) must exceed, the
-    share of greedy ids that agree.  Then
+    share of greedy ids that agree.  The same train steps with sequence
+    parallelism (``variant="sp"``) hold to tp = 1 at the same bounds,
+    which their own control must miss, and are set beside the tp = 2
+    run without it (the worst leaf; bitwise or not).  Then
     the SMOKE config on 4 gloo ranks at tp = 4 and tp = 2, against tp = 1
     on the card at rtol 2e-5 / atol 1e-5, ids equal.  ``smoke``: the
     2-rank runs at the SMOKE config too (the ``gpu`` test)."""
@@ -6164,12 +6276,37 @@ def tp_path(dev, smoke: bool = False) -> dict:
     g1 = ref["params"]
     g2 = _tp_global(cfg, 2, [r["params"] for r in ranks])
     upd, upd_leaf = _update_err(p0, g1, g2, dev)
-    del g2
+    # sequence parallelism: against tp = 1 (the same bounds), and against
+    # tp = 2 without it (the worst leaf, and whether every leaf is bitwise)
+    gs = _tp_global(cfg, 2, [r["sp"]["params"] for r in ranks])
+    sp_upd, sp_leaf = _update_err(p0, g1, gs, dev)
+    sp_vs, sp_vs_leaf = _update_err(p0, g2, gs, dev)
+    sp_abs, sp_bitwise = 0.0, True
+    for (_, a), (_, b) in zip(_named_leaves(g2), _named_leaves(gs)):
+        sp_abs = max(sp_abs, max_abs_err(a.to(dev), b.to(dev)))
+        sp_bitwise = sp_bitwise and same_bits(a, b)
+    del g2, gs
     gc = _tp_global(cfg, 2, [r["control"]["params"] for r in ranks])
     ctl, ctl_leaf = _update_err(p0, g1, gc, dev)
-    del gc, p0
+    del gc
+    gsc = _tp_global(cfg, 2, [r["sp_control"]["params"] for r in ranks])
+    sp_ctl, sp_ctl_leaf = _update_err(p0, g1, gsc, dev)
+    del gsc, p0
+    ls, lsc = ranks[0]["sp"]["losses"], ranks[0]["sp_control"]["losses"]
+    if any(r["sp"]["losses"] != ls for r in ranks):
+        raise AssertionError(f"sp ranks disagree: {[r['sp']['losses'] for r in ranks]}")
     loss_rel = [abs(a - b) / abs(b) for a, b in zip(l2, l1)]
     ctl_loss_rel = [abs(a - b) / abs(b) for a, b in zip(lc, l1)]
+    sp_loss_rel = [abs(a - b) / abs(b) for a, b in zip(ls, l1)]
+    sp_ctl_loss_rel = [abs(a - b) / abs(b) for a, b in zip(lsc, l1)]
+    runs = {"tp = 2": ranks[0], "tp = 2 control": ranks[0]["control"],
+            "tp = 2 sp": ranks[0]["sp"],
+            "tp = 2 sp control": ranks[0]["sp_control"], "tp = 1": ref}
+    log(f"phase 31 runs (rank 0; gemma3-1b {'SMOKE' if smoke else 'full'}"
+        f" width, 1 x {TP_SEQ}, {TP_STEPS} steps): " + "; ".join(
+            f"{label} steps {[round(x, 1) for x in run['step_ms']]} ms, "
+            f"peak {run['peak_bytes'] / 2**30:.2f} GiB"
+            for label, run in runs.items()))
     moved = abs(l1[1] - l1[0]) / abs(l1[0])  # what a no-op step leaves out
     agree = (ranks[0]["ids"] == ref["ids"]).float().mean().item()
     log(f"phase 31: gemma3-1b tp = 2 over 2 gloo ranks on cuda:0: losses {l2}"
@@ -6190,6 +6327,24 @@ def tp_path(dev, smoke: bool = False) -> dict:
     if upd > TP_UPDATE_RTOL:
         raise AssertionError(f"tp = 2 update differs from tp = 1's: {upd_leaf}"
                              f" at {upd} (bound {TP_UPDATE_RTOL})")
+    log(f"phase 31: tp = 2 with sequence parallelism (variant sp): losses "
+        f"{ls} against tp = 1: rel {sp_loss_rel} (bound {TP_LOSS_RTOL}); "
+        f"update: worst leaf {sp_leaf} at {sp_upd:.4g} (bound "
+        f"{TP_UPDATE_RTOL}); against tp = 2 without sp: worst leaf "
+        f"{sp_vs_leaf} at {sp_vs:.4g}, max |diff| {sp_abs:.4g}, "
+        f"{'bitwise' if sp_bitwise else 'not bitwise'}; its control "
+        f"(grad_sync off): losses {lsc} rel {sp_ctl_loss_rel}, worst leaf "
+        f"{sp_ctl_leaf} at {sp_ctl:.4g}")
+    if not all(math.isfinite(x) for x in ls) or \
+            max(sp_loss_rel) > TP_LOSS_RTOL:
+        raise AssertionError(f"tp = 2 sp losses {ls} against tp = 1 {l1}")
+    if sp_upd > TP_UPDATE_RTOL:
+        raise AssertionError(f"tp = 2 sp update differs from tp = 1's: "
+                             f"{sp_leaf} at {sp_upd} (bound {TP_UPDATE_RTOL})")
+    if not sp_ctl > TP_UPDATE_RTOL or not max(sp_ctl_loss_rel) > TP_LOSS_RTOL:
+        raise AssertionError(
+            f"the checks cannot tell a faulty sp step: control update "
+            f"{sp_ctl}, control loss rel {sp_ctl_loss_rel}")
     if not ctl > TP_UPDATE_RTOL or not 1.0 > TP_UPDATE_RTOL or \
             not max(ctl_loss_rel) > TP_LOSS_RTOL or not moved > TP_LOSS_RTOL:
         raise AssertionError(
@@ -6208,6 +6363,17 @@ def tp_path(dev, smoke: bool = False) -> dict:
             "seconds": seconds, "launches_tp1": ref["launches"],
             "launches_tp2": {k: sum(r["launches"][k] for r in ranks)
                              for k in ref["launches"]},
+            "launches_tp2_sp": {k: sum(r["sp"]["launches"][k] for r in ranks)
+                                for k in ref["launches"]},
+            "losses_sp": ls, "sp_loss_rel": sp_loss_rel,
+            "sp_update_err": sp_upd, "sp_update_leaf": sp_leaf,
+            "sp_vs_tp2_err": sp_vs, "sp_vs_tp2_leaf": sp_vs_leaf,
+            "sp_vs_tp2_max_abs": sp_abs, "sp_vs_tp2_bitwise": sp_bitwise,
+            "sp_control_update_err": sp_ctl,
+            "sp_control_loss_rel": sp_ctl_loss_rel,
+            "step_ms_sp": ranks[0]["sp"]["step_ms"],
+            "peak_bytes": {label: run["peak_bytes"]
+                           for label, run in runs.items()},
             "rs_ranks": [r["rs"] for r in ranks]}
     del g1, ranks, ref
     torch.cuda.empty_cache()
@@ -8097,6 +8263,197 @@ def gnn_tp_check(ranks: list, dev) -> dict:
 # slots, the step the packet carries, the seed of the inputs, and the f32
 # operations an element of the update takes from K rows (K - 1 adds, the
 # 1/K scale where averaging, then the update itself)
+# -- phase 44: the roofline of the timed full-width steps ----------------------
+# No step may beat its roofline bound (the larger of the compute, memory and
+# collective terms of launch/roofline.py, from the dry run's counts at the
+# script's own mesh and batch): bound / measured at most ROOF_SLACK.
+ROOF_SLACK = 1.05
+
+
+def _roof_plan(label: str, mesh, remat: dict, rn_spmd: dict):
+    """The plan of a timed full-width step on ``mesh``, built as its phase
+    built it: phase 25's gemma3-1b pbox step (SPMD_BATCH x SEQ), phase
+    29's ``train_4k`` (TRAIN4K_BATCH x REMAT_SEQ in its microbatches),
+    phase 38's ResNet-50 SPMD step and phase 42's ``molecule``."""
+    from repro_torch.configs.registry import ShapeCell, get_arch
+    from repro_torch.core.exchange import ExchangeConfig
+    from repro_torch.launch.steps import (
+        build_cell,
+        build_lm_train,
+        build_vision_train,
+        make_exchange,
+    )
+
+    gemma = get_arch("gemma3-1b")
+    if label == "gemma3-1b pbox":
+        return build_lm_train(
+            gemma, ShapeCell("train_2x1k", "train", {
+                "seq_len": SEQ, "global_batch": SPMD_BATCH}), mesh,
+            make_exchange(mesh, "lm", exchange_cfg=ExchangeConfig("pbox")))
+    if label == "train_4k":
+        mb = remat["train_4k"]["microbatches"]
+        return build_lm_train(
+            dataclasses.replace(gemma, microbatches={"train_4k": mb}),
+            ShapeCell("train_4k", "train", {
+                "seq_len": REMAT_SEQ, "global_batch": TRAIN4K_BATCH}),
+            mesh, make_exchange(mesh, "lm"))
+    if label == "resnet50 spmd":
+        return build_vision_train(
+            get_arch("resnet50"), ShapeCell("imagenet_train", "train", {
+                "global_batch": rn_spmd["batch"], "img": rn_spmd["img"]}),
+            mesh, make_exchange(mesh, "vision"))
+    return build_cell("equiformer-v2", "molecule", mesh)
+
+
+def _card_step_costs(dev, label: str, plan, mesh) -> dict:
+    """The cost mode over one real step of ``plan``, built on the world-1
+    ``mesh``, on the card, from seeded params and batch."""
+    import torch
+
+    from repro_torch.data.synthetic import lm_batches
+    from repro_torch.launch.cost_analysis import step_costs
+    from repro_torch.models import transformer as T
+    from repro_torch.models.gnn import equiformer_v2 as EQ
+    from repro_torch.runtime.trainer import init_train_state, local_state
+
+    ex, space = plan.meta["exchange"], plan.meta["space"]
+    if label == "molecule":
+        cfg = plan.meta["config"]
+        init, specs = (lambda g: EQ.init_params(cfg, g)), \
+            EQ.make_param_specs(cfg, 1)
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in _gnn_batch(plan, 0).items()}
+        dtype = torch.float32
+    else:
+        from repro_torch.configs.registry import get_arch
+
+        cfg = get_arch("gemma3-1b").config
+        init, specs = (lambda g: T.init_params(cfg, g)), \
+            T.make_param_specs(cfg, 1)
+        gb, sl = plan.abstract_args[4]["tokens"].shape
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in next(
+            lm_batches(cfg.vocab, gb, sl, 0)).items()}
+        dtype = cfg.param_dtype
+    state = init_train_state(
+        mesh, init_params_fn=init, param_specs=specs,
+        exchange=ex, space=space, n_groups=1,
+        key=torch.Generator(device=dev).manual_seed(0), ps_dtype=dtype,
+        device=dev)
+    args = local_state(state, mesh, ex)
+    del state
+    _, costs = step_costs(plan.fn, *args, batch)
+    del args, batch
+    torch.cuda.empty_cache()
+    return costs
+
+
+def roofline_path(dev, spmd: dict, remat: dict, rn_spmd: dict,
+                  gnn: dict) -> dict:
+    """Phase 44: the port's dry run (``launch/dryrun.dry_run``, meta
+    tensors on a ``RecordingMesh``) of the four timed full-width steps at
+    the script's own 1 x 1 mesh and batch, and their rooflines
+    (``launch/roofline.analyze``, NVIDIA H100 SXM data-sheet peaks): FLOPs
+    by dtype, bytes, ``bytes_min``, the peak estimate against the phase's
+    ``max_memory_allocated``, the three terms, and the bound over the
+    measured steady step, which may not exceed ROOF_SLACK.  For the
+    gemma3-1b pbox step and ``molecule`` the same cost mode also counts one
+    real step on the card (a world-1 NCCL mesh), whose FLOPs must equal
+    the meta count exactly.  Then gemma3-1b ``train_4k`` on the 16 x 16
+    production mesh, with and without ``variant="sp"``.  Call inside
+    ``world_one``."""
+    import tempfile
+
+    import torch
+
+    from repro_torch.launch import roofline
+    from repro_torch.launch.dryrun import dry_run, plan_config, run_cell
+    from repro_torch.launch.mesh import RecordingMesh, make_mesh
+
+    axes = ("data", "model")
+    measured = {
+        "gemma3-1b pbox": (spmd["pbox"]["step_ms"][1:],
+                           spmd["pbox"]["peak_bytes"]),
+        "train_4k": (remat["train_4k"]["step_ms"][1:],
+                     remat["train_4k"]["peak_bytes"]),
+        "resnet50 spmd": (rn_spmd["step_ms"][1:], rn_spmd["peak_bytes"]),
+        # the last molecule step ran under the profiler
+        "molecule": (gnn["molecule"]["step_ms"][1:-1],
+                     gnn["molecule"]["peak_bytes"]),
+    }
+    out = {}
+    for label, (steps, peak) in measured.items():
+        mesh = RecordingMesh((1, 1), axes)
+        plan = _roof_plan(label, mesh, remat, rn_spmd)
+        rec = {"status": "ok", **dry_run(plan, mesh, plan_config(plan, False)),
+               "meta": {k: v for k, v in plan.meta.items()
+                        if isinstance(v, (int, float, str))}}
+        a = roofline.analyze(rec)
+        step_ms = statistics.median(steps)
+        ratio = a["bound_s"] * 1e3 / step_ms
+        out[label] = {**{k: rec[k] for k in (
+            "flops_per_device", "flops_by_dtype", "bytes_per_device",
+            "bytes_min_per_device", "collective_bytes_per_device", "kernels",
+            "ops", "seconds")}, "peak_estimate": rec["memory"][
+                "peak_estimate"], "peak_bytes": peak, **a,
+            "step_ms": step_ms, "bound_over_measured": ratio}
+        log(f"phase 44: {label}: dry run {rec['seconds']} s over "
+            f"{rec['ops']} ops; FLOPs "
+            + ", ".join(f"{dt} {f:.6g}" for dt, f in
+                        rec["flops_by_dtype"].items())
+            + f"; bytes {rec['bytes_per_device']:.6g}, bytes_min "
+            f"{rec['bytes_min_per_device']:.6g}; peak estimate "
+            f"{rec['memory']['peak_estimate'] / 2**30:.2f} GiB against "
+            f"max_memory_allocated {peak / 2**30:.2f} GiB; roofline terms "
+            f"compute {a['compute_s'] * 1e3:.2f} ms, memory "
+            f"{a['memory_s'] * 1e3:.2f} ms ({a['memory_lo_s'] * 1e3:.2f} ~ "
+            f"{a['memory_hi_s'] * 1e3:.2f}), collective "
+            f"{a['collective_s'] * 1e3:.2f} ms ({a['dominant']}); measured "
+            f"step {step_ms:.1f} ms: bound / measured {ratio:.4f} (at most "
+            f"{ROOF_SLACK}), model FLOPs / counted "
+            f"{a['model_flops_ratio'] or 0:.4f}")
+        if not ratio <= ROOF_SLACK:
+            raise AssertionError(f"{label} ran faster than its roofline "
+                                 f"bound: {step_ms} ms against "
+                                 f"{a['bound_s'] * 1e3} ms")
+    real = make_mesh((1, 1), axes)
+    for label in ("gemma3-1b pbox", "molecule"):
+        card = _card_step_costs(dev, label, _roof_plan(label, real, remat,
+                                                       rn_spmd), real)
+        got, want = card["flops_by_dtype"], out[label]["flops_by_dtype"]
+        out[label]["card_flops_by_dtype"] = got
+        log(f"phase 44: {label}: one real step on the card counts FLOPs "
+            f"{got} (meta {want}): "
+            f"{'equal' if got == want else 'DIFFERENT'}; peak estimate "
+            f"{card['peak_estimate'] / 2**30:.2f} GiB")
+        if got != want:
+            raise AssertionError(f"{label}: the card's FLOPs {got} against "
+                                 f"the meta count {want}")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dry_") as tmp:
+        for variant in (None, "sp"):
+            rec = run_cell("gemma3-1b", "train_4k", False, "pbox", tmp,
+                           variant=variant)
+            if rec["status"] != "ok":
+                raise AssertionError(f"production dry run: {rec}")
+            a = roofline.analyze(rec)
+            c = rec["collective_bytes_per_device"]
+            out[f"production train_4k {variant or 'base'}"] = {
+                "flops_by_dtype": rec["flops_by_dtype"],
+                "peak_estimate": rec["memory"]["peak_estimate"],
+                "collective": c, **a}
+            log(f"phase 44: gemma3-1b train_4k on the 16 x 16 production "
+                f"mesh, variant {variant}: FLOPs a rank "
+                f"{rec['flops_per_device']:.6g} "
+                f"({rec['meta']['microbatches']} microbatches), peak "
+                f"estimate {rec['memory']['peak_estimate'] / 2**30:.2f} GiB,"
+                " collectives " + ", ".join(
+                    f"{k} {v / 2**20:.1f} MiB" for k, v in c.items()
+                    if k.startswith("raw_"))
+                + f"; roofline compute {a['compute_s'] * 1e3:.2f} ms, "
+                f"memory {a['memory_s'] * 1e3:.2f} ms, collective "
+                f"{a['collective_s'] * 1e3:.2f} ms ({a['dominant']})")
+    return out
+
+
 AGG_OPTS = {
     "adamw": (lambda O: O.adamw(3e-3), 2, 1, 1,
               lambda k, average: adamw_ops(k)),
@@ -8538,7 +8895,8 @@ def main() -> int:
                 log(f"  ptxas {src}: {line.strip()}")
 
     lap("1-2 build")
-    sweep = {"fused_agg_opt": max(kernel_sweep(dev), kernel_rows_sweep(dev)),
+    sweep = {"fused_agg_opt": max(kernel_sweep(dev), kernel_rows_sweep(dev),
+                                  stream_check(dev)),
              **quant_sweep(dev),
              "wire_fused": wire_sweep(dev), **bag_sweep(dev)}
     lap("3 sweeps")
@@ -8641,6 +8999,9 @@ def main() -> int:
         lap("42 gnn")
         smoke_gnn = gnn_smoke_check(dev)
         lap("43 SMOKE gnn")
+        torch.cuda.empty_cache()
+        roof = roofline_path(dev, spmd, remat, rn_spmd, gnn)
+        lap("44 roofline")
     torch.cuda.empty_cache()
     switch_math = switch_math_ms(dev, int8["flat"], int8["chunk"])
     d = dlrm_capped_config().embed_dim
@@ -8722,6 +9083,7 @@ def main() -> int:
                             for k in f32["launches"]},
              "train_4k": remat["train_4k"]["launches"],
              "tp2_ranks": tp["launches_tp2"],
+             "tp2_sp_ranks": tp["launches_tp2_sp"],
              "tp1_reference": tp["launches_tp1"],
              "recsys_sparse": rs_sparse["launches"],
              "recsys_dense_vs_sparse": {
@@ -8954,6 +9316,7 @@ def main() -> int:
         f"{sum(v['ms'] for v in switch_math.values()):.3f} ms; whole run "
         f"{time.perf_counter() - t_start:.1f} s")
     lap("19 timings")
+    log("roofline: " + json.dumps(roof))
     log(f"phase seconds: {laps}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -21,7 +21,8 @@ Four pieces, as in the JAX package:
                         takes the ToR's software path, bit-identically to a
                         fabric with no switch tier.
   ``LinkQueue``         one shared physical link's weighted-fair queue,
-                        pure Python (the tenancy tier's, not ported yet).
+                        pure Python (the tenancy tier's ``MultiJobFabric``
+                        shares it between jobs).
 
 The switch's integer math (``group_scale``, ``integer_quantize`` and the
 int32 slot sum) is plain torch ops, as it is plain ``jnp`` outside any

@@ -32,9 +32,10 @@
 //     in runs from a device counter, so an SM that memory serves faster
 //     takes more (with a fixed share per block, the blocks that memory
 //     served slower finished long after the rest, and the card idled
-//     behind them).  The counter resets itself:
-//     the block that makes a launch's last claim zeroes it, so launches
-//     must not overlap on one device (the port issues them on one stream);
+//     behind them).  The counter is the caller's device word, one for each
+//     stream (launches on one stream never overlap, so none shares it with
+//     a launch on another), and it resets itself: the block that makes a
+//     launch's last claim zeroes it for the stream's next launch;
 //   * the gradient rows arrive as K pointers in the launch's parameters,
 //     not as a stacked (K, N) copy, so a caller never stacks its inbox.  A
 //     shard whose chunks are not one run of the flat space passes its
@@ -109,10 +110,10 @@ struct Plan {
   int has_zero;  // a null row was folded: + 0.0f after the present rows
   int has_scale;
   float grad_scale;
+  // the claim counter: claims made so far in this launch (zero between
+  // the launches of its stream)
+  unsigned long long* claims;
 };
-
-// the claim counter: claims made so far in this launch
-__device__ unsigned long long g_claims;
 
 // ---- mbarrier and bulk-copy helpers (PTX) ----------------------------------
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -307,15 +308,15 @@ fused_agg_opt_kernel(const Rows<CAP> rows, P* __restrict__ param,
       const int64_t shared0 = nb * S;
       if (shared0 < pl.tiles) {
         const int64_t runs = (pl.tiles - shared0 + pl.run - 1) / pl.run;
-        int64_t r = static_cast<int64_t>(atomicAdd(&g_claims, 1ULL));
+        int64_t r = static_cast<int64_t>(atomicAdd(pl.claims, 1ULL));
         while (r < runs) {
-          const int64_t next = static_cast<int64_t>(atomicAdd(&g_claims, 1ULL));
+          const int64_t next = static_cast<int64_t>(atomicAdd(pl.claims, 1ULL));
           const int64_t t0 = shared0 + r * pl.run;
           const int64_t t1 = t0 + pl.run < pl.tiles ? t0 + pl.run : pl.tiles;
           for (int64_t t = t0; t < t1; ++t) produce(j++, t);
           r = next;
         }
-        if (r == runs + nb - 1) g_claims = 0;
+        if (r == runs + nb - 1) *pl.claims = 0;
       }
       produce(j, -1);
     }
@@ -519,20 +520,23 @@ int launch_types(const void* const* rows, const Plan& pl, void* param,
 // chunk_ids: null, or a device int64 table of the shard's chunk ids, each
 // row then being a worker's whole (num_chunks, chunk_elems) push; param:
 // (n,) f32 or bf16; m, v: (n,) f32 or null per the optimizer; scalars: 4
-// f32 on the device; grad_scale multiplies the folded sum when has_scale.
-// Updates param, m and v in place on `stream` and returns the launch's
-// CUDA error (0 on success).
+// f32 on the device; grad_scale multiplies the folded sum when has_scale;
+// claims: a device word that is zero and that no launch on another stream
+// uses (the launch leaves it zero).  Updates param, m and v in place on
+// `stream` and returns the launch's CUDA error (0 on success).
 extern "C" int fused_agg_opt_launch(
     const void* const* rows, int k, int has_zero, const int64_t* chunk_ids,
     int64_t chunk_elems, void* param, void* m, void* v, const void* scalars,
     int64_t n, int grad_bf16, int param_bf16, int opt, int has_wd, float wd,
     float mu, int nesterov, float b1, float b2, float eps, float omb1,
-    float omb2, float inv_k, int has_scale, float grad_scale, void* stream) {
+    float omb2, float inv_k, int has_scale, float grad_scale,
+    unsigned long long* claims, void* stream) {
   if (n <= 0) return 0;
-  if (k <= 0 || k > kCaps[1]) return static_cast<int>(cudaErrorInvalidValue);
+  if (k <= 0 || k > kCaps[1] || claims == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Hyper h{wd, mu, b1, b2, eps, omb1, omb2, inv_k, has_wd, nesterov};
   const Plan pl{chunk_ids, chunk_elems, n, 0, 0, k, 0, 0, 0,
-                has_zero, has_scale, grad_scale};
+                has_zero, has_scale, grad_scale, claims};
   float* mf = static_cast<float*>(m);
   float* vf = static_cast<float*>(v);
   const float* sc = static_cast<const float*>(scalars);

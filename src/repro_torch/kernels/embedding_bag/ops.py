@@ -11,7 +11,13 @@ wrapper's clamp for traced indices has no counterpart.
 Dispatch is on the table's device alone:
   * a CUDA table launches the CUDA kernel (``kernel.*_cuda``); a failed
     build or launch raises, nothing falls back;
-  * a CPU table takes the kernel's plain version (``kernel.*_torch``).
+  * a CPU table takes the kernel's plain version (``kernel.*_torch``);
+  * a meta table inside a dry run (an active ``launch/cost_analysis``
+    mode: ``launch/dryrun.py``) computes nothing: the call is charged as
+    one kernel launch (its operands and outputs once) and returns an empty
+    output of the card's shape; meta indices skip the bounds check (they
+    hold no ids).  Outside a dry run a meta table is refused like any
+    other device.
 Indices and weights built on the host (the sparse tier's bags) may come as
 CPU tensors or numpy arrays: they are checked there, without waiting for
 the card, and then copied to the table's device.  The JAX wrapper's
@@ -26,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.embedding_bag import kernel as _kernel
+from repro_torch.launch.cost_analysis import charging, record_kernel
 
 _INT_TYPES = (torch.uint8, torch.int8, torch.int16, torch.int32, torch.int64)
 
@@ -58,7 +65,7 @@ def embedding_bag(table: torch.Tensor, indices: Any, weights: Any,
     if table.dim() != 2:
         raise ValueError(f"table must be (V, D), got {tuple(table.shape)}")
     v = table.shape[0]
-    if idx.numel():
+    if idx.numel() and idx.device.type != "meta":
         lo, hi = int(idx.min()), int(idx.max())
         if lo < 0 or hi >= v:
             raise ValueError(
@@ -70,6 +77,10 @@ def embedding_bag(table: torch.Tensor, indices: Any, weights: Any,
     idx = idx.to(dev).contiguous()
     w = w.to(dev, torch.float32).contiguous()
     table = table.float()
+    if table.device.type == "meta" and charging():
+        out = torch.empty((idx.shape[0], table.shape[1]), device="meta")
+        record_kernel("embedding_bag", [table, idx, w], [out])
+        return out
     if _device_type("embedding_bag", table) == "cuda":
         return _kernel.embedding_bag_cuda(table, idx, w, mode)
     return _kernel.embedding_bag_torch(table, idx, w, mode)
@@ -103,6 +114,10 @@ def segment_sum(rows: torch.Tensor, segment_ids: Any,
     order_t = torch.from_numpy(order).to(dev)
     seg_t = torch.from_numpy(seg).to(dev)
     rows = rows.float()
+    if rows.device.type == "meta" and charging():
+        out = torch.empty((num_segments, rows.shape[1]), device="meta")
+        record_kernel("segment_sum", [rows, order_t, seg_t], [out])
+        return out
     if _device_type("segment_sum", rows) == "cuda":
         return _kernel.segment_sum_cuda(rows, order_t, seg_t)
     return _kernel.segment_sum_torch(rows, order_t, seg_t)

@@ -7,7 +7,10 @@ with one contract:
 ``fused_agg_opt_cuda``   launches ``csrc/fused_agg_opt.cu`` (built at first
                          use by ``kernels/_build.py``) on the current CUDA
                          stream.  It updates ``param`` and the state slots
-                         IN PLACE and returns them.
+                         IN PLACE and returns them.  Each stream's launches
+                         claim tiles from that stream's own counter
+                         (``claim_counter``), so launches on two streams may
+                         overlap.
 ``fused_agg_opt_torch``  the kernel's plain PyTorch version: eager ops in
                          the TPU kernel's exact op sequence.  Eager torch
                          rounds every op, which is the strict
@@ -172,6 +175,37 @@ def hyper_args(spec: OptimizerSpec, inv_k: float) -> tuple:
 # of csrc/fused_agg_opt.cu (``kCaps``)
 MAX_ROWS = 256
 
+# The tile-claim counters: one device word for each stream that launches
+# the kernel, so overlapping launches on two streams never share claims.
+# A device's CLAIM_SLOTS words are zeroed once, at its first launch, and
+# kept; a launch leaves its word zero for the stream's next one, so no
+# launch pays for a memset.
+CLAIM_SLOTS = 256
+_claims: dict = {}  # device index -> (the words, {stream handle: slot})
+
+
+def claim_counter(device: torch.device, stream: int) -> int:
+    """The address of the claim counter of ``stream`` (a CUDA stream
+    handle) on ``device``."""
+    entry = _claims.get(device.index)
+    if entry is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "fused_agg_opt: the first launch on a device cannot be "
+                "captured (its claim counters are zeroed at that launch)")
+        words = torch.zeros(CLAIM_SLOTS, dtype=torch.int64, device=device)
+        # zeroed before a launch on any other stream reads a word
+        torch.cuda.current_stream(device).synchronize()
+        entry = _claims[device.index] = (words, {})
+    words, slots = entry
+    slot = slots.get(stream)
+    if slot is None:
+        if len(slots) == CLAIM_SLOTS:
+            raise RuntimeError(f"fused_agg_opt: more than {CLAIM_SLOTS} "
+                               f"streams launched the kernel on {device}")
+        slot = slots[stream] = len(slots)
+    return words.data_ptr() + words.element_size() * slot
+
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
@@ -186,7 +220,7 @@ def _lib() -> ctypes.CDLL:
         i64, i32, i32,  # n, grad_bf16, param_bf16
         *HYPER_ARGTYPES,
         i32, ctypes.c_float,  # has_scale, grad_scale
-        ptr,  # stream
+        ptr, ptr,  # the stream's claim counter, the stream
     ]
     lib.fused_agg_opt_launch.restype = ctypes.c_int
     return lib
@@ -259,8 +293,9 @@ def fused_agg_opt_cuda(
     chunk_ids: torch.Tensor | None = None,
     grad_scale: float | None = None,
 ) -> tuple[torch.Tensor, tuple]:
-    """Launch the CUDA kernel on the current stream; returns (param, state),
-    the same tensors, updated in place.  The rows cross as pointers (a
+    """Launch the CUDA kernel on the current stream, claiming tiles from
+    that stream's counter; returns (param, state), the same tensors,
+    updated in place.  The rows cross as pointers (a
     (K, N) tensor as K pointers at stride N), read where they lie.  Raises
     if the launch fails."""
     global launches
@@ -274,6 +309,7 @@ def fused_agg_opt_cuda(
     ptrs = [None if s is None else s.data_ptr() for s in slots]
     with torch.cuda.device(param.device):
         stream = torch.cuda.current_stream().cuda_stream
+        claims = claim_counter(param.device, stream)
         rc = _lib().fused_agg_opt_launch(
             row_ptrs, len(present), int(len(present) < k),
             None if chunk_ids is None else chunk_ids.data_ptr(),
@@ -284,7 +320,7 @@ def fused_agg_opt_cuda(
             *hyper_args(spec, 1.0 / k if average else 1.0),
             int(grad_scale is not None),
             1.0 if grad_scale is None else grad_scale,
-            stream,
+            claims, stream,
         )
     if rc != 0:
         raise RuntimeError(f"fused_agg_opt kernel launch failed: CUDA error {rc}")

@@ -10,7 +10,12 @@ the operands' device, and dispatches:
     which updates ``param`` and the state slots in place — a failed build
     or launch raises, nothing falls back;
   * CPU tensors take the kernel's plain version
-    (``kernel.fused_agg_opt_torch``), bit-identical to it.
+    (``kernel.fused_agg_opt_torch``), bit-identical to it;
+  * meta tensors inside a dry run (an active ``launch/cost_analysis``
+    mode: ``launch/dryrun.py``) compute nothing: the launch is charged as
+    one kernel call (its operands and outputs once) and the outputs are
+    ``param`` and the state, as the card's are.  Outside one, meta
+    tensors are refused like any other device.
 
 The JAX wrapper's ``use_pallas=False`` has no counterpart: a caller that
 wants the oracle calls ``ref.fused_aggregate_update_ref`` itself.
@@ -20,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.launch.cost_analysis import charging, record_kernel
 from repro_torch.kernels.fused_agg_opt import kernel as _kernel
 from repro_torch.optim.optimizers import OptimizerSpec, step_tensor
 
@@ -99,6 +105,11 @@ def fused_aggregate_update(
     and ``state`` in place and returns them; callers use the returned
     tensors either way."""
     _validate(grads, param, state, spec, chunk_ids)
+    if param.device.type == "meta" and charging():
+        rows = [r for r in _kernel.gradient_rows(grads) if r is not None]
+        record_kernel("fused_agg_opt", [*rows, param, *state],
+                      [param, *state])
+        return param, tuple(state)
     scalars = scalar_packet(spec, step, lr_scale, device=param.device)
     kw = dict(average=average, chunk_ids=chunk_ids, grad_scale=grad_scale)
     if param.device.type == "cuda":

@@ -7,7 +7,12 @@ with one f32 scale per chunk.  Then dispatch is on the device alone:
 
   * CUDA tensors launch the CUDA kernel (``kernel.*_cuda``) — a failed
     build or launch raises, nothing falls back;
-  * CPU tensors take the kernel's plain version (``kernel.*_torch``).
+  * CPU tensors take the kernel's plain version (``kernel.*_torch``);
+  * meta tensors inside a dry run (an active ``launch/cost_analysis``
+    mode: ``launch/dryrun.py``) compute nothing: each call is charged as
+    one kernel launch (its operands and outputs once) and returns empty
+    outputs of the card's shapes and dtypes.  Outside one, meta tensors
+    are refused like any other device.
 
 The JAX wrapper's ``use_pallas`` has no counterpart: a caller that wants
 the oracle calls ``ref.py`` itself.
@@ -17,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.quant import kernel as _kernel
+from repro_torch.launch.cost_analysis import charging, record_kernel
 
 LANES = 128
 
@@ -45,6 +51,11 @@ def quantize_chunks(x: torch.Tensor, chunk_elems: int):
     if x.dtype != torch.float32:
         raise ValueError(f"quantize_chunks wants f32 input, got {x.dtype}")
     _check_chunking(x.shape[0], chunk_elems)
+    if x.device.type == "meta" and charging():
+        q = torch.empty(x.shape, dtype=torch.int8, device="meta")
+        scale = torch.empty(x.shape[0] // chunk_elems, device="meta")
+        record_kernel("quantize_chunks", [x], [q, scale])
+        return q, scale
     if _device_type("quantize_chunks", x) == "cuda":
         return _kernel.quantize_chunks_cuda(x, chunk_elems)
     return _kernel.quantize_chunks_torch(x, chunk_elems)
@@ -63,6 +74,10 @@ def dequantize_chunks(q: torch.Tensor, scale: torch.Tensor, chunk_elems: int):
         raise ValueError(
             f"payload of {c} chunks needs scales of shape ({c},), got "
             f"{tuple(scale.shape)}")
+    if q.device.type == "meta" and charging():
+        out = torch.empty(q.shape, device="meta")
+        record_kernel("dequantize_chunks", [q, scale], [out])
+        return out
     if _device_type("dequantize_chunks", q) == "cuda":
         return _kernel.dequantize_chunks_cuda(q, scale, chunk_elems)
     return _kernel.dequantize_chunks_torch(q, scale, chunk_elems)

@@ -4,7 +4,9 @@
 ``fused_wire_update``
     the single-pass path: wire payload -> (decode + aggregate + optimize)
     in one kernel.  CUDA tensors launch the CUDA kernel, which updates
-    ``param`` and the state in place; CPU tensors take its plain version.
+    ``param`` and the state in place; CPU tensors take its plain version;
+    meta tensors inside a dry run (an active ``launch/cost_analysis``
+    mode) charge one launch and return ``param`` and the state.
 ``unfused_wire_update``
     the pipeline the fused kernel must match bit for bit: one dequantize
     per int8 stream (``kernels/quant``), the decoded f32 gradients
@@ -28,6 +30,7 @@ from repro_torch.kernels.fused_agg_opt.ops import (
     scalar_packet,
 )
 from repro_torch.kernels.quant.ops import dequantize_chunks
+from repro_torch.launch.cost_analysis import charging, record_kernel
 from repro_torch.kernels.wire_path import kernel as _kernel
 from repro_torch.optim.optimizers import OptimizerSpec
 
@@ -115,6 +118,10 @@ def fused_wire_update(
     ``state`` in place and returns them."""
     _validate(payload, scales, param, state, spec, codec, chunk_elems,
               block_chunks)
+    if param.device.type == "meta" and charging():  # one charged launch
+        record_kernel("wire_fused", [payload, scales, param, *state],
+                      [param, *state])
+        return param, tuple(state)
     scalars = scalar_packet(spec, step, lr_scale, device=param.device)
     if param.device.type == "cuda":
         return _kernel.wire_fused_cuda(

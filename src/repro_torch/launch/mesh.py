@@ -21,6 +21,10 @@ per-rank functions on tensors, the counterparts of ``lax.psum`` & co. inside
 are.  A division by the axis size is a product with its f32 reciprocal:
 XLA compiles JAX's ``x / n`` under ``jit`` to that product.
 
+``RecordingMesh`` is one rank of a layout without a process group, whose
+collectives return shaped tensors and record their bytes: the dry run's
+mesh (``launch/dryrun.py``).
+
 The backend follows the device: NCCL for the card, gloo for the CPU
 (``init_process_group``).  NCCL takes one rank per card, so one card runs
 the mesh at world 1 over NCCL, or at a larger world over gloo.  A
@@ -40,6 +44,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.device import resolve_device
+from repro_torch.launch import cost_analysis
 
 
 def init_process_group(device: torch.device | str | None = None, *,
@@ -100,43 +105,23 @@ def _axes(axes) -> tuple:
     return (axes,) if isinstance(axes, str) else tuple(axes)
 
 
-class Mesh:
-    """Named axes laid row-major over the ranks of the default process
-    group (see the module docstring).  ``shape`` is a dict, as on a JAX
-    mesh; ``rank`` and ``coords`` are this process's place in it."""
+class _Layout:
+    """Named axes laid row-major over ``prod(shape)`` ranks, and rank
+    ``rank``'s place in them: the part of a mesh that needs no process
+    group."""
 
-    def __init__(self, shape, axes):
+    def __init__(self, shape, axes, rank: int):
         shape, axes = tuple(int(s) for s in shape), tuple(axes)
         if len(shape) != len(axes) or len(set(axes)) != len(axes):
             raise ValueError(f"mesh shape {shape} does not match axes {axes}")
         self.axis_names = axes
         self.shape = dict(zip(axes, shape))
         self.size = math.prod(shape)
-        if not dist.is_initialized():
-            raise RuntimeError(
-                "Mesh needs an initialized default process group "
-                "(launch.mesh.init_process_group)")
-        world = dist.get_world_size()
-        if world != self.size:
-            raise ValueError(
-                f"mesh {shape} needs {self.size} ranks, the process group "
-                f"has {world}")
-        self.rank = dist.get_rank()
-        idx = torch.arange(self.size).reshape(shape)
-        here = (idx == self.rank).nonzero()[0].tolist()
-        self.coords = dict(zip(axes, here))
-        self._groups: dict[tuple, dist.ProcessGroup] = {}
-        n = len(axes)
-        for r in range(1, n + 1):
-            for dims in itertools.combinations(range(n), r):
-                rest = [d for d in range(n) if d not in dims]
-                # one group per coset: the other axes' coordinates fixed
-                blocks = idx.permute(*rest, *dims).reshape(-1, math.prod(
-                    shape[d] for d in dims))
-                for ranks in blocks.tolist():
-                    group = dist.new_group(ranks)
-                    if self.rank in ranks:
-                        self._groups[tuple(axes[d] for d in dims)] = group
+        if not 0 <= rank < self.size:
+            raise ValueError(f"rank {rank} is not in a mesh of {self.size}")
+        self.rank = rank
+        self.coords = dict(zip(axes, (int(c) for c in torch.unravel_index(
+            torch.tensor(rank), shape))))
 
     # -- axes -----------------------------------------------------------
     def _canon(self, axes) -> tuple:
@@ -161,6 +146,41 @@ class Mesh:
             i = i * self.shape[a] + self.coords[a]
         return i
 
+    def pmean(self, x: torch.Tensor, axes) -> torch.Tensor:
+        return self.psum(x, axes) * (1.0 / self.axis_size(axes))
+
+
+class Mesh(_Layout):
+    """Named axes laid row-major over the ranks of the default process
+    group (see the module docstring).  ``shape`` is a dict, as on a JAX
+    mesh; ``rank`` and ``coords`` are this process's place in it."""
+
+    def __init__(self, shape, axes):
+        if not dist.is_initialized():
+            raise RuntimeError(
+                "Mesh needs an initialized default process group "
+                "(launch.mesh.init_process_group)")
+        super().__init__(shape, axes, dist.get_rank())
+        shape, axes = tuple(self.shape.values()), self.axis_names
+        world = dist.get_world_size()
+        if world != self.size:
+            raise ValueError(
+                f"mesh {shape} needs {self.size} ranks, the process group "
+                f"has {world}")
+        idx = torch.arange(self.size).reshape(shape)
+        self._groups: dict[tuple, dist.ProcessGroup] = {}
+        n = len(axes)
+        for r in range(1, n + 1):
+            for dims in itertools.combinations(range(n), r):
+                rest = [d for d in range(n) if d not in dims]
+                # one group per coset: the other axes' coordinates fixed
+                blocks = idx.permute(*rest, *dims).reshape(-1, math.prod(
+                    shape[d] for d in dims))
+                for ranks in blocks.tolist():
+                    group = dist.new_group(ranks)
+                    if self.rank in ranks:
+                        self._groups[tuple(axes[d] for d in dims)] = group
+
     def group(self, axes) -> dist.ProcessGroup:
         return self._groups[self._canon(axes)]
 
@@ -174,8 +194,14 @@ class Mesh:
         dist.all_reduce(out, group=self.group(axes))
         return out
 
-    def pmean(self, x: torch.Tensor, axes) -> torch.Tensor:
-        return self.psum(x, axes) * (1.0 / self.axis_size(axes))
+    def pmax(self, x: torch.Tensor, axes) -> torch.Tensor:
+        """Max over the ranks of ``axes`` into a new tensor."""
+        axes = self._canon(axes)
+        if not axes:
+            return x
+        out = x.clone()
+        dist.all_reduce(out, dist.ReduceOp.MAX, group=self.group(axes))
+        return out
 
     def psum_scatter(self, x: torch.Tensor, axes) -> torch.Tensor:
         """Tiled reduce-scatter along dim 0: member ``i`` of the group gets
@@ -209,6 +235,89 @@ class Mesh:
         if axis == 0:
             return out.reshape(n * x.shape[0], *x.shape[1:])
         return torch.cat(out.unbind(0), dim=axis)
+
+
+def wire_factor(kind: str, g: int) -> float:
+    """Wire bytes a rank moves per byte of a collective's output, by a ring
+    over a group of ``g`` ranks (floored at 2), as
+    ``repro/launch/dryrun.py`` models them: an all-reduce 2 (g-1)/g, an
+    all-gather (g-1)/g of the gathered output, a reduce-scatter g - 1 of
+    the scattered one."""
+    g = max(g, 2)
+    return {"all-reduce": 2.0 * (g - 1) / g, "all-gather": (g - 1) / g,
+            "reduce-scatter": float(g - 1)}[kind]
+
+
+class RecordingMesh(_Layout):
+    """Rank ``rank`` of a mesh layout, with no process group: the dry
+    run's mesh (``launch/dryrun.py``), for layouts of more ranks than a
+    host has.  ``axis_size`` and ``axis_index`` are the rank's; the
+    collectives return tensors of the right shapes, dtypes and devices
+    whose values mean nothing (meta tensors on meta inputs), and record,
+    per kind (``all-reduce``, ``reduce-scatter``, ``all-gather``), the
+    calls, the output bytes (``raw``) and the wire bytes (``wire_factor``
+    over the group's size), and charge their operands and outputs to an
+    active ``cost_analysis.CostMode``.  Over no axes they are the
+    identity, as ``Mesh``'s are; a one-rank group is recorded like any
+    other (the port issues it)."""
+
+    def __init__(self, shape, axes, rank: int = 0):
+        super().__init__(shape, axes, rank)
+        self.collectives: dict[str, dict] = {}
+
+    def _record(self, kind: str, x, out, axes):
+        size = out.numel() * out.element_size()
+        rec = self.collectives.setdefault(kind, {"calls": 0, "raw": 0.0,
+                                                 "wire": 0.0})
+        rec["calls"] += 1
+        rec["raw"] += size
+        rec["wire"] += size * wire_factor(kind, self.axis_size(axes))
+        cost_analysis.charge([x], [out])
+        return out
+
+    def psum(self, x: torch.Tensor, axes) -> torch.Tensor:
+        axes = self._canon(axes)
+        if not axes:
+            return x
+        return self._record("all-reduce", x, torch.empty_like(x), axes)
+
+    def pmax(self, x: torch.Tensor, axes) -> torch.Tensor:
+        return self.psum(x, axes)
+
+    def psum_scatter(self, x: torch.Tensor, axes) -> torch.Tensor:
+        axes = self._canon(axes)
+        if not axes:
+            return x
+        n = self.axis_size(axes)
+        if x.shape[0] % n:
+            raise ValueError(
+                f"dim 0 of {tuple(x.shape)} does not split over {n} ranks")
+        return self._record("reduce-scatter", x, x.new_empty(
+            (x.shape[0] // n, *x.shape[1:])), axes)
+
+    def all_gather(self, x: torch.Tensor, axes, axis: int = 0,
+                   tiled: bool = True) -> torch.Tensor:
+        axes = self._canon(axes)
+        if not axes:
+            return x if tiled else x.unsqueeze(axis)
+        n = self.axis_size(axes)
+        shape = list(x.shape)
+        if tiled:
+            shape[axis] *= n
+        else:
+            shape.insert(axis % (x.dim() + 1), n)
+        return self._record("all-gather", x, x.new_empty(shape), axes)
+
+    def collective_bytes(self) -> dict:
+        """The recorded bytes under ``repro/launch/dryrun.py``'s keys:
+        ``raw_<kind>`` and ``wire_<kind>`` per kind, ``total`` (raw) and
+        ``wire_total``."""
+        out = {f"raw_{k}": v["raw"] for k, v in self.collectives.items()}
+        out.update({f"wire_{k}": v["wire"]
+                    for k, v in self.collectives.items()})
+        out["total"] = sum(v["raw"] for v in self.collectives.values())
+        out["wire_total"] = sum(v["wire"] for v in self.collectives.values())
+        return out
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> tuple:

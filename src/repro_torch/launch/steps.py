@@ -3,8 +3,8 @@ args (torch counterpart of ``repro/launch/steps.py``).
 
 Every builder returns a ``CellPlan`` whose ``fn`` is the per-rank step and
 whose ``abstract_args`` carry the global shapes and dtypes of its
-arguments as meta tensors (JAX's carry ``NamedSharding``s too, for its
-dry-run; the port has no dry-run).  The LM cells (train, prefill, decode,
+arguments as meta tensors (JAX's carry ``NamedSharding``s too; the port's
+dry run, ``launch/dryrun.py``, cuts them to a rank's pieces).  The LM cells (train, prefill, decode,
 decode_long) and the recsys cells (train, serve, retrieval, and DLRM's
 sparse-push train step under ``strategy="pbox_sparse"``) build at any
 model-axis size; ResNet-50's ``imagenet_train`` is pure data parallelism
@@ -88,17 +88,20 @@ def _lm_dist(mesh) -> Dist:
 def build_lm_train(arch: ArchDef, cell: ShapeCell, mesh,
                    exchange: PSExchange, smoke: bool = False,
                    variant: str | None = None) -> CellPlan:
-    if variant is not None:
-        raise NotImplementedError(
-            f"variant {variant!r} (sequence-parallel activations): "
-            "ROADMAP queue 1, item 7")
+    """``variant="sp"``: sequence-parallel activations (``seq_parallel``),
+    whose 1/tp activations afford a quarter of the microbatches; any other
+    variant changes nothing, as in JAX."""
     cfg = arch.smoke_config if smoke else arch.config
     tp = mesh.shape["model"]
+    if variant == "sp":
+        cfg = dataclasses.replace(cfg, seq_parallel=True)
     dist = _lm_dist(mesh)
     gb, s = cell.params["global_batch"], cell.params["seq_len"]
     if smoke:
         gb, s = meshlib.num_workers(mesh) * 2, 32
     mb = (arch.microbatches or {}).get(cell.name, 1) if not smoke else 1
+    if variant == "sp" and mb > 1:
+        mb = max(mb // 4, 1)
 
     def loss_fn(params, batch, dist):
         return T.lm_loss(params, batch["tokens"], batch["labels"], cfg, dist)

@@ -115,10 +115,7 @@ class Dist:
         """Max over the model axis; takes no gradient (detach first)."""
         if not self._model:
             return x
-        out = x.detach().clone()
-        torch.distributed.all_reduce(out, torch.distributed.ReduceOp.MAX,
-                                     group=self.mesh.group(self.model_axis))
-        return out
+        return self.mesh.pmax(x.detach(), self.model_axis)
 
     def psum_scatter_model(self, x, axis: int):
         """Combine partial results AND split ``axis`` over the model axis."""

@@ -1,6 +1,6 @@
 """Decoder-only transformer with manual tensor parallelism (torch
-counterpart of ``repro/models/transformer.py``): the dense, non-sequence-
-parallel training and serving paths, per rank.
+counterpart of ``repro/models/transformer.py``): the training and serving
+paths, per rank.
 
 Covers GQA (kv heads replicated when ``n_kv_heads < tp``), optional QKV
 biases, gemma3's sliding-window/global layer interleaving and its
@@ -10,8 +10,7 @@ losses are summed over the layers into the loss.  Parameters are a nested
 ``dict[str, Tensor]`` with the JAX package's keys and shapes, stacked over
 layers (``params["layers"]["wq"]`` is ``(L, d, H*hd)`` globally), so the
 two packages' trees flatten to the same chunk space; the MoE router is an
-f32 leaf even in a bf16 model, as in JAX.  Sequence parallelism is not
-ported yet.
+f32 leaf even in a bf16 model, as in JAX.
 
 Tensor-parallel layout over the ``model`` axis (size ``tp``), as JAX's:
 q/o heads sharded ``tp_attn = min(tp, n_heads)`` ways and duplicated
@@ -22,6 +21,16 @@ replicated (their gradients summed over the model axis); the FFN hidden
 dim sharded, each expert's too, the router replicated; embeddings and head vocab-sharded, the loss a distributed
 softmax cross-entropy; the decode cache sequence-sharded with every kv
 head resident, decode attention a log-sum-exp combine across shards.
+
+Sequence parallelism (``seq_parallel``), as JAX's: the embedding's
+combine over the model axis is a ``psum_scatter`` over the sequence, so
+each rank carries its S/tp block of the hidden states between the blocks
+(and through each layer's ``checkpoint``, the memory it saves); each block
+takes its RMS norm on that block, all-gathers the sequence, and ends in a
+``psum_scatter`` over the sequence in place of the ``psum``; the loss
+re-gathers the sequence before the vocab-sharded head.  Positions stay
+the whole sequence.  Prefill and decode ignore it, as JAX's do.
+
 Every function takes the rank's local pieces and a ``Dist`` whose
 collectives are differentiable with JAX's transposes
 (``models/common.py``); ``tp`` is ``dist.tp`` (JAX's functions take it
@@ -99,7 +108,7 @@ class TransformerConfig:
     attn_chunk: int = 1024  # q-block size for chunked attention
     eps: float = 1e-6
     embed_scale: bool = False  # gemma-style sqrt(d) embedding scale
-    seq_parallel: bool = False  # not ported yet
+    seq_parallel: bool = False  # sequence-sharded activations (tp > 1)
 
     # ---- TP derived quantities -------------------------------------
     def tp_attn(self, tp: int) -> int:
@@ -157,11 +166,6 @@ class TransformerConfig:
         return self.param_count() - self.n_layers * (full_ffn - act_ffn)
 
 
-def _check_supported(cfg: TransformerConfig) -> None:
-    if cfg.seq_parallel:
-        raise NotImplementedError("sequence parallelism is not ported yet")
-
-
 # ---------------------------------------------------------------------------
 # parameters
 # ---------------------------------------------------------------------------
@@ -173,7 +177,6 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator | None = None
     for ``tp``: the duplicated q/o layout materialized, the vocab tables
     drawn at ``vocab_padded(1)`` rows and zero-padded to
     ``vocab_padded(tp)``, so every ``tp`` draws the same model."""
-    _check_supported(cfg)
     if generator is None:
         generator = torch.Generator(device=resolve_device(device)).manual_seed(0)
     elif device is not None and torch.device(device).type != generator.device.type:
@@ -240,7 +243,6 @@ def abstract_params(cfg: TransformerConfig, tp: int = 1) -> dict:
     """``init_params``'s global tree for ``tp`` as meta tensors: shapes and
     dtypes only, no storage (the JAX package's ``jax.eval_shape`` of
     ``init_params``)."""
-    _check_supported(cfg)
     L, d, hd, ff = cfg.n_layers, cfg.d_model, cfg.head_dim, cfg.d_ff
     R = cfg.attn_replicas(tp)
     qdim, kvdim, vp = R * cfg.n_heads * hd, cfg.n_kv_heads * hd, cfg.vocab_padded(tp)
@@ -320,8 +322,11 @@ def grad_sync(cfg: TransformerConfig, tp: int) -> dict:
 # building blocks (per-rank code)
 # ---------------------------------------------------------------------------
 
-def _embed(params, tokens, cfg: TransformerConfig, dist: Dist):
-    """Vocab-sharded lookup: local take, mask, psum (the PS 'pull')."""
+def _embed(params, tokens, cfg: TransformerConfig, dist: Dist,
+           scatter_seq: bool = False):
+    """Vocab-sharded lookup: local take, mask, psum (the PS 'pull').
+    ``scatter_seq``: the combine also shards the sequence, in one
+    collective (the sequence-parallel entry)."""
     table = params["embed"]
     if dist.tp > 1:
         vloc = table.shape[0]
@@ -329,7 +334,8 @@ def _embed(params, tokens, cfg: TransformerConfig, dist: Dist):
         ok = (local >= 0) & (local < vloc)
         emb = table[local.clamp(0, vloc - 1)]
         emb = torch.where(ok[..., None], emb, 0).to(cfg.dtype)
-        emb = dist.psum_model(emb)
+        emb = (dist.psum_scatter_model(emb, axis=1) if scatter_seq
+               else dist.psum_model(emb))
     else:
         emb = table[tokens].to(cfg.dtype)
     if cfg.embed_scale:
@@ -404,16 +410,17 @@ def _chunked_attention(q, k, v, cfg: TransformerConfig, is_global: bool,
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
 
 
-def _combine(out, cfg: TransformerConfig, dist: Dist):
-    """A block's partial outputs summed over the model axis, then / R for
-    the duplicated head layout."""
-    out = dist.psum_model(out)
+def _combine(out, cfg: TransformerConfig, dist: Dist, combine=None):
+    """An attention block's partial outputs combined over the model axis
+    (``combine``, the psum by default), then / R for the duplicated head
+    layout."""
+    out = (combine or dist.psum_model)(out)
     R = cfg.attn_replicas(dist.tp)
     return out / R if R > 1 else out
 
 
 def _attn_block(x, lp, cfg: TransformerConfig, dist: Dist,
-                is_global: bool, positions):
+                is_global: bool, positions, combine=None):
     """The attention output and the layer's k / v (B, S, Hkv_res, hd),
     which prefill keeps as its cache."""
     b, s, _ = x.shape
@@ -421,44 +428,58 @@ def _attn_block(x, lp, cfg: TransformerConfig, dist: Dist,
     ku, vu = _kv_for_local_q(k, v, cfg, dist)
     out = _chunked_attention(q, ku, vu, cfg, is_global)
     del ku, vu
-    out = _combine(out.reshape(b, s, -1) @ lp["wo"], cfg, dist)
+    out = _combine(out.reshape(b, s, -1) @ lp["wo"], cfg, dist, combine)
     return out.to(x.dtype), k, v
 
 
 _MOE_KEYS = ("router", "we1", "we3", "we2", "ws1", "ws3", "ws2")
 
 
-def _ffn_block(x, lp, cfg: TransformerConfig, dist: Dist):
-    """Dense or MoE FFN of (B, S, d); returns (out, the f32 aux loss)."""
+def _ffn_block(x, lp, cfg: TransformerConfig, dist: Dist, combine=None):
+    """Dense or MoE FFN of (B, S, d); returns (out, the f32 aux loss).
+    ``combine`` joins the partial outputs over the model axis (the psum by
+    default)."""
     b, s, d = x.shape
+    combine = combine or dist.psum_model
     if cfg.moe is None:
         a = act_fn("silu" if cfg.act == "silu" else "gelu")
         h = a(x @ lp["w1"]) * (x @ lp["w3"])
-        return (dist.psum_model(h @ lp["w2"]).to(x.dtype),
+        return (combine(h @ lp["w2"]).to(x.dtype),
                 torch.zeros((), dtype=torch.float32, device=x.device))
     weights = {k: lp[k] for k in _MOE_KEYS if k in lp}
     out, aux = moe_ffn(x.reshape(b * s, d), weights, cfg.moe, dist, cfg.act)
-    # routing is replicated, so every model shard has the same aux loss
-    return dist.psum_model(out.reshape(b, s, d)).to(x.dtype), aux
+    # routing is replicated (under sequence parallelism the FFN sees the
+    # gathered sequence), so every model shard has the same aux loss
+    return combine(out.reshape(b, s, d)).to(x.dtype), aux
 
 
 def _layer(x, lp, is_global: bool, cfg: TransformerConfig, dist: Dist,
-           positions):
+           positions, sp: bool = False):
     """One decoder layer: the new hidden states, the layer's k / v and its
-    aux loss."""
-    h = rms_norm(x, lp["ln1"], cfg.eps)
-    out, k, v = _attn_block(h, lp, cfg, dist, is_global, positions)
+    aux loss.  ``sp``: ``x`` is this rank's block of the sequence; each
+    block norms it, gathers the sequence, and combines its partial
+    outputs by a psum-scatter over the sequence (one collective)."""
+
+    def block_in(h):
+        return dist.all_gather_model(h, axis=1) if sp else h
+
+    def block_out(y):
+        return dist.psum_scatter_model(y, axis=1)
+
+    combine = block_out if sp else None
+    h = block_in(rms_norm(x, lp["ln1"], cfg.eps))
+    out, k, v = _attn_block(h, lp, cfg, dist, is_global, positions, combine)
     x = x + out
-    h = rms_norm(x, lp["ln2"], cfg.eps)
-    f, aux = _ffn_block(h, lp, cfg, dist)
+    h = block_in(rms_norm(x, lp["ln2"], cfg.eps))
+    f, aux = _ffn_block(h, lp, cfg, dist, combine)
     return x + f, k, v, aux
 
 
-def _layer_hidden(x, names, is_global, cfg, dist, positions, *weights):
+def _layer_hidden(x, names, is_global, cfg, dist, positions, sp, *weights):
     """``_layer``'s hidden states and aux loss, with the layer's weights
     as arguments (what ``checkpoint`` recomputes)."""
     x, _, _, aux = _layer(x, dict(zip(names, weights)), is_global, cfg, dist,
-                          positions)
+                          positions, sp)
     return x, aux
 
 
@@ -469,22 +490,27 @@ def _per_layer(params) -> dict:
     return {name: w.unbind(0) for name, w in params["layers"].items()}
 
 
+def _seq_parallel(cfg: TransformerConfig, dist: Dist) -> bool:
+    return cfg.seq_parallel and dist.model_axis is not None
+
+
 def forward(params, tokens, cfg: TransformerConfig, dist: Dist | None = None):
-    """tokens (B, S) -> hidden (B, S, d) and the aux loss summed over the
-    layers (0 for a dense FFN).  With ``remat`` (and autograd on) each layer is recomputed in
+    """tokens (B, S) -> hidden (B, S, d), or (B, S/tp, d) under sequence
+    parallelism, and the aux loss summed over the layers (0 for a dense
+    FFN).  With ``remat`` (and autograd on) each layer is recomputed in
     the backward: only its input is kept."""
-    _check_supported(cfg)
     dist = Dist.none() if dist is None else dist
     b, s = tokens.shape
     positions = torch.arange(s, device=tokens.device).expand(b, s)
-    x = _embed(params, tokens, cfg, dist)
+    sp = _seq_parallel(cfg, dist)
+    x = _embed(params, tokens, cfg, dist, scatter_seq=sp)
     per_layer = _per_layer(params)
     names = tuple(per_layer)
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for li in range(cfg.n_layers):
         ws = [per_layer[n][li] for n in names]
-        args = (x, names, cfg.is_global_layer(li), cfg, dist, positions,
+        args = (x, names, cfg.is_global_layer(li), cfg, dist, positions, sp,
                 *ws)
         if remat:
             x, a = checkpoint(_layer_hidden, *args, use_reentrant=False,
@@ -502,6 +528,9 @@ def lm_loss(params, tokens, labels, cfg: TransformerConfig,
     dist = Dist.none() if dist is None else dist
     x, aux = forward(params, tokens, cfg, dist)
     x = rms_norm(x, params["ln_f"], cfg.eps)
+    if _seq_parallel(cfg, dist):
+        # the whole sequence again for the vocab-sharded head
+        x = dist.all_gather_model(x, axis=1)
     head = params["head"]  # (Vloc, d)
     vloc = head.shape[0]
     midx = dist.model_index()
@@ -583,8 +612,8 @@ def _full_kv(k, v, cfg: TransformerConfig, dist: Dist):
 def _prefill_hidden(params, tokens, cfg: TransformerConfig, max_seq: int,
                     dist: Dist):
     """The final hidden states (B, S, d) and this rank's cache of
-    ``tokens``: its shard of the sequence, zero-padded to ``max_seq``."""
-    _check_supported(cfg)
+    ``tokens``: its shard of the sequence, zero-padded to ``max_seq``
+    (``seq_parallel`` is ignored, as JAX's prefill ignores it)."""
     b, s = tokens.shape
     if s > max_seq:
         raise ValueError(f"{s} prompt tokens exceed max_seq={max_seq}")
@@ -716,8 +745,8 @@ def _decode_qkv(h, lp, cfg: TransformerConfig, dist: Dist, pos: int):
 def decode_hidden(params, token, cache, pos, cfg: TransformerConfig,
                   dist: Dist | None = None):
     """The final hidden state (B, d) of one decode step; the rank owning
-    position ``pos`` writes it into every layer's cache, in place."""
-    _check_supported(cfg)
+    position ``pos`` writes it into every layer's cache, in place
+    (``seq_parallel`` is ignored, as in JAX)."""
     dist = Dist.none() if dist is None else dist
     pos = int(pos)
     x = _embed(params, token[:, None], cfg, dist)[:, 0]  # (B, d)
@@ -795,7 +824,6 @@ def decode_hidden_unrolled(params, token, caches, pos, cfg: TransformerConfig,
     """``decode_hidden`` over ``init_cache_unrolled``'s per-layer caches:
     global layers write position ``pos`` on the rank owning it, local
     layers slot ``pos % window`` on every rank, in place."""
-    _check_supported(cfg)
     dist = Dist.none() if dist is None else dist
     pos = int(pos)
     x = _embed(params, token[:, None], cfg, dist)[:, 0]

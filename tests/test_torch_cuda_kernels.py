@@ -85,6 +85,17 @@ def test_kernel_row_forms_match_plain_version_bitwise(cuda):
 
 
 @pytest.mark.gpu
+def test_two_streams_equal_serial_launches(cuda):
+    """chip_smoke.py's stream check: chained fused_agg_opt launches on two
+    streams at once (their CUDA events overlap) equal the same launches
+    in turn, bitwise; a launch after one on another stream equals the
+    plain version.  Each stream claims tiles from its own counter."""
+    assert _chip_smoke().stream_check(cuda) == 0.0
+    words, slots = tkernel._claims[torch.cuda.current_device()]
+    assert len(slots) >= 3 and words.sum().item() == 0
+
+
+@pytest.mark.gpu
 def test_quant_kernels_match_plain_versions_bitwise(cuda):
     """chip_smoke.py's quant sweep: N in {8192, 37*8192} x chunk in {128,
     8192}, and chunk 65536 (the two-pass route), with zero, NaN and inf

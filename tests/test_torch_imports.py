@@ -501,3 +501,53 @@ def test_gnn_slice_imports_with_jax_blocked(module, names):
         timeout=180, cwd=ROOT,
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+ANALYSIS_SLICE = ("launch/cost_analysis.py", "launch/dryrun.py",
+                  "launch/roofline.py", "launch/mesh.py",
+                  "models/transformer.py", "launch/steps.py",
+                  "kernels/fused_agg_opt/ops.py", "kernels/quant/ops.py",
+                  "kernels/wire_path/ops.py", "kernels/embedding_bag/ops.py")
+
+
+@pytest.mark.parametrize("module", ANALYSIS_SLICE)
+def test_analysis_slice_modules_are_checked(module):
+    """The launch analysis (the cost mode, the dry run, the roofline, the
+    recording mesh, the kernels' meta charges) and sequence parallelism's
+    modules are among the files checked above."""
+    assert ROOT / "src" / "repro_torch" / module in PORT_FILES
+
+
+@pytest.mark.parametrize("module,names", [
+    ("repro_torch.launch.cost_analysis",
+     ("CostMode", "step_costs", "record_kernel", "charge")),
+    ("repro_torch.launch.dryrun", ("run_cell", "dry_run", "local_args",
+                                   "main")),
+    ("repro_torch.launch.roofline", ("analyze", "fmt_s", "table", "main")),
+    ("repro_torch.launch.mesh", ("RecordingMesh", "wire_factor", "Mesh")),
+])
+def test_analysis_slice_imports_with_jax_blocked(module, names):
+    """The launch analysis imports with ``import jax`` and ``import
+    repro`` failing, pulls in neither, exposes the JAX package's names,
+    and its two CLIs answer ``--help`` as ``python -m``."""
+    code = (
+        "import importlib, sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        f"mod = importlib.import_module({module!r})\n"
+        f"assert all(hasattr(mod, n) for n in {names!r})\n"
+        "assert not any(m.split('.')[0] in ('jax', 'jaxlib', 'repro')\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ok')\n"
+    )
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=180, cwd=ROOT, env=env)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    if module.endswith((".dryrun", ".roofline")):
+        out = subprocess.run(
+            [sys.executable, "-m", module, "--help"], capture_output=True,
+            text=True, timeout=180, cwd=ROOT, env=env)
+        flag = "--variant" if module.endswith(".dryrun") else "--mesh"
+        assert out.returncode == 0 and flag in out.stdout

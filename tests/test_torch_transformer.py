@@ -153,14 +153,26 @@ def test_lm_batches_are_the_same_stream():
 
 
 def test_unported_model_options_raise():
+    """No model option is refused any more: sequence parallelism builds
+    (``init_params``, ``abstract_params``) and, with no model axis, leaves
+    the loss and every gradient bitwise as they are without it, as JAX's
+    ``seq_parallel`` does off a model axis (tests/test_torch_seq_parallel.py
+    holds it on one); the GNN family is registered."""
     import dataclasses
 
     cfg = get_arch("gemma3-1b").smoke_config
-    with pytest.raises(NotImplementedError, match="sequence parallelism"):
-        tt.init_params(dataclasses.replace(cfg, seq_parallel=True),
-                       torch.Generator().manual_seed(0))
-    # the GNN family is registered (models/gnn); sequence parallelism above
-    # is the one refusal left
+    sp = dataclasses.replace(cfg, seq_parallel=True)
+    params = tt.init_params(sp, torch.Generator().manual_seed(0))
+    leaves = tt._tree_leaves
+    assert [tuple(x.shape) for x in leaves(tt.abstract_params(sp))] == \
+        [tuple(x.shape) for x in leaves(params)]
+    batch = next(lm_batches(cfg.vocab, 2, 16, seed=3))
+    toks, labs = (torch.from_numpy(batch[k]) for k in ("tokens", "labels"))
+    got = tt.lm_loss_and_grad(params, toks, labs, sp)
+    want = tt.lm_loss_and_grad(params, toks, labs, cfg)
+    assert torch.equal(got[0], want[0])
+    for a, b in zip(leaves(got[1]), leaves(want[1])):
+        assert torch.equal(a, b)
     assert get_arch("equiformer-v2").family == "gnn"
 
 

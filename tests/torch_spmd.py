@@ -680,6 +680,101 @@ def tp_train_ranks(rank, world, out_dir):
               **{f"slot{i}": _np(s) for i, s in enumerate(out["slots"])})
 
 
+# -- rank bodies: sequence parallelism --------------------------------------
+
+# tests/scripts/seq_parallel_equivalence.py's model (f32, attn_chunk 8, 16
+# tokens, QKV biases) at tp = 4 on a (2, 4) mesh, and two more: R = 2 (2
+# heads over 4 model ranks) and the MoE FFN (TP_MOE_CASES' model)
+SP_TP = 4
+SP_CASES = {
+    "gqa": dict(TP_CASES["gqa_kvrep"], qkv_bias=True),
+    "dup_R2": dict(TP_CASES["dup_R2"], qkv_bias=True),
+    "moe": TP_MOE_CASES["moe"],
+}
+SP_JAX_BASELINE = ("gqa",)  # JAX also runs these without SP
+SP_LR = 0.1
+
+
+def _sp_step(cfg, mesh, dist, params_np, toks, labs):
+    """One pbox SGD(SP_LR) step of ``make_ps_train_step`` from the global
+    weights ``params_np``: (this rank's new pflat, the loss metric)."""
+    import torch
+
+    from repro_torch.core.exchange import ExchangeConfig, PSExchange
+    from repro_torch.interop import params_from_numpy
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.optimizers import sgd
+    from repro_torch.runtime.trainer import (
+        init_train_state,
+        local_state,
+        make_ps_train_step,
+        shard_batch,
+    )
+
+    ex = PSExchange(sgd(SP_LR), ExchangeConfig("pbox"), ("data",), None)
+    specs = T.make_param_specs(cfg, SP_TP)
+    step, space, _, ng = make_ps_train_step(
+        mesh, loss_fn=lambda p, b, d: T.lm_loss(p, b["tokens"], b["labels"],
+                                                cfg, d),
+        param_specs=specs, sync_tags=T.grad_sync(cfg, SP_TP),
+        global_param_template=T.abstract_params(cfg, SP_TP), exchange=ex,
+        dist=dist, donate=False)
+    state = init_train_state(
+        mesh, init_params_fn=lambda tree: params_from_numpy(tree, "cpu"),
+        param_specs=specs, exchange=ex, space=space, n_groups=ng,
+        key=params_np, device="cpu")
+    pflat, slots, ef, stc = local_state(state, mesh, ex)
+    batch = shard_batch({"tokens": torch.from_numpy(toks),
+                         "labels": torch.from_numpy(labs)}, mesh, ex)
+    pflat, _, _, _, met = step(pflat, slots, ef, stc, batch)
+    return _np(pflat), _np(met["loss"])
+
+
+def seq_parallel_ranks(rank, world, out_dir):
+    """Every ``SP_CASES`` case on a (2, 4) ("data", "model") mesh from the
+    JAX package's tp = 4 weights, with and without sequence parallelism:
+    the cross entropy (pmean over "data"), one ``_sp_step``, and greedy
+    prefill (max_seq 32) and one decode step of this data rank's rows."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.interop import params_from_numpy
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import Dist
+    from repro_torch.runtime.trainer import local_params
+
+    mesh = make_mesh((2, SP_TP), ("data", "model"))
+    dist = Dist("model", ("data",), SP_TP, mesh)
+    d = mesh.coords["data"]
+    for name, kw in SP_CASES.items():
+        wait_for(Path(out_dir, f"jax_sp_{name}_params.npz"))
+        params_np = _unflat(dict(np.load(
+            Path(out_dir, f"jax_sp_{name}_params.npz"))))
+        toks, labs = lm_tokens(kw["vocab"], 4)
+        out = {}
+        for sp in (False, True):
+            cfg = dataclasses.replace(tp_config(kw), seq_parallel=sp)
+            params = local_params(params_from_numpy(params_np, "cpu"),
+                                  T.make_param_specs(cfg, SP_TP), mesh)
+            t, lab = (torch.from_numpy(a[2 * d:2 * d + 2])
+                      for a in (toks, labs))
+            with torch.no_grad():
+                ce = T.lm_loss(params, t, lab, cfg, dist)[1]["ce"]
+                nxt, cache = T.prefill(params, t, cfg, 32, dist=dist)
+                dec, cache = T.decode_step(params, nxt, cache, 16, cfg, dist)
+            pflat, loss = _sp_step(cfg, mesh, dist, params_np, toks, labs)
+            tag = "sp" if sp else "base"
+            out.update({f"ce_{tag}": _np(mesh.pmean(ce, "data")),
+                        f"pflat_{tag}": pflat, f"loss_{tag}": loss,
+                        f"nxt_{tag}": _np(nxt), f"dec_{tag}": _np(dec),
+                        f"k_{tag}": _np(cache["k"]),
+                        f"v_{tag}": _np(cache["v"])})
+        _save(out_dir, f"sp_{name}_r{rank}", model=np.asarray(
+            mesh.coords["model"]), **out)
+
+
 # -- rank bodies: the serve driver -----------------------------------------
 
 SERVE_MESH_ARGV = ["--arch", "gemma3-1b", "--mesh", "1x2", "--batch", "2",

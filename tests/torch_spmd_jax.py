@@ -26,6 +26,10 @@ saves what the port is compared with under ``out_dir``.  Groups:
              of its ``train_batch`` cell (pbox), its ``serve_p99`` and
              ``retrieval_cand`` cells on a (2, 4) mesh, and DLRM's
              ``pbox_sparse`` step (tests/scripts/sparse_push_equivalence.py);
+  seq_parallel  every ``SP_CASES`` case's tp = 4 weights, then one pbox
+             SGD step of ``make_ps_train_step`` with sequence parallelism
+             on a (2, 4) mesh (and without it for ``SP_JAX_BASELINE``):
+             tests/scripts/seq_parallel_equivalence.py;
   gnn        every ``GNN_CASES`` case: EquiformerV2's SMOKE weights, the
              loss and the gradients after ``grad_sync`` inside a jitted
              ``shard_map`` on the case's mesh (tests/scripts/
@@ -38,7 +42,7 @@ import sys
 from pathlib import Path
 
 DEVICES = {"exchange": 8, "trainer": 2, "launch": 2, "tp": 4, "tp_train": 8,
-           "sparse_push": 3, "recsys": 8, "gnn": 4}
+           "sparse_push": 3, "recsys": 8, "gnn": 4, "seq_parallel": 8}
 
 
 def _np32(x):
@@ -347,6 +351,57 @@ def tp_train(out: Path):
         np.savez(out / f"jax_tp_train_{name}_out.npz", pflat=_np32(pflat))
 
 
+def seq_parallel(out: Path):
+    import dataclasses
+
+    import jax
+    import numpy as np
+    from jax.sharding import PartitionSpec as P
+
+    from repro import compat
+    from repro.core.exchange import ExchangeConfig, PSExchange
+    from repro.models import transformer as T
+    from repro.models.common import Dist
+    from repro.optim.optimizers import sgd
+    from repro.runtime.trainer import init_train_state, make_ps_train_step
+    from torch_spmd import (SP_CASES, SP_JAX_BASELINE, SP_LR, SP_TP,
+                            flat_keys, lm_tokens)
+
+    mesh = compat.make_mesh((2, SP_TP), ("data", "model"))
+    dist = Dist(model_axis="model", data_axes=("data",), tp=SP_TP)
+    for name, kw in SP_CASES.items():
+        cfg0 = _jax_config(kw)
+        p4 = T.init_params(cfg0, jax.random.PRNGKey(0), tp=SP_TP)
+        _save_atomic(out / f"jax_sp_{name}_params.npz",
+                     **{k: np.asarray(v) for k, v in flat_keys(p4).items()})
+        toks, labs = lm_tokens(cfg0.vocab, 4)
+        res = {}
+        for sp in ((False, True) if name in SP_JAX_BASELINE else (True,)):
+            cfg = dataclasses.replace(cfg0, seq_parallel=sp)
+            specs = T.make_param_specs(cfg, SP_TP)
+            ex = PSExchange(sgd(SP_LR), ExchangeConfig(strategy="pbox"),
+                            worker_axes=("data",), pod_axis=None)
+            gshape = jax.eval_shape(
+                lambda: T.init_params(cfg, jax.random.PRNGKey(0), tp=SP_TP))
+            step, space, _, ng = make_ps_train_step(
+                mesh, loss_fn=lambda p, b, d, cfg=cfg: T.lm_loss(
+                    p, b["tokens"], b["labels"], cfg, d, SP_TP),
+                param_specs=specs, sync_tags=T.grad_sync(cfg, SP_TP),
+                global_param_template=gshape, exchange=ex, dist=dist,
+                batch_spec={"tokens": P("data"), "labels": P("data")},
+                donate=False)
+            st = init_train_state(
+                mesh, init_params_fn=lambda k: p4, param_specs=specs,
+                exchange=ex, space=space, n_groups=ng,
+                key=jax.random.PRNGKey(0))
+            pflat, _, _, _, met = step(st.pflat, st.slots, st.ef, st.step,
+                                       {"tokens": toks, "labels": labs})
+            tag = "sp" if sp else "base"
+            res[f"pflat_{tag}"] = _np32(pflat)
+            res[f"loss_{tag}"] = np.asarray(met["loss"])
+        _save_atomic(out / f"jax_sp_{name}_out.npz", **res)
+
+
 def sparse_push(out: Path):
     import jax
     import jax.numpy as jnp
@@ -527,5 +582,6 @@ if __name__ == "__main__":
     out_dir.mkdir(parents=True, exist_ok=True)
     {"exchange": exchange, "trainer": trainer, "launch": launch, "tp": tp,
      "tp_train": tp_train, "sparse_push": sparse_push,
-     "recsys": recsys, "gnn": gnn}[group](out_dir)
+     "recsys": recsys, "gnn": gnn, "seq_parallel": seq_parallel}[group](
+        out_dir)
     print("OK")
