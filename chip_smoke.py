@@ -269,8 +269,10 @@ raises on failure (the script then exits non-zero and prints no result):
    host ms a step; then the SMOKE config on 4 gloo ranks at tp = 4 (R =
    1, kv replicated) and tp = 2, loss at rtol 2e-5 / atol 1e-5 and greedy
    ids equal to tp = 1 on the card.  The 2 ranks then run phase 36's
-   recsys tp = 2 pass and the 4 ranks phase 43's GNN channel TP and
-   edge parallelism (one spawn each serves them all);
+   recsys tp = 2 pass and phase 45's ``serve_lm`` and tp = 1
+   ``train_distributed_ps``, and the 4 ranks phase 43's GNN channel TP
+   and edge parallelism and phase 45's ``train_distributed_ps`` (one
+   spawn each serves them all);
 32. the recsys family on the SPMD path (phases 32-36 inside a world-1
    NCCL group and deterministic algorithms): dlrm-mlperf ``train_batch``
    by ``pbox_sparse`` (``launch/steps.build_recsys_train_sparse``) at its
@@ -361,7 +363,26 @@ raises on failure (the script then exits non-zero and prints no result):
    parallelism run on phase 31's 4 gloo ranks (``full_graph_sm`` at
    SMOKE on a (2, 2) mesh against tp = 1 on the card).  Phase 19 also
    times fused_agg_opt at the GNN's shape (AdamW, K = 1, f32, N =
-   35,086,336) beside ``torch._fused_adamw_``.
+   35,086,336) beside ``torch._fused_adamw_``;
+45. the example programs (``repro_torch.examples``): ``train_100m_e2e`` at
+   its published CFG (12 layers, d 512, vocab 32768, f32) for its 200
+   steps (counts set to 0 just before and read just after: 200
+   fused_agg_opt, K = 1 AdamW without averaging; the first update
+   replayed through the plain version bitwise and held to
+   ``fused_aggregate_update_ref`` within E2E_REF_ATOL; the loss falls; the
+   last checkpoint equals the final state bitwise; the steady step, each
+   launch's ms in the run, the peak), then the quickstart (40 rounds, 160
+   fused_agg_opt at K = 2, every one booked and replayed through the
+   plain version bitwise), gnn_molecules (15 steps; the curve within
+   GNN_EX_RTOL of the CPU's, its control with TF32 products outside it)
+   and recsys_serving, each from CPU-drawn weights and held against the
+   same program on the CPU; ``serve_lm`` at ``--mesh 1x2`` on phase 31's
+   2 ranks (ids == the program at ``--mesh 1x1``) and
+   ``train_distributed_ps`` on a (2, 2) mesh on its 4 ranks and at tp = 1,
+   (2, 1), on its 2 (the ranks agree; the (2, 2) curve within EX_PS_RTOL
+   of tp = 1's; each restores its step-20 state bitwise).  Phase 19 also
+   times fused_agg_opt at the e2e shape (AdamW, K = 1, f32, the flat)
+   beside ``torch._fused_adamw_``.
 
 The line before the last is the kernel table as JSON (each row with its
 launches on every path); the last line is ``{"ok": true, "device":
@@ -1002,39 +1023,52 @@ def bag_sweep(dev) -> dict:
 
 # -- phases 4 and 5 ----------------------------------------------------------
 class LaunchTimer:
-    """CUDA events around every call of a kernel wrapper on the main path
-    (a module attribute, swapped in and restored)."""
+    """CUDA events and the host clock around every call of a kernel wrapper
+    on the main path (a module's function or an object's method, swapped
+    in and restored).  ``hook``, if given, is called as ``hook(args,
+    kwargs)`` before every call and may return a function, which is then
+    called with the call's result (a capture: ``first_apply_hook``,
+    ``book_updates``)."""
 
-    def __init__(self, module, attr: str):
-        self.module, self.attr = module, attr
+    def __init__(self, obj, attr: str, hook=None):
+        self.obj, self.attr, self.hook = obj, attr, hook
         self.events: list = []
+        self.stamps: list = []
 
     def __enter__(self):
         import torch
 
         # wrap what is there now, so wrappers of one attribute nest
-        self.launch = getattr(self.module, self.attr)
+        self.launch = getattr(self.obj, self.attr)
+        self.own = self.attr in vars(self.obj)  # else a class's method
 
         def timed(*args, **kwargs):
+            self.stamps.append(time.perf_counter())
+            after = self.hook(args, kwargs) if self.hook else None
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
             out = self.launch(*args, **kwargs)
             end.record()
             self.events.append((start, end))
+            if after is not None:
+                after(out)
             return out
 
-        setattr(self.module, self.attr, timed)
+        setattr(self.obj, self.attr, timed)
         return self
 
     def __exit__(self, *exc):
-        setattr(self.module, self.attr, self.launch)
+        if self.own:
+            setattr(self.obj, self.attr, self.launch)
+        else:
+            delattr(self.obj, self.attr)
 
     def ms(self) -> list:
         return [s.elapsed_time(e) for s, e in self.events]
 
 
-class CaptureCall:
+class CaptureCall(LaunchTimer):
     """Device copies of the tensor arguments and outputs of call number
     ``index`` (from 0) of a kernel wrapper on the main path (a module
     attribute, swapped in and restored).  The copies queue on the stream
@@ -1042,34 +1076,25 @@ class CaptureCall:
     told their bytes before they are made."""
 
     def __init__(self, module, attr: str, index: int, memory):
-        self.module, self.attr, self.index = module, attr, index
-        self.memory = memory
-        self.calls = 0
+        super().__init__(module, attr, self.capture)
+        self.index, self.memory = index, memory
         self.args = self.out = None
 
-    def __enter__(self):
+    def capture(self, args, kwargs):
         import torch
 
-        self.launch = getattr(self.module, self.attr)
+        if len(self.stamps) - 1 != self.index:
+            return None
 
-        def capture(*args, **kwargs):
-            out = self.launch(*args, **kwargs)
-            if self.calls == self.index:
-                outs = out if isinstance(out, tuple) else (out,)
-                self.memory.hold(sum(
-                    t.numel() * t.element_size()
-                    for t in (*args, *outs) if torch.is_tensor(t)))
-                self.args = tuple(a.clone() if torch.is_tensor(a) else a
-                                  for a in args)
-                self.out = tuple(t.clone() for t in outs)
-            self.calls += 1
-            return out
-
-        setattr(self.module, self.attr, capture)
-        return self
-
-    def __exit__(self, *exc):
-        setattr(self.module, self.attr, self.launch)
+        def after(out):
+            outs = out if isinstance(out, tuple) else (out,)
+            self.memory.hold(sum(
+                t.numel() * t.element_size()
+                for t in (*args, *outs) if torch.is_tensor(t)))
+            self.args = tuple(a.clone() if torch.is_tensor(a) else a
+                              for a in args)
+            self.out = tuple(t.clone() for t in outs)
+        return after
 
 
 class FabricStacks:
@@ -1133,15 +1158,13 @@ def _host(x):
     return x.to("cpu", copy=True)
 
 
-def capture_first_apply(shard, name: str, captured: dict) -> None:
-    """Wrap ``shard.<name>`` (``apply`` or ``apply_wire``) so that its
-    step-1 call's tensor arguments, ``average`` and the shard's params and
-    state before it (``captured["in"]``) and after it
+def first_apply_hook(shard, captured: dict):
+    """A ``LaunchTimer`` hook on ``shard.apply`` or ``shard.apply_wire``:
+    its step-1 call's tensor arguments, ``average`` and the shard's params
+    and state before it (``captured["in"]``) and after it
     (``captured["out"]``) land in host memory, for a replay through the
-    plain version.  ``delattr(shard, name)`` unwraps it."""
+    plain version."""
     import torch
-
-    launch = getattr(shard, name)
 
     def host_arg(a):
         if torch.is_tensor(a):
@@ -1152,19 +1175,19 @@ def capture_first_apply(shard, name: str, captured: dict) -> None:
                 for g in a]
         return a
 
-    def capture(*args, **kwargs):
-        first = args[-1] == 1  # the step
-        if first:
-            captured["in"] = (tuple(map(host_arg, args)),
-                              _host(shard.params),
-                              tuple(map(_host, shard.state)))
-            captured["average"] = kwargs.get("average", True)
-        launch(*args, **kwargs)
-        if first:
+    def hook(args, kwargs):
+        if args[-1] != 1:  # the step
+            return None
+        captured["in"] = (tuple(map(host_arg, args)), _host(shard.params),
+                          tuple(map(_host, shard.state)))
+        captured["average"] = kwargs.get("average", True)
+
+        def after(out):
             captured["out"] = (_host(shard.params),
                                tuple(map(_host, shard.state)))
+        return after
 
-    setattr(shard, name, capture)
+    return hook
 
 
 def main_path(dev, codec: str) -> dict:
@@ -1229,7 +1252,8 @@ def main_path(dev, codec: str) -> dict:
 
     fab.pull = labelled("fabric.pull", fab.pull)
     fab.push = labelled("fabric.push+aggregate", fab.push)
-    capture_first_apply(shard0, apply_name, captured)
+    capture = LaunchTimer(shard0, apply_name,
+                          first_apply_hook(shard0, captured))
     kernel_name = "wire_fused" if fused else "fused_agg_opt"
     timer = LaunchTimer(W, "wire_fused_cuda") if fused else LaunchTimer(
         K, "fused_agg_opt_cuda")
@@ -1247,7 +1271,7 @@ def main_path(dev, codec: str) -> dict:
                    if codec == "int8" else [])
     stacks = FabricStacks()
     try:
-        with timer, stacks, contextlib.ExitStack() as stack:
+        with timer, capture, stacks, contextlib.ExitStack() as stack:
             for call in codec_calls:
                 stack.enter_context(call)
             _zero_counts()  # every count of the port's kernels to 0 just before
@@ -1264,7 +1288,6 @@ def main_path(dev, codec: str) -> dict:
             launches = _counts()  # ...and read just after
     finally:
         del fab.pull, fab.push
-        delattr(shard0, apply_name)
     peak = memory.now()[1]
     loss_vals = [x.item() for x in losses]
     kernel_ms = timer.ms()
@@ -1943,7 +1966,8 @@ def async_path(dev, gw: GemmaWorkers) -> dict:
     fab = gw.fabric(2, codec="int8", mode="async")
     captured: dict = {}
     shard0 = fab.shards[0]
-    capture_first_apply(shard0, "apply_wire", captured)
+    capture = LaunchTimer(shard0, "apply_wire",
+                          first_apply_hook(shard0, captured))
     timer = LaunchTimer(W, "wire_fused_cuda")
     h = WorkerHarness(fab, lambda p, ws: gw.grad_tree(p, *ws),
                       lambda w, s: (w, s), speed=[1, 2])
@@ -1957,14 +1981,13 @@ def async_path(dev, gw: GemmaWorkers) -> dict:
 
     fab.push = marked_push
     try:
-        with timer:
+        with timer, capture:
             _zero_counts()  # the counts to 0 just before the path...
             torch.cuda.synchronize()
             marks.append(time.perf_counter())
             h.run(ROUNDS)
             launches = _counts()  # ...and read just after
     finally:
-        delattr(shard0, "apply_wire")
         del fab.push
     push_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
     ms = sum(push_ms)
@@ -6153,6 +6176,11 @@ def _tp_rank(rank, world, path, out_dir, device, smoke):
             out["rs"] = _rs_gloo_steps(mesh, dev, world)
             out["rs"].update(model=mesh.coords["model"],
                              seconds=time.perf_counter() - t0)
+            # phase 45's serve_lm at its --mesh 1x2 on the same 2 ranks,
+            # and train_distributed_ps at tp = 1 (its (2, 2) run's control)
+            out["ex_serve_lm"] = _ex_rank(dev, "serve_lm", out_dir)
+            out["ex_train_ps_tp1"] = _ex_rank(
+                dev, "train_distributed_ps", out_dir, EX_PS_TP1_MESH)
         else:
             out = {f"tp{m}": _smoke_tp_run(arch.smoke_config, Mesh(
                 (world // m, m), ("data", "model")), dev) for m in (4, 2)}
@@ -6160,9 +6188,125 @@ def _tp_rank(rank, world, path, out_dir, device, smoke):
             mesh = Mesh((2, 2), ("data", "model"))
             out["gnn"] = _gnn_tp_steps(mesh, dev)
             out["model"] = mesh.coords["model"]
+            # phase 45's train_distributed_ps on a (2, 2) mesh
+            out["ex_train_ps"] = _ex_rank(dev, "train_distributed_ps",
+                                          out_dir)
         torch.save(out, Path(out_dir) / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
+
+
+def _ex_rank(dev, name: str, out_dir, mesh: tuple | None = None) -> dict:
+    """One rank's run of a multi-rank example program inside phase 31's
+    gloo group on ``dev``: ``serve_lm`` at its ``--mesh 1x2``, or
+    ``train_distributed_ps`` on ``mesh`` (EX_PS_MESH unless given; its
+    (2, 4) needs 8 ranks), checkpointing under ``out_dir``; this rank's
+    counts set to 0 just before and read just after."""
+    import io
+    from contextlib import redirect_stdout
+
+    from repro_torch.examples import serve_lm, train_distributed_ps
+
+    t0 = time.perf_counter()
+    with redirect_stdout(io.StringIO()):
+        _zero_counts()
+        if name == "serve_lm":
+            res = serve_lm.main(device=dev)
+            out = {"generated": res["generated"].tolist(),
+                   "version": res["read"]["version"]}
+        else:
+            mesh = mesh or EX_PS_MESH
+            res = train_distributed_ps.main(
+                device=dev, mesh_shape=mesh,
+                ckpt_dir=str(Path(out_dir) / "ex_ckpt_{}x{}".format(*mesh)))
+            out = {k: res[k] for k in ("losses", "loss_after_restart",
+                                       "restart_step", "step")}
+            out["restored_is_saved"] = res["saved"].keys() == \
+                res["restored"].keys() and all(
+                    same_bits(res["saved"][k], res["restored"][k])
+                    for k in res["saved"])
+        out["launches"] = _counts()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def ex_ranks_check(dev, serve_ranks: list, ps_ranks: list,
+                   tp1_ranks: list) -> dict:
+    """Phase 45's multi-rank examples, read from phase 31's ranks:
+    ``serve_lm``'s 2 ranks generate the ids (and read the version) of the
+    same program at ``--mesh 1x1`` on the card; ``train_distributed_ps``'s
+    4 ranks (EX_PS_MESH) and its 2 ranks at tp = 1 (EX_PS_TP1_MESH: the
+    same workers, so the same global batch) each agree among themselves,
+    every loss of the curve (the 4 printed and the one after the restart)
+    at tp = 2 within EX_PS_RTOL of tp = 1's, each rank restored the state
+    it saved at step 20 bitwise, and each launched fused_agg_opt once a
+    step (K = 1, the owned slab)."""
+    import io
+    from contextlib import redirect_stdout
+
+    from repro_torch.examples import serve_lm
+
+    with redirect_stdout(io.StringIO()), deterministic():
+        one = serve_lm.main(["--mesh", "1x1"], device=dev)
+    for r, got in enumerate(serve_ranks):
+        if got["generated"] != one["generated"].tolist() or \
+                got["version"] != one["read"]["version"]:
+            raise AssertionError(
+                f"serve_lm rank {r} at 1 x 2: ids {got['generated']} version"
+                f" {got['version']} against 1 x 1 "
+                f"{one['generated'].tolist()} {one['read']['version']}")
+    for mesh, group in ((EX_PS_MESH, ps_ranks), (EX_PS_TP1_MESH, tp1_ranks)):
+        for r, got in enumerate(group):
+            if got["losses"] != group[0]["losses"] or \
+                    got["loss_after_restart"] != group[0]["loss_after_restart"]:
+                raise AssertionError(
+                    f"train_distributed_ps ranks on {mesh} disagree: "
+                    f"{[g['losses'] for g in group]}")
+            if not got["restored_is_saved"] or got["restart_step"] != 20:
+                raise AssertionError(f"train_distributed_ps rank {r} on "
+                                     f"{mesh}: the restored state is not "
+                                     "the saved one")
+            _check_counts(f"train_distributed_ps rank {r} on {mesh}",
+                          got["launches"], {"fused_agg_opt": got["step"]})
+    curve, tp1 = ([g["losses"][i] for i in range(len(g["losses"]))]
+                  + [g["loss_after_restart"]]
+                  for g in (ps_ranks[0], tp1_ranks[0]))
+    if not all(math.isfinite(x) for x in curve + tp1):
+        raise AssertionError(f"train_distributed_ps: {curve} {tp1}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(curve, tp1)]
+    if max(rel) > EX_PS_RTOL:
+        raise AssertionError(f"train_distributed_ps on {EX_PS_MESH}: losses "
+                             f"{curve} against tp = 1's {tp1} (rel {rel}, "
+                             f"bound {EX_PS_RTOL})")
+    moved = abs(tp1[1] - tp1[0]) / abs(tp1[0])  # five updates' worth
+    if not moved > EX_PS_RTOL:
+        raise AssertionError(f"the check cannot tell a faulty update: five "
+                             f"steps move the loss by rel {moved} (bound "
+                             f"{EX_PS_RTOL})")
+    ps0 = ps_ranks[0]
+    every = serve_ranks + ps_ranks + tp1_ranks
+    launches = {k: sum(g["launches"][k] for g in every)
+                for k in ps0["launches"]}
+    log(f"phase 45 (in phase 31's ranks): serve_lm at --mesh 1x2 over 2 gloo"
+        f" ranks on cuda:0 == --mesh 1x1 (ids {one['generated'].shape}, "
+        f"version {one['read']['version']}; {serve_ranks[0]['seconds']:.1f}"
+        f" s); train_distributed_ps on a {EX_PS_MESH} mesh over 4 ranks: "
+        f"losses {curve} (the last after the restart) against tp = 1 "
+        f"({EX_PS_TP1_MESH} over 2 ranks) {tp1}: rel {rel} (bound "
+        f"{EX_PS_RTOL}; steps 6-10 move tp = 1's loss by rel {moved:.3g}); "
+        f"restarted from step 20 with the saved state bitwise on every "
+        f"rank; fused_agg_opt {ps0['step']} launches a rank "
+        f"({ps0['seconds']:.1f} s; tp = 1 {tp1_ranks[0]['seconds']:.1f} s)")
+    return {"serve_ids_shape": list(one["generated"].shape),
+            "ps_losses": ps0["losses"],
+            "ps_loss_after_restart": ps0["loss_after_restart"],
+            "ps_tp1_curve": tp1, "ps_rel": rel,
+            "launches": launches,
+            "launches_serve": {k: sum(g["launches"][k] for g in serve_ranks)
+                               for k in launches},
+            "launches_train_ps": {k: sum(g["launches"][k]
+                                         for g in ps_ranks + tp1_ranks)
+                                  for k in launches}}
 
 
 def _spawn_tp(world: int, dev, smoke: bool = False) -> tuple:
@@ -6375,6 +6519,8 @@ def tp_path(dev, smoke: bool = False) -> dict:
             "peak_bytes": {label: run["peak_bytes"]
                            for label, run in runs.items()},
             "rs_ranks": [r["rs"] for r in ranks]}
+    serve_ranks = [r["ex_serve_lm"] for r in ranks]
+    ps_tp1_ranks = [r["ex_train_ps_tp1"] for r in ranks]
     del g1, ranks, ref
     torch.cuda.empty_cache()
 
@@ -6396,6 +6542,9 @@ def tp_path(dev, smoke: bool = False) -> dict:
         f"and 6 decode ids equal) in {seconds:.1f} s")
     full["smoke_seconds"] = seconds
     full["gnn"] = gnn_tp_check(ranks, dev)
+    full["examples"] = ex_ranks_check(
+        dev, serve_ranks, [r["ex_train_ps"] for r in ranks],
+        ps_tp1_ranks)
     return full
 
 
@@ -7255,26 +7404,23 @@ def resnet_fabric_path(dev, smoke: bool = False) -> dict:
 
     captured: dict = {}
     shard0 = fab.shards[0]
-    capture_first_apply(shard0, "apply", captured)
+    capture = LaunchTimer(shard0, "apply", first_apply_hook(shard0, captured))
     timer = LaunchTimer(K, "fused_agg_opt_cuda")
     h = WorkerHarness(fab, grad_fn, lambda w, s: (w, s))
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     round_ms = []
-    try:
-        with timer:
-            _zero_counts()
-            for r in range(1, rounds + 1):
-                if r == rounds:
-                    prof.start()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                h.run(r)
-                torch.cuda.synchronize()
-                round_ms.append((time.perf_counter() - t0) * 1e3)
-            prof.stop()
-            launches = _counts()
-    finally:
-        delattr(shard0, "apply")
+    with timer, capture:
+        _zero_counts()
+        for r in range(1, rounds + 1):
+            if r == rounds:
+                prof.start()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            h.run(r)
+            torch.cuda.synchronize()
+            round_ms.append((time.perf_counter() - t0) * 1e3)
+        prof.stop()
+        launches = _counts()
     _check_counts("resnet fabric", launches, {"fused_agg_opt": SHARDS * rounds})
     peak = memory.now()[1]
     loss_vals = finite_losses(losses)
@@ -8258,6 +8404,350 @@ def gnn_tp_check(ranks: list, dev) -> dict:
     return {"max_abs_err": err}
 
 
+# -- phase 45: the example programs (repro_torch.examples) on the card --------
+# train_100m_e2e at its published CFG for its 200 steps; the quickstart,
+# gnn_molecules and recsys_serving at the JAX examples' own sizes, each
+# from weights drawn on the CPU and held against the same program on the
+# CPU; serve_lm and train_distributed_ps run inside phase 31's spawn
+E2E_STEPS = 200
+# train_distributed_ps inside phase 31's 4 ranks: its (2, 4) mesh needs 8;
+# and at tp = 1 on its 2 ranks (the same 2 workers: the same global batch)
+EX_PS_MESH, EX_PS_TP1_MESH = (2, 2), (2, 1)
+# its loss curve at tp = 2 against tp = 1 (phase 31's SMOKE tp bound):
+# on an H100 80GB HBM3 the curves differ by 7.7e-8, and 5 steps move the
+# loss by 4.5e-3
+EX_PS_RTOL = 2e-5
+# the oracle's bounds (tests/test_torch_fused_agg_opt.py, f32 params and
+# the state slots): fused_aggregate_update_ref follows apply_update's op
+# order, not the kernel's, so it is held at a tolerance, and the kernel
+# bitwise against its plain version
+E2E_REF_ATOL = (1e-6, 1e-5)
+# the gnn_molecules curve card against CPU, between two readings on an
+# H100 80GB HBM3: 1.7e-6 at most in sound runs, 4.4e-3 for the control
+# (TF32 products on the card)
+GNN_EX_RTOL = 1e-4
+
+
+def book_updates(book: list, calls: int | None = None):
+    """A ``LaunchTimer`` hook on the ``fused_aggregate_update`` a module
+    calls (its bound name): host copies of each of the first ``calls``
+    calls' operands (all calls for None), from before the call (the kernel
+    updates in place), and of its results, appended to ``book``."""
+    import torch
+
+    def host(x):
+        if isinstance(x, (list, tuple)):
+            return [None if t is None else _host(t) for t in x]
+        return _host(x) if torch.is_tensor(x) else x
+
+    def hook(args, kwargs):
+        if calls is not None and len(book) >= calls:
+            return None
+        grads, param, state, spec, step, *lr = args
+        kw = dict(kwargs)
+        lr = lr[0] if lr else kw.pop("lr_scale", 1.0)
+        entry = {"in": (host(grads), _host(param), host(state), spec,
+                        int(step), host(lr),
+                        {k: host(v) for k, v in kw.items()})}
+        book.append(entry)
+
+        def after(out):
+            entry["out"] = (_host(out[0]), host(out[1]))
+        return after
+
+    return hook
+
+
+def replay_updates(dev, book: list, label: str) -> float:
+    """Each booked update through fused_agg_opt's plain version on the
+    card, on the same operands: the kernel's results bitwise required.
+    Returns the largest |err|."""
+    import torch
+
+    from repro_torch.kernels.fused_agg_opt import kernel as K
+    from repro_torch.kernels.fused_agg_opt.ops import scalar_packet
+
+    def card(x):
+        if isinstance(x, list):
+            return [None if t is None else t.to(dev) for t in x]
+        return x.to(dev) if torch.is_tensor(x) else x
+
+    err = 0.0
+    for i, entry in enumerate(book):
+        grads, p, st, spec, step, lr, kw = map(card, entry["in"])
+        want_p, want_s = K.fused_agg_opt_torch(
+            grads, p, tuple(st), scalar_packet(spec, step, lr, device=dev),
+            spec, **{k: card(v) for k, v in kw.items()})
+        got_p, got_s = entry["out"]
+        pairs = [(got_p, want_p.cpu()),
+                 *zip(got_s, (w.cpu() for w in want_s))]
+        err = max([err] + [max_abs_err(a, b) for a, b in pairs])
+        if not all(same_bits(a, b) for a, b in pairs):
+            raise AssertionError(f"{label}: update {i + 1} (step {step}) "
+                                 f"differs from the plain version, max "
+                                 f"|err| {err}")
+    return err
+
+
+def replay_first_update(dev, entry: dict) -> dict:
+    """train_100m_e2e's booked first update through the oracle
+    ``fused_aggregate_update_ref`` (within E2E_REF_ATOL); ``replay_updates``
+    holds it bitwise against the plain version."""
+    from repro_torch.kernels.fused_agg_opt.ref import (
+        fused_aggregate_update_ref,
+    )
+
+    grads, p, st, spec, step, lr, kw = entry["in"]
+    lr = lr.to(dev) if hasattr(lr, "to") else lr
+    got_p, got_s = entry["out"]
+    ref_p, ref_s = fused_aggregate_update_ref(
+        grads.to(dev), p.to(dev), tuple(s.to(dev) for s in st), spec, step,
+        lr, **kw)
+    ref_pairs = [(got_p, ref_p.cpu()), *zip(got_s, (w.cpu() for w in ref_s))]
+    ref_err = [max_abs_err(a, b) for a, b in ref_pairs]
+    ref_bits = [same_bits(a, b) for a, b in ref_pairs]
+    if ref_err[0] > E2E_REF_ATOL[0] or max(ref_err[1:]) > E2E_REF_ATOL[1]:
+        raise AssertionError(f"train_100m_e2e's first update against "
+                             f"fused_aggregate_update_ref: max |err| "
+                             f"{ref_err} (bounds {E2E_REF_ATOL})")
+    return {"ref_max_abs_err": ref_err, "ref_bitwise": ref_bits,
+            "step": step, "lr_scale": float(lr), "n": int(got_p.numel())}
+
+
+def e2e_path(dev, smoke: bool = False) -> dict:
+    """``repro_torch.examples.train_100m_e2e`` at its published CFG (12
+    layers, d 512, ff 2048, vocab 32768, f32) for E2E_STEPS steps of 4 x
+    128 tokens, checkpoints every 100 into a temporary directory.  Counts
+    set to 0 just before and read just after: one fused_agg_opt a step (K
+    = 1, f32 AdamW, no averaging) and nothing else; the first update
+    booked and replayed (``replay_updates``, ``replay_first_update``); the
+    loss falls (the example's own
+    check) and stays finite; the last checkpoint equals the final state
+    bitwise.  Reads the steady step (host clock between consecutive
+    updates, each step ending in the loss's ``item()``), each launch's
+    CUDA-event ms inside the run, and the peak.  ``smoke``: 2 layers, d
+    64, vocab 512, 24 steps."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.examples import train_100m_e2e as E
+
+    cfg, steps = E.CFG, E2E_STEPS
+    if smoke:
+        cfg = dataclasses.replace(cfg, n_layers=2, d_model=64, head_dim=8,
+                                  d_ff=256, vocab=512)
+        steps = 24
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_e2e_")
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        book: list = []
+        with LaunchTimer(E, "fused_aggregate_update",
+                         book_updates(book, 1)) as lt:
+            _zero_counts()  # every count to 0 just before the path...
+            res = E.main(["--steps", str(steps), "--ckpt-dir", tmp],
+                         device=dev, cfg=cfg,
+                         ckpt_every=steps // 2 if smoke else 100)
+            launches = _counts()  # ...and read just after
+        peak = torch.cuda.max_memory_allocated(dev)
+        _check_counts("train_100m_e2e", launches, {"fused_agg_opt": steps})
+        losses = res["losses"]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"train_100m_e2e: non-finite loss {losses}")
+        host, _ = Checkpointer(tmp).restore()
+        if int(host["step"]) != steps or not all(
+                same_bits(torch.from_numpy(host[k][0]), v.cpu()) for k, v in
+                (("pflat", res["pflat"]), ("slot0", res["slots"][0]),
+                 ("slot1", res["slots"][1]))):
+            raise AssertionError("train_100m_e2e: the last checkpoint is "
+                                 "not the final state")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    err = replay_updates(dev, book, "train_100m_e2e")
+    replay = dict(replay_first_update(dev, book[0]), max_abs_err=err)
+    step_s = [b - a for a, b in zip(lt.stamps, lt.stamps[1:])]
+    steady = statistics.median(step_s[len(step_s) // 10:])
+    ms = lt.ms()
+    out = {"losses": [losses[0], losses[-1]], "steps": steps,
+           "params": res["params"], "flat": res["flat"],
+           "s_per_step": res["s_per_step"], "steady_s_per_step": steady,
+           "launch_ms_in_run": statistics.median(ms[1:]),
+           "peak_bytes": peak, "launches": launches, "replay": replay}
+    log(f"phase 45: train_100m_e2e ({'SMOKE-cut' if smoke else 'published'}"
+        f" CFG, {res['params']} params, flat {res['flat']}) {steps} steps "
+        f"on the card: loss {losses[0]:.4f} -> {losses[-1]:.4f}, steady "
+        f"step {steady * 1e3:.2f} ms (host clock between updates; mean "
+        f"{res['s_per_step'] * 1e3:.2f} ms with the first steps and the "
+        f"checkpoints), fused_agg_opt {launches['fused_agg_opt']} launches, "
+        f"{out['launch_ms_in_run']:.4f} ms a launch in the run (CUDA events "
+        f"around the wrapper, median), peak "
+        f"{peak / 2**30:.2f} GiB; first update (step {replay['step']}, "
+        f"lr_scale {replay['lr_scale']:.6g}) == the plain version bitwise, "
+        f"against fused_aggregate_update_ref max |err| "
+        f"{replay['ref_max_abs_err']} (bitwise {replay['ref_bitwise']}); "
+        f"the step-{steps} checkpoint == the final state bitwise")
+    return out
+
+
+def _ex_quickstart(dev, params_cpu) -> dict:
+    """The quickstart on the card (its 40 rounds, counts read around the
+    run) and its first round on the CPU from the same weights: round 1's
+    two losses (both workers read the initial weights) card == CPU within
+    RS_CARD_RTOL / RS_CARD_ATOL; every one of the run's updates (each
+    shard's, every round) booked and replayed through the plain version
+    on the card, bitwise."""
+    import io
+    from contextlib import redirect_stdout
+
+    from repro_torch.core import fabric
+    from repro_torch.examples import quickstart as Q
+
+    book: list = []
+    with redirect_stdout(io.StringIO()), LaunchTimer(
+            fabric, "fused_aggregate_update", book_updates(book)):
+        _zero_counts()
+        res = Q.main(device=dev, params=_tree_to(params_cpu, dev))
+        launches = _counts()
+    _check_counts("quickstart", launches,
+                  {"fused_agg_opt": Q.ROUNDS * Q.SHARDS})
+    err = replay_updates(dev, book, "quickstart")
+    cpu = Q.build(device="cpu", params=params_cpu)
+    cpu["harness"].run(1)
+    for a, b in zip(res["losses"][:Q.WORKERS], cpu["losses"]):
+        if not math.isclose(a, b, rel_tol=RS_CARD_RTOL, abs_tol=RS_CARD_ATOL):
+            raise AssertionError(f"quickstart round 1 losses "
+                                 f"{res['losses'][:2]} against the CPU's "
+                                 f"{cpu['losses']}")
+    if not all(math.isfinite(x) for x in res["losses"]):
+        raise AssertionError(f"quickstart: non-finite loss {res['losses']}")
+    return {"losses": [res["losses"][0], res["losses"][-1]],
+            "cpu_round1": cpu["losses"], "pushes": res["pushes"],
+            "pipeline_speedup": res["pipeline_speedup"],
+            "launches": launches, "replayed": len(book),
+            "replay_max_abs_err": err}
+
+
+def _ex_gnn(dev, params_cpu, steps: int) -> dict:
+    """gnn_molecules on the card and on the CPU from the same weights:
+    step 0's MSE (before any update) within RS_CARD_RTOL / RS_CARD_ATOL,
+    every step's within GNN_EX_RTOL, all finite.  Its control: the same
+    run on the card with TF32 allowed in the f32 products, whose curve
+    must part from the CPU's by more than GNN_EX_RTOL."""
+    import io
+    from contextlib import redirect_stdout
+
+    import torch
+
+    from repro_torch.examples import gnn_molecules as G
+
+    def rel(a, b):
+        return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    with redirect_stdout(io.StringIO()):
+        card = G.main(device=dev, steps=steps,
+                      params=_tree_to(params_cpu, dev))["losses"]
+        cpu = G.main(device="cpu", steps=steps, params=params_cpu)["losses"]
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            control = G.main(device=dev, steps=steps,
+                             params=_tree_to(params_cpu, dev))["losses"]
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    if not all(math.isfinite(x) for x in card) or not math.isclose(
+            card[0], cpu[0], rel_tol=RS_CARD_RTOL, abs_tol=RS_CARD_ATOL) or \
+            not rel(card, cpu) <= GNN_EX_RTOL:
+        raise AssertionError(f"gnn_molecules card {card} against CPU {cpu}")
+    if not rel(control, cpu) > GNN_EX_RTOL:
+        raise AssertionError(f"the check cannot tell TF32 products: the "
+                             f"control's curve {control} is within rel "
+                             f"{rel(control, cpu)} of the CPU's")
+    return {"losses": card, "cpu_losses": cpu, "max_rel": rel(card, cpu),
+            "control_max_rel": rel(control, cpu)}
+
+
+def _ex_recsys(dev, params_cpu) -> dict:
+    """recsys_serving on the card and on the CPU from the same weights:
+    logits and retrieval scores within RS_CARD_RTOL / RS_CARD_ATOL, the
+    top ids where neighbouring scores stand further apart."""
+    import io
+    from contextlib import redirect_stdout
+
+    import numpy as np
+
+    from repro_torch.examples import recsys_serving as R
+
+    with redirect_stdout(io.StringIO()):
+        card = R.main(device=dev, params=_tree_to(params_cpu, dev))
+        cpu = R.main(device="cpu", params=params_cpu)
+    for key in ("logits", "scores"):
+        if not np.allclose(card[key], cpu[key], rtol=RS_CARD_RTOL,
+                           atol=RS_CARD_ATOL):
+            err = np.abs(card[key] - cpu[key]).max()
+            raise AssertionError(f"recsys_serving {key}: card against CPU "
+                                 f"max |err| {err}")
+    ranked = np.sort(cpu["scores"])[::-1][:R.TOP + 1]
+    tol = RS_CARD_ATOL + RS_CARD_RTOL * np.abs(ranked)
+    apart = [ranked[i] - ranked[i + 1] > tol[i]
+             and (i == 0 or ranked[i - 1] - ranked[i] > tol[i])
+             for i in range(R.TOP)]
+    if any(a and x != y for a, x, y in zip(apart, card["top_ids"],
+                                          cpu["top_ids"])):
+        raise AssertionError(f"recsys_serving top ids {card['top_ids']} "
+                             f"against the CPU's {cpu['top_ids']}")
+    return {"top_ids": card["top_ids"].tolist(),
+            "max_abs_err": float(max(np.abs(card[k] - cpu[k]).max()
+                                     for k in ("logits", "scores")))}
+
+
+def examples_path(dev, smoke: bool = False) -> dict:
+    """Phase 45: the single-rank example programs on the card
+    (``e2e_path``; the quickstart, gnn_molecules and recsys_serving, each
+    from weights drawn on the CPU and held against the same program on the
+    CPU).  ``smoke``: the e2e run cut (``e2e_path``)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.gnn import equiformer_v2 as EQ
+    from repro_torch.models.recsys import models as RS
+
+    t0 = time.perf_counter()
+    out = {"train_100m_e2e": e2e_path(dev, smoke)}
+    torch.cuda.empty_cache()
+    gen = torch.Generator().manual_seed(0)
+    out["quickstart"] = _ex_quickstart(dev, T.init_params(
+        get_arch("gemma3-1b").smoke_config, torch.Generator().manual_seed(0)))
+    gcfg = dataclasses.replace(get_arch("equiformer-v2").smoke_config,
+                               task="graph_reg", n_out=1)
+    out["gnn_molecules"] = _ex_gnn(dev, EQ.init_params(gcfg, gen), 15)
+    out["recsys_serving"] = _ex_recsys(dev, RS.dlrm_init(
+        get_arch("dlrm-mlperf").smoke_config,
+        torch.Generator().manual_seed(0)))
+    q, g, r = (out[k] for k in ("quickstart", "gnn_molecules",
+                                "recsys_serving"))
+    log(f"phase 45: quickstart 40 rounds on the card: loss "
+        f"{q['losses'][0]:.4f} -> {q['losses'][1]:.4f}, {q['pushes']} "
+        "pushes, fused_agg_opt "
+        f"{q['launches']['fused_agg_opt']} launches (K = 2), each of the "
+        f"{q['replayed']} updates == the plain version bitwise, round 1 == "
+        f"CPU within rtol {RS_CARD_RTOL}; gnn_molecules {len(g['losses'])} steps:"
+        f" mse {g['losses'][0]:.4f} -> {g['losses'][-1]:.4f}, CPU "
+        f"{g['cpu_losses'][-1]:.4f} (max rel {g['max_rel']:.3g}, bound "
+        f"{GNN_EX_RTOL}; control with TF32 products {g['control_max_rel']:.3g}"
+        f"); recsys_serving: logits and 4096 scores == CPU "
+        f"within rtol {RS_CARD_RTOL} / atol {RS_CARD_ATOL} (max |err| "
+        f"{r['max_abs_err']:.3g}), top-5 ids {r['top_ids']}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
 # -- phase 19: kernel timings ------------------------------------------------
 # fused_agg_opt's optimizers as the paths run them: the spec, its state
 # slots, the step the packet carries, the seed of the inputs, and the f32
@@ -9003,6 +9493,9 @@ def main() -> int:
         roof = roofline_path(dev, spmd, remat, rn_spmd, gnn)
         lap("44 roofline")
     torch.cuda.empty_cache()
+    examples = examples_path(dev)
+    lap("45 examples")
+    torch.cuda.empty_cache()
     switch_math = switch_math_ms(dev, int8["flat"], int8["chunk"])
     d = dlrm_capped_config().embed_dim
     timing = {"fused_agg_opt": time_fused_agg_opt(dev, f32["n"], WORKERS),
@@ -9035,6 +9528,9 @@ def main() -> int:
               # EquiformerV2's SPMD AdamW: K = 1, f32, the molecule flat
               "fused_agg_opt_gnn": time_fused_agg_opt(
                   dev, gnn["molecule"]["flat"], 1, average=False, sets=2),
+              # train_100m_e2e's update: AdamW, K = 1, f32, the whole flat
+              "fused_agg_opt_e2e": time_fused_agg_opt(
+                  dev, examples["train_100m_e2e"]["flat"], 1, average=False),
               "embedding_bag": time_embedding_bag(
                   dev, DLRM_BATCH, 1, d, DLRM_ROW_CAP, "one-hot main path", 4),
               "segment_sum": time_segment_sum(dev, DLRM_BATCH, d, DLRM_ROW_CAP)}
@@ -9045,7 +9541,9 @@ def main() -> int:
                                      *(run["replay_err"]
                                        for run in gnn.values()),
                                      *(run["replay_err"]
-                                       for run in spmd.values())),
+                                       for run in spmd.values()),
+                                     examples["train_100m_e2e"]["replay"][
+                                         "max_abs_err"]),
                 "wire_fused": max(int8_err, async_err), **codec_err,
                 **dlrm_err}
     # every path's launches, by kernel; the SMOKE cases summed
@@ -9104,7 +9602,14 @@ def main() -> int:
                 gnn.items()},
              "smoke_gnn": {k: sum(c["launches"][k] for c in
                                   smoke_gnn.values())
-                           for k in f32["launches"]}}
+                           for k in f32["launches"]},
+             "examples_train_100m_e2e":
+                 examples["train_100m_e2e"]["launches"],
+             "examples_quickstart": examples["quickstart"]["launches"],
+             "examples_serve_lm_ranks":
+                 tp["examples"]["launches_serve"],
+             "examples_train_distributed_ps_ranks":
+                 tp["examples"]["launches_train_ps"]}
     recsys_paths = [p for p in paths if p.startswith(("recsys_",
                                                       "smoke_recsys"))]
     # K = 1 without averaging: the async pushes (f32 ones only at SMOKE)
@@ -9207,6 +9712,20 @@ def main() -> int:
                       "device_update_ms": {
                           shape: statistics.median(run["update_ms"][1:])
                           for shape, run in gnn.items()}}))}
+               if kname == "fused_agg_opt" else {}),
+            **({"train_100m_e2e_k1_adamw_f32": {
+                "launches": paths["examples_train_100m_e2e"][kname],
+                "n": examples["train_100m_e2e"]["flat"],
+                "replay_max_abs_err":
+                    examples["train_100m_e2e"]["replay"]["max_abs_err"],
+                "ref_max_abs_err":
+                    examples["train_100m_e2e"]["replay"]["ref_max_abs_err"],
+                "main_path_ms":
+                    examples["train_100m_e2e"]["launch_ms_in_run"],
+                **{key: timing["fused_agg_opt_e2e"].get(key) for key in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "share",
+                    "max_abs_err", "library_ms", "library",
+                    "library_same_bits", "timed_by")}}}
                if kname == "fused_agg_opt" else {}),
             **({"recsys_sgd_k1_f32": {
                 "launches": sum(paths[p][kname] for p in recsys_paths),
@@ -9312,6 +9831,9 @@ def main() -> int:
             f"{run['device_busy_ms'] or 0:.1f} ms profiled, "
             f"{run['seconds']:.1f} s (profile {run['profile_s']:.1f} s)"
             for shape, run in gnn.items())
+        + "; train_100m_e2e steady step "
+        f"{examples['train_100m_e2e']['steady_s_per_step'] * 1e3:.2f} ms, "
+        f"peak {examples['train_100m_e2e']['peak_bytes'] / 2**30:.2f} GiB"
         + f"; switch integer math "
         f"{sum(v['ms'] for v in switch_math.values()):.3f} ms; whole run "
         f"{time.perf_counter() - t_start:.1f} s")
@@ -9349,6 +9871,8 @@ out = {
                                          opt="sgd", sets=3)),
     "adamw_k1_f32_gnn": cs.time_fused_agg_opt(dev, 35086336, 1,
                                               average=False, sets=2),
+    "adamw_k1_f32_e2e": cs.time_fused_agg_opt(dev, 83902464, 1,
+                                              average=False),
     "wire_fused": cs.time_wire(dev, 325451776, 2, 8192),
     **cs.time_quant(dev, 1301807104, 8192)}
 print("COMPARE " + json.dumps({"root": sys.argv[1], **{
@@ -9358,8 +9882,9 @@ print("COMPARE " + json.dumps({"root": sys.argv[1], **{
 
 def compare(other: str) -> int:
     """``python3 chip_smoke.py --compare OTHER``: fused_agg_opt at the four
-    main-path shapes and the GNN's (AdamW f32 K = 1 over 35,086,336, each
-    beside its library call where one exists), and the kernels that share
+    main-path shapes, the GNN's (AdamW f32 K = 1 over 35,086,336) and
+    train_100m_e2e's (AdamW f32 K = 1 over its flat, 83,902,464), each
+    beside its library call where one exists, and the kernels that share
     ``pbox_opt.cuh``, timed
     with this checkout's kernels and with those of the checkout at OTHER
     (e.g. the parent commit unpacked by ``git archive``), each side in its

@@ -175,6 +175,23 @@ class ParamSpace:
         ]
         return _unflatten_paths(self.treedef, leaves)
 
+    # ---- owner views ----
+    def to_owner_slabs(self, flat: torch.Tensor) -> torch.Tensor:
+        """(flat,) -> (num_owners, elems_per_owner), a view of ``flat``.
+
+        Owner o holds chunks [o*cpo, (o+1)*cpo): a contiguous slab, so a
+        reduce-scatter over the owners is one contiguous collective."""
+        return flat.reshape(self.num_owners, self.elems_per_owner)
+
+    def from_owner_slabs(self, slabs: torch.Tensor) -> torch.Tensor:
+        return slabs.reshape(self.flat_elems)
+
+    def owner_of_chunk(self, chunk_idx: int) -> int:
+        return chunk_idx // self.chunks_per_owner
+
+    def owner_of_offset(self, offset: int) -> int:
+        return self.owner_of_chunk(offset // self.chunk_elems)
+
     # ---- introspection ----
     def describe(self) -> str:
         return (

@@ -6,19 +6,23 @@ training loop (the host-side half of compute/transfer overlap): items come
 out in the iterator's order, and an exception the iterator raises is
 raised by ``__next__`` after the items before it.  A finite iterator ends
 the pipeline with ``StopIteration`` (the JAX one's ``__next__`` then
-waits forever; its callers' iterators are infinite).  The default transform
-moves every numpy array (or tensor) of a batch dict to the caller's
-device: the card unless ``device`` says otherwise.
+waits forever; its callers' iterators are infinite), and ``close`` joins
+the worker thread (the JAX one leaves it to end on its own).  The default
+transform moves every numpy array (or tensor) of a batch dict to the
+caller's device: the card unless ``device`` says otherwise.
 """
 from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Callable, Iterator
 
 import torch
 
 from repro_torch.device import resolve_device
+
+_JOIN_TIMEOUT = 60.0  # seconds close() waits for the worker thread
 
 
 def to_device(batch, device: torch.device):
@@ -65,9 +69,21 @@ class Prefetcher:
         return item
 
     def close(self):
+        """Stop the worker thread and join it.  The queue is drained until
+        the worker ends, so a put it is blocked on (an item, or the end
+        marker of a finite iterator) always returns; after an item it draws
+        at most one more, sees the stop and ends (an infinite iterator
+        included)."""
         self._stop.set()
-        try:
-            while True:
-                self.q.get_nowait()
-        except queue.Empty:
-            pass
+        deadline = time.monotonic() + _JOIN_TIMEOUT
+        while self.t.is_alive() and time.monotonic() < deadline:
+            try:
+                while True:
+                    self.q.get_nowait()
+            except queue.Empty:
+                pass
+            self.t.join(timeout=0.05)
+        if self.t.is_alive():
+            raise TimeoutError(
+                f"the prefetch thread is still running {_JOIN_TIMEOUT:.0f} s "
+                "after close(): its iterator's next item never came")

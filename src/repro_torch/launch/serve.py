@@ -302,10 +302,11 @@ def serve(cfg, args, *, device=None, params=None) -> dict:
     }
 
 
-def main(argv=None, *, device=None) -> dict:
+def main(argv=None, *, device=None, params=None) -> dict:
     """The CLI: ``serve`` at the arch's SMOKE config (the JAX driver's
     ``main`` serves ``arch.smoke_config`` too), on the card unless
-    ``device`` says otherwise."""
+    ``device`` says otherwise, from ``params`` when given (else the init
+    seeded ``--seed``)."""
     from repro_torch.configs.registry import get_arch
     from repro_torch.launch.mesh import start_group
 
@@ -319,7 +320,7 @@ def main(argv=None, *, device=None) -> dict:
     if d * m > 1:  # torchrun's world, or the caller's group
         device, cleanup = start_group(d * m, device)
     try:
-        out = serve(arch.smoke_config, args, device=device)
+        out = serve(arch.smoke_config, args, device=device, params=params)
     finally:
         if cleanup is not None:
             cleanup()

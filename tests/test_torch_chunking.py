@@ -122,3 +122,71 @@ def test_zeros_like_space_matches_jax(make, dtype):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             zeros_like_space(ts)
+
+
+# ---- owner views (tests/test_chunking.py's balance and slab-view cases) ----
+
+try:
+    import hypothesis.strategies as st  # noqa: E402
+    from hypothesis import given, settings  # noqa: E402
+except ImportError:  # optional dep: fixed-seed stand-in, no shrinking
+    from _hypo_fallback import given, settings, st  # noqa: E402
+
+
+def _owner_tree(shapes):
+    rng = np.random.default_rng(42)
+    return {f"t{i}": rng.normal(size=s).astype(np.float32)
+            for i, s in enumerate(shapes)}
+
+
+@settings(max_examples=25, deadline=None)
+@given(shapes=st.lists(st.tuples(st.integers(1, 4), st.integers(1, 37),
+                                 st.integers(1, 9)), min_size=1, max_size=6),
+       owners=st.integers(1, 16))
+def test_owner_map_matches_jax_for_every_chunk(shapes, owners):
+    """``owner_of_chunk`` for every chunk and ``owner_of_offset`` for the
+    first and last element of every chunk equal JAX's, and each is the
+    contiguous-slab map ``c // chunks_per_owner``."""
+    tree = _owner_tree(shapes)
+    js = JaxSpace.build(jax.tree.map(jnp.asarray, tree),
+                        chunk_elems=TILE_ELEMS, num_owners=owners)
+    ts = ParamSpace.build(params_from_numpy(tree, "cpu"),
+                          chunk_elems=TILE_ELEMS, num_owners=owners)
+    assert ts.chunks_per_owner == js.chunks_per_owner
+    for c in range(ts.num_chunks):
+        assert ts.owner_of_chunk(c) == js.owner_of_chunk(c) \
+            == c // ts.chunks_per_owner
+        for off in (c * ts.chunk_elems, (c + 1) * ts.chunk_elems - 1):
+            assert ts.owner_of_offset(off) == js.owner_of_offset(off) \
+                == ts.owner_of_chunk(c)
+
+
+@pytest.mark.parametrize("owners", [1, 3, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_owner_slab_views_match_jax(owners, dtype):
+    """``to_owner_slabs`` is a (num_owners, elems_per_owner) view of the
+    flat holding JAX's slabs bit for bit, and ``from_owner_slabs`` gives
+    the flat back, bitwise equal to JAX's round trip."""
+    tree = _owner_tree([(64, 130), (7,)])
+    js = JaxSpace.build(jax.tree.map(jnp.asarray, tree),
+                        chunk_elems=TILE_ELEMS, num_owners=owners)
+    ts = ParamSpace.build(params_from_numpy(tree, "cpu"),
+                          chunk_elems=TILE_ELEMS, num_owners=owners)
+    jflat = js.flatten(jax.tree.map(jnp.asarray, tree), getattr(jnp, dtype))
+    tflat = ts.flatten(params_from_numpy(tree, "cpu"), getattr(torch, dtype))
+    slabs = ts.to_owner_slabs(tflat)
+    jslabs = js.to_owner_slabs(jflat)
+    assert tuple(slabs.shape) == jslabs.shape == (owners, ts.elems_per_owner)
+    assert slabs.data_ptr() == tflat.data_ptr()  # a view, no copy
+    bits = (lambda t: t.view(torch.int16).numpy()) if dtype == "bfloat16" \
+        else (lambda t: t.view(torch.int32).numpy())
+    jbits = (lambda a: np.asarray(a).view(np.int16)) if dtype == "bfloat16" \
+        else (lambda a: np.asarray(a).view(np.int32))
+    np.testing.assert_array_equal(bits(slabs), jbits(jslabs))
+    back = ts.from_owner_slabs(slabs)
+    assert tuple(back.shape) == (ts.flat_elems,)
+    np.testing.assert_array_equal(bits(back),
+                                  jbits(js.from_owner_slabs(jslabs)))
+    np.testing.assert_array_equal(bits(back), bits(tflat))
+    with pytest.raises(RuntimeError):  # a flat of another length
+        ts.to_owner_slabs(tflat[:-1])

@@ -513,6 +513,13 @@ def test_tensor_parallel_on_card_matches_tp1(cuda, monkeypatch):
     assert out["ids_agree"] == 1.0
     # EquiformerV2's channel TP and edge parallelism on the 4 ranks
     assert out["gnn"]["max_abs_err"] <= cs.GNN_TP_ATOL
+    # the multi-rank example programs: serve_lm on the 2 ranks (ids equal
+    # to one rank's), train_distributed_ps on the 4 and at tp = 1 on the 2
+    # (25 updates a rank, the curves within EX_PS_RTOL)
+    ex = out["examples"]
+    assert ex["serve_ids_shape"] == [4, 12]
+    assert ex["launches_train_ps"]["fused_agg_opt"] == 6 * 25
+    assert max(ex["ps_rel"]) <= cs.EX_PS_RTOL
 
 
 @pytest.mark.gpu
@@ -636,3 +643,27 @@ def test_gnn_paths_and_smoke_cells_on_card(cuda):
         assert len(paths[shape]["losses"]) == cs.GNN_STEPS
     assert len(cells) == len(cs.GNN_SMOKE_CASES)
     assert all(c["launches"]["fused_agg_opt"] == 1 for c in cells.values())
+
+
+@pytest.mark.gpu
+def test_example_programs_on_card(cuda):
+    """chip_smoke.py's phase 45 with the e2e run cut (2 layers, d 64, 24
+    steps): one fused_agg_opt a step, the first update equal to the plain
+    version bitwise and within E2E_REF_ATOL of the oracle, the checkpoint
+    equal to the final state; the quickstart (160 launches, each replayed
+    through the plain version bitwise), gnn_molecules (its curve within
+    GNN_EX_RTOL of the CPU's, its TF32 control outside) and
+    recsys_serving on the card against the CPU."""
+    cs = _chip_smoke()
+    out = cs.examples_path(cuda, smoke=True)
+    e2e = out["train_100m_e2e"]
+    assert e2e["launches"]["fused_agg_opt"] == e2e["steps"] == 24
+    assert e2e["replay"]["max_abs_err"] == 0.0
+    assert e2e["losses"][1] < e2e["losses"][0]
+    assert out["quickstart"]["launches"]["fused_agg_opt"] == 160
+    assert out["quickstart"]["replayed"] == 160
+    assert out["quickstart"]["replay_max_abs_err"] == 0.0
+    gnn = out["gnn_molecules"]
+    assert len(gnn["losses"]) == 15
+    assert gnn["max_rel"] <= cs.GNN_EX_RTOL < gnn["control_max_rel"]
+    assert len(out["recsys_serving"]["top_ids"]) == 5

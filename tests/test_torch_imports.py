@@ -551,3 +551,47 @@ def test_analysis_slice_imports_with_jax_blocked(module, names):
             text=True, timeout=180, cwd=ROOT, env=env)
         flag = "--variant" if module.endswith(".dryrun") else "--mesh"
         assert out.returncode == 0 and flag in out.stdout
+
+
+EXAMPLES = ("quickstart", "train_100m_e2e", "gnn_molecules",
+            "recsys_serving", "serve_lm", "train_distributed_ps")
+
+
+@pytest.mark.parametrize("module", [f"examples/{n}.py" for n in EXAMPLES]
+                         + ["examples/__init__.py"])
+def test_example_programs_are_checked(module):
+    """The example programs (``repro_torch.examples``) are among the files
+    checked above."""
+    assert ROOT / "src" / "repro_torch" / module in PORT_FILES
+
+
+def test_example_programs_import_with_jax_blocked():
+    """Every example program imports in a process where ``import jax`` and
+    ``import repro`` fail, pulls in neither, and has its ``main``."""
+    code = (
+        "import importlib, sys\n"
+        "for name in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[name] = None\n"
+        f"for n in {EXAMPLES!r}:\n"
+        "    mod = importlib.import_module('repro_torch.examples.' + n)\n"
+        "    assert callable(mod.main), n\n"
+        "assert not any(m.split('.')[0] in ('jax', 'jaxlib', 'repro')\n"
+        "               for m in sys.modules if sys.modules[m] is not None)\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=180, cwd=ROOT,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_example_programs_run_as_modules(name):
+    """``python -m repro_torch.examples.<name> --help`` runs with JAX
+    absent from the path and prints the program's usage."""
+    out = subprocess.run(
+        [sys.executable, "-m", f"repro_torch.examples.{name}", "--help"],
+        capture_output=True, text=True, timeout=180, cwd=ROOT,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+    assert out.returncode == 0 and out.stdout.startswith("usage:"), out.stderr

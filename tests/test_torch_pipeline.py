@@ -4,7 +4,8 @@ the JAX one.
 Mirrors ``test_prefetcher_order_and_error`` (tests/test_data.py:70) on
 both packages: items come out in order and the iterator's error is
 raised after them.  Beside it: the default transform puts a batch on the
-caller's device, and a finite iterator ends with ``StopIteration``.
+caller's device, a finite iterator ends with ``StopIteration``, and
+``close`` joins the worker thread of an infinite iterator.
 """
 import numpy as np
 import pytest
@@ -51,3 +52,24 @@ def test_default_transform_needs_a_card_unless_told():
         pytest.skip("a card is present: the default device is it")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Prefetcher(iter(()), depth=1)
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+@pytest.mark.parametrize("taken", [0, 1, 3])
+@pytest.mark.parametrize("stream", ["infinite", "finite"])
+def test_close_joins_the_worker_thread(stream, depth, taken):
+    """An infinite stream (as ``lm_batches`` is) leaves the worker blocked
+    on a full queue, a finite one blocked on its end marker; ``close``
+    frees it and returns only once it ended."""
+    import itertools
+    import time
+
+    it = itertools.count() if stream == "infinite" else iter(range(4))
+    p = Prefetcher(it, depth=depth, transform=lambda x: x)
+    assert [next(p) for _ in range(taken)] == list(range(taken))
+    deadline = time.monotonic() + 10
+    while p.t.is_alive() and not p.q.full() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    assert p.q.full()  # the worker is blocked on a put, or has ended
+    p.close()
+    assert not p.t.is_alive()

@@ -1,6 +1,7 @@
 """The slice as a whole: the quickstart loop (examples/quickstart.py) in both
-packages, from the same initial weights (JAX's ``init_params`` through
-``interop``) and the same batch streams.
+packages, the port's through its example program
+(``repro_torch.examples.quickstart``), from the same initial weights (JAX's
+``init_params`` through ``interop``) and the same batch streams.
 
 gemma3 SMOKE, 4 shards, 2 workers, 3 rounds.  With adamw(3e-3) the
 per-round losses agree within rtol 1e-4: AdamW's normalised update can turn
@@ -32,14 +33,8 @@ from repro.models.common import Dist  # noqa: E402
 from repro.models.transformer import init_params as jax_init  # noqa: E402
 from repro.models.transformer import lm_loss as jax_lm_loss  # noqa: E402
 from repro.optim import optimizers as jopt  # noqa: E402
-from repro_torch.configs.registry import get_arch  # noqa: E402
-from repro_torch.core.chunking import ParamSpace  # noqa: E402
-from repro_torch.core.compression import CompressionConfig  # noqa: E402
-from repro_torch.core.config import FabricConfig, WireConfig  # noqa: E402
-from repro_torch.core.fabric import PBoxFabric, WorkerHarness  # noqa: E402
-from repro_torch.data.synthetic import lm_batches  # noqa: E402
+from repro_torch.examples import quickstart  # noqa: E402
 from repro_torch.interop import params_from_numpy  # noqa: E402
-from repro_torch.models.transformer import lm_loss_and_grad  # noqa: E402
 from repro_torch.optim import optimizers as topt  # noqa: E402
 
 ROUNDS, WORKERS, SHARDS = 3, 2, 4
@@ -76,41 +71,35 @@ def jax_loop(spec, codec="none"):
 
 
 def torch_loop(spec, jax_params, codec="none"):
-    cfg = get_arch("gemma3-1b").smoke_config
+    """The port's example (``repro_torch.examples.quickstart``), its fabric
+    and workers from ``build`` run round by round."""
     params = params_from_numpy(jax.tree.map(np.asarray, jax_params), "cpu")
-    space = ParamSpace.build(params)
-    fab = PBoxFabric(space, spec, space.flatten(params),
-                     config=FabricConfig(num_shards=SHARDS,
-                                         num_workers=WORKERS,
-                                         wire=WireConfig(compression=(
-                                             CompressionConfig(codec=codec)))),
-                     device="cpu")
-    streams = [lm_batches(cfg.vocab, 4, 32, seed=w) for w in range(WORKERS)]
-    losses = []
-
-    def grad_fn(p, wstep):
-        b = next(streams[wstep[0]])
-        loss, g = lm_loss_and_grad(p, torch.from_numpy(b["tokens"]),
-                                   torch.from_numpy(b["labels"]), cfg)
-        losses.append(loss.item())
-        return g
-
-    h = WorkerHarness(fab, grad_fn, lambda w, s: (w, s))
+    run = quickstart.build(device="cpu", spec=spec, codec=codec,
+                           params=params)
+    fab, h = run["fabric"], run["harness"]
     flats = []
     for r in range(1, ROUNDS + 1):
         h.run(r)
         flats.append(fab.params.numpy().copy())
     assert fab.stats.steps == ROUNDS
     assert fab.stats.fused_wire_rounds == (ROUNDS if codec != "none" else 0)
-    return losses, flats
+    return run["losses"], flats
 
 
 def test_quickstart_adamw_losses_match_jax():
-    jlosses, _, jparams = jax_loop(jopt.adamw(3e-3))
-    tlosses, _ = torch_loop(topt.adamw(3e-3), jparams)
+    """The example's ``main`` (its AdamW(3e-3) default) for ROUNDS rounds
+    from JAX's weights: JAX's per-round losses within rtol 1e-4, and its
+    fabric's final params."""
+    jlosses, jflats, jparams = jax_loop(jopt.adamw(3e-3))
+    out = quickstart.main(device="cpu", rounds=ROUNDS,
+                          params=params_from_numpy(
+                              jax.tree.map(np.asarray, jparams), "cpu"))
+    tlosses = out["losses"]
     assert len(tlosses) == len(jlosses) == ROUNDS * WORKERS
     np.testing.assert_allclose(tlosses, jlosses, rtol=1e-4)
     assert all(np.isfinite(tlosses))
+    assert out["pushes"] == ROUNDS * WORKERS
+    assert out["params"].shape == jflats[-1].shape
 
 
 def test_quickstart_momentum_params_match_jax_every_round():

@@ -1027,3 +1027,81 @@ def gnn_ranks(rank, world, out_dir):
             _gnn_case(name, mesh, out_dir, rank)
     if half == 0:
         _gnn_ep_plans(mesh, out_dir, rank)
+
+
+# -- rank bodies: the example programs -------------------------------------
+
+EX_TP = 4  # examples/train_distributed_ps.py's (2, 4) mesh
+EX_SERVE_ARGV = ["--arch", "gemma3-1b", "--mesh", "1x2", "--batch", "4",
+                 "--prompt-len", "16", "--tokens", "12"]  # serve_lm.py's
+
+
+def _jax_tree(path, template: dict) -> dict:
+    """A ``flat_keys`` npz of the JAX side's weights (f32, exact for bf16)
+    as the port's tree, each leaf in ``template``'s dtype."""
+    import torch
+
+    arrays = dict(np.load(path))
+    return _tree(_unflat({k: k for k in arrays}), lambda k: torch.from_numpy(
+        arrays[k]).to(_leaf(template, k).dtype))
+
+
+def _leaf(tree: dict, key: str):
+    for part in key.split("/"):
+        tree = tree[part]
+    return tree
+
+
+def examples_ranks(rank, world, out_dir):
+    """8 ranks: ``repro_torch.examples.train_distributed_ps`` at its (2, 4)
+    mesh from the JAX side's weights; then ranks 0-1 close the group and
+    open a world of 2 for ``repro_torch.examples.serve_lm`` at its
+    ``--mesh 1x2`` (ranks 2-7 a world of their own, idle)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.examples import serve_lm, train_distributed_ps
+    from repro_torch.launch.mesh import init_process_group
+    from repro_torch.models import transformer as T
+
+    cfg = get_arch("internlm2-1.8b").smoke_config
+    wait_for(Path(out_dir, "jax_ex_params.npz"))
+    params = _jax_tree(Path(out_dir, "jax_ex_params.npz"),
+                       T.abstract_params(cfg, EX_TP))
+    out = train_distributed_ps.main(device="cpu", params=params,
+                                    ckpt_dir=f"{out_dir}/ckpt")
+    same = all(torch_equal(out["saved"][k], out["restored"][k])
+               for k in out["saved"]) and out["saved"].keys() == \
+        out["restored"].keys()
+    _save(out_dir, f"ex_ps_r{rank}", losses=np.asarray(out["losses"]),
+          restart_step=np.asarray(out["restart_step"]),
+          loss_after_restart=np.asarray(out["loss_after_restart"]),
+          step=np.asarray(out["step"]), restored_is_saved=np.asarray(same),
+          **({f"saved_{k}": _np(v) for k, v in out["saved"].items()}
+             if rank == 0 else {}))
+    dist.destroy_process_group()
+    serving = rank < 2
+    init_process_group("cpu", init_method=f"file://{out_dir}/rendezvous_"
+                       f"{'serve' if serving else 'idle'}",
+                       rank=rank if serving else rank - 2,
+                       world_size=2 if serving else world - 2)
+    if not serving:
+        return
+    scfg = get_arch("gemma3-1b").smoke_config
+    wait_for(Path(out_dir, "jax_ex_serve_params.npz"))
+    sparams = _jax_tree(Path(out_dir, "jax_ex_serve_params.npz"),
+                        T.abstract_params(scfg, 2))
+    res = serve_lm.main(device="cpu", params=sparams)
+    _save(out_dir, f"ex_serve_r{rank}", generated=res["generated"],
+          version=np.asarray(res["read"]["version"]))
+
+
+def torch_equal(a, b) -> bool:
+    """Bitwise equality of two tensors: dtype, shape and every byte."""
+    import torch
+
+    def raw(t):
+        return t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        raw(a), raw(b))

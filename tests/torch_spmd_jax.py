@@ -30,6 +30,12 @@ saves what the port is compared with under ``out_dir``.  Groups:
              SGD step of ``make_ps_train_step`` with sequence parallelism
              on a (2, 4) mesh (and without it for ``SP_JAX_BASELINE``):
              tests/scripts/seq_parallel_equivalence.py;
+  examples   examples/train_distributed_ps.py written out on a (2, 4)
+             mesh (its tp = 4 weights first, ``jax_ex_params.npz``; then
+             its losses, the restart step and the loss after the restart,
+             ``jax_ex_ps.npz``), and examples/serve_lm.py's serve
+             (``repro.launch.serve`` at ``--mesh 1x2``: its weights,
+             ``jax_ex_serve_params.npz``, and its ids, ``jax_ex_serve.npz``);
   gnn        every ``GNN_CASES`` case: EquiformerV2's SMOKE weights, the
              loss and the gradients after ``grad_sync`` inside a jitted
              ``shard_map`` on the case's mesh (tests/scripts/
@@ -41,8 +47,9 @@ import os
 import sys
 from pathlib import Path
 
-DEVICES = {"exchange": 8, "trainer": 2, "launch": 2, "tp": 4, "tp_train": 8,
-           "sparse_push": 3, "recsys": 8, "gnn": 4, "seq_parallel": 8}
+DEVICES = {"examples": 8, "exchange": 8, "trainer": 2, "launch": 2, "tp": 4,
+           "tp_train": 8, "sparse_push": 3, "recsys": 8, "gnn": 4,
+           "seq_parallel": 8}
 
 
 def _np32(x):
@@ -487,6 +494,71 @@ def recsys(out: Path):
         _save_atomic(out / f"jax_rs_{arch}.npz", **arrays)
 
 
+def examples(out: Path):
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from repro.checkpoint import Checkpointer
+    from repro.checkpoint.checkpointer import (flat_to_train_state,
+                                               train_state_to_flat)
+    from repro.configs.registry import get_arch
+    from repro.data.synthetic import lm_batches
+    from repro.launch import serve as jserve
+    from repro.launch.mesh import make_mesh
+    from repro.launch.steps import build_cell, make_exchange
+    from repro.models import transformer as T
+    from repro.runtime.trainer import TrainState, init_train_state
+    from torch_spmd import EX_SERVE_ARGV, EX_TP, flat_keys
+
+    # examples/train_distributed_ps.py, its checkpoints under ``out``
+    mesh = make_mesh((2, EX_TP), ("data", "model"))
+    cfg = get_arch("internlm2-1.8b").smoke_config
+    plan = build_cell("internlm2-1.8b", "train_4k", mesh, smoke=True)
+    exchange = make_exchange(mesh, "lm")
+    space, ng = plan.meta["space"], plan.meta["n_groups"]
+    p4 = T.init_params(cfg, jax.random.PRNGKey(0), tp=EX_TP)
+    _save_atomic(out / "jax_ex_params.npz",
+                 **{k: _np32(v) for k, v in flat_keys(p4).items()})
+    state = init_train_state(
+        mesh, init_params_fn=lambda k: T.init_params(cfg, k, tp=EX_TP),
+        param_specs=T.make_param_specs(cfg, EX_TP), exchange=exchange,
+        space=space, n_groups=ng, key=jax.random.PRNGKey(0),
+        ps_dtype=plan.abstract_args[0].dtype)
+    gb, s = plan.abstract_args[4]["tokens"].shape
+    data = lm_batches(cfg.vocab, gb, s, seed=0)
+    ck = Checkpointer(out / "jax_ex_ckpt")
+    pflat, slots, ef, stc = state.pflat, state.slots, state.ef, state.step
+    losses = []
+    for i in range(20):
+        b = jax.tree.map(jnp.asarray, next(data))
+        pflat, slots, ef, stc, met = plan.fn(pflat, slots, ef, stc, b)
+        if (i + 1) % 5 == 0:
+            losses.append(float(met["loss"]))
+            ck.save_async(i + 1, train_state_to_flat(
+                TrainState(pflat=pflat, slots=slots, ef=ef, step=stc)))
+    ck.wait()
+    host, _ = ck.restore()
+    st = flat_to_train_state(host, TrainState)
+    p2, sl2, ef2, sc2 = st.pflat, st.slots, st.ef, st.step
+    for i in range(5):
+        b = jax.tree.map(jnp.asarray, next(data))
+        p2, sl2, ef2, sc2, met = plan.fn(p2, sl2, ef2, sc2, b)
+    _save_atomic(out / "jax_ex_ps.npz", losses=np.asarray(losses),
+                 restart_step=np.asarray(int(host["step"])),
+                 loss_after_restart=np.asarray(float(met["loss"])))
+
+    # examples/serve_lm.py: the serve program at --mesh 1x2 (its weights:
+    # the init it draws, at tp = 2)
+    scfg = get_arch("gemma3-1b").smoke_config
+    p2 = T.init_params(scfg, jax.random.PRNGKey(0), tp=2)
+    _save_atomic(out / "jax_ex_serve_params.npz",
+                 **{k: _np32(v) for k, v in flat_keys(p2).items()})
+    res = jserve.main(EX_SERVE_ARGV)
+    _save_atomic(out / "jax_ex_serve.npz", generated=res["generated"],
+                 version=np.asarray(res["read"]["version"]))
+
+
 def gnn(out: Path):
     import dataclasses
     import json
@@ -580,8 +652,8 @@ if __name__ == "__main__":
         f"--xla_force_host_platform_device_count={DEVICES[group]}")
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     out_dir.mkdir(parents=True, exist_ok=True)
-    {"exchange": exchange, "trainer": trainer, "launch": launch, "tp": tp,
-     "tp_train": tp_train, "sparse_push": sparse_push,
-     "recsys": recsys, "gnn": gnn, "seq_parallel": seq_parallel}[group](
-        out_dir)
+    {"examples": examples, "exchange": exchange, "trainer": trainer,
+     "launch": launch, "tp": tp, "tp_train": tp_train,
+     "sparse_push": sparse_push, "recsys": recsys, "gnn": gnn,
+     "seq_parallel": seq_parallel}[group](out_dir)
     print("OK")
