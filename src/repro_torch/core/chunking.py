@@ -23,6 +23,7 @@ from typing import Any
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.tracing import span
 
 TILE_ELEMS = 8 * 128
 DEFAULT_CHUNK_ELEMS = 8192
@@ -145,6 +146,7 @@ class ParamSpace:
         )
 
     # ---- flatten / unflatten ----
+    @span("ps.flatten")
     def flatten(self, tree: Any, dtype: torch.dtype = torch.float32) -> torch.Tensor:
         """Pack a tree into the padded flat space, on the leaves' device.
 
@@ -161,6 +163,7 @@ class ParamSpace:
         flat[self.payload_elems:].zero_()
         return flat
 
+    @span("ps.unflatten")
     def unflatten(self, flat: torch.Tensor) -> dict:
         """The tree back from its flat space.  A leaf whose dtype is the
         flat dtype is a view into ``flat``; others are fresh casts."""

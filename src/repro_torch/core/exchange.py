@@ -32,6 +32,13 @@ reciprocal, which is what XLA compiles the JAX ``slab / nw`` to; under
 multiplies in its own pass, rounding to the slab's dtype as the eager
 product does.
 
+``PSExchange.stats`` (an ``ExchangeStats``, the port's addition) counts
+the rounds and, by collective, the calls and the bytes of the tensors
+handed to them, from shapes on the host.  ``device_update`` is a
+``ps.exchange`` span, each collective a ``ps.<collective>`` span, the
+owned slab's update ``ps.shard_apply`` and ``pbox_hier``'s codec
+``ps.encode`` (``repro_torch.tracing``).
+
 ``fused_aggregate_update`` on a CUDA tensor launches the kernel, which
 updates the owned slab of ``pflat`` and the slots IN PLACE (the JAX
 functions return new arrays, and the JAX trainer donates its inputs):
@@ -51,6 +58,7 @@ from repro_torch.core.compression import CompressionConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.fused_agg_opt.ops import fused_aggregate_update
 from repro_torch.optim.optimizers import OptimizerSpec
+from repro_torch.tracing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,6 +82,25 @@ class ExchangeConfig:
     interpret: bool = True
 
 
+@dataclasses.dataclass
+class ExchangeStats:
+    """What ``device_update`` handed to the collectives: ``rounds``, and
+    by collective (``reduce_scatter``, ``all_gather``, ``all_reduce``) the
+    calls and the bytes of the tensors (the inputs of a reduce-scatter and
+    an all-reduce, the output of an all-gather), counted from shapes on the
+    host."""
+
+    rounds: int = 0
+    collective_calls: dict = dataclasses.field(default_factory=dict)
+    collective_bytes: dict = dataclasses.field(default_factory=dict)
+
+    def book(self, kind: str, t: torch.Tensor) -> None:
+        self.collective_calls[kind] = self.collective_calls.get(kind, 0) + 1
+        self.collective_bytes[kind] = (self.collective_bytes.get(kind, 0)
+                                       + t.numel() * t.element_size())
+
+
+
 class PSExchange:
     """Binds (optimizer, exchange config, mesh axis roles).
 
@@ -92,6 +119,7 @@ class PSExchange:
         self.cfg = cfg
         self.worker_axes = tuple(worker_axes)
         self.pod_axis = pod_axis
+        self.stats = ExchangeStats()
         if cfg.strategy == "pbox_hier":
             if pod_axis is None or pod_axis != self.worker_axes[0]:
                 raise ValueError(
@@ -141,6 +169,15 @@ class PSExchange:
     # ------------------------------------------------------------------
     # per-rank exchange
     # ------------------------------------------------------------------
+    def _collective(self, kind: str, fn, x: torch.Tensor, axes, **kwargs):
+        """``fn(x, axes)``, a mesh collective, in its span and booked (no
+        axes: the mesh hands ``x`` back and nothing is booked)."""
+        with span("ps." + kind):
+            out = fn(x, axes, **kwargs)
+        if axes:
+            self.stats.book(kind, out if kind == "all_gather" else x)
+        return out
+
     def _update_slab(self, slab, pflat, mesh, owner_axes, state, step,
                      lr_scale, grad_scale=None):
         """The owned slab's fused update (``slab * grad_scale`` folded into
@@ -148,15 +185,18 @@ class PSExchange:
         widx = mesh.axis_index(owner_axes)
         n = slab.shape[0]
         pslab = pflat[widx * n:(widx + 1) * n]
-        new_slab, new_slots = fused_aggregate_update(
-            [slab], pslab, state["slots"], self.spec, step, lr_scale,
-            average=False, grad_scale=grad_scale)
+        with span("ps.shard_apply"):
+            new_slab, new_slots = fused_aggregate_update(
+                [slab], pslab, state["slots"], self.spec, step, lr_scale,
+                average=False, grad_scale=grad_scale)
         pulled = new_slab
         if self.cfg.pull_dtype is not None:
             pulled = pulled.to(self.cfg.pull_dtype)
-        new_p = mesh.all_gather(pulled, owner_axes).to(pflat.dtype)
+        new_p = self._collective("all_gather", mesh.all_gather, pulled,
+                                 owner_axes).to(pflat.dtype)
         return new_p, new_slots
 
+    @span("ps.exchange")
     def device_update(
         self,
         gflat: torch.Tensor,  # (flat,) this rank's gradient, PS dtype
@@ -171,22 +211,26 @@ class PSExchange:
         pflat, new state); consumes ``pflat`` and ``state`` (see the module
         docstring), never ``gflat``."""
         cfg, spec = self.cfg, self.spec
+        self.stats.rounds += 1
         step = state["step"] + 1
         inv_nw = 1.0 / mesh.axis_size(self.worker_axes)
 
         if cfg.strategy == "allreduce":
             # the kernel multiplies the sum by inv_nw in its own pass,
             # rounded to the gradient's dtype as the eager product is
-            g = mesh.psum(gflat, self.worker_axes)
-            new_p, new_slots = fused_aggregate_update(
-                [g], pflat, state["slots"], spec, step, lr_scale,
-                average=False, grad_scale=inv_nw)
+            g = self._collective("all_reduce", mesh.psum, gflat,
+                                 self.worker_axes)
+            with span("ps.shard_apply"):
+                new_p, new_slots = fused_aggregate_update(
+                    [g], pflat, state["slots"], spec, step, lr_scale,
+                    average=False, grad_scale=inv_nw)
             return new_p, {"slots": new_slots, "ef": state["ef"], "step": step}
 
         if cfg.strategy == "pbox":
             # push: one reduce-scatter over all worker axes, arriving
             # already summed at the chunk owner; x inv_nw inside the kernel
-            slab = mesh.psum_scatter(gflat, self.worker_axes)
+            slab = self._collective("reduce_scatter", mesh.psum_scatter,
+                                    gflat, self.worker_axes)
             new_p, new_slots = self._update_slab(
                 slab, pflat, mesh, self.worker_axes, state, step, lr_scale,
                 grad_scale=inv_nw)
@@ -197,21 +241,26 @@ class PSExchange:
             # stage 1: rack-local aggregation (reduce-scatter within pod);
             # the slab is summed or encoded again before the update, so the
             # scale is its own pass here
-            slab = mesh.psum_scatter(gflat, data_axes) * inv_nw
+            slab = self._collective("reduce_scatter", mesh.psum_scatter,
+                                    gflat, data_axes) * inv_nw
             # stage 2: one aggregated stream across pods, optionally coded
             ef = state["ef"]
             if cfg.compression.codec == "none":
-                slab = mesh.psum(slab, pod)
+                slab = self._collective("all_reduce", mesh.psum, slab, pod)
             else:
-                payload, ef = comp.encode(cfg.compression, slab, ef)
+                with span("ps.encode"):
+                    payload, ef = comp.encode(cfg.compression, slab, ef)
                 # gather the pods' payloads, decode each and sum locally
                 # (switch-side integer adds with per-chunk rescale)
-                gathered = tuple(mesh.all_gather(p, pod, tiled=False)
-                                 for p in payload)
+                gathered = tuple(
+                    self._collective("all_gather", mesh.all_gather, p, pod,
+                                     tiled=False)
+                    for p in payload)
                 slab = None
                 for i in range(mesh.axis_size(pod)):
-                    part = comp.decode(cfg.compression,
-                                       tuple(g[i] for g in gathered))
+                    with span("ps.encode"):
+                        part = comp.decode(cfg.compression,
+                                           tuple(g[i] for g in gathered))
                     slab = part if slab is None else slab + part
             new_p, new_slots = self._update_slab(
                 slab, pflat, mesh, data_axes, state, step, lr_scale)

@@ -90,6 +90,10 @@ plan, link model, chunk size and device, registers in ``sparse_tiers``,
 and fails over and reshards with the fabric's engines.  Read planes
 (``core/serving.py``) register in ``read_planes``; ``restore`` invalidates
 their caches and the sparse tiers' serving caches.
+
+The round's layers are ``repro_torch.tracing`` spans: ``ps.pull``,
+``ps.push`` (and its ``ps.encode``), ``ps.aggregate``, each shard's
+``ps.shard_apply`` and ``WorkerHarness``'s ``ps.worker_grad``.
 """
 from __future__ import annotations
 
@@ -131,6 +135,7 @@ from repro_torch.kernels.wire_path.ops import (
     wire_path_supported,
 )
 from repro_torch.optim.optimizers import OptimizerSpec, init_opt_state
+from repro_torch.tracing import span
 
 _PULL_BYTES = 4  # pulls cross as raw f32 whatever the push codec
 
@@ -282,6 +287,7 @@ class PBoxShard:
     def num_elems(self) -> int:
         return self.num_chunks * self.space.chunk_elems
 
+    @span("ps.shard_apply")
     def apply(self, pushes: list, step: int, *, average: bool) -> None:
         """pushes: the K workers' whole (num_chunks, chunk_elems) gradient
         slabs in ascending worker order, ``None`` for a zero row.  The
@@ -307,6 +313,7 @@ class PBoxShard:
         self.state = tuple(s.reshape(shape) for s in new_s)
         self.stats.agg_events += 1
 
+    @span("ps.shard_apply")
     def apply_wire(
         self,
         payload: torch.Tensor,  # (K, n_owned, chunk_elems) wire dtype
@@ -675,6 +682,7 @@ class PBoxFabric:
         return worker not in self.dead_workers
 
     # -- worker API ----------------------------------------------------
+    @span("ps.pull")
     def pull(self, worker: int) -> torch.Tensor:
         flat = self.params
         self._pull_step[worker] = self.step
@@ -700,6 +708,7 @@ class PBoxFabric:
             return clocks[worker] - min(alive) <= self.staleness
         return clocks[worker] - clocks.min() <= self.staleness
 
+    @span("ps.push")
     def push(self, worker: int, gflat: torch.Tensor) -> None:
         """Push the whole flat gradient in one call."""
         if tuple(gflat.shape) != (self.space.flat_elems,):
@@ -708,6 +717,7 @@ class PBoxFabric:
             worker, gflat.reshape(self.space.num_chunks, self.space.chunk_elems)
         )
 
+    @span("ps.push")
     def push_chunks(
         self, worker: int, chunk_ids: Sequence[int] | np.ndarray,
         gchunks: torch.Tensor,
@@ -794,10 +804,23 @@ class PBoxFabric:
                 shard.stats.chunk_pushes += shard.num_chunks
                 shard.stats.bytes_pushed += wire_bytes(self.compression,
                                                        shard.num_elems)
-        # the wire crossing to the PS: with the fused wire path and no
-        # aggregating ToR the stream stays encoded up to the shards, else
-        # it is decoded at the hop (a ToR decodes to combine, so there the
-        # encoded hop moves to the rack uplink)
+        wire: WirePayload | None = None
+        if self.topology is not None or self.compression.codec != "none":
+            with span("ps.encode"):
+                gchunks, wire = self._encode(worker, gchunks)
+        if self.mode == "async":
+            self._apply_async(gchunks, wire)
+            return
+        self._inbox[worker] = gchunks if wire is None else wire
+        if len(self._inbox) >= self.min_pushes and self._barrier_met():
+            self._aggregate()
+
+    def _encode(self, worker: int, gchunks: torch.Tensor
+                ) -> tuple[torch.Tensor, WirePayload | None]:
+        """The wire crossing to the PS: with the fused wire path and no
+        aggregating ToR the stream stays encoded up to the shards (the
+        payload returned), else it is decoded at the hop (a ToR decodes to
+        combine, so there the encoded hop moves to the rack uplink)."""
         wire: WirePayload | None = None
         flat = gchunks.reshape(-1)
         if self.topology is not None:
@@ -815,21 +838,16 @@ class PBoxFabric:
                 wire = rack.ingest_wire(worker, flat)
             else:
                 gchunks = rack.ingest(worker, flat).reshape(gchunks.shape)
-        elif self.compression.codec != "none":
-            if self._fused_wire:
-                wire, self._worker_ef[worker] = encode_wire(
-                    self.compression, flat, self._worker_ef[worker])
-            else:
-                dec, self._worker_ef[worker] = roundtrip(
-                    self.compression, flat, self._worker_ef[worker])
-                gchunks = dec.reshape(gchunks.shape)
-        if self.mode == "async":
-            self._apply_async(gchunks, wire)
-            return
-        self._inbox[worker] = gchunks if wire is None else wire
-        if len(self._inbox) >= self.min_pushes and self._barrier_met():
-            self._aggregate()
+        elif self._fused_wire:
+            wire, self._worker_ef[worker] = encode_wire(
+                self.compression, flat, self._worker_ef[worker])
+        else:
+            dec, self._worker_ef[worker] = roundtrip(
+                self.compression, flat, self._worker_ef[worker])
+            gchunks = dec.reshape(gchunks.shape)
+        return gchunks, wire
 
+    @span("ps.aggregate")
     def _apply_async(self, gchunks: torch.Tensor,
                      wire: WirePayload | None) -> None:
         """Hogwild-PS: one push is one step, applied at once on every
@@ -863,6 +881,7 @@ class PBoxFabric:
             return True  # the inbox holds only current-round pushes
         return len(self._inbox) == self.num_alive_workers
 
+    @span("ps.aggregate")
     def _aggregate(self) -> None:
         workers = sorted(self._inbox)
         if len(workers) < self.num_workers:
@@ -1893,7 +1912,8 @@ class WorkerHarness:
             flat = srv.pull(w)
             params = srv.space.unflatten(flat)
             batch = self.batches_fn(w, self.steps_done[w])
-            grads = self.grad_fn(params, batch)
+            with span("ps.worker_grad"):
+                grads = self.grad_fn(params, batch)
             self._push(w, srv.space.flatten(grads))
             self.steps_done[w] += 1
 

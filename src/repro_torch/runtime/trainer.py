@@ -38,6 +38,10 @@ restores the other's.  ``local_state`` cuts a rank's pieces from it and
 ``global_state`` gathers them back; with ``local_template`` and
 ``local_params`` they take the place of JAX's shardings, so JAX's
 ``state_shardings`` has no counterpart here.
+
+The step's pieces are ``repro_torch.tracing`` spans: ``ps.forward`` (the
+loss), ``ps.backward`` (autograd, recomputation included), ``ps.grad_sync``
+and ``ps.metrics`` (the means after the exchange).
 """
 from __future__ import annotations
 
@@ -51,6 +55,7 @@ from repro_torch.core.exchange import PSExchange
 from repro_torch.core.fabric import ServerStats
 from repro_torch.device import resolve_device
 from repro_torch.models.common import Dist
+from repro_torch.tracing import span
 
 
 @dataclasses.dataclass
@@ -143,11 +148,12 @@ def attach_telemetry(
     """Wrap a PS train step so every invocation records the modeled wire
     traffic into a fabric-style ``ServerStats``.
 
-    The SPMD path moves bytes inside collectives, so unlike the in-process
-    ``PBoxFabric`` there is nothing to count at the host; this uses the
-    exchange's analytic wire model (``PSExchange.modeled_bytes``) scaled by
-    the worker count, giving both PS implementations one accounting
-    surface.  Only ``mesh.shape`` is read.
+    It records the exchange's analytic wire model
+    (``PSExchange.modeled_bytes``, the bytes a ring moves on the links)
+    scaled by the worker count, as the JAX package does, so both PS
+    implementations share one accounting surface; ``PSExchange.stats``
+    beside it counts the bytes of the tensors actually handed to the
+    collectives.  Only ``mesh.shape`` is read.
 
     ``topology`` (a ``core/topology.NetworkTopology``) splits the push
     traffic into the rack and core tiers the fabric tracks; ``job`` (a
@@ -295,12 +301,16 @@ def make_ps_train_step(
 
     def grads_of(pf, mb):
         leaf = pf.detach().requires_grad_(True)
-        loss, met = loss_fn(tracked_params(space, leaf), mb, dist)
-        lossd = loss / tp if (loss_div_tp and tp > 1) else loss
-        (gflat,) = torch.autograd.grad(lossd, leaf)
+        with span("ps.forward"):
+            loss, met = loss_fn(tracked_params(space, leaf), mb, dist)
+            lossd = loss / tp if (loss_div_tp and tp > 1) else loss
+        with span("ps.backward"):
+            (gflat,) = torch.autograd.grad(lossd, leaf)
         if syncs:
-            grads = apply_grad_sync(space.unflatten(gflat), sync_tags, dist)
-            gflat = space.flatten(grads, ps_dtype)
+            with span("ps.grad_sync"):
+                grads = apply_grad_sync(space.unflatten(gflat), sync_tags,
+                                        dist)
+                gflat = space.flatten(grads, ps_dtype)
         return (gflat.to(ps_dtype), loss.detach(),
                 {k: v.detach() for k, v in met.items()})
 
@@ -336,8 +346,9 @@ def make_ps_train_step(
                                                    mesh=mesh)
         del gflat
         # metrics: mean over every axis
-        met = {k: mesh.pmean(v, all_axes) for k, v in met.items()}
-        loss = mesh.pmean(loss, all_axes)
+        with span("ps.metrics"):
+            met = {k: mesh.pmean(v, all_axes) for k, v in met.items()}
+            loss = mesh.pmean(loss, all_axes)
         new_slots = tuple(s.reshape(1, -1) for s in new_state["slots"])
         new_ef = (new_state["ef"].reshape(1, -1)
                   if new_state["ef"] is not None else None)
