@@ -306,12 +306,21 @@ raises on failure (the script then exits non-zero and prints no result):
    ``Tensor.add_(g, alpha=-lr)``, the one PyTorch call for that update.
    The line before the kernel table gives the seconds of each group of
    phases;
-37. ResNet-50 through the PHub fabric, the paper's setting (the model runs
+37. first the fused norm (``kernels/group_norm``) in all three modes at
+   every norm shape of ResNet-50 at 32 x 224^2 against its plain version
+   on the card (output, dr and repeat bits bitwise, dx / ds / db within
+   GN_RTOL / GN_DX_ATOL / GN_DS_ATOL, which a backward that forgets the
+   group statistics' terms must fail), and the channels-last copy
+   (``kernels/layout``) at each operand of the channels-last weight
+   gradients, bitwise (``resnet_norm_check``); then ResNet-50 through the
+   PHub fabric, the paper's setting (the model runs
    its convolutions with cuDNN's TF32 off, ``resnet._conv2d``): the
    published config (25,557,032 parameters), 2 workers x 32 images at
    224^2, 4 shards,
    momentum(0.1, 0.9), the f32 wire, 3 rounds; counts set to 0 just before
-   and read just after: 12 fused_agg_opt (K = 2); round 2 by host clock,
+   and read just after: 12 fused_agg_opt (K = 2), and per worker step 49
+   fused-norm forward passes, 53 backwards and 19 channels-last copies
+   (``_rn_launches``, here and in phases 38 and 41); round 2 by host clock,
    round 3 profiled (device busy, idle share, fused_agg_opt's device ms);
    shard 0's first update replayed through the plain version, bitwise;
    finite losses; the peak;
@@ -1326,7 +1335,7 @@ def main_path(dev, codec: str) -> dict:
              "wire_fused": SHARDS * ROUNDS} if codec == "int8" else
             {"fused_agg_opt": SHARDS * ROUNDS, "quantize_chunks": 0,
              "dequantize_chunks": 0, "wire_fused": 0})
-    want |= {"embedding_bag": 0, "segment_sum": 0}
+    want = {k: 0 for k in launches} | want
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     if fab.stats.fused_wire_rounds != (ROUNDS if codec != "none" else 0):
@@ -1568,22 +1577,30 @@ def dlrm_round(space, fab, tier, cfg, streams, dev, losses: list) -> None:
 def _counts() -> dict:
     from repro_torch.kernels.embedding_bag import kernel as E
     from repro_torch.kernels.fused_agg_opt import kernel as K
+    from repro_torch.kernels.group_norm import kernel as G
+    from repro_torch.kernels.layout import kernel as L
     from repro_torch.kernels.quant import kernel as Q
     from repro_torch.kernels.wire_path import kernel as W
 
     return {"embedding_bag": E.launches, "segment_sum": E.segment_launches,
             "fused_agg_opt": K.launches, "quantize_chunks": Q.quantize_launches,
-            "dequantize_chunks": Q.dequantize_launches, "wire_fused": W.launches}
+            "dequantize_chunks": Q.dequantize_launches, "wire_fused": W.launches,
+            "group_norm_fwd": G.forward_launches,
+            "group_norm_bwd": G.backward_launches,
+            "channels_last": L.launches}
 
 
 def _zero_counts() -> None:
     from repro_torch.kernels.embedding_bag import kernel as E
     from repro_torch.kernels.fused_agg_opt import kernel as K
+    from repro_torch.kernels.group_norm import kernel as G
+    from repro_torch.kernels.layout import kernel as L
     from repro_torch.kernels.quant import kernel as Q
     from repro_torch.kernels.wire_path import kernel as W
 
     E.launches = E.segment_launches = K.launches = 0
     Q.quantize_launches = Q.dequantize_launches = W.launches = 0
+    G.forward_launches = G.backward_launches = L.launches = 0
 
 
 def dlrm_path(dev) -> dict:
@@ -1666,10 +1683,10 @@ def dlrm_path(dev) -> dict:
         in_path[name] = total / count if count else None
         log(f"  profiled round, device: {name} {total:.4f} ms in {count} "
             f"launches" + (f" ({total / count:.4f} ms each)" if count else ""))
-    want = {"embedding_bag": n * WORKERS * ROUNDS,
-            "segment_sum": n * WORKERS * ROUNDS,
-            "fused_agg_opt": SHARDS * ROUNDS, "quantize_chunks": 0,
-            "dequantize_chunks": 0, "wire_fused": 0}
+    want = {k: 0 for k in launches} | {
+        "embedding_bag": n * WORKERS * ROUNDS,
+        "segment_sum": n * WORKERS * ROUNDS,
+        "fused_agg_opt": SHARDS * ROUNDS}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     if not all(math.isfinite(x) for x in loss_vals):
@@ -7309,6 +7326,12 @@ SMOKE_PROMPT, SMOKE_DECODE_STEPS = 16, 4
 # head gradient, past RS_CARD_RTOL / RS_CARD_ATOL.  This is
 # tests/test_torch_resnet.py's bound (the port against JAX on the CPU).
 RN_CARD_RTOL, RN_CARD_ATOL = 1e-4, 1e-5
+# phase 37's fused norm against its plain version on the card, both f32:
+# dx and dr sum a group's terms in another order (rtol, and atol of the
+# largest entry), ds and db also over the batch (up to 32 x 112^2 terms
+# a channel); a backward that forgets the group statistics' terms reads
+# ~1e-2 of dx (one over the root of a group's ~6,000 elements)
+GN_RTOL, GN_DX_ATOL, GN_DS_ATOL = 1e-4, 1e-5, 1e-4
 # the LM SMOKE caches (each layer's k / v after the layers below it, on
 # the card and on the CPU) within RS_CARD_RTOL of their largest entry:
 # elementwise, atol 1e-6 failed a near-zero entry of granite's by 2.0e-6
@@ -7359,6 +7382,182 @@ def _rn_batches(cfg, batch: int, img: int, n: int, seed: int, dev) -> list:
     return [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
             for b in itertools.islice(
                 image_batches(batch, img, cfg.n_classes, seed), n)]
+
+
+def _rn_trace(cfg, img: int) -> tuple[list, list]:
+    """ResNet's norms and convolutions at ``img``^2, traced on meta tensors
+    through the model's own ``forward``: ``(norms, convs)``, a norm as
+    ``((C, H, W), relu, residual)``, a convolution as ``(input, output
+    shape, whether resnet._wgrad_channels_last picks it)``."""
+    from unittest import mock
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.group_norm import kernel as G
+    from repro_torch.models import resnet as RN
+
+    norms, convs = [], []
+
+    def conv(x, w, stride, padding):
+        y = F.conv2d(x, w, stride=stride, padding=padding)
+        convs.append((x, tuple(y.shape), RN._wgrad_channels_last(x, w)))
+        return y
+
+    def norm(x, s, b, groups, *, relu, residual=None):
+        norms.append((tuple(x.shape[1:]), relu, residual is not None))
+        return G.group_norm_act_torch(x, s, b, groups, relu, residual)
+
+    params = RN.init_params(cfg, None, device="meta")
+    images = torch.empty((2, img, img, 3), device="meta")
+    with mock.patch.object(RN, "_conv2d", conv), \
+            mock.patch.object(RN, "group_norm_act", norm):
+        RN.forward(params, images, cfg)
+    return norms, convs
+
+
+def _rn_launches(cfg, img: int, passes: int) -> dict:
+    """The launches ``passes`` forwards and backwards of ResNet ``cfg`` at
+    ``img``^2 make on the card in f32 (``_rn_trace``): each norm's backward,
+    its forward pass where a ReLU or an add follows it; for each
+    channels-last weight gradient a copy of its input unless channels-last
+    already, and of its incoming gradient (NCHW-contiguous, as the norm's
+    backward writes it) unless its pixels or channels are one."""
+    import torch
+
+    norms, convs = _rn_trace(cfg, img)
+    cl = torch.channels_last
+    copies = sum(
+        int(not x.is_contiguous(memory_format=cl))
+        + int(not torch.empty(y, device="meta").is_contiguous(memory_format=cl))
+        for x, y, pick in convs if pick)
+    return {"group_norm_fwd": passes * sum(r or a for _, r, a in norms),
+            "group_norm_bwd": passes * len(norms),
+            "channels_last": passes * copies}
+
+
+def _gn_const_stats(x, s, b, groups: int, relu: bool, r):
+    """The norm with its group statistics held constant: the gradient of a
+    backward that forgets their terms (the control of resnet_norm_check)."""
+    import torch
+
+    n, c, h, w = x.shape
+    xg = x.reshape(n, groups, -1)
+    mean = xg.mean(-1, keepdim=True).detach()
+    var = xg.var(-1, unbiased=False, keepdim=True).detach()
+    y = ((xg - mean) * torch.rsqrt(var + 1e-5)).reshape(n, c, h, w)
+    y = y * s[:, None, None] + b[:, None, None]
+    if r is not None:
+        y = y + r
+    return torch.relu(y) if relu else y
+
+
+def resnet_norm_check(dev) -> dict:
+    """Phase 37's first part: the fused norm (``kernels/group_norm``) in all
+    three modes at every norm shape of ResNet-50 at RN_BATCH x RN_IMG^2
+    (``_rn_trace``), against its plain version on the same card tensors:
+    the output bit for bit, dx within GN_RTOL / GN_DX_ATOL (of the largest
+    entry), ds and db within GN_RTOL / GN_DS_ATOL, dr bitwise (dy where the
+    output is positive); two backward calls give the same bits; a control
+    (dx with the group statistics held constant, ``_gn_const_stats``) must
+    fail the dx bound at every shape.  Then the channels-last copy
+    (``kernels/layout``) at both operands of each channels-last weight
+    gradient, bit for bit against ``contiguous``.  Launches: one forward
+    pass per call with a ReLU or an add, one backward per call, one copy
+    per operand not channels-last already."""
+    import torch
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.group_norm import group_norm_act
+    from repro_torch.kernels.group_norm import kernel as G
+    from repro_torch.kernels.layout import kernel as L
+    from repro_torch.kernels.layout import to_channels_last
+
+    cfg = get_arch("resnet50").config
+    norms, convs = _rn_trace(cfg, RN_IMG)
+    gen = torch.Generator(device=dev).manual_seed(37)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def close(got, want, atol_of_max: float) -> float:
+        atol = atol_of_max * want.abs().max().item()
+        err = (got - want).abs()
+        return (err - GN_RTOL * want.abs()).max().item() / atol
+
+    def grads(fn, x, s, b, r, dy):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (x, s, b) + (() if r is None else (r,))]
+        y = fn(*leaves[:3], leaves[3] if r is not None else None)
+        return [y.detach(), *torch.autograd.grad(y, leaves, dy)]
+
+    worst = {"dx": 0.0, "ds_db": 0.0, "control": math.inf}
+    cases = 0
+    for chw in sorted({n[0] for n in norms}):
+        x = randn(RN_BATCH, *chw)
+        s, b = 1 + 0.1 * randn(chw[0]), 0.1 * randn(chw[0])
+        r, dy = randn(RN_BATCH, *chw), randn(RN_BATCH, *chw)
+        for relu, res in ((False, False), (True, False), (True, True)):
+            rr = r if res else None
+            f0, b0 = G.forward_launches, G.backward_launches
+            got = grads(lambda *a: group_norm_act(*a[:3], cfg.groups,
+                                                  relu=relu, residual=a[3]),
+                        x, s, b, rr, dy)
+            again = grads(lambda *a: group_norm_act(*a[:3], cfg.groups,
+                                                    relu=relu, residual=a[3]),
+                          x, s, b, rr, dy)
+            launched = (G.forward_launches - f0, G.backward_launches - b0)
+            if launched != (2 * int(relu or res), 2):
+                raise AssertionError(f"group_norm_act {chw} relu={relu} "
+                                     f"residual={res}: launches {launched}")
+            want = grads(lambda *a: G.group_norm_act_torch(
+                *a[:3], cfg.groups, relu, a[3]), x, s, b, rr, dy)
+            wrong = grads(lambda *a: _gn_const_stats(
+                *a[:3], cfg.groups, relu, a[3]), x, s, b, rr, dy)
+            label = f"group_norm_act {RN_BATCH}x{chw} relu={relu} res={res}"
+            if not all(torch.equal(g, a) for g, a in zip(got, again)):
+                raise AssertionError(f"{label}: two backward calls differ")
+            if not torch.equal(got[0], want[0]):
+                raise AssertionError(f"{label}: output differs from the "
+                                     f"plain version")
+            if res and not torch.equal(got[4], torch.where(
+                    want[0] > 0, dy, torch.zeros_like(dy))):
+                raise AssertionError(f"{label}: dr is not dy on the mask")
+            dx = close(got[1], want[1], GN_DX_ATOL)
+            dsb = max(close(got[i], want[i], GN_DS_ATOL) for i in (2, 3))
+            ctl = close(wrong[1], want[1], GN_DX_ATOL)
+            if not (dx <= 1 and dsb <= 1 < ctl):
+                raise AssertionError(
+                    f"{label}: dx reads {dx:.3g}, ds/db {dsb:.3g} of their "
+                    f"bounds (<= 1), the control {ctl:.3g} (> 1)")
+            worst = {"dx": max(worst["dx"], dx),
+                     "ds_db": max(worst["ds_db"], dsb),
+                     "control": min(worst["control"], ctl)}
+            cases += 1
+    copies = 0
+    for x, y, pick in convs:
+        if not pick:
+            continue
+        for shape, cl in ((tuple(x.shape), x.is_contiguous(
+                memory_format=torch.channels_last)), (y, False)):
+            t = randn(RN_BATCH, *shape[1:])
+            if cl:
+                t = t.contiguous(memory_format=torch.channels_last)
+            n0 = L.launches
+            got = to_channels_last(t)
+            if not (got.is_contiguous(memory_format=torch.channels_last)
+                    and torch.equal(got, t)
+                    and L.launches - n0 == int(not cl)):
+                raise AssertionError(f"to_channels_last {tuple(t.shape)}: "
+                                     f"not the channels-last copy")
+            copies += 1
+    log(f"phase 37: group_norm_act at {cases} (shape, mode) cases of "
+        f"resnet50 at {RN_BATCH} x {RN_IMG}^2: outputs and dr bitwise, "
+        f"repeat bits; worst share of the bound dx {worst['dx']:.3g}, ds/db "
+        f"{worst['ds_db']:.3g}, the control's least {worst['control']:.3g}; "
+        f"to_channels_last bitwise at {copies} operands of the "
+        f"channels-last weight gradients")
+    return {"cases": cases, "copies": copies, **worst}
 
 
 def resnet_fabric_path(dev, smoke: bool = False) -> dict:
@@ -7421,7 +7620,9 @@ def resnet_fabric_path(dev, smoke: bool = False) -> dict:
             round_ms.append((time.perf_counter() - t0) * 1e3)
         prof.stop()
         launches = _counts()
-    _check_counts("resnet fabric", launches, {"fused_agg_opt": SHARDS * rounds})
+    _check_counts("resnet fabric", launches, {
+        "fused_agg_opt": SHARDS * rounds,
+        **_rn_launches(cfg, img, RN_WORKERS * rounds)})
     peak = memory.now()[1]
     loss_vals = finite_losses(losses)
     kernel_ms = timer.ms()
@@ -7529,7 +7730,9 @@ def resnet_spmd_path(dev, smoke: bool = False) -> dict:
         pflat, slots, ef, stc = res["p"], res["s"], res["e"], res["c"]
         losses.append(res["m"]["loss"])
     launches = _counts()
-    _check_counts("resnet spmd", launches, {"fused_agg_opt": RN_SPMD_STEPS})
+    _check_counts("resnet spmd", launches, {
+        "fused_agg_opt": RN_SPMD_STEPS,
+        **_rn_launches(cfg, img, RN_SPMD_STEPS)})
     peak = torch.cuda.max_memory_allocated(dev)
     losses = finite_losses(losses)
     update_ms = [s.elapsed_time(e) for s, e in events]
@@ -8038,9 +8241,11 @@ def new_archs_smoke_check(dev) -> dict:
     launches = _counts()
     with PlainCalls() as plain:
         cpu_flats, _, gerr = _rn_smoke_fabric(cpu, cfg, params, 2, booked)
-    if launches != plain.counts:
+    want = plain.counts | _rn_launches(cfg, 32, RN_WORKERS * 2)
+    if launches != want:
         raise AssertionError(f"resnet SMOKE fabric: card launches {launches},"
-                             f" CPU plain calls {plain.counts}")
+                             f" CPU plain calls and the fused norms' and "
+                             f"copies' count {want}")
     if not all(same_bits(a, b) for a, b in zip(card_flats, cpu_flats)):
         raise AssertionError("resnet SMOKE fabric: params differ card vs CPU "
                              "on the same gradients")
@@ -8050,9 +8255,11 @@ def new_archs_smoke_check(dev) -> dict:
     launches = _counts()
     with PlainCalls() as plain:
         ref = _rn_smoke_spmd(cpu_mesh, params, cpu)
-    if launches != plain.counts:
+    want = plain.counts | _rn_launches(cfg, 32, 1)
+    if launches != want:
         raise AssertionError(f"resnet SMOKE spmd: card launches {launches},"
-                             f" CPU plain calls {plain.counts}")
+                             f" CPU plain calls and the fused norms' and "
+                             f"copies' count {want}")
     out["resnet50/spmd"] = {"launches": launches, "max_abs_err": max(
         _rs_close(f"resnet SMOKE spmd {k}", card[k], ref[k], RN_CARD_RTOL,
                   RN_CARD_ATOL) for k in card)}
@@ -9472,6 +9679,7 @@ def main() -> int:
     rs_gloo = rs_gloo_check(dev, tp.pop("rs_ranks"))
     lap("36 recsys gloo")
     torch.cuda.empty_cache()
+    rn_norms = resnet_norm_check(dev)
     rn_fabric = resnet_fabric_path(dev)
     rn_fabric_err = replay_f32(dev, rn_fabric)
     rn_fabric.pop("captured")

@@ -17,6 +17,26 @@ forward and backward (``_conv2d``): torch lets cuDNN round f32 operands to
 10 mantissa bits by default, which is not the f32 function the config
 names.
 
+On the card in f32 two things change, neither of them in the forward's
+bits.  Each norm with the ReLU and residual add after it is one op
+(``kernels/group_norm``, which runs the plain library sequence on the
+CPU): PyTorch's GroupNorm kernel, then one hand-written pass for the add
+and the ReLU with PyTorch's arithmetic, and one hand-written backward for
+all three.  And the weight gradient of a 1x1 convolution over at least
+56 x 56 pixels (and the stem's, whose input is channels-last already)
+runs on channels-last copies of its input and incoming gradient
+(``kernels/layout``, ``_wgrad_channels_last``): cuDNN's f32
+weight gradient from NCHW operands is its indexed implicit GEMM behind
+layout conversions there, 8 to 14 times slower at 32 images, while at
+ResNet-50's other shapes the copies cost about what they save.  The
+forward stays NCHW, bit for bit as before: the forward's roundings decide
+every ReLU and max-pool, and a flip among them moves the gradient by far
+more than the rounding itself.  ``repro_torch.tracing.counters()`` counts
+the weight gradients on the card by the layout cuDNN got
+(``wgrad_channels_last``, ``wgrad_nchw``).  On the CPU, and in any other
+dtype, the model runs ``F.group_norm``, ``F.relu``, the add and
+autograd's convolution backward as before.
+
 XLA's "SAME" padding puts the odd extra row and column on the high side:
 the 7x7/2 stem on an even size pads (2, 3), a 3x3/2 on an even size
 (0, 1), and the 3x3/2 max-pool pads (0, 1) with ``-inf``.  ``conv2d``'s
@@ -31,6 +51,9 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
+from repro_torch.kernels.group_norm import group_norm_act
+from repro_torch.kernels.layout import to_channels_last
 from repro_torch.models.common import Dist, count_params, dense_init, gen_device
 
 
@@ -105,10 +128,41 @@ def _no_tf32():
         torch.backends.cudnn.allow_tf32 = prev
 
 
+def _fused(x: torch.Tensor) -> bool:
+    """Whether the convolution backward of ``x`` may take channels-last
+    weight gradients: on the card, in f32."""
+    return x.is_cuda and x.dtype == torch.float32
+
+
+def _wgrad_channels_last(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether the weight gradient of ``x`` convolved by ``w`` runs on
+    channels-last operands: a 1x1 kernel over at least 56 x 56 pixels
+    (cuDNN's f32 NCHW weight gradient is 8 to 14 times slower there), or
+    an ``x`` in channels-last memory already (the stem's padded images:
+    only the incoming gradient is copied).  A rule by shape, so every
+    process picks the same algorithms and the same gradient bits."""
+    return x.is_contiguous(memory_format=torch.channels_last) or (
+        w.shape[2] == w.shape[3] == 1 and x.shape[2] * x.shape[3] >= 56 * 56)
+
+
+def _weight_grad(g, x, w, stride: int, padding: tuple[int, int]):
+    """The weight gradient of ``_conv2d`` on channels-last copies of ``g``
+    and ``x`` (``kernels/layout``; TF32 off by the caller).  A weight
+    gradient reads only the weight's shape and layout, so an empty
+    channels-last tensor stands in for ``w``: nothing is copied."""
+    return torch.ops.aten.convolution_backward(
+        to_channels_last(g), to_channels_last(x),
+        torch.empty_like(w, memory_format=torch.channels_last), None,
+        [stride] * 2, list(padding), [1, 1], False, [0, 0], 1,
+        [False, True, False])[1]
+
+
 class _Conv2dF32(torch.autograd.Function):
     """``F.conv2d`` and its backward (``aten.convolution_backward``, what
     autograd calls for it) with cuDNN's TF32 off: the backward reads the
-    flag when it runs, so a block around the forward does not cover it."""
+    flag when it runs, so a block around the forward does not cover it.
+    On the card in f32 the weight gradient runs in channels-last where
+    ``_wgrad_channels_last`` says so."""
 
     @staticmethod
     def forward(ctx, x, w, stride, padding):
@@ -120,11 +174,22 @@ class _Conv2dF32(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
+        dgrad, wgrad = ctx.needs_input_grad[0], ctx.needs_input_grad[1]
+        gx = gw = None
         with _no_tf32():
-            gx, gw, _ = torch.ops.aten.convolution_backward(
-                g, x, w, None, [ctx.stride] * 2, list(ctx.padding), [1, 1],
-                False, [0, 0], 1,
-                [ctx.needs_input_grad[0], ctx.needs_input_grad[1], False])
+            if wgrad and _fused(x):
+                if _wgrad_channels_last(x, w):
+                    gw = _weight_grad(g, x, w, ctx.stride, ctx.padding)
+                    wgrad = False
+                    tracing.count("wgrad_channels_last")
+                else:
+                    tracing.count("wgrad_nchw")
+            if dgrad or wgrad:
+                gx, gw_nchw, _ = torch.ops.aten.convolution_backward(
+                    g, x, w, None, [ctx.stride] * 2, list(ctx.padding),
+                    [1, 1], False, [0, 0], 1, [dgrad, wgrad, False])
+                if wgrad:
+                    gw = gw_nchw
         return gx, gw, None, None
 
 
@@ -161,23 +226,35 @@ def _gn(x, g, groups: int):
     return x * g["s"] + g["b"]
 
 
+def _norm(x, g, groups: int, relu: bool = True, residual=None):
+    """``relu(_gn(x) [+ residual])`` (no ReLU for ``relu=False``): in f32
+    one op, with a hand-written backward on the card, the same bits."""
+    if x.dtype == torch.float32:
+        return group_norm_act(x, g["s"], g["b"], groups, relu=relu,
+                              residual=residual)
+    x = _gn(x, g, groups)
+    if residual is not None:
+        x = residual + x
+    return F.relu(x) if relu else x
+
+
 def forward(params, images, cfg: ResNetConfig):
     """images (N, H, W, 3) -> logits (N, n_classes) in ``cfg.dtype``."""
     x = images.to(cfg.dtype).permute(0, 3, 1, 2)
     x = _conv(x, params["stem"], 2)
-    x = F.relu(_gn(x, params["stem_gn"], cfg.groups))
+    x = _norm(x, params["stem_gn"], cfg.groups)
     x = _max_pool(x)
     for si, n in enumerate(cfg.blocks):
         for bi in range(n):
             blk = params[f"s{si}b{bi}"]
             stride = 2 if (bi == 0 and si > 0) else 1
-            h = F.relu(_gn(_conv(x, blk["c1"]), blk["g1"], cfg.groups))
-            h = F.relu(_gn(_conv(h, blk["c2"], stride), blk["g2"], cfg.groups))
-            h = _gn(_conv(h, blk["c3"]), blk["g3"], cfg.groups)
+            h = _norm(_conv(x, blk["c1"]), blk["g1"], cfg.groups)
+            h = _norm(_conv(h, blk["c2"], stride), blk["g2"], cfg.groups)
             if "proj" in blk:
-                x = _gn(_conv(x, blk["proj"], stride), blk["gproj"],
-                        cfg.groups)
-            x = F.relu(x + h)
+                x = _norm(_conv(x, blk["proj"], stride), blk["gproj"],
+                          cfg.groups, relu=False)
+            x = _norm(_conv(h, blk["c3"]), blk["g3"], cfg.groups,
+                      residual=x)
     x = torch.mean(x, dim=(2, 3))
     return x @ params["head"] + params["head_b"]
 

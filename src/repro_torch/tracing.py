@@ -28,7 +28,15 @@ The port's spans are named ``ps.<what>``, one at each layer boundary:
 A hook in ``gc.callbacks``, installed when this module is first imported,
 counts every collection by generation and the host ms it took (two
 ``perf_counter`` reads a collection), and while a profiler runs marks
-each collection as a ``ps.gc`` span.  ``counters()`` returns them.
+each collection as a ``ps.gc`` span.  ``count(name)`` adds one to a
+program counter:
+
+  ``wgrad_channels_last``, ``wgrad_nchw``
+                        ResNet's convolution weight gradients on the card
+                        in f32, by the layout cuDNN got
+                        (``models/resnet.py``)
+
+``counters()`` returns them all.
 """
 from __future__ import annotations
 
@@ -99,8 +107,16 @@ def _on_gc(phase: str, info: dict) -> None:
 
 gc.callbacks.append(_on_gc)
 
+_COUNTS = {"wgrad_channels_last": 0, "wgrad_nchw": 0}
+
+
+def count(name: str) -> None:
+    """Add one to the program counter ``name``."""
+    _COUNTS[name] += 1
+
 
 def counters() -> dict:
-    """A snapshot of the module's counters: ``gc_collections`` (all, and
-    ``gc_collections.<generation>``) and ``gc_ms``, since import."""
-    return dict(_GC)
+    """A snapshot of the module's counters since import: ``gc_collections``
+    (all, and ``gc_collections.<generation>``), ``gc_ms`` and the program
+    counters."""
+    return {**_GC, **_COUNTS}
